@@ -1,0 +1,253 @@
+"""Popularity detection (paper §4.2.1, Eq. 1) on a device-resident table.
+
+    popularity(B_i) = sum_t exp(-POD(i, t) / cacheSize)
+
+The PyTorch counterpart of the ``[V, K]`` :class:`PopularityTable` path
+of :mod:`repro.core.popularity`. The table is compared with the JAX
+reference bit for bit, so every float32 step follows XLA:CPU:
+
+  * ``exp`` is :func:`repro_torch._xla_math.exp_xla_f32` and every
+    float32 result is flushed with :func:`~repro_torch._xla_math.ftz`;
+  * a block's contributions in one window are added left to right
+    (``_run_sums``: the ``run_sums`` CUDA helper on the card, an in-order
+    loop on the CPU) — never with atomics in no fixed order;
+  * ties follow the reference: stable sorts, ``searchsorted`` on the
+    left side, and ``lax.top_k``'s lower-index-first order reproduced
+    by a stable descending sort of the reversed row;
+  * JAX's ``.at[...].set(mode="drop")`` scatters are scatters into one
+    spare column that is cut off afterwards.
+
+No function here synchronises with the host, so the whole maintenance
+interval stays on the device.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch import kernels
+from repro_torch._xla_math import exp_xla_f32, f32, ftz
+
+# empty-slot sentinel; sorts after every real block address
+TABLE_EMPTY = 2**31 - 1
+
+
+def contributions(dist: torch.Tensor, served: torch.Tensor,
+                  cache_size) -> torch.Tensor:
+    """Eq. 1 per-access contribution; ``cache_size`` broadcasts against
+    ``dist`` (e.g. ``[V, 1]`` per-VM sizes against ``[V, N]`` windows)."""
+    cs = torch.as_tensor(cache_size, device=dist.device).float().clamp(
+        min=1.0)
+    d = dist.float()
+    return torch.where(served & (dist >= 0), exp_xla_f32(ftz(-d / cs)),
+                       0.0)
+
+
+class PopularityTable(NamedTuple):
+    """``addr`` int32 ``[V, K]`` sorted ascending per row with
+    :data:`TABLE_EMPTY` in free slots; ``val`` float32 ``[V, K]``."""
+    addr: torch.Tensor
+    val: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.addr.shape[-1]
+
+
+def table_init(num_vms: int, capacity: int, device="cuda") -> PopularityTable:
+    return PopularityTable(
+        addr=torch.full((num_vms, capacity), TABLE_EMPTY, dtype=torch.int32,
+                        device=device),
+        val=torch.zeros((num_vms, capacity), dtype=torch.float32,
+                        device=device))
+
+
+def _scatter_drop(base: torch.Tensor, dest: torch.Tensor, src: torch.Tensor,
+                  keep: torch.Tensor) -> torch.Tensor:
+    """``base.at[dest].set(src, mode="drop")`` per row: entries with
+    ``keep`` false or ``dest`` past the row go to a spare column."""
+    k = base.shape[1]
+    dest = torch.where(keep & (dest < k), dest, k)
+    out = torch.cat([base, base[:, :1]], dim=1)
+    out.scatter_(1, dest, src)
+    return out[:, :k].contiguous()
+
+
+def _run_sums(keys, vals, head, seg) -> torch.Tensor:
+    """``zeros.at[seg].add(vals)`` with each run of equal sorted keys
+    summed left to right (float32, subnormals flushed)."""
+    if keys.device.type != "cpu":
+        return _run_sums_cuda(keys, vals, head, seg)
+    v, n = keys.shape
+    pos = torch.arange(n, device=keys.device).expand(v, n)
+    hpos = torch.full((v, n + 1), n, dtype=torch.int64, device=keys.device)
+    hpos.scatter_(1, torch.where(head, seg, n), pos)
+    hpos = hpos[:, :n]                 # start of run r, n past the last run
+    nxt = torch.cat([hpos[:, 1:], torch.full((v, 1), n,
+                                             device=keys.device)], 1)
+    length = torch.where(hpos < n, nxt.clamp(max=n) - hpos, 0)
+    acc = torch.zeros((v, n), dtype=torch.float32, device=keys.device)
+    for k in range(int(length.max()) if length.numel() else 0):
+        idx = (hpos + k).clamp(max=n - 1)
+        acc = torch.where(k < length, ftz(acc + vals.gather(1, idx)), acc)
+    return acc
+
+
+def _run_sums_cuda(keys, vals, head, seg) -> torch.Tensor:
+    dev = keys.device
+    v, n = keys.shape
+    kernels.check(keys, "keys", torch.int32, (v, n), dev)
+    kernels.check(vals, "vals", torch.float32, (v, n), dev)
+    kernels.check(head, "head", torch.bool, (v, n), dev)
+    kernels.check(seg, "seg", torch.int64, (v, n), dev)
+    out = torch.zeros((v, n), dtype=torch.float32, device=dev)
+    if v and n:
+        ptrs = [x.data_ptr() for x in (keys, vals, head, seg, out)]
+        kernels.launch("run_sums", *ptrs, v, n)
+    return out
+
+
+def _compact_runs(a: torch.Tensor, c: torch.Tensor):
+    """Sum runs of equal sorted keys into their run's slot (segment
+    order); the tail is :data:`TABLE_EMPTY` with value 0."""
+    v, n = a.shape
+    head = torch.ones_like(a, dtype=torch.bool)
+    head[:, 1:] = a[:, 1:] != a[:, :-1]
+    seg = head.long().cumsum(dim=1) - 1
+    caddr = torch.full_like(a, TABLE_EMPTY).scatter_(1, seg, a)
+    cval = _run_sums(a.contiguous(), c.contiguous(), head, seg)
+    return caddr, torch.where(caddr == TABLE_EMPTY, 0.0, cval)
+
+
+def table_update(table: PopularityTable, waddr, contrib, n_valid, live,
+                 decay: float):
+    """Merge one window of contributions into every live VM's row.
+
+    ``waddr``/``contrib`` are ``[V, N]`` (entries at or past
+    ``n_valid[v]`` are padding); rows with ``live`` false are untouched
+    (no decay). Returns ``(table, drops[V])``: ``drops`` counts entries
+    pushed past the row's ``K`` slots by the merge."""
+    addr, val = table
+    v, k = addr.shape
+    n = waddr.shape[1]
+    dev = addr.device
+    valid = torch.arange(n, device=dev)[None, :] < n_valid[:, None]
+    wa = torch.where(valid, waddr.to(torch.int32), TABLE_EMPTY)
+    wc = torch.where(valid, contrib.float(), 0.0)
+
+    order = torch.sort(wa, dim=1, stable=True).indices
+    uaddr, uval = _compact_runs(wa.gather(1, order), wc.gather(1, order))
+    val_d = ftz(val * f32(decay))
+
+    # blocks already in the table: one add each, table + window score
+    pos = torch.searchsorted(addr, uaddr)
+    pos_c = pos.clamp(max=k - 1)
+    found = (pos < k) & (addr.gather(1, pos_c) == uaddr)
+    hit = found & (uaddr != TABLE_EMPTY)
+    val_d = _scatter_drop(val_d, pos_c,
+                          ftz(val_d.gather(1, pos_c) + uval), hit)
+
+    # new blocks: merge by rank — every table slot shifts right by the
+    # new addresses before it; each new address lands at its insertion
+    # point plus its own rank
+    newm = ~found & (uaddr != TABLE_EMPTY)
+    rank_new = newm.long().cumsum(dim=1) - newm.long()
+    new_sorted = _scatter_drop(torch.full_like(uaddr, TABLE_EMPTY),
+                               rank_new, uaddr, newm)
+    new_val = _scatter_drop(torch.zeros_like(uval), rank_new, uval, newm)
+    kidx = torch.arange(k, device=dev)
+    dest_table = kidx[None, :] + torch.searchsorted(new_sorted, addr)
+    dest_new = (torch.searchsorted(addr, new_sorted)
+                + torch.arange(n, device=dev)[None, :])
+    keep_new = new_sorted != TABLE_EMPTY
+    every = torch.ones_like(addr, dtype=torch.bool)
+    out_addr = _scatter_drop(torch.full_like(addr, TABLE_EMPTY), dest_table,
+                             addr, every)
+    out_val = _scatter_drop(torch.zeros_like(val), dest_table, val_d, every)
+    out_addr = _scatter_drop(out_addr, dest_new, new_sorted, keep_new)
+    out_val = _scatter_drop(out_val, dest_new, new_val, keep_new)
+    drops = (((addr != TABLE_EMPTY) & (dest_table >= k)).sum(
+        dim=1, dtype=torch.int32)
+        + (keep_new & (dest_new >= k)).sum(dim=1, dtype=torch.int32))
+    lv = live[:, None]
+    return (PopularityTable(torch.where(lv, out_addr, addr),
+                            torch.where(lv, out_val, val)),
+            torch.where(live, drops, 0))
+
+
+def _scores(addr, val, queries):
+    """Per-row table lookup: score of each query (0 when absent)."""
+    k = addr.shape[1]
+    pos = torch.searchsorted(addr, queries)
+    pos_c = pos.clamp(max=k - 1)
+    hit = (pos < k) & (addr.gather(1, pos_c) == queries)
+    return torch.where(hit, val.gather(1, pos_c), 0.0)
+
+
+def _resident(tags: torch.Tensor, ways: torch.Tensor):
+    """Flattened ``[V, S*W]`` tags and the mask of blocks resident in
+    each VM's first ``ways[v]`` ways."""
+    v, s, w = tags.shape
+    flat = tags.reshape(v, s * w)
+    widx = torch.arange(w, dtype=torch.int32, device=tags.device)
+    active = (widx[None, None, :] < ways[:, None, None]).expand(v, s, w)
+    return flat, active.reshape(v, s * w) & (flat >= 0)
+
+
+def table_least_popular(table: PopularityTable, tags, ways, alloc, live,
+                        frac: float):
+    """Eviction queues: per VM the bottom-``frac`` of its resident blocks
+    (candidates in (set, way) order, stable ties), only when the
+    partition is at least 90% full. Returns ``([V, S*W] queue, [V]
+    length)``, ``-1``-padded."""
+    flat, validc = _resident(tags, ways)
+    n_res = validc.sum(dim=1, dtype=torch.int32)
+    do = live & (n_res > 0) & (n_res * 10 >= alloc * 9)
+    scores = _scores(table.addr, table.val, flat)
+    order = torch.sort(torch.where(validc, scores, float("inf")), dim=1,
+                       stable=True).indices
+    k = torch.ceil(f32(frac) * n_res.float()).clamp(min=1.0).to(
+        torch.int32)
+    take = do[:, None] & (torch.arange(flat.shape[1], device=flat.device)
+                          [None, :] < k[:, None])
+    return (torch.where(take, flat.gather(1, order), -1),
+            torch.where(do, k, 0))
+
+
+def table_top_known(table: PopularityTable, tags, ways, limit, live,
+                    width: int):
+    """Promotion queues: per VM the known blocks with a positive score
+    and no copy in its active ways, ordered by (score desc, address
+    desc), at most ``limit[v]`` of them. Returns ``([V, width] queue,
+    [V] length)``, ``-1``-padded."""
+    addr, val = table
+    k = addr.shape[1]
+    flat, activef = _resident(tags, ways)
+    res_sorted = torch.sort(torch.where(activef, flat, TABLE_EMPTY),
+                            dim=1).values
+    rpos = torch.searchsorted(res_sorted, addr).clamp(max=flat.shape[1] - 1)
+    resident = res_sorted.gather(1, rpos) == addr
+    cand = (val > 0) & (addr != TABLE_EMPTY) & ~resident
+    # lax.top_k of the reversed row breaks ties toward the lower index,
+    # i.e. the higher address: a stable descending sort does the same
+    key = torch.where(cand, val, float("-inf")).flip(1)
+    topv, topi = torch.sort(key, dim=1, descending=True, stable=True)
+    m = min(width, k)
+    topv, topi = topv[:, :m], topi[:, :m]
+    qa = addr.flip(1).gather(1, topi)
+    take = ((topv > float("-inf")) & live[:, None]
+            & (torch.arange(m, device=addr.device)[None, :]
+               < limit[:, None]))
+    queue = torch.where(take, qa, -1)
+    if width > k:
+        queue = truncate_queue(queue, width)
+    return queue, take.sum(dim=1, dtype=torch.int32)
+
+
+def truncate_queue(queue: torch.Tensor, width: int) -> torch.Tensor:
+    """Cut or ``-1``-pad a ``[V, Q]`` queue to ``width`` columns."""
+    v, q = queue.shape
+    if q >= width:
+        return queue[:, :width].contiguous()
+    return torch.cat([queue, queue.new_full((v, width - q), -1)], dim=1)

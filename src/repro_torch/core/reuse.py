@@ -1,0 +1,198 @@
+"""Reuse-distance engine: TRD, URD and the paper's POD metric (§4.3.1).
+
+The PyTorch counterpart of :mod:`repro.core.reuse` for the controller's
+main path. Every function works on ``[V, N]`` rows at once (the JAX
+package vmaps one row function). Per policy the decomposition picks
+
+  * ``touch[j]``  — access j occupies or refreshes a block;
+  * ``served[i]`` — access i would hit an infinite cache under the policy;
+  * ``dist[i]``   — for served i, the distinct blocks touched strictly
+    between the previous touch of ``addr[i]`` and i (``-1`` otherwise),
+
+with the policy filters
+
+  * POD(WB/WT), URD : touch = all,   served = reads with an earlier access;
+  * POD(RO)         : touch = reads, served = reads whose previous access
+                      to the address is a read;
+  * POD(WBWO/WO)    : touch = writes + served reads, served = reads with
+                      an earlier write to the address;
+  * TRD             : WB with ``sizing_reads_only=False`` (every re-access).
+
+The O(N^2) count is :func:`repro_torch.kernels.reuse_distance.ops
+.count_between` (the CUDA kernel on the card); the previous/next-touch
+indices come from one stable sort and a segmented running maximum, with
+no loop over requests. Host-side analytics (:func:`demand_blocks`,
+:func:`hit_counts_at_sizes`) stay numpy.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.policies import Policy
+from repro_torch.kernels import resolve_device
+from repro_torch.kernels.reuse_distance.ops import count_between
+
+COLD = -1   # distance of a cold / not-served access
+
+
+@dataclasses.dataclass
+class DistResult:
+    """Per-access reuse-distance decomposition (numpy or tensors)."""
+    dist: np.ndarray     # int32 [N]; -1 where not served
+    served: np.ndarray   # bool  [N]
+    touch: np.ndarray    # bool  [N]
+
+    @property
+    def max(self) -> int:
+        d = np.where(np.asarray(self.served), np.asarray(self.dist), COLD)
+        return int(d.max(initial=COLD))
+
+
+def _prev_same(addr: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """prev[v, i] = largest j < i with addr[v, j] == addr[v, i] and
+    mask[v, j]; else -1. Defined for every i, masked or not.
+
+    A stable sort groups each address's accesses in index order; a
+    running maximum of the masked indices, reset at each address run,
+    then gives every position its nearest masked predecessor."""
+    v, n = addr.shape
+    order = torch.sort(addr, dim=1, stable=True).indices
+    s_addr = addr.gather(1, order)
+    s_mask = mask.gather(1, order)
+    head = torch.ones_like(s_mask)
+    head[:, 1:] = s_addr[:, 1:] != s_addr[:, :-1]
+    run = head.cumsum(dim=1)                       # run id, int64
+    base = run * (n + 1)
+    key = base + torch.where(s_mask, order + 1, 0)
+    incl = key.cummax(dim=1).values - base - 1     # masked index <= p
+    prev_sorted = torch.full_like(incl, -1)
+    prev_sorted[:, 1:] = torch.where(head[:, 1:], -1, incl[:, :-1])
+    out = torch.empty_like(prev_sorted)
+    out.scatter_(1, order, prev_sorted)
+    return out.to(torch.int32)
+
+
+def _next_same(addr: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """next[v, i] = smallest j > i with addr[v, j] == addr[v, i] and
+    mask[v, j]; else N."""
+    n = addr.shape[1]
+    rev = _prev_same(addr.flip(1), mask.flip(1)).flip(1)
+    return torch.where(rev >= 0, n - 1 - rev, n).to(torch.int32)
+
+
+def decompose(addr: torch.Tensor, is_write: torch.Tensor, policy: Policy,
+              *, sizing_reads_only: bool = True):
+    """``(dist, served, touch)`` tensors for ``[V, N]`` rows."""
+    is_read = ~is_write
+    all_mask = torch.ones_like(is_write)
+    prev_any = _prev_same(addr, all_mask)
+    has_prev = prev_any >= 0
+    if policy in (Policy.WB, Policy.WT):
+        touch = all_mask
+        served = is_read & has_prev
+    elif policy is Policy.RO:
+        touch = is_read
+        prev_is_read = ~is_write.gather(1, prev_any.clamp(min=0).long())
+        served = is_read & has_prev & prev_is_read
+    elif policy in (Policy.WBWO, Policy.WO):
+        served = is_read & (_prev_same(addr, is_write) >= 0)
+        touch = is_write | served
+    else:  # pragma: no cover
+        raise ValueError(policy)
+    dist = count_between(_prev_same(addr, touch), touch.contiguous(),
+                         _next_same(addr, touch))
+    if not sizing_reads_only:
+        served = served | (is_write & has_prev)
+    return torch.where(served, dist, COLD), served, touch
+
+
+# Rows are padded to a power-of-two bucket with trailing writes to fresh,
+# never-reused addresses: they sit after every real access, are cold
+# writes (never served), and as touches only occupy positions after all
+# real windows — so padding is exact.
+
+_PAD_BASE = np.int32(2**30)
+
+
+def _bucket(n: int, min_size: int = 256) -> int:
+    return max(min_size, 1 << (n - 1).bit_length())
+
+
+def _pad_rows(addrs, writes, live: list[int], lens: list[int]):
+    """Stack the live rows of ragged per-VM request lists into ``[L, b]``
+    numpy arrays padded to a common bucket (exact, see above)."""
+    b = _bucket(max(lens[v] for v in live))
+    amat = np.empty((len(live), b), np.int32)
+    wmat = np.empty((len(live), b), bool)
+    for i, v in enumerate(live):
+        pad_addr = _PAD_BASE + np.arange(b - lens[v], dtype=np.int32)
+        amat[i] = np.concatenate([np.asarray(addrs[v], np.int32), pad_addr])
+        wmat[i] = np.concatenate(
+            [np.asarray(writes[v], bool), np.ones(b - lens[v], bool)])
+    return amat, wmat
+
+
+def _block_rows(addr: torch.Tensor, is_write: torch.Tensor,
+                lens: torch.Tensor, width: int):
+    """The rows :func:`_pad_rows` builds for every VM, derived on the
+    device from a ``[V, chunk]`` datapath block whose row v holds
+    ``lens[v]`` requests: the requests, then fresh cold writes, to
+    ``width`` (at least ``max(lens)``) columns."""
+    v, chunk = addr.shape
+    keep = min(width, chunk)
+    a = addr.new_full((v, width), -1)
+    w = is_write.new_zeros((v, width))
+    a[:, :keep] = addr[:, :keep]
+    w[:, :keep] = is_write[:, :keep]
+    col = torch.arange(width, dtype=torch.int32, device=addr.device)[None, :]
+    pad = col >= lens[:, None]
+    return (torch.where(pad, int(_PAD_BASE) + col - lens[:, None], a),
+            w | pad)
+
+
+def _distances_batch(addrs, writes, policy: Policy, sizing_reads_only: bool,
+                     device) -> list[DistResult | None]:
+    """Decompose ragged per-VM traces in one batched pass; per-VM numpy
+    results, ``None`` for empty traces."""
+    lens = [int(np.shape(a)[0]) for a in addrs]
+    live = [v for v, n in enumerate(lens) if n > 0]
+    if not live:
+        return [None] * len(lens)
+    dev = resolve_device(device)
+    amat, wmat = _pad_rows(addrs, writes, live, lens)
+    dist, served, touch = decompose(
+        torch.from_numpy(amat).to(dev), torch.from_numpy(wmat).to(dev),
+        policy, sizing_reads_only=sizing_reads_only)
+    dist, served, touch = (x.cpu().numpy() for x in (dist, served, touch))
+    out: list[DistResult | None] = [None] * len(lens)
+    for i, v in enumerate(live):
+        out[v] = DistResult(dist[i, :lens[v]], served[i, :lens[v]],
+                            touch[i, :lens[v]])
+    return out
+
+
+def pod_distances_batch(addrs, writes, policy: Policy,
+                        device="cuda") -> list[DistResult | None]:
+    """Per-VM POD decompositions in one batched pass (ragged input)."""
+    return _distances_batch(addrs, writes, policy, True, device)
+
+
+def trd_distances_batch(addrs, writes,
+                        device="cuda") -> list[DistResult | None]:
+    """Per-VM TRD decompositions (every re-access is served)."""
+    return _distances_batch(addrs, writes, Policy.WB, False, device)
+
+
+def demand_blocks(metric_value: int) -> int:
+    """Cache size (blocks) implied by a max reuse distance (POD + 1)."""
+    return int(metric_value) + 1 if metric_value >= 0 else 0
+
+
+def hit_counts_at_sizes(dist, served, sizes) -> np.ndarray:
+    """hits[s] = #served accesses with dist < sizes[s] (LRU inclusion)."""
+    d = np.where(np.asarray(served), np.asarray(dist), np.int32(2**30))
+    return np.sum(d[None, :] < np.asarray(sizes)[:, None], axis=1,
+                  dtype=np.int64)

@@ -133,6 +133,12 @@ except ModuleNotFoundError:
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA CUDA device (the port's kernels); "
+        "skips itself without one")
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _bounded_jit_cache():
     yield

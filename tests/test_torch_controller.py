@@ -1,0 +1,172 @@
+"""Port parity: ``repro_torch`` ``EticaCache.run`` vs ``repro.core``.
+
+A fig15-style MSR mix (``benchmarks/common.py`` geometry, resize 2000,
+promo 500) through both controllers — per-VM stats dicts and allocation
+histories must be equal, in modes full and npe, at prefetch depths 0
+and 2. Also: a state carried over from a JAX run with ``load_state``,
+the options outside the port raising ``NotImplementedError``, and a
+subprocess port job that loads neither ``jax`` nor any ``repro`` module.
+"""
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core import EticaCache as JCache, EticaConfig as JConfig
+from repro.core import Geometry as JGeometry
+from repro.core.trace import interleave as jinterleave
+from repro.traces import make as jmake
+
+from repro_torch.core.controller import EticaCache, EticaConfig, Geometry
+from repro_torch.core.trace import Trace, interleave
+from repro_torch.traces.generators import make
+
+NAMES = ["hm_1", "proj_0", "stg_1", "usr_0", "ts_0"]
+REQS = 1000
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _traces():
+    j = jinterleave([jmake(n, REQS, seed=i, addr_offset=i * 10_000_000,
+                           scale=0.25) for i, n in enumerate(NAMES)], seed=42)
+    t = interleave([make(n, REQS, seed=i, addr_offset=i * 10_000_000,
+                         scale=0.25) for i, n in enumerate(NAMES)], seed=42)
+    return j, t
+
+
+def _configs(**kw):
+    common = dict(dram_capacity=400, ssd_capacity=800, resize_interval=2000,
+                  promo_interval=500, **kw)
+    return (JConfig(geometry_dram=JGeometry(16, 32),
+                    geometry_ssd=JGeometry(16, 32), **common),
+            EticaConfig(geometry_dram=Geometry(16, 32),
+                        geometry_ssd=Geometry(16, 32), **common))
+
+
+def _assert_results(jres, tres):
+    assert len(jres) == len(tres)
+    for v, (a, b) in enumerate(zip(jres, tres)):
+        assert a.stats == b.stats, v
+        assert np.array_equal(a.alloc_history, b.alloc_history), v
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+@pytest.mark.parametrize("mode", ["full", "npe"])
+def test_run_matches_jax(mode, depth):
+    jtrace, ttrace = _traces()
+    jcfg, tcfg = _configs(mode=mode, prefetch_depth=depth)
+    jcache = JCache(jcfg, len(NAMES))
+    jres = jcache.run(jtrace)
+    tcache = EticaCache(tcfg, len(NAMES), device="cpu")
+    tres = tcache.run(ttrace)
+    _assert_results(jres, tres)
+    if mode == "full":
+        assert sum(r.stats["cache_writes_l2"] for r in tres) > 0
+    # one telemetry row per block, with the same per-VM deltas
+    jj, tj = jcache.telemetry.journal, tcache.telemetry.journal
+    assert len(jj) == len(tj) > 0
+    for col in ("requests", "hits", "ssd_writes", "promoted", "evict_queue",
+                "alloc_l2", "overloaded"):
+        assert np.array_equal(jj.column(col), tj.column(col)), col
+
+
+def test_span_timing_changes_no_result():
+    from repro_torch.runtime.telemetry import TelemetryRecorder
+    _, ttrace = _traces()
+    _, plain_cfg = _configs()
+    _, timed_cfg = _configs(telemetry=TelemetryRecorder(span_timing=True))
+    plain = EticaCache(plain_cfg, len(NAMES), device="cpu").run(ttrace)
+    cache = EticaCache(timed_cfg, len(NAMES), device="cpu")
+    _assert_results(plain, cache.run(ttrace))
+    spans = cache.telemetry.spans
+    assert set(spans) == {"sizing", "datapath", "maintenance"}
+    assert spans["datapath"].n == len(cache.telemetry.journal)
+    assert spans["sizing"].n == 2 * len(cache.logs_ssd)
+
+
+def test_load_state_carries_a_jax_run():
+    """Run the first resize window in JAX, carry the state over, and run
+    the rest in both controllers side by side."""
+    jtrace, ttrace = _traces()
+    jcfg, tcfg = _configs()
+    jc = JCache(jcfg, len(NAMES))
+    jc.run(jtrace[:2000])
+    tc = EticaCache(tcfg, len(NAMES), device="cpu")
+    tc.load_state(
+        dram=[np.asarray(x) for x in jc.dram],
+        ssd=[np.asarray(x) for x in jc.ssd],
+        pop_table=[np.asarray(x) for x in jc.pop_table],
+        ways_dram=jc.ways_dram, ways_ssd=jc.ways_ssd, t=jc.t,
+        stats=jc.stats)
+    _assert_results(jc.run(jtrace[2000:]), tc.run(ttrace[2000:]))
+    for a, b in zip(jc.ssd, tc.ssd):
+        assert np.array_equal(np.asarray(a), b.numpy())
+    assert np.array_equal(np.asarray(jc.pop_table.val).view(np.int32),
+                          tc.pop_table.val.numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("option", [
+    dict(batched=False), dict(fused_maintenance=False), dict(mesh=object()),
+    dict(classifier=object()), dict(clean_quota=8)])
+def test_options_outside_the_port_raise(option):
+    _, tcfg = _configs(**option)
+    with pytest.raises(NotImplementedError):
+        EticaCache(tcfg, 2, device="cpu")
+
+
+def test_non_trace_inputs_raise():
+    _, tcfg = _configs()
+    cache = EticaCache(tcfg, 2, device="cpu")
+    with pytest.raises(NotImplementedError):
+        cache.run(str(ROOT))          # e.g. a TraceStore path
+    jtrace, _ = _traces()
+    with pytest.raises(NotImplementedError):
+        cache.run(jtrace)             # the JAX package's Trace
+
+
+def test_default_device_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs on it")
+    _, tcfg = _configs()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EticaCache(tcfg, 2)
+
+
+def test_port_job_loads_no_jax_and_no_repro():
+    code = textwrap.dedent("""
+        import sys
+        from repro_torch.core.controller import EticaCache, EticaConfig, Geometry
+        from repro_torch.core.trace import interleave
+        from repro_torch.traces.generators import make
+        import repro_torch.kernels.maintenance.ops
+        trace = interleave([make(n, 400, seed=i, addr_offset=i * 10_000_000,
+                                 scale=0.25) for i, n in
+                            enumerate(["hm_1", "usr_0", "web_3"])], seed=0)
+        geo = Geometry(8, 16)
+        cfg = EticaConfig(dram_capacity=60, ssd_capacity=120,
+                          geometry_dram=geo, geometry_ssd=geo,
+                          resize_interval=600, promo_interval=200)
+        res = EticaCache(cfg, 3, device="cpu").run(trace)
+        assert sum(r.stats["reads"] + r.stats["writes"] for r in res) == 1200
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "repro" or m.startswith("repro."))
+        print("LOADED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "LOADED []" in out.stdout
+
+
+def test_trace_slicing_matches():
+    jtrace, ttrace = _traces()
+    assert isinstance(ttrace[10:20], Trace)
+    assert np.array_equal(jtrace[10:500].addr, ttrace[10:500].addr)
