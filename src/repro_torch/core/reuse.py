@@ -23,6 +23,11 @@ The O(N^2) count is :func:`repro_torch.kernels.reuse_distance.ops
 indices come from one stable sort and a segmented running maximum, with
 no loop over requests. Host-side analytics (:func:`demand_blocks`,
 :func:`hit_counts_at_sizes`) stay numpy.
+
+:func:`sizing_metrics_batch` is the one-level baselines' sizing: one of
+four metrics (:data:`SIZING_KINDS`) for every VM, reduced on the device
+from one decomposition pass, with one copy to the host at the end;
+:class:`SizingMetric` binds a kind to its size grid for the chassis.
 """
 from __future__ import annotations
 
@@ -196,3 +201,119 @@ def hit_counts_at_sizes(dist, served, sizes) -> np.ndarray:
     d = np.where(np.asarray(served), np.asarray(dist), np.int32(2**30))
     return np.sum(d[None, :] < np.asarray(sizes)[:, None], axis=1,
                   dtype=np.int64)
+
+
+# ---------------------------------------------------------------------------
+# batched sizing reductions (the one-level baselines' metrics, §2.1)
+# ---------------------------------------------------------------------------
+#
+#   kind               demand (blocks)              hit-curve channel
+#   "urd"              max URD + 1                  URD (WB dist, read re-refs)
+#   "trd"              max TRD + 1                  TRD (WB dist, all re-refs)
+#   "wss"              distinct blocks touched      TRD
+#   "reuse_intensity"  re-referenced read blocks    POD(RO)
+
+SIZING_KINDS = ("urd", "trd", "wss", "reuse_intensity")
+
+_SERVED_BIG = 2**30   # not-served sentinel of the hit counts
+
+
+def read_count(is_write: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+    """``[V]`` int32: reads among the first ``n_valid[v]`` requests of
+    each ``[V, N]`` row (the ECI-style policy choosers' read ratio)."""
+    col = torch.arange(is_write.shape[1], device=is_write.device)
+    return (~is_write & (col[None, :] < n_valid[:, None])).sum(
+        dim=1, dtype=torch.int32)
+
+
+def sizing_policy(kind: str) -> tuple[Policy, bool]:
+    """The (policy, sizing_reads_only) decomposition a sizing kind rides."""
+    if kind == "reuse_intensity":
+        return Policy.RO, True
+    return Policy.WB, False
+
+
+def sizing_from_dists(addr, is_write, dist, served, n_valid, grid, kind: str):
+    """``(demand[V], hits[V, G])`` int32 from the :func:`sizing_policy`
+    decomposition of ``[V, N]`` rows padded as :func:`_pad_rows` pads
+    them; ``grid`` is an ascending int32 ``[G]`` tensor of cache sizes.
+    ``n_valid`` masks the pad tail out of the WSS distinct count (the
+    other reductions are pad-invariant: pads are cold writes to fresh
+    addresses)."""
+    is_read = ~is_write
+    if kind == "urd":
+        served = served & is_read
+    d = torch.where(served, dist, _SERVED_BIG)
+    hits = torch.searchsorted(
+        torch.sort(d, dim=1).values,
+        grid[None, :].expand(d.shape[0], -1).contiguous()).to(torch.int32)
+    n = addr.shape[1]
+    if kind == "wss":
+        col = torch.arange(n, device=addr.device)
+        first = _prev_same(addr, torch.ones_like(is_write)) < 0
+        demand = (first & (col[None, :] < n_valid[:, None])).sum(
+            dim=1, dtype=torch.int32)
+    elif kind == "reuse_intensity":
+        demand = (is_read & (_prev_same(addr, is_read) < 0)
+                  & (_next_same(addr, is_read) < n)).sum(
+                      dim=1, dtype=torch.int32)
+    else:
+        demand = (torch.where(served, dist, COLD).max(dim=1).values
+                  + 1).clamp(min=0)
+    return demand, hits
+
+
+def sizing_metrics_batch(addrs, writes, kind: str, grid, device="cuda"
+                         ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """One sizing metric for every VM sub-trace in one batched pass.
+
+    ``addrs``/``writes`` are ragged per-VM request arrays (empty rows
+    allowed); ``grid`` the ascending candidate sizes (blocks). Returns
+    int64 ``(demands[V], hit_counts[V, G], read_counts[V])``, zero rows
+    for empty traces — the live rows are decomposed and reduced on
+    ``device`` and copied to the host once."""
+    if kind not in SIZING_KINDS:
+        raise ValueError(f"kind must be one of {SIZING_KINDS}, got {kind!r}")
+    lens = [int(np.shape(a)[0]) for a in addrs]
+    grid = np.asarray(grid, np.int32)
+    demands = np.zeros(len(lens), np.int64)
+    hits = np.zeros((len(lens), grid.size), np.int64)
+    reads = np.zeros(len(lens), np.int64)
+    live = [v for v, n in enumerate(lens) if n > 0]
+    if not live:
+        return demands, hits, reads
+    dev = resolve_device(device)
+    amat, wmat = _pad_rows(addrs, writes, live, lens)
+    a = torch.from_numpy(amat).to(dev)
+    w = torch.from_numpy(wmat).to(dev)
+    nvec = torch.tensor([lens[v] for v in live], dtype=torch.int32,
+                        device=dev)
+    policy, reads_only = sizing_policy(kind)
+    dist, served, _ = decompose(a, w, policy, sizing_reads_only=reads_only)
+    d, h = sizing_from_dists(a, w, dist, served, nvec,
+                             torch.from_numpy(grid).to(dev), kind)
+    out = torch.cat([d[:, None], read_count(w, nvec)[:, None], h],
+                    dim=1).cpu().numpy().astype(np.int64)
+    demands[live], reads[live], hits[live] = out[:, 0], out[:, 1], out[:, 2:]
+    return demands, hits, reads
+
+
+@dataclasses.dataclass(frozen=True)
+class SizingMetric:
+    """A baseline sizing metric: one of :data:`SIZING_KINDS` over its
+    own MRC size grid (blocks)."""
+
+    kind: str
+    grid: np.ndarray = dataclasses.field(compare=False)
+
+    def batch(self, addrs: list[np.ndarray], writes: list[np.ndarray],
+              device="cuda"):
+        """``(demands[V], grid[G], curves[V, G], reads[V])`` for all VMs:
+        curves are hit counts over each VM's request count, ``reads``
+        the per-VM read counts the policy choosers take; empty VMs give
+        zero rows."""
+        demands, hits, reads = sizing_metrics_batch(
+            addrs, writes, self.kind, self.grid, device)
+        ns = np.array([max(np.shape(a)[0], 1) for a in addrs], np.float64)
+        return demands, self.grid, hits.astype(np.float64) / ns[:, None], \
+            reads

@@ -30,49 +30,20 @@
 // Design: one warp per VM, so VMs run in parallel and requests in order.
 // In this version the state stays in global memory (the touched rows stay
 // in L1); lanes cover the ways of a set row, and lookups and the victim
-// search are warp reductions (__reduce_min_sync on the way index, a
-// shuffle butterfly on the (score, way) key). Lane 0 does the stores and
-// keeps the counts; __syncwarp orders one request's stores before the
-// next request's loads. The wrapper passes copies of the states, which
+// search are warp reductions (set_lookup.cuh: __reduce_min_sync on the
+// way index, a shuffle butterfly on the (score, way) key). Lane 0 does the
+// stores and keeps the counts; __syncwarp orders one request's stores
+// before the next request's loads. The wrapper passes copies of the states, which
 // the kernel updates in place.
 #include <cuda_runtime.h>
 
-#include <climits>
+#include "set_lookup.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr unsigned kNone = 0x7fffffffu;
-
-// First active way holding `a` (kNone when absent), same on every lane.
-__device__ __forceinline__ unsigned first_match(const int* tags, int num_ways,
-                                                int ways, int a, int lane) {
-  unsigned best = kNone;
-  const int lim = min(ways, num_ways);
-  for (int w = lane; w < lim; w += 32) {
-    if (tags[w] == a) {
-      best = (unsigned)w;
-      break;
-    }
-  }
-  return __reduce_min_sync(kFull, best);
-}
-
-// Insert way: first minimum of the victim score, same on every lane.
-__device__ __forceinline__ int victim(const int* tags, const int* lru,
-                                      int num_ways, int ways, int lane) {
-  long long best = LLONG_MAX;
-  for (int w = lane; w < num_ways; w += 32) {
-    const int score = w < ways ? (tags[w] < 0 ? -1 : lru[w]) : INT_MAX;
-    const long long key = (long long)score * 4294967296LL + w;
-    best = key < best ? key : best;
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    const long long o = __shfl_xor_sync(kFull, best, off);
-    best = o < best ? o : best;
-  }
-  return (int)(best - (best >> 32) * 4294967296LL);
-}
+using etica::first_match;
+using etica::kNone;
+using etica::victim;
 
 __global__ void two_level_kernel(
     const int* __restrict__ addr, const unsigned char* __restrict__ is_write,

@@ -16,11 +16,13 @@ launch counter (:func:`launch_counts`), and nothing else does.
   * ``reuse_distance`` — ``count_between``, the O(N^2) distinct count
     under every reuse distance (POD sizing and the maintenance TRD)
   * ``datapath``       — ``two_level``, the DRAM(RO) + SSD(WBWO) request
-    loop that the JAX package runs as a ``lax.scan``
-  * ``maintenance``    — ``evict_scatter`` / ``promote_scatter`` and the
-    fused per-interval maintenance; ``run_sums`` is an in-order segment
-    sum that keeps the popularity table's float32 sums in the
-    reference's order
+    loop, and ``single_level``, the one-level baselines' request loop
+    under per-VM write policies, both of which the JAX package runs as
+    a ``lax.scan``
+  * ``maintenance``    — ``evict_scatter`` / ``promote_scatter`` /
+    ``clean_scatter`` and the fused per-interval maintenance;
+    ``run_sums`` is an in-order segment sum that keeps the popularity
+    table's float32 sums in the reference's order
 
 ``chain_probe.cu`` is no kernel of the path: it times one dependent
 on-chip load, which prices the datapath's dependency chain.
@@ -40,12 +42,13 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("count_between.cu", "evict_scatter.cu", "promote_scatter.cu",
-           "datapath.cu", "run_sums.cu", "chain_probe.cu")
+           "clean_scatter.cu", "datapath.cu", "single_level.cu",
+           "run_sums.cu", "chain_probe.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-KERNELS = ("count_between", "evict_scatter", "promote_scatter", "two_level",
-           "run_sums")
+KERNELS = ("count_between", "evict_scatter", "promote_scatter",
+           "clean_scatter", "two_level", "single_level", "run_sums")
 _launches = dict.fromkeys(KERNELS, 0)
 _lib = None
 
@@ -55,9 +58,12 @@ _SIGNATURES = {
     "etica_evict_scatter": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "etica_promote_scatter": (_P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _P),
+    "etica_clean_scatter": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "etica_two_level": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _F, _F, _F, _F, _P),
+    "etica_single_level": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
     "etica_run_sums": (_P, _P, _P, _P, _P, _I, _I, _P),
     "etica_chain_probe": (_P, _I, _P, _P),
 }

@@ -1,18 +1,18 @@
 """Maintenance scatters and the fused per-interval maintenance.
 
-``evict_scatter`` / ``promote_scatter`` run the CUDA kernels
-(``csrc/evict_scatter.cu``, ``csrc/promote_scatter.cu``) on CUDA
-tensors and the plain versions beside them on CPU tensors. States are
-stacked ``[V, S, W]`` (``tags``/``lru`` int32, ``dirty`` bool); queues
-are ``[V, Q]`` int32 with ``-1`` padding. Both are functional: the
-kernels update copies.
+``evict_scatter`` / ``promote_scatter`` / ``clean_scatter`` run the CUDA
+kernels (``csrc/evict_scatter.cu``, ``csrc/promote_scatter.cu``,
+``csrc/clean_scatter.cu``) on CUDA tensors and the plain versions beside
+them on CPU tensors. States are stacked ``[V, S, W]`` (``tags``/``lru``
+int32, ``dirty`` bool); queues are ``[V, Q]`` int32 with ``-1`` padding.
+All are functional: the kernels update copies.
 
 :func:`maintenance_interval` is one interval of ETICA maintenance for
-all VMs (the JAX ``maintenance_interval`` with ``clean_quota=0``): Eq. 1
-contributions -> popularity-table merge -> eviction queue -> evict ->
-free space of the post-eviction state -> promotion queue -> promote. It
-never synchronises with the host; only the count vectors it returns
-need to reach the host.
+all VMs (the JAX ``maintenance_interval``): Eq. 1 contributions ->
+popularity-table merge -> eviction queue -> evict -> free space of the
+post-eviction state -> promotion queue -> promote -> (``clean_quota >
+0``) the background cleaner. It never synchronises with the host; only
+the count vectors it returns need to reach the host.
 """
 from __future__ import annotations
 
@@ -134,6 +134,91 @@ def promote_scatter_plain(tags, lru, dirty, queue, ways, t):
             prom.sum(dim=1, dtype=torch.int32))
 
 
+# ---------------------------------------------------------------------------
+# clean (the background cleaner)
+# ---------------------------------------------------------------------------
+
+INT32_MIN = -2**31
+
+
+def clean_scatter(dirty, lru, ways, lru_cut, idx_cut):
+    """Clear the dirty bit of every dirty active slot whose age key
+    ``(lru, set * W + way)`` is at or below the VM's cutoff ``(lru_cut,
+    idx_cut)`` (``(INT32_MIN, -1)`` flushes nothing). ``dirty`` bool and
+    ``lru`` int32 are ``[V, S, W]``; the rest ``[V]`` int32. Returns
+    ``(dirty, flushed[V])``."""
+    if dirty.device.type == "cpu":
+        return clean_scatter_plain(dirty, lru, ways, lru_cut, idx_cut)
+    dev = dirty.device
+    v, s, w = dirty.shape
+    kernels.check(dirty, "dirty", torch.bool, (v, s, w), dev)
+    kernels.check(lru, "lru", torch.int32, (v, s, w), dev)
+    for name, x in (("ways", ways), ("lru_cut", lru_cut),
+                    ("idx_cut", idx_cut)):
+        kernels.check(x, name, torch.int32, (v,), dev)
+    dirty = dirty.clone()
+    flushed = torch.zeros(v, dtype=torch.int32, device=dev)
+    if v and s * w:
+        ptrs = [x.data_ptr() for x in (dirty, lru, ways, lru_cut, idx_cut,
+                                       flushed)]
+        kernels.launch("clean_scatter", *ptrs, v, s, w)
+    return dirty, flushed
+
+
+def clean_scatter_plain(dirty, lru, ways, lru_cut, idx_cut):
+    """The same flush mask, elementwise."""
+    v, s, w = dirty.shape
+    widx = torch.arange(w, dtype=torch.int32, device=dirty.device)
+    sidx = torch.arange(s, dtype=torch.int32, device=dirty.device)
+    flat = sidx[:, None] * w + widx[None, :]                 # [S, W]
+    cand = dirty & (widx[None, None, :] < ways[:, None, None])
+    lc = lru_cut[:, None, None]
+    flush = cand & ((lru < lc) | ((lru == lc)
+                                  & (flat <= idx_cut[:, None, None])))
+    return dirty & ~flush, flush.sum(dim=(1, 2), dtype=torch.int32)
+
+
+def _clean_cutoffs(dirty, lru, ways, quota):
+    """Per-VM age cutoffs for the background cleaner.
+
+    Candidates are the dirty blocks in active ways, aged by the unique
+    key (lru ascending, flat ``set * W + way`` ascending). Returns
+    ``(lru_cut[V], idx_cut[V], take[V], n_cand[V])``: the key of the
+    ``take``-th oldest candidate (``take = min(quota, n_cand)``), or
+    ``(INT32_MIN, -1)`` when nothing flushes. Two stable sorts, by lru
+    and then by not-candidate, put the candidates first in key order
+    (the reference's int32-safe lexsort)."""
+    v, s, w = dirty.shape
+    widx = torch.arange(w, dtype=torch.int32, device=dirty.device)
+    active = widx[None, None, :] < ways[:, None, None]
+    cflat = (dirty & active).reshape(v, s * w)
+    lflat = lru.reshape(v, s * w)
+    ord1 = torch.sort(lflat, dim=1, stable=True).indices
+    c1 = cflat.gather(1, ord1)
+    ord2 = torch.sort((~c1).to(torch.uint8), dim=1, stable=True).indices
+    order = ord1.gather(1, ord2)
+    n_cand = cflat.sum(dim=1, dtype=torch.int32)
+    take = torch.minimum(quota, n_cand)
+    kth = (take - 1).clamp(min=0).long()
+    idx_k = order.gather(1, kth[:, None])[:, 0]
+    lru_k = lflat.gather(1, idx_k[:, None])[:, 0]
+    has = take > 0
+    return (torch.where(has, lru_k, INT32_MIN),
+            torch.where(has, idx_k.to(torch.int32), -1), take, n_cand)
+
+
+def clean(state: CacheState, ways, quota):
+    """Flush up to ``quota[v]`` of VM v's oldest dirty active blocks
+    (they stay resident and clean). ``ways``/``quota`` are ``[V]`` int32
+    tensors on the state's device. Returns ``(state, flushed[V],
+    dirty_left[V])``."""
+    lcut, icut, take, n_cand = _clean_cutoffs(state.dirty, state.lru, ways,
+                                              quota)
+    dirty, flushed = clean_scatter(state.dirty, state.lru, ways, lcut, icut)
+    return (CacheState(state.tags, state.lru, dirty), flushed,
+            n_cand - take)
+
+
 def evict(state: CacheState, queue):
     tags, lru, dirty, flushed = evict_scatter(*state, queue)
     return CacheState(tags, lru, dirty), flushed
@@ -159,13 +244,12 @@ def maintenance_interval(ssd: CacheState, table: pop.PopularityTable,
     ``wlen == 0`` leaves a VM untouched); ``wlen``/``ways``/``t`` are
     ``[V]`` int32 tensors on the state's device. Returns ``(ssd, table,
     flushed, promoted, evict_qlen, promo_qlen, pop_drops, cleaned,
-    dirty_left)``, each count ``[V]`` int32; ``cleaned`` is zero (no
-    cleaner) and ``dirty_left`` counts dirty blocks in active ways.
+    dirty_left)``, each count ``[V]`` int32. With ``clean_quota > 0`` the
+    third stage flushes up to ``clean_quota`` oldest dirty active blocks
+    of each live VM (``cleaned``) and ``dirty_left`` is the dirty
+    candidates it left; otherwise ``cleaned`` is zero and ``dirty_left``
+    counts the dirty blocks in active ways.
     """
-    if clean_quota > 0:
-        raise NotImplementedError(
-            "clean_quota > 0 (the background cleaner, clean_scatter) is "
-            "not ported yet")
     v, s, w = ssd.tags.shape
     live = wlen > 0
     alloc = ways * s
@@ -190,7 +274,12 @@ def maintenance_interval(ssd: CacheState, table: pop.PopularityTable,
         width=_next_pow2(min(table.capacity, s * w)))
     ssd, promoted = promote(ssd, pqueue, ways, t)
 
-    cleaned = torch.zeros_like(flushed)
-    dirty_left = (ssd.dirty & active).sum(dim=(1, 2), dtype=torch.int32)
+    # 4) the background cleaner over the post-promotion state
+    if clean_quota > 0:
+        quota = live.to(torch.int32) * clean_quota
+        ssd, cleaned, dirty_left = clean(ssd, ways, quota)
+    else:
+        cleaned = torch.zeros_like(flushed)
+        dirty_left = (ssd.dirty & active).sum(dim=(1, 2), dtype=torch.int32)
     return (ssd, table, flushed, promoted, eqlen, pqlen, drops, cleaned,
             dirty_left)

@@ -5,7 +5,8 @@ controller's main path uses, without JAX:
 
 * :class:`Journal` — a bounded columnar ring of per-interval samples
   (O(window) host memory); the JSONL spill and :func:`load_journal` of
-  the reference are not ported yet.
+  the reference are not ported yet. ``cache_clean_log`` /
+  ``cache_dirty_log`` are the background cleaner's views of it.
 * :class:`TelemetryRecorder` — ``sample_cache`` turns host-side stats the
   controller already fetched into per-interval deltas (no device
   transfers of its own), and ``span`` times a dispatch. Span timing is
@@ -49,6 +50,9 @@ class Journal:
         self.total = 0                 # rows ever appended
         self._cols: dict[str, np.ndarray] = {}
 
+    def __contains__(self, name: str) -> bool:
+        return name in self._cols
+
     def __len__(self) -> int:
         return self.total
 
@@ -82,6 +86,13 @@ class Journal:
     def column(self, name: str) -> np.ndarray:
         """Retained values of one column, oldest first — ``[retained, ...]``."""
         return self._cols[name][self._order()]
+
+    def last_row(self) -> dict:
+        """The most recent row as ``{name: ndarray | scalar}``."""
+        if self.total == 0:
+            raise IndexError("empty journal")
+        pos = (self.total - 1) % self.window
+        return {k: buf[pos] for k, buf in self._cols.items()}
 
 # ---------------------------------------------------------------------------
 # dispatch-span histograms (opt-in: waits for the span to finish)
@@ -311,3 +322,19 @@ class TelemetryRecorder:
         }
         self.journal.append(row)
         return row
+
+    # -- cleaner-log views --------------------------------------------------
+    # The rows where the background cleaner ran (bounded by the journal
+    # window): per-VM flush counts and the dirty blocks it left.
+    def cache_clean_log(self) -> list[np.ndarray]:
+        return self._clean_rows("cleaned")
+
+    def cache_dirty_log(self) -> list[np.ndarray]:
+        return self._clean_rows("dirty_resident")
+
+    def _clean_rows(self, column: str) -> list[np.ndarray]:
+        if "clean_ran" not in self.journal:
+            return []
+        col = self.journal.column(column)
+        return [col[i] for i in np.flatnonzero(
+            self.journal.column("clean_ran"))]

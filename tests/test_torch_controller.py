@@ -112,7 +112,7 @@ def test_load_state_carries_a_jax_run():
 
 @pytest.mark.parametrize("option", [
     dict(batched=False), dict(fused_maintenance=False), dict(mesh=object()),
-    dict(classifier=object()), dict(clean_quota=8)])
+    dict(classifier=object())])
 def test_options_outside_the_port_raise(option):
     _, tcfg = _configs(**option)
     with pytest.raises(NotImplementedError):
@@ -143,15 +143,27 @@ def test_port_job_loads_no_jax_and_no_repro():
         from repro_torch.core.controller import EticaCache, EticaConfig, Geometry
         from repro_torch.core.trace import interleave
         from repro_torch.traces.generators import make
+        from repro_torch.core.baselines import make_eci_cache
+        from repro_torch.runtime import metrics
         import repro_torch.kernels.maintenance.ops
         trace = interleave([make(n, 400, seed=i, addr_offset=i * 10_000_000,
                                  scale=0.25) for i, n in
                             enumerate(["hm_1", "usr_0", "web_3"])], seed=0)
         geo = Geometry(8, 16)
-        cfg = EticaConfig(dram_capacity=60, ssd_capacity=120,
-                          geometry_dram=geo, geometry_ssd=geo,
-                          resize_interval=600, promo_interval=200)
-        res = EticaCache(cfg, 3, device="cpu").run(trace)
+        for quota in (0, 2):               # ETICA, and with the cleaner
+            cfg = EticaConfig(dram_capacity=60, ssd_capacity=120,
+                              geometry_dram=geo, geometry_ssd=geo,
+                              resize_interval=600, promo_interval=200,
+                              clean_quota=quota)
+            cache = EticaCache(cfg, 3, device="cpu")
+            res = cache.run(trace)
+            assert sum(r.stats["reads"] + r.stats["writes"]
+                       for r in res) == 1200
+        assert sum(r.stats["flushes"] for r in res) > 0
+        metrics.parse_exposition(metrics.render_cache(cache))
+        eci = make_eci_cache(180, 3, geometry=geo, resize_interval=600,
+                             sim_chunk=200, device="cpu")
+        res = eci.run(trace)
         assert sum(r.stats["reads"] + r.stats["writes"] for r in res) == 1200
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")

@@ -96,10 +96,85 @@ def test_controller_card_equals_cpu(dev):
     cfg = EticaConfig(dram_capacity=400, ssd_capacity=800,
                       geometry_dram=geo, geometry_ssd=geo,
                       resize_interval=2000, promo_interval=500)
-    kernels.reset_launch_counts()
-    card = EticaCache(cfg, 4, device="cuda").run(trace)
-    assert all(n > 0 for n in kernels.launch_counts().values())
-    cpu = EticaCache(cfg, 4, device="cpu").run(trace)
+    for quota, extra in ((0, ()), (4, ("clean_scatter",))):
+        cfg.clean_quota = quota
+        kernels.reset_launch_counts()
+        card = EticaCache(cfg, 4, device="cuda").run(trace)
+        n = kernels.launch_counts()
+        assert all(n[k] > 0 for k in ETICA_KERNELS + extra), n
+        cpu = EticaCache(cfg, 4, device="cpu").run(trace)
+        _same_results(card, cpu)
+
+
+ETICA_KERNELS = ("count_between", "evict_scatter", "promote_scatter",
+                 "two_level", "run_sums")
+
+
+def _same_results(card, cpu):
     for a, b in zip(card, cpu):
         assert a.stats == b.stats
         assert np.array_equal(a.alloc_history, b.alloc_history)
+
+
+def _state(rng, v, s, w, lru_hi=99):
+    tags = np.where(rng.random((v, s, w)) < 0.7,
+                    rng.integers(0, 20, (v, s, w)) * s + np.arange(s)[:, None],
+                    -1).astype(np.int32)
+    lru = rng.integers(0, lru_hi, (v, s, w)).astype(np.int32)
+    dirty = (rng.random((v, s, w)) < 0.5) & (tags >= 0)
+    return tags, lru, dirty
+
+
+def test_clean_scatter_kernel(dev):
+    from repro_torch.kernels.maintenance import ops
+    rng = np.random.default_rng(3)
+    v, s, w = 5, 24, 16                     # S*W = 384: two blocks per VM
+    st = [torch.from_numpy(x).to(dev) for x in _state(rng, v, s, w, 7)]
+    ways = torch.tensor([0, 3, 16, 9, 16], dtype=torch.int32, device=dev)
+    quota = torch.tensor([4, 0, 500, 7, 1], dtype=torch.int32, device=dev)
+    lcut, icut, _, _ = ops._clean_cutoffs(st[2], st[1], ways, quota)
+    got = ops.clean_scatter(st[2], st[1], ways, lcut, icut)
+    _same(got, ops.clean_scatter_plain(st[2], st[1], ways, lcut, icut))
+    cpu = [x.cpu() for x in (st[2], st[1], ways, quota)]
+    lc, ic, _, _ = ops._clean_cutoffs(*cpu)
+    _same([lcut.cpu(), icut.cpu()], [lc, ic])
+    assert int(got[1].sum()) > 0
+
+
+def test_single_level_kernel(dev):
+    from repro_torch.core.policies import Policy
+    from repro_torch.core.simulator import make_cache_batch, policy_flags
+    from repro_torch.kernels.datapath import ops
+    rng = np.random.default_rng(4)
+    pols = [Policy(p) for p in ("WB", "WT", "RO", "WO", "WBWO", "WT")]
+    v, n = len(pols), 900
+    a = rng.integers(0, 700, (v, n)).astype(np.int32)
+    a[rng.random((v, n)) < 0.1] = -1
+    a = torch.from_numpy(a).to(dev)
+    w = torch.from_numpy(rng.random((v, n)) < 0.4).to(dev)
+    ways = torch.tensor([64, 0, 33, 7, 1, 40], dtype=torch.int32, device=dev)
+    state = make_cache_batch(v, 8, 64, dev)
+    flags = policy_flags(pols, dev)
+    t0 = torch.arange(v, dtype=torch.int32, device=dev) * 3
+    _same(ops.single_level(a, w, *state, ways, *flags, t0, t_cache=2e-5),
+          ops.single_level_plain(a, w, *state, ways, *flags, t0,
+                                 t_cache=2e-5))
+
+
+def test_eci_card_equals_cpu(dev):
+    from repro_torch import kernels
+    from repro_torch.core.baselines import make_eci_cache
+    from repro_torch.core.controller import Geometry
+    from repro_torch.core.trace import interleave
+    from repro_torch.traces.generators import make
+    trace = interleave([make(n, 1500, seed=i, addr_offset=i * 10_000_000,
+                             scale=0.25) for i, n in
+                        enumerate(["hm_1", "usr_0", "web_3", "ts_0"])],
+                       seed=42)
+    kw = dict(geometry=Geometry(16, 32), resize_interval=2000)
+    kernels.reset_launch_counts()
+    card = make_eci_cache(1200, 4, device="cuda", **kw).run(trace)
+    n = kernels.launch_counts()
+    assert n["count_between"] > 0 and n["single_level"] > 0, n
+    _same_results(card, make_eci_cache(1200, 4, device="cpu",
+                                       **kw).run(trace))

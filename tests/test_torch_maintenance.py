@@ -153,11 +153,20 @@ def test_maintenance_interval_matches_jax(seed):
             assert np.array_equal(np.asarray(a), b.numpy()), (step, i)
 
 
-def test_maintenance_interval_rejects_cleaner():
-    st = _tstate(*_random_state(np.random.default_rng(0), 1, 2, 2))
-    z = torch.zeros((1, 4), dtype=torch.int32)
-    one = torch.ones(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="clean"):
-        tops.maintenance_interval(
-            st, tpop.table_init(1, 8, device="cpu"), z, z.bool(), z, one,
-            one, one, evict_frac=0.05, decay=0.5, clean_quota=4)
+def test_cleaner_gated_on_live_vms():
+    """``clean_quota`` gates the cleaner on live VMs: a VM whose window
+    is empty (``wlen == 0``) keeps its dirty blocks, a live one flushes
+    up to the quota (the full parity sweep is in test_torch_cleaner)."""
+    tags, lru, dirty = _random_state(np.random.default_rng(0), 2, 2, 2)
+    dirty[:] = tags >= 0
+    st = _tstate(tags, lru, dirty)
+    z = torch.zeros((2, 4), dtype=torch.int32)
+    out = tops.maintenance_interval(
+        st, tpop.table_init(2, 8, device="cpu"), z, z.bool(), z,
+        torch.tensor([0, 4], dtype=torch.int32),
+        torch.full((2,), 2, dtype=torch.int32), torch.ones(2, dtype=torch.int32),
+        evict_frac=0.05, decay=0.5, clean_quota=1)
+    assert dirty.sum(axis=(1, 2)).min() > 1
+    assert out[7].tolist() == [0, 1]
+    assert np.array_equal(out[0].dirty[0].numpy(), dirty[0])
+    assert out[8].tolist() == out[0].dirty.sum(dim=(1, 2)).tolist()
