@@ -15,9 +15,16 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    the main path's shapes (exact equality) and times kernel, plain
    version and, where one exists, a one-call PyTorch equivalent (calls
    back to back, host included; each kernel, and ``index_add_``, also as
-   device time alone, replaying a CUDA graph of the calls); runs
-   the fused maintenance interval, with and without the cleaner, under
-   ``torch.cuda.set_sync_debug_mode("error")``;
+   device time alone, replaying a CUDA graph of the calls;
+   ``torch.isin`` from a profiler trace); runs the fused maintenance
+   interval, with and without the cleaner, and one serving maintenance
+   interval under ``torch.cuda.set_sync_debug_mode("error")``; holds
+   ``paged_decode_attention`` to its plain version (float32 outputs
+   within 2e-5, bf16 within one bf16 ulp or 2e-5) at the serving path's
+   shape and at qwen3-4b batched decode (B 64, H 32, Hkv 8, D 128, 4096
+   tokens, a 1 GiB bf16 pool), with poisoned tokens past each length and
+   a zero-length row, beside ``scaled_dot_product_attention`` over
+   gathered pages;
 3. runs the paper's §5.1 deployment (12 VMs x 20,000 requests, 64 x 64
    geometry) through ``EticaCache.run`` on the card and again on the
    CPU; per-VM stats and allocation histories must be identical;
@@ -32,15 +39,26 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    own mix, card == CPU, and holds the per-VM SSD writes and cleaner
    counts and the totals to the JAX package's CPU values (hard-coded
    below), with the exporter round trip;
-7. runs ECI-Cache at the fig15 1024-VM configuration, card == CPU.
+7. runs ECI-Cache at the fig15 1024-VM configuration, card == CPU;
+8. runs two-tier KV serving on ``benchmarks/serving_two_tier.py``'s FULL
+   churn trace (20,000 events, 1,358 sessions, 4 tenants, 512 pool
+   pages) through ``repro_torch.launch.serve.run_events``: the ETICA
+   manager, its host-dict oracle and global LRU, controller only, card
+   == CPU and equal to ``BENCH_serving.json``; ETICA with the cleaner,
+   card == CPU; then ETICA at qwen3-4b's KV width (8 KV heads, head_dim
+   128, bf16 pool) with a paged decode every 8th activation, every
+   decode held to its plain version on the card.
 
-Each card run of phases 3 to 7 sets the launch counts to 0 just before
+Each card run of phases 3 to 8 sets the launch counts to 0 just before
 and reads them just after; every kernel of that path's own set must
-have launched. Phase 2 holds the kernels against their plain versions
-at the shapes of both the 12-VM and the 1024-VM runs.
+have launched (on the serving paths, and no other). Phase 2 holds the
+kernels against their plain versions at the shapes of both the 12-VM
+and the 1024-VM runs.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per
-kernel, ``launches`` from its own 12-VM path); the last is ``{"ok":
+kernel, ``launches`` from its own path: the 12-VM paths, and the
+full-width serving run for ``paged_decode_attention``); the last is
+``{"ok":
 true, "device": {...}}``. Any failed phase raises and the exit code is
 nonzero. Without a CUDA device it exits 2 and prints no result.
 """
@@ -60,6 +78,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 SCALAR_OPS_PER_S = 67e12      # H100 SXM non-tensor fp32 rate, used as the
 #                               peak for scalar integer work as well
+DECODE_ATOL = 2e-5            # tests/test_kernels.py's paged decode atol
 
 PAPER_VMS = ("hm_1", "proj_0", "stg_1", "usr_0", "ts_0", "wdev_0", "web_3",
              "usr_0", "mds_0", "src2_0", "rsrch_0", "mds_1")
@@ -83,11 +102,20 @@ FIG14_JAX_CPU_PEAK_DIRTY = 222
 FIG14_JAX_CPU_FINAL_DIRTY = 220
 CLEAN_QUOTA = 4                       # fig14_endurance.py CLEAN_QUOTA
 
+# benchmarks/serving_two_tier.py FULL on the JAX package, CPU (its
+# BENCH_serving.json): trace shape, then (dma_write, dma_read, hit ratio)
+SERVING_TENANTS = 4
+BENCH_SERVING = {"sessions": 1358, "max_live": 1024,
+                 "etica": (10360832, 13723648, "0.862"),
+                 "lru": (21604352, 5136384, "0.953")}
+
 # the kernels each path must launch
 ETICA_KERNELS = ("count_between", "evict_scatter", "promote_scatter",
                  "two_level", "run_sums")
 CLEAN_KERNELS = ETICA_KERNELS + ("clean_scatter",)
 ECI_KERNELS = ("count_between", "single_level")
+SERVING_KERNELS = ("count_between", "run_sums")
+SERVING_DECODE_KERNELS = SERVING_KERNELS + ("paged_decode_attention",)
 
 
 def log(msg: str) -> None:
@@ -136,6 +164,30 @@ def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (reps * replays)
+
+
+def profiler_device_ms(fn, reps: int) -> float | None:
+    """Mean device milliseconds per call from a ``torch.profiler`` trace
+    of ``reps`` calls (kernels and copies on the card); ``None`` when the
+    trace shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for ev in prof.key_averages():
+        total_us += float(getattr(ev, "self_device_time_total",
+                                  getattr(ev, "self_cuda_time_total", 0.0)))
+    return total_us / 1e3 / reps if total_us > 0 else None
+
+
+def fmt_ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
 
 
 def max_abs_err(got, want) -> float:
@@ -403,15 +455,18 @@ def check_scatters(dev, rng, v, s, w):
     tk = (st[0].long() + (vm << 32)[:, None, None]).reshape(-1)
     qk = (eq.long() + (vm << 32)[:, None]).reshape(-1)
     lib_ms = cuda_ms(lambda: torch.isin(tk, qk), 50)
+    lib_dev_ms = profiler_device_ms(lambda: torch.isin(tk, qk), 20)
     b, by = bound_ms(2 * 9.0 * v * s * w + 4.0 * v * q + 4.0 * v,
                      2.0 * (v * s * w + v * q))
     log(f"evict_scatter [{v},{s},{w}] Q={q}: exact, flushed "
         f"{int(got[3].sum())}, kernel {ms:.4f} ms (device {dev_ms:.4f} ms), "
-        f"plain {plain_ms:.4f} ms, torch.isin {lib_ms:.4f} ms (it cannot "
-        f"be captured in a CUDA graph), bound {b:.5f} ms ({by})")
+        f"plain {plain_ms:.4f} ms, torch.isin {lib_ms:.4f} ms (device "
+        f"{fmt_ms(lib_dev_ms)} from a profiler trace: it cannot be captured "
+        f"in a CUDA graph), bound {b:.5f} ms ({by})")
     out["evict_scatter"] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
                                 plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                                library_ms=lib_ms)
+                                library_ms=lib_ms,
+                                library_device_ms=lib_dev_ms)
 
     got = ops.promote_scatter(*st, pq, ways_t, t_t)
     want = ops.promote_scatter_plain(*st, pq, ways_t, t_t)
@@ -557,6 +612,214 @@ def check_maintenance(dev, rng, v, s, w, lens_range):
     return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                 bound_ms=b, bound_by=by, library_ms=lib_ms,
                 library_device_ms=lib_dev_ms)
+
+
+def decode_tolerance_err(got, want) -> tuple[float, int, int]:
+    """``(max |got - want|, elements over tolerance, elements more than
+    one bf16 ulp off)`` of a decode output against its plain version:
+    float32 outputs within 2e-5 (the JAX test's atol); bf16 outputs
+    within one bf16 ulp of the plain value, or 2e-5 where that ulp is
+    finer (an output that cancels to near zero carries the float32
+    rounding of its terms, not of itself)."""
+    import torch
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    tol = torch.full_like(w, DECODE_ATOL)
+    over_ulp = 0
+    if got.dtype == torch.bfloat16:
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(
+            min=2.0**-126))) - 7)
+        tol = torch.maximum(tol, ulp)
+        over_ulp = int((err > ulp).sum())
+    return float(err.max()), int((err > tol).sum()), over_ulp
+
+
+def decode_inputs(dev, rng, b, h, hkv, d, pool, ps, n_pages, q_dtype,
+                  kv_dtype, lengths):
+    """Seeded decode operands on the card; the page table draws distinct
+    pool pages for the whole batch (a random permutation) when the pool
+    is large enough."""
+    import torch
+    q = torch.from_numpy(rng.normal(size=(b, h, d)).astype(np.float32))
+    kp = torch.from_numpy(rng.standard_normal(
+        (pool, ps, hkv, d), dtype=np.float32))
+    vp = torch.from_numpy(rng.standard_normal(
+        (pool, ps, hkv, d), dtype=np.float32))
+    if b * n_pages <= pool:
+        pt = rng.permutation(pool)[:b * n_pages].reshape(b, n_pages)
+    else:
+        pt = rng.integers(0, pool, (b, n_pages))
+    return (q.to(dev, q_dtype), kp.to(dev, kv_dtype), vp.to(dev, kv_dtype),
+            torch.from_numpy(pt.astype(np.int32)).to(dev),
+            torch.from_numpy(np.asarray(lengths, np.int32)).to(dev))
+
+
+def decode_bound(args) -> tuple[float, str]:
+    """Least time for one decode call: K and V rows of the tokens each
+    row needs (its length; every slot of its table when the length is 0
+    or past the table) plus q, the output, the lengths and the table
+    entries read, over the HBM rate; against 4 * tokens * H * D
+    operations at the scalar rate."""
+    q, kp, _, pt, ln = args
+    b, h, d = q.shape
+    _, ps, hkv, _ = kp.shape
+    slots = pt.shape[1] * ps
+    lens = ln.long().cpu()
+    tok = float(torch_where_len(lens, slots).sum())
+    pages = float(((torch_where_len(lens, slots) + ps - 1) // ps).sum())
+    nbytes = (2 * tok * hkv * d * kp.element_size()
+              + 2 * q.numel() * q.element_size() + 4 * b + 4 * pages)
+    return bound_ms(nbytes, 4.0 * tok * h * d)
+
+
+def torch_where_len(lens, slots):
+    import torch
+    return torch.where((lens <= 0) | (lens > slots), slots, lens)
+
+
+def sdpa_ms(args):
+    """One library call for the same function, timed only: gather each
+    row's pages into ``[B, Hkv, S, D]`` (timed on its own), then
+    ``scaled_dot_product_attention`` with a length mask and grouped
+    query heads. Returns ``(gather_ms, sdpa_ms)``."""
+    import torch
+    import torch.nn.functional as F
+    q, kp, vp, pt, ln = args
+    b, h, d = q.shape
+    _, ps, hkv, _ = kp.shape
+    s = pt.shape[1] * ps
+    idx = pt.long()
+
+    def gather():
+        return tuple(x[idx].reshape(b, s, hkv, d).transpose(1, 2)
+                     .contiguous() for x in (kp, vp))
+    k, v = gather()
+    qq = q.to(kp.dtype).reshape(b, h, 1, d)
+    mask = (torch.arange(s, device=q.device)[None, :]
+            < ln[:, None])[:, None, None, :]
+
+    def sdpa():
+        try:
+            return F.scaled_dot_product_attention(qq, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+        except TypeError:             # a PyTorch without enable_gqa
+            g = h // hkv
+            return F.scaled_dot_product_attention(
+                qq, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1),
+                attn_mask=mask)
+    return cuda_ms(gather, 10), cuda_ms(sdpa, 10)
+
+
+QWEN3_DECODE = (64, 32, 8, 128, 16384, 16, 256)   # B, H, Hkv, D, NP, PS, pages
+
+
+def check_decode(dev, rng, big=QWEN3_DECODE):
+    """``paged_decode_attention`` against its plain version: (a) the
+    serving path's shape (B 1, H = Hkv = 8, D 128, PS 16, 6 pages of a
+    512-page pool) in float32, with bf16 pages (as serving runs it) and
+    all bf16; (b) qwen3-4b batched decode (B 64, H 32, Hkv 8, D 128, PS
+    16, 256 pages per row, a 16,384-page bf16 pool under a permutation
+    table, lengths in [1, 4096] with one row at 1 and one at 4096); (c)
+    (b) with every token past each length poisoned with 999; (d) (b)
+    with one row of length 0. Returns the JSON row (shape (a) with bf16
+    pages) with (b)'s numbers beside it."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops
+    f32, bf16 = torch.float32, torch.bfloat16
+    row, worst = None, 0.0
+    for q_dt, kv_dt in ((f32, f32), (f32, bf16), (bf16, bf16)):
+        args = decode_inputs(dev, rng, 1, 8, 8, 128, 512, 16, 6, q_dt, kv_dt,
+                             [int(rng.integers(1, 97))])
+        err, bad, _ = decode_tolerance_err(
+            ops.paged_decode_attention(*args),
+            ops.paged_decode_attention_plain(*args))
+        if bad:
+            raise AssertionError(f"decode (a) {q_dt}/{kv_dt}: {bad} elements "
+                                 f"out of tolerance (max err {err:.3e})")
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: ops.paged_decode_attention(*args), 50)
+        dev_ms = graph_ms(lambda: ops.paged_decode_attention(*args))
+        plain_ms = cuda_ms(lambda: ops.paged_decode_attention_plain(*args),
+                           20)
+        gather_ms, lib_ms = sdpa_ms(args)
+        b, by = decode_bound(args)
+        log(f"paged_decode_attention (a) [1,8,128] 6x16 tokens "
+            f"{str(q_dt)[6:]}/{str(kv_dt)[6:]} len {int(args[4][0])}: max "
+            f"err {err:.3e} (in tolerance), kernel {ms:.4f} ms (device "
+            f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, gather {gather_ms:.4f}"
+            f" ms + sdpa {lib_ms:.4f} ms, bound {b:.6f} ms ({by})")
+        if (q_dt, kv_dt) == (f32, bf16):
+            row = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                       bound_ms=b, bound_by=by, library_ms=lib_ms,
+                       library_gather_ms=gather_ms)
+
+    b_, h_, hkv, d, pool, ps, n_pages = big
+    slots = n_pages * ps
+    lens = rng.integers(1, slots + 1, b_)
+    lens[:2] = (1, slots)
+    args = decode_inputs(dev, rng, *big, bf16, bf16, lens)
+    got = ops.paged_decode_attention(*args)
+    err, bad, over_ulp = decode_tolerance_err(
+        got, ops.paged_decode_attention_plain(*args))
+    worst_b = err
+    if bad:
+        raise AssertionError(f"decode (b): {bad} elements out of tolerance")
+    ms = cuda_ms(lambda: ops.paged_decode_attention(*args), 20)
+    dev_ms = graph_ms(lambda: ops.paged_decode_attention(*args), 10)
+    plain_ms = cuda_ms(lambda: ops.paged_decode_attention_plain(*args), 3)
+    gather_ms, lib_ms = sdpa_ms(args)
+    b, by = decode_bound(args)
+    toks = int(torch_where_len(args[4].long().cpu(), slots).sum())
+    log(f"paged_decode_attention (b) qwen3-4b [{b_},{h_},{d}] Hkv {hkv}, "
+        f"{n_pages}x{ps} tokens, pool {pool} bf16, {toks} tokens: max err "
+        f"{err:.3e} (in tolerance; {over_ulp} of {got.numel()} outputs "
+        f"more than one bf16 ulp off), kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, gather {gather_ms:.4f} ms + sdpa {lib_ms:.4f} "
+        f"ms, bound {b:.5f} ms ({by})")
+
+    # (c) poison every token past each row's length
+    q, kp, vp, pt, ln = args
+    pos = (torch.arange(n_pages, device=dev)[None, :, None] * ps
+           + torch.arange(ps, device=dev)[None, None, :])
+    dead = (pos >= ln.long()[:, None, None]).reshape(-1)   # [B*pages*PS]
+    flat = pt.long().reshape(-1)
+    kp2, vp2 = kp.clone(), vp.clone()
+    for src, dst in ((kp, kp2), (vp, vp2)):
+        rows = src[flat].reshape(-1, hkv, d)
+        dst[flat] = torch.where(dead[:, None, None], 999.0, rows).reshape(
+            -1, ps, hkv, d).to(src.dtype)
+    poisoned = ops.paged_decode_attention(q, kp2, vp2, pt, ln)
+    if not torch.equal(poisoned, got):
+        raise AssertionError("decode (c): poisoned tokens changed the output")
+    err_c, bad, _ = decode_tolerance_err(
+        poisoned, ops.paged_decode_attention_plain(q, kp2, vp2, pt, ln))
+    if bad:
+        raise AssertionError(f"decode (c): {bad} elements out of tolerance")
+    log(f"paged_decode_attention (c) poisoned past each length "
+        f"({int(dead.sum())} tokens = 999): output identical, max err "
+        f"{err_c:.3e} against the plain version")
+    del kp2, vp2
+
+    # (d) one row of length 0: the mean of V over the row's whole table
+    ln0 = ln.clone()
+    ln0[5] = 0
+    got0 = ops.paged_decode_attention(q, kp, vp, pt, ln0)
+    err_d, bad, _ = decode_tolerance_err(
+        got0, ops.paged_decode_attention_plain(q, kp, vp, pt, ln0))
+    mean_v = vp[pt[5].long()].float().reshape(-1, hkv, d).mean(0)
+    err_mean = float((got0[5].float().reshape(hkv, h_ // hkv, d)
+                      - mean_v[:, None, :]).abs().max())
+    if bad or err_mean > 2.0**-7:
+        raise AssertionError(f"decode (d): {bad} out of tolerance, mean of V "
+                             f"off by {err_mean:.3e}")
+    log(f"paged_decode_attention (d) length 0 row: max err {err_d:.3e}, "
+        f"row 5 = mean of V over its {slots} slots within {err_mean:.3e}")
+    row.update(max_abs_err=max(worst, worst_b, err_c, err_d),
+               qwen3_batched=dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                                  bound_ms=b, bound_by=by, library_ms=lib_ms,
+                                  library_gather_ms=gather_ms,
+                                  max_abs_err=worst_b, tokens=toks))
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -725,6 +988,278 @@ def check_fig14(launches, scale_reqs=8000):
         f"({len(fams)} families)")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: two-tier KV serving
+# ---------------------------------------------------------------------------
+
+def serving_trace():
+    """benchmarks/serving_two_tier.py's FULL churn trace (seed 1)."""
+    from repro_torch.traces.generators import SessionSpec, generate_sessions
+    spec = SessionSpec(num_tenants=SERVING_TENANTS, target_live=1024,
+                       max_pages=6)
+    return generate_sessions(spec, 20_000, seed=1)
+
+
+def serving_cfg(**kw):
+    """The FULL configuration's manager (``_mk_cfg``: PS 16, Hkv 2, D 8,
+    float32, controller only), with ``kw`` replaced."""
+    from repro_torch.kvcache import TwoTierConfig
+    return TwoTierConfig(**(dict(
+        page_size=16, hbm_pages=512, num_kv_heads=2, head_dim=8,
+        num_layers=1, dtype="float32", maintenance_interval=64,
+        resize_interval=512, pop_capacity=2048, materialize=False) | kw))
+
+
+def run_serving(kind, cfg, trace, device, decode_every=0, telemetry=None):
+    """One replay of ``trace`` through ``run_events`` (bank seed 7, as the
+    benchmark); returns ``(manager, wall seconds)``."""
+    import dataclasses
+    import torch
+    from repro_torch.kvcache import GlobalLRUManager, TwoTierKVManager
+    from repro_torch.launch.serve import kv_page_bank, run_events
+    cfg = dataclasses.replace(cfg, telemetry=telemetry)
+    if kind == "lru":
+        mgr = GlobalLRUManager(cfg, SERVING_TENANTS, device=device)
+    else:
+        mgr = TwoTierKVManager(cfg, SERVING_TENANTS,
+                               batched=kind == "etica", device=device)
+    kb, vb = kv_page_bank(cfg, 8, 7, pin=device == "cuda")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_events(mgr, trace, kb, vb, decode_every=decode_every, seed=1)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return mgr, time.perf_counter() - t0
+
+
+def placements(mgr):
+    return (dict(mgr.slot_owner), tuple(mgr.free),
+            tuple(int(q) for q in mgr.tenant_quota),
+            tuple(int(u) for u in mgr.tenant_used))
+
+
+def serving_launches(label, expect, only=False):
+    """Check one card run's launch counts (read just after it): every
+    kernel in ``expect`` launched; with ``only``, no other did."""
+    from repro_torch import kernels
+    n = kernels.launch_counts()
+    missing = [k for k in expect if n[k] == 0]
+    extra = [k for k in kernels.KERNELS if k not in expect and n[k]]
+    if missing or (only and extra):
+        raise AssertionError(f"{label}: kernels not launched {missing}, "
+                             f"launched off the path {extra}: {n}")
+    return n
+
+
+def serving_spans(kind, cfg, trace, label, decode_every=0):
+    """A span-timed card run: CUDA-event time of the maintenance and
+    sizing dispatches (each span waits for its work, so this run is not
+    the cell's speed)."""
+    from repro_torch.runtime.telemetry import TelemetryRecorder
+    rec = TelemetryRecorder(span_timing=True)
+    _, wall = run_serving(kind, cfg, trace, "cuda", decode_every, rec)
+    spans = {k: (v.n, v.total) for k, v in rec.spans.items()}
+    inside = sum(t for _, t in spans.values())
+    log(f"{label} span breakdown (timed run {wall:.3f} s): " + ", ".join(
+        f"{k} {n} spans {t:.3f} s" for k, (n, t) in spans.items())
+        + f", outside spans {wall - inside:.3f} s")
+
+
+def check_serving(launches):
+    """(i) The FULL configuration controller-only: etica, etica-seq and
+    lru on the card and on the CPU (Stats and placements identical),
+    etica == etica-seq, and the numbers of BENCH_serving.json; etica with
+    the cleaner card == CPU. (ii) The same trace at qwen3-4b's KV width
+    (Hkv 8, D 128, bf16 pool, materialized) with a decode every 8th
+    activation: a timed run (launch counts, events/s, decode time, peak
+    memory), then a run that holds every decode output against the plain
+    version on the card; Stats are (i)'s page counts x 65,536 bytes."""
+    import dataclasses
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.launch import serve as serve_mod
+    trace = serving_trace()
+    if (trace.num_sessions, trace.max_live) != (BENCH_SERVING["sessions"],
+                                                BENCH_SERVING["max_live"]):
+        raise AssertionError(f"serving trace: {trace.num_sessions} sessions, "
+                             f"max live {trace.max_live}")
+    cfg = serving_cfg()
+    card = {}
+    for kind, expect in (("etica", SERVING_KERNELS),
+                         ("etica-seq", ("count_between",)), ("lru", ())):
+        label = f"serving-{kind}"
+        kernels.reset_launch_counts()
+        mgr, wall = run_serving(kind, cfg, trace, "cuda")
+        launches[label] = serving_launches(label, expect, only=True)
+        cpu, wall_cpu = run_serving(kind, cfg, trace, "cpu")
+        if mgr.stats != cpu.stats or placements(mgr) != placements(cpu):
+            raise AssertionError(f"{label}: card != CPU\n  {mgr.stats}\n"
+                                 f"  {cpu.stats}")
+        card[kind] = mgr
+        s = mgr.stats
+        log(f"{label} ({len(trace)} events): card {wall:.3f} s, "
+            f"{len(trace) / wall:.0f} events/s; card == CPU (CPU plain path "
+            f"{wall_cpu:.1f} s); hit {s.hits / s.activations:.4f}, "
+            f"dma_write {s.dma_write_bytes}, dma_read {s.dma_read_bytes}, "
+            f"pop_drops {s.pop_drops}, launches {launches[label]}")
+    e, q = card["etica"], card["etica-seq"]
+    if e.stats != q.stats or placements(e) != placements(q):
+        raise AssertionError("serving: batched controller != host-dict oracle")
+    for kind in ("etica", "lru"):
+        s = card[kind].stats
+        got = (s.dma_write_bytes, s.dma_read_bytes,
+               f"{s.hits / s.activations:.3f}")
+        if got != BENCH_SERVING[kind] or s.pop_drops:
+            raise AssertionError(f"serving {kind}: {got}, pop_drops "
+                                 f"{s.pop_drops} != BENCH_serving.json "
+                                 f"{BENCH_SERVING[kind]}")
+    if e.stats.dma_write_bytes != e.stats.appends * cfg.page_bytes:
+        raise AssertionError("serving: WBWO bound not exact")
+    red = 1 - e.stats.dma_write_bytes / card["lru"].stats.dma_write_bytes
+    log(f"serving: BENCH_serving.json reproduced on the card (sessions "
+        f"{trace.num_sessions}, max live {trace.max_live}, ETICA "
+        f"{BENCH_SERVING['etica']}, LRU {BENCH_SERVING['lru']}); batched == "
+        f"oracle; DMA-write reduction vs LRU {red:.3f}")
+    serving_spans("etica", cfg, trace, "serving-etica")
+
+    ccfg = dataclasses.replace(cfg, clean_quota=CLEAN_QUOTA)
+    kernels.reset_launch_counts()
+    mgr, wall = run_serving("etica", ccfg, trace, "cuda")
+    launches["serving-etica-clean"] = serving_launches(
+        "serving-etica-clean", SERVING_KERNELS, only=True)
+    cpu, _ = run_serving("etica", ccfg, trace, "cpu")
+    if mgr.stats != cpu.stats or placements(mgr) != placements(cpu):
+        raise AssertionError("serving-etica-clean: card != CPU")
+    log(f"serving-etica-clean (clean_quota={CLEAN_QUOTA}): card {wall:.3f} s, "
+        f"card == CPU; flushes {mgr.stats.flushes}, evict_flushes "
+        f"{mgr.stats.evict_flushes}, dirty_dropped {mgr.stats.dirty_dropped},"
+        f" dma_write {mgr.stats.dma_write_bytes}")
+
+    # (ii) qwen3-4b's KV width, materialized, decoding
+    wcfg = serving_cfg(num_kv_heads=8, head_dim=128, dtype="bfloat16",
+                       materialize=True)
+    scale = wcfg.page_bytes // cfg.page_bytes
+    want = (e.stats.dma_write_bytes * scale, e.stats.dma_read_bytes * scale)
+    real = serve_mod.decode_attention
+    events = []
+
+    def timed(q, kv, pt, ln):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(q, kv, pt, ln)
+        end.record()
+        events.append((start, end))
+        return out
+
+    errs, shapes = [], set()
+
+    def checked(q, kv, pt, ln):
+        out = real(q, kv, pt, ln)
+        plain = ops.paged_decode_attention_plain(q, *kv, pt, ln)
+        errs.append((out.float() - plain.float()).abs().max())
+        shapes.add(tuple(pt.shape))
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    serve_mod.decode_attention = timed
+    try:
+        mgr, wall = run_serving("etica", wcfg, trace, "cuda", decode_every=8)
+    finally:
+        serve_mod.decode_attention = real
+    launches["serving-full-width"] = serving_launches(
+        "serving-full-width", SERVING_DECODE_KERNELS, only=True)
+    peak = torch.cuda.max_memory_allocated()
+    dec_ms = float(np.mean([a.elapsed_time(b) for a, b in events]))
+    got = (mgr.stats.dma_write_bytes, mgr.stats.dma_read_bytes)
+    if got != want or (mgr.stats.activations, mgr.stats.hits) != (
+            e.stats.activations, e.stats.hits):
+        raise AssertionError(f"serving-full-width: {got} != {want}")
+    log(f"serving-full-width (qwen3-4b KV: Hkv 8, D 128, bf16, page_bytes "
+        f"{wcfg.page_bytes}): card {wall:.3f} s, {len(trace) / wall:.0f} "
+        f"events/s, {len(events)} decodes, mean decode {dec_ms:.4f} ms "
+        f"(CUDA events around the call), peak device memory "
+        f"{peak / 2**20:.1f} MiB, dma_write {got[0]}, dma_read {got[1]} "
+        f"(= controller-only x {scale}), launches "
+        f"{launches['serving-full-width']}")
+    serve_mod.decode_attention = checked
+    try:
+        mgr2, _ = run_serving("etica", wcfg, trace, "cuda", decode_every=8)
+    finally:
+        serve_mod.decode_attention = real
+    err = float(torch.stack(errs).max())
+    if mgr2.stats != mgr.stats or err > DECODE_ATOL or \
+            len(errs) != len(events):
+        raise AssertionError(f"serving-full-width decode: max err {err:.3e} "
+                             f"over {len(errs)} decodes")
+    log(f"serving-full-width: all {len(errs)} decode outputs within "
+        f"{DECODE_ATOL} of the plain version on the card (max err "
+        f"{err:.3e}; float32 out from bf16 pages; page-table widths "
+        f"{sorted(s[1] for s in shapes)})")
+    serving_spans("etica", wcfg, trace, "serving-full-width", decode_every=8)
+    return dict(decode_ms=dec_ms, decodes=len(events), max_abs_err=err)
+
+
+def check_serving_sync(dev, rng):
+    """One ``serving_maintenance`` interval at the FULL configuration's
+    widths (4 tenants, a 512-entry window, K 2048) on inputs already on
+    the card, under ``set_sync_debug_mode("error")``, with and without
+    the cleaner; card == CPU; its time per call."""
+    import torch
+    from repro_torch.core import popularity as pop
+    from repro_torch.core import reuse
+    from repro_torch.core.policies import Policy
+    from repro_torch.kernels.maintenance.ops import serving_maintenance
+    t_axis, n, k, smax, dmax = SERVING_TENANTS, 512, 2048, 300, 40
+    sids = rng.integers(0, 1400, n).astype(np.int32)
+    ten = (sids % t_axis).astype(np.int32)
+    wr = rng.random(n) < 0.3
+    cand = np.full((t_axis, smax), -1, np.int32)
+    pages = np.zeros((t_axis, smax), np.int32)
+    for t in range(t_axis):
+        c = rng.permutation(np.arange(t, 1400, t_axis))[:smax - 20 * t]
+        cand[t, :c.size] = c
+        pages[t, :c.size] = rng.integers(1, 7, c.size)
+    over = rng.integers(-20, 60, t_axis).astype(np.int32)
+    dage = np.where(rng.random((t_axis, dmax)) < 0.8,
+                    rng.permutation(4 * t_axis * dmax)[:t_axis * dmax]
+                    .reshape(t_axis, dmax), -1).astype(np.int32)
+    for quota in (0, CLEAN_QUOTA):
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            r = reuse.pod_distances(sids, wr, Policy.RO, d, host=False)
+            args = [torch.from_numpy(x).to(d) for x in (sids, ten, cand,
+                                                        pages, over)]
+            cs = torch.tensor([512.0], device=d)
+            da = torch.from_numpy(dage).to(d)
+            table = pop.table_init(t_axis, k, d)
+            table, *_ = serving_maintenance(table, r.dist, r.served, *args,
+                                            cs, decay=0.5, dirty_age=da,
+                                            clean_quota=quota)
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = serving_maintenance(table, r.dist, r.served, *args, cs,
+                                          decay=0.5, dirty_age=da,
+                                          clean_quota=quota)
+            finally:
+                if d.type == "cuda":
+                    torch.cuda.set_sync_debug_mode("default")
+            outs.append([out[0].addr, out[0].val, *out[1:]])
+            if d.type == "cuda":
+                call = (table, r.dist, r.served, *args, cs)
+                ms = cuda_ms(lambda: serving_maintenance(
+                    *call, decay=0.5, dirty_age=da, clean_quota=quota), 20)
+        max_abs_err([x.cpu() for x in outs[0]], outs[1])
+        log(f"serving_maintenance [T {t_axis}, N {n}, K {k}] clean_quota="
+            f"{quota}: no host sync inside (sync debug mode 'error'), card =="
+            f" CPU, {ms:.4f} ms per call (plain PyTorch around run_sums)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -781,6 +1316,8 @@ def main() -> int:
     check_clean(dev, rng, 1024, 16, 32)
     rows["run_sums"] = check_maintenance(dev, rng, 12, 64, 64, (600, 1000))
     check_maintenance(dev, rng, 1024, 16, 32, (20, 60))
+    rows["paged_decode_attention"] = check_decode(dev, rng)
+    check_serving_sync(dev, rng)
 
     # phases 3 and 4: the paper's §5.1 deployment, then fig15
     # consolidation at 128 and 1024 VMs; card == CPU in each
@@ -824,13 +1361,23 @@ def main() -> int:
             resize_interval=total // 3, sim_chunk=total // 12),
         fig1024, "fig15 1024-VM ECI-Cache", ECI_KERNELS)
 
+    # phase 8: two-tier KV serving (BENCH_serving.json, then qwen3-4b's
+    # KV width with decode)
+    serving = check_serving(launches)
+    rows["paged_decode_attention"].update(
+        serving_decode_ms=serving["decode_ms"],
+        serving_decodes=serving["decodes"],
+        serving_max_abs_err=serving["max_abs_err"])
+
     sources = {"count_between": "src/repro_torch/csrc/count_between.cu",
                "evict_scatter": "src/repro_torch/csrc/evict_scatter.cu",
                "promote_scatter": "src/repro_torch/csrc/promote_scatter.cu",
                "clean_scatter": "src/repro_torch/csrc/clean_scatter.cu",
                "two_level": "src/repro_torch/csrc/datapath.cu",
                "single_level": "src/repro_torch/csrc/single_level.cu",
-               "run_sums": "src/repro_torch/csrc/run_sums.cu"}
+               "run_sums": "src/repro_torch/csrc/run_sums.cu",
+               "paged_decode_attention":
+                   "src/repro_torch/csrc/decode_attention.cu"}
     replaces = {
         "count_between": "src/repro/kernels/reuse_distance/kernel.py:29",
         "evict_scatter": "src/repro/kernels/maintenance/kernel.py:51",
@@ -841,11 +1388,14 @@ def main() -> int:
         "single_level": "src/repro/core/simulator.py:264 (lax.scan step; "
                         "no Pallas kernel)",
         "run_sums": "src/repro/core/popularity.py:204 (_compact_runs "
-                    "scatter-add; no Pallas kernel)"}
+                    "scatter-add; no Pallas kernel)",
+        "paged_decode_attention":
+            "src/repro/kernels/decode_attention/kernel.py:28"}
     # each kernel's own 12-VM path: the one whose launches it reports
     own_path = dict.fromkeys(kernels.KERNELS, "paper-12vm")
     own_path.update(clean_scatter="paper-12vm-clean",
-                    single_level="paper-12vm-eci")
+                    single_level="paper-12vm-eci",
+                    paged_decode_attention="serving-full-width")
     log(smi)
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=sources[k], replaces=replaces[k],

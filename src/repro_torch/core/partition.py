@@ -24,6 +24,19 @@ import numpy as np
 NEG = -1e30
 
 
+def size_grid(capacity: int, points: int = 16) -> np.ndarray:
+    """Ascending candidate-size grid ``0..capacity`` inclusive, with step
+    ``max(capacity // points, 1)``; the ``capacity`` endpoint is always
+    appended, so the partitioner can grant the whole pool even when the
+    step does not divide it."""
+    capacity = int(capacity)
+    step = max(capacity // max(points, 1), 1)
+    grid = np.arange(0, capacity + 1, step, dtype=np.int64)
+    if grid.size == 0 or grid[-1] != capacity:
+        grid = np.append(grid, np.int64(capacity))
+    return grid
+
+
 @dataclasses.dataclass
 class PartitionResult:
     alloc: np.ndarray       # int64 [V] blocks

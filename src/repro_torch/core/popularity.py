@@ -19,11 +19,17 @@ reference bit for bit, so every float32 step follows XLA:CPU:
 
 No function here synchronises with the host, so the whole maintenance
 interval stays on the device.
+
+:class:`PopularityTracker` and :func:`block_scores` are the reference's
+host-side numpy table, kept as it is: the serving manager's sequential
+oracle (``batched=False``) ranks sessions with one tracker per tenant,
+bit-identical to the device table's rows.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch import kernels
@@ -42,6 +48,65 @@ def contributions(dist: torch.Tensor, served: torch.Tensor,
     d = dist.float()
     return torch.where(served & (dist >= 0), exp_xla_f32(ftz(-d / cs)),
                        0.0)
+
+
+def block_scores(addr: np.ndarray, contrib: np.ndarray):
+    """Per-block sums of per-access contributions (float32, access
+    order — the device table's segment-sum order)."""
+    addr = np.asarray(addr)
+    uniq, inv = np.unique(addr, return_inverse=True)
+    scores = np.zeros(uniq.shape[0], np.float32)
+    np.add.at(scores, inv, np.asarray(contrib, np.float32))
+    return uniq, scores
+
+
+class PopularityTracker:
+    """Running per-block popularity with exponential aging across windows:
+    a sorted (address, score) numpy table, float32, accumulated in the
+    device table's order (decay, per-window block sums, one add). The
+    reference's queue builders (``most_popular``, ``top_known``,
+    ``least_popular``) come with the staged maintenance mode that calls
+    them."""
+
+    def __init__(self, decay: float = 0.5):
+        self.decay = np.float32(decay)
+        self._addr = np.empty(0, np.int64)   # sorted block addresses
+        self._val = np.empty(0, np.float32)  # scores, aligned with _addr
+
+    def __len__(self) -> int:
+        return int(self._addr.size)
+
+    def update(self, addr: np.ndarray, contrib: np.ndarray) -> None:
+        self._val *= self.decay
+        uniq, scores = block_scores(addr, contrib)
+        uniq = uniq.astype(np.int64)
+        found = np.zeros(uniq.size, bool)
+        if self._addr.size and uniq.size:
+            pos = np.searchsorted(self._addr, uniq)
+            in_range = pos < self._addr.size
+            found[in_range] = self._addr[pos[in_range]] == uniq[in_range]
+            self._val[pos[found]] += scores[found]
+        if (~found).any():
+            merged_a = np.concatenate([self._addr, uniq[~found]])
+            merged_v = np.concatenate([self._val, scores[~found]])
+            order = np.argsort(merged_a, kind="stable")
+            self._addr, self._val = merged_a[order], merged_v[order]
+        # drop negligible entries to bound memory (paper: 0.15% overhead)
+        if self._addr.size > 1_000_000:
+            thr = np.percentile(self._val, 10)
+            keep = self._val > thr
+            self._addr, self._val = self._addr[keep], self._val[keep]
+
+    def scores_for(self, addrs: np.ndarray) -> np.ndarray:
+        addrs = np.asarray(addrs, np.int64)
+        out = np.zeros(addrs.shape, np.float32)
+        if self._addr.size and addrs.size:
+            pos = np.searchsorted(self._addr, addrs)
+            in_range = pos < self._addr.size
+            hit = in_range.copy()
+            hit[in_range] = self._addr[pos[in_range]] == addrs[in_range]
+            out[hit] = self._val[pos[hit]]
+        return out
 
 
 class PopularityTable(NamedTuple):
@@ -183,6 +248,12 @@ def _scores(addr, val, queries):
     pos_c = pos.clamp(max=k - 1)
     hit = (pos < k) & (addr.gather(1, pos_c) == queries)
     return torch.where(hit, val.gather(1, pos_c), 0.0)
+
+
+def table_scores(table: PopularityTable, addrs) -> torch.Tensor:
+    """``[V, M]`` scores of ``[V, M]`` int32 query addresses (0 when
+    unknown)."""
+    return _scores(table.addr, table.val, addrs)
 
 
 def _resident(tags: torch.Tensor, ways: torch.Tensor):

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.policies import Policy
-from repro_torch.kernels import resolve_device
+from repro_torch.kernels import resolve_device, upload
 from repro_torch.kernels.reuse_distance.ops import count_between
 
 COLD = -1   # distance of a cold / not-served access
@@ -159,24 +159,43 @@ def _block_rows(addr: torch.Tensor, is_write: torch.Tensor,
 
 
 def _distances_batch(addrs, writes, policy: Policy, sizing_reads_only: bool,
-                     device) -> list[DistResult | None]:
-    """Decompose ragged per-VM traces in one batched pass; per-VM numpy
-    results, ``None`` for empty traces."""
+                     device, host: bool = True) -> list[DistResult | None]:
+    """Decompose ragged per-VM traces in one batched pass; per-VM results
+    (numpy, or tensors on the device with ``host=False``), ``None`` for
+    empty traces."""
     lens = [int(np.shape(a)[0]) for a in addrs]
     live = [v for v, n in enumerate(lens) if n > 0]
     if not live:
         return [None] * len(lens)
     dev = resolve_device(device)
     amat, wmat = _pad_rows(addrs, writes, live, lens)
-    dist, served, touch = decompose(
-        torch.from_numpy(amat).to(dev), torch.from_numpy(wmat).to(dev),
-        policy, sizing_reads_only=sizing_reads_only)
-    dist, served, touch = (x.cpu().numpy() for x in (dist, served, touch))
+    dist, served, touch = decompose(upload(amat, dev), upload(wmat, dev),
+                                    policy,
+                                    sizing_reads_only=sizing_reads_only)
+    if host:
+        dist, served, touch = (x.cpu().numpy() for x in (dist, served,
+                                                         touch))
     out: list[DistResult | None] = [None] * len(lens)
     for i, v in enumerate(live):
         out[v] = DistResult(dist[i, :lens[v]], served[i, :lens[v]],
                             touch[i, :lens[v]])
     return out
+
+
+def pod_distances(addr, is_write, policy: Policy, device="cuda",
+                  host: bool = True) -> DistResult:
+    """POD decomposition of one trace (one ``[1, b]`` row of
+    :func:`pod_distances_batch`). With ``host=False`` the channels stay on
+    the device as tensors."""
+    r = _distances_batch([addr], [is_write], policy, True, device, host)[0]
+    if r is None:                      # empty trace: empty channels
+        e = np.empty(0, np.int32)
+        chans = (e, e.astype(bool), e.astype(bool))
+        if not host:
+            dev = resolve_device(device)
+            chans = tuple(torch.from_numpy(x).to(dev) for x in chans)
+        r = DistResult(*chans)
+    return r
 
 
 def pod_distances_batch(addrs, writes, policy: Policy,

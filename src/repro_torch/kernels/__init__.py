@@ -23,6 +23,8 @@ launch counter (:func:`launch_counts`), and nothing else does.
     ``clean_scatter`` and the fused per-interval maintenance;
     ``run_sums`` is an in-order segment sum that keeps the popularity
     table's float32 sums in the reference's order
+  * ``decode_attention`` — ``paged_decode_attention``, one-token flash
+    decode over the two-tier KV serving pool's pages
 
 ``chain_probe.cu`` is no kernel of the path: it times one dependent
 on-chip load, which prices the datapath's dependency chain.
@@ -43,12 +45,13 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("count_between.cu", "evict_scatter.cu", "promote_scatter.cu",
            "clean_scatter.cu", "datapath.cu", "single_level.cu",
-           "run_sums.cu", "chain_probe.cu")
+           "run_sums.cu", "decode_attention.cu", "chain_probe.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 KERNELS = ("count_between", "evict_scatter", "promote_scatter",
-           "clean_scatter", "two_level", "single_level", "run_sums")
+           "clean_scatter", "two_level", "single_level", "run_sums",
+           "paged_decode_attention")
 _launches = dict.fromkeys(KERNELS, 0)
 _lib = None
 
@@ -65,6 +68,8 @@ _SIGNATURES = {
     "etica_single_level": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
     "etica_run_sums": (_P, _P, _P, _P, _P, _I, _I, _P),
+    "etica_paged_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                     _I, _I, _I, _F, _I, _I, _P),
     "etica_chain_probe": (_P, _I, _P, _P),
 }
 
@@ -80,6 +85,16 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def upload(x, dev: torch.device) -> torch.Tensor:
+    """A host (numpy) array as a tensor on ``dev``; on the card through a
+    pinned buffer and a ``non_blocking`` copy on the current stream, so
+    the upload does not wait for the device."""
+    t = torch.as_tensor(x)
+    if dev.type == "cpu":
+        return t
+    return t.pin_memory().to(dev, non_blocking=True)
 
 
 def launch_counts() -> dict[str, int]:

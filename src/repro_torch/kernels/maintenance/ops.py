@@ -13,6 +13,12 @@ popularity-table merge -> eviction queue -> evict -> free space of the
 post-eviction state -> promotion queue -> promote -> (``clean_quota >
 0``) the background cleaner. It never synchronises with the host; only
 the count vectors it returns need to reach the host.
+
+:func:`serving_maintenance` is the two-tier KV serving workload's
+interval (the JAX ``serving_maintenance``): tenants play the VMs and
+sessions the blocks. It is plain PyTorch on the device around the
+popularity table's ``run_sums`` kernel, and it too never synchronises
+with the host.
 """
 from __future__ import annotations
 
@@ -283,3 +289,117 @@ def maintenance_interval(ssd: CacheState, table: pop.PopularityTable,
         dirty_left = (ssd.dirty & active).sum(dim=(1, 2), dtype=torch.int32)
     return (ssd, table, flushed, promoted, eqlen, pqlen, drops, cleaned,
             dirty_left)
+
+
+# ---------------------------------------------------------------------------
+# the fused interval of the two-tier KV serving workload
+# ---------------------------------------------------------------------------
+
+INT32_MAX = 2**31 - 1
+
+
+def _pad_cols(x: torch.Tensor, width: int, fill) -> torch.Tensor:
+    """Pad the last axis of ``x`` to ``width`` with ``fill``."""
+    k = width - x.shape[-1]
+    if k <= 0:
+        return x
+    return torch.cat([x, x.new_full(x.shape[:-1] + (k,), fill)], dim=-1)
+
+
+def _serving_impl(table: pop.PopularityTable, dist, served, waddr, wtenant,
+                  cand_sid, cand_pages, over, cache_size, dirty_age, *,
+                  decay: float, clean_quota: int):
+    t_axis, n = table.addr.shape[0], waddr.shape[0]
+    dev = waddr.device
+
+    # 1) Eq. 1 contributions over the mixed window
+    contrib = pop.contributions(dist, served, cache_size)
+
+    # 2) stable demux into [T, N] per-tenant rows in arrival order; pad
+    #    entries (tenant -1) go to a spare row T that is cut off
+    tn = torch.where(wtenant >= 0, wtenant, t_axis).to(torch.int32)
+    order = torch.sort(tn, stable=True).indices
+    tn_sorted = tn[order]
+    starts = torch.searchsorted(
+        tn_sorted, torch.arange(t_axis + 1, dtype=torch.int32, device=dev))
+    rows = tn_sorted.long()
+    dest = rows * n + torch.arange(n, device=dev) - starts[rows]
+    rows_addr = torch.zeros((t_axis + 1) * n, dtype=torch.int32,
+                            device=dev).scatter_(0, dest, waddr[order])
+    rows_contrib = torch.zeros((t_axis + 1) * n, dtype=torch.float32,
+                               device=dev).scatter_(0, dest, contrib[order])
+    rows_addr = rows_addr.view(t_axis + 1, n)
+    rows_contrib = rows_contrib.view(t_axis + 1, n)
+    n_valid = starts[1:] - starts[:-1]
+    live = n_valid > 0
+
+    # 3) [T, K] popularity merge
+    table, drops = pop.table_update(table, rows_addr[:t_axis],
+                                    rows_contrib[:t_axis], n_valid, live,
+                                    decay)
+
+    # 4) cold-first eviction ranking against the updated table; running
+    #    page totals turn the over-quota count into per-session takes
+    valid = cand_sid >= 0
+    scores = pop.table_scores(table, torch.where(valid, cand_sid, 0))
+    key = torch.where(valid, scores, float("inf"))
+    eorder = torch.sort(key, dim=1, stable=True).indices
+    pages_sorted = torch.where(valid, cand_pages, 0).gather(1, eorder)
+    cum_before = pages_sorted.cumsum(dim=1) - pages_sorted
+    take = torch.minimum((over[:, None] - cum_before).clamp(min=0),
+                         pages_sorted)
+
+    # 5) the cleaner: each tenant's oldest clean_quota dirty pages (ages
+    #    are unique append sequence numbers, so the order is total)
+    if clean_quota > 0:
+        dvalid = dirty_age >= 0
+        dorder = torch.sort(torch.where(dvalid, dirty_age, INT32_MAX),
+                            dim=1, stable=True).indices
+        ranks = torch.empty_like(dorder).scatter_(
+            1, dorder, torch.arange(dorder.shape[1], device=dev)
+            .expand_as(dorder).contiguous())
+        dtake = dvalid.sum(dim=1, dtype=torch.int32).clamp(max=clean_quota)
+        fpick = (dvalid & (ranks < dtake[:, None])).to(torch.int32)
+    else:
+        fpick = torch.zeros_like(dirty_age)
+    return (table, drops, eorder.to(torch.int32), take.to(torch.int32),
+            fpick)
+
+
+def serving_maintenance(table: pop.PopularityTable, dist, served, waddr,
+                        wtenant, cand_sid, cand_pages, over, cache_size, *,
+                        decay: float, dirty_age=None, clean_quota: int = 0):
+    """One fused serving-maintenance interval for all tenants.
+
+    Every array operand is a tensor on the table's device: ``dist`` int32
+    / ``served`` bool ``[N]`` are the mixed activation window's POD(RO)
+    channels, ``waddr``/``wtenant`` int32 ``[N]`` its session ids and
+    record-time tenants (``-1`` = padding), ``cand_sid``/``cand_pages``
+    int32 ``[T, Smax]`` each tenant's resident sessions in page-table
+    insertion order with their resident-page counts (``-1``/0 padding),
+    ``over`` int32 ``[T]`` pages over quota, ``cache_size`` float32 ``[1]``
+    the Eq. 1 normaliser, and ``dirty_age`` int32 ``[T, Dmax]`` the ages
+    of each tenant's dirty pages (``-1`` = padding; needed when
+    ``clean_quota > 0``).
+
+    Returns ``(table, pop_drops[T], order[T, Sb], take[T, Sb], fpick[T,
+    Dmax])``: ``order[t, i]`` indexes ``cand_sid[t]`` coldest first and
+    ``take[t, i]`` is how many of that session's pages to release;
+    ``fpick`` marks the cleaner's flushes. The window, candidates and
+    dirty ages are padded to power-of-two widths as in the reference.
+    """
+    t_axis = table.addr.shape[0]
+    n = waddr.shape[0]
+    nb = _next_pow2(max(n, 64))
+    sb = _next_pow2(max(cand_sid.shape[1], 8))
+    if dirty_age is None:
+        dirty_age = waddr.new_full((t_axis, 1), -1)
+    dmax = dirty_age.shape[1]
+    db = _next_pow2(max(dmax, 8))
+    table, drops, eorder, take, fpick = _serving_impl(
+        table, _pad_cols(dist, nb, -1), _pad_cols(served, nb, False),
+        _pad_cols(waddr, nb, 0), _pad_cols(wtenant, nb, -1),
+        _pad_cols(cand_sid, sb, -1), _pad_cols(cand_pages, sb, 0), over,
+        cache_size, _pad_cols(dirty_age, db, -1), decay=float(decay),
+        clean_quota=int(clean_quota))
+    return table, drops, eorder, take, fpick[:, :dmax]

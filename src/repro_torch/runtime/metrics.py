@@ -1,8 +1,8 @@
 """Prometheus text-format telemetry export for the cache controllers.
 
 The PyTorch port's own copy of :mod:`repro.runtime.metrics` for the
-block-cache controllers (the serving collectors come with the serving
-slice; the per-class family with the IO classifier):
+block-cache controllers and the two-tier KV serving manager (the
+per-class family comes with the IO classifier):
 
 * :class:`Metric` + :func:`render` — a dependency-free renderer of the
   Prometheus text exposition format v0.0.4 (``# HELP`` / ``# TYPE``
@@ -14,18 +14,22 @@ slice; the per-class family with the IO classifier):
   :class:`~repro_torch.core.controller.EticaCache` or
   ``PartitionedSingleLevelCache`` as metric families, including the
   background cleaner's channels (``flushes``, ``evict_flushes``,
-  ``dirty_resident``) and the popularity-table overflow counter.
-* :func:`collect_telemetry` — the ``etica_dispatch_seconds`` span
-  histograms, the journal row counter, and the last interval's per-VM
+  ``dirty_resident``) and the popularity-table overflow counter;
+  :func:`collect_serving` — a serving manager's ``Stats`` as the
+  ``etica_serving_*`` families.
+* :func:`collect_telemetry` — the ``{prefix}_dispatch_seconds`` span
+  histograms, the journal row counter, and the last interval's
   request/hit deltas and overload flags of a
-  :class:`~repro_torch.runtime.telemetry.TelemetryRecorder`.
+  :class:`~repro_torch.runtime.telemetry.TelemetryRecorder`, per VM or
+  per tenant.
 * :func:`parse_exposition` — a strict parser/validator for the same
   format. Histogram families accept exactly the suffixed sample triplet
   and are checked for cumulative buckets, a ``+Inf`` bucket, and
   bucket/count agreement.
 
-Metric names are the reference's, and :func:`render_cache` renders the
-reference's text byte for byte from equal stats.
+Metric names are the reference's, and :func:`render_cache` /
+:func:`render_serving` render the reference's text byte for byte from
+equal stats.
 """
 from __future__ import annotations
 
@@ -33,8 +37,9 @@ import dataclasses
 import re
 
 __all__ = [
-    "HistogramValue", "Metric", "render", "render_cache", "collect_cache",
-    "collect_telemetry", "parse_exposition",
+    "HistogramValue", "Metric", "render", "render_cache", "render_serving",
+    "collect_cache", "collect_serving", "collect_telemetry",
+    "parse_exposition",
 ]
 
 _NAME_RE = re.compile(r"[a-zA-Z_:][a-zA-Z0-9_:]*\Z")
@@ -331,13 +336,68 @@ def collect_cache(cache) -> list:
             drops, lat]
 
 
-def collect_telemetry(rec) -> list:
+def collect_serving(mgr) -> list:
+    """Metric families from a :class:`~repro_torch.kvcache.manager
+    .TwoTierKVManager`'s ``Stats``, with the deferred write-back
+    channels."""
+    s = mgr.stats
+
+    def counter(name, help_, value):
+        return Metric(f"etica_serving_{name}", "counter",
+                      help_).add({}, value)
+    dirty = Metric("etica_serving_dirty_resident", "gauge",
+                   "Uncommitted (dirty) KV pages resident in HBM.")
+    dirty.add({}, s.dirty_resident)
+    return [
+        counter("activations_total",
+                "Session activations (tier-1 reads).", s.activations),
+        counter("hits_total",
+                "Fully HBM-resident activations.", s.hits),
+        counter("appends_total",
+                "KV pages generated (WBWO commits).", s.appends),
+        counter("dma_read_bytes_total",
+                "Host-to-HBM DMA bytes (misses, promotions).",
+                s.dma_read_bytes),
+        counter("dma_write_bytes_total",
+                "HBM-to-host DMA bytes (the wear analog).",
+                s.dma_write_bytes),
+        counter("latency_seconds_total",
+                "Modeled DMA latency, summed.", s.latency_s),
+        counter("sessions_ended_total",
+                "Retired sessions (churn).", s.sessions_ended),
+        counter("pop_drops_total",
+                "Popularity-table merge-overflow drops.", s.pop_drops),
+        counter("flushes_total",
+                "Dirty pages committed by the background cleaner.",
+                s.flushes),
+        counter("evict_flushes_total",
+                "Dirty pages committed on forced slot release.",
+                s.evict_flushes),
+        counter("dirty_dropped_total",
+                "Dirty pages retired with their session (no DMA).",
+                s.dirty_dropped),
+        dirty,
+    ]
+
+
+def _vector(x) -> tuple[bool, list]:
+    """(is_vector, values) of a journal cell: an array or a scalar."""
+    try:
+        return True, list(x)
+    except TypeError:
+        return False, [x]
+
+
+def collect_telemetry(rec, prefix: str = "etica",
+                      label: str = "vm") -> list:
     """Metric families from a :class:`~repro_torch.runtime.telemetry
-    .TelemetryRecorder` of a cache controller: the dispatch-span
-    wall-clock histograms, the journal row counter, and the *last*
-    recorded interval's per-VM request/hit deltas and LBICA-style
-    overload flags (``etica_overloaded``)."""
-    hist = Metric("etica_dispatch_seconds", "histogram",
+    .TelemetryRecorder`: the dispatch-span wall-clock histograms, the
+    journal row counter, and the *last* recorded interval's request/hit
+    deltas and LBICA-style overload flags (``{prefix}_overloaded``).
+    ``label`` names the per-entity axis (``vm`` for the cache
+    controllers, ``tenant`` for the serving manager); a scalar cell (the
+    serving journal's requests and hits) is one unlabelled sample."""
+    hist = Metric(f"{prefix}_dispatch_seconds", "histogram",
                   "Wall-clock seconds per fused dispatch span "
                   "(opt-in timers; waits for the span's work at close).")
     for name in sorted(rec.spans):
@@ -346,14 +406,14 @@ def collect_telemetry(rec) -> list:
                  HistogramValue(tuple(s.buckets),
                                 tuple(int(c) for c in s.counts),
                                 float(s.total)))
-    ivals = Metric("etica_telemetry_intervals_total", "counter",
+    ivals = Metric(f"{prefix}_telemetry_intervals_total", "counter",
                    "Interval samples appended to the telemetry journal.")
     ivals.add({}, rec.journal.total)
-    i_req = Metric("etica_interval_requests", "gauge",
+    i_req = Metric(f"{prefix}_interval_requests", "gauge",
                    "Requests observed in the last telemetry interval.")
-    i_hit = Metric("etica_interval_hits", "gauge",
+    i_hit = Metric(f"{prefix}_interval_hits", "gauge",
                    "Cache hits observed in the last telemetry interval.")
-    over = Metric("etica_overloaded", "gauge",
+    over = Metric(f"{prefix}_overloaded", "gauge",
                   "LBICA-style overload flag from the last interval "
                   "(windowed hit-ratio collapse or queue pressure).")
     if rec.journal.total:
@@ -362,10 +422,15 @@ def collect_telemetry(rec) -> list:
                             (over, "overloaded")):
             if col not in rec.journal:
                 continue
-            for v, x in enumerate(row[col]):
-                metric.add({"vm": str(v)}, float(x))
+            vec, values = _vector(row[col])
+            for i, x in enumerate(values):
+                metric.add({label: str(i)} if vec else {}, float(x))
     return [hist, ivals, i_req, i_hit, over]
 
 
 def render_cache(cache) -> str:
     return render(collect_cache(cache))
+
+
+def render_serving(mgr) -> str:
+    return render(collect_serving(mgr))

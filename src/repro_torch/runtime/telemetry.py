@@ -1,15 +1,16 @@
 """Interval telemetry for the port's controller.
 
-The parts of :mod:`repro.runtime.telemetry` that the two-level
-controller's main path uses, without JAX:
+The parts of :mod:`repro.runtime.telemetry` that the cache controllers
+and the serving manager use, without JAX:
 
 * :class:`Journal` — a bounded columnar ring of per-interval samples
-  (O(window) host memory); the JSONL spill and :func:`load_journal` of
-  the reference are not ported yet. ``cache_clean_log`` /
+  (O(window) host memory), with an optional JSONL spill of every row
+  (:func:`load_journal` reads it back). ``cache_clean_log`` /
   ``cache_dirty_log`` are the background cleaner's views of it.
-* :class:`TelemetryRecorder` — ``sample_cache`` turns host-side stats the
-  controller already fetched into per-interval deltas (no device
-  transfers of its own), and ``span`` times a dispatch. Span timing is
+* :class:`TelemetryRecorder` — ``sample_cache`` / ``sample_serving`` turn
+  host-side stats the controller already fetched into per-interval
+  deltas (no device transfers of their own), and ``span`` times a
+  dispatch. Span timing is
   off by default (a shared no-op span, no synchronisation). When it is
   on, a span on the card is timed with CUDA events recorded on the
   current stream and waits for the end event at close, which is the one
@@ -21,6 +22,7 @@ from __future__ import annotations
 import bisect
 import collections
 import dataclasses
+import json
 import time
 
 import numpy as np
@@ -34,6 +36,11 @@ CACHE_DELTA_KEYS = ("reads", "writes", "read_hits_l1", "read_hits_l2",
                     "disk_writes", "flushes", "evict_flushes", "bypassed",
                     "pop_drops", "latency_sum")
 
+SERVING_DELTA_KEYS = ("activations", "hits", "appends", "dma_read_bytes",
+                      "dma_write_bytes", "latency_s", "sessions_ended",
+                      "pop_drops", "flushes", "evict_flushes",
+                      "dirty_dropped")
+
 
 class Journal:
     """Bounded columnar ring of per-interval rows.
@@ -41,14 +48,18 @@ class Journal:
     ``append(row)`` takes a ``{name: scalar | ndarray}`` dict; each column
     keeps the last ``window`` values in a preallocated ``[window, ...]``
     ring (shape and dtype fixed by the column's first appearance), so
-    memory is O(window · columns), never O(run length).
+    memory is O(window · columns), never O(run length). With ``spill``
+    set, every row is also written to that path as one JSON line
+    (``{"i": <row index>, <column>: <value>, ...}``) and flushed at once.
     """
 
     window = 512
 
-    def __init__(self):
+    def __init__(self, spill=None):
         self.total = 0                 # rows ever appended
         self._cols: dict[str, np.ndarray] = {}
+        self._spill_path = spill
+        self._spill_f = None
 
     def __contains__(self, name: str) -> bool:
         return name in self._cols
@@ -75,6 +86,14 @@ class Journal:
                     f"established {buf.shape[1:]}")
             buf[pos] = a
         self.total += 1
+        if self._spill_path is not None:
+            if self._spill_f is None:
+                # one journal owns one spill file: truncate on first row
+                self._spill_f = open(self._spill_path, "w")
+            line = {"i": self.total - 1}
+            line.update({k: np.asarray(v).tolist() for k, v in row.items()})
+            self._spill_f.write(json.dumps(line) + "\n")
+            self._spill_f.flush()
 
     def _order(self) -> np.ndarray:
         n = self.retained
@@ -93,6 +112,33 @@ class Journal:
             raise IndexError("empty journal")
         pos = (self.total - 1) % self.window
         return {k: buf[pos] for k, buf in self._cols.items()}
+
+    def close(self) -> None:
+        if self._spill_f is not None:
+            self._spill_f.close()
+            self._spill_f = None
+
+
+def load_journal(path) -> dict[str, np.ndarray]:
+    """A JSONL spill read back as ``{column: [rows, ...] ndarray}``; rows
+    whose columns differ from the first row's are rejected."""
+    rows = []
+    with open(path) as f:
+        for ln, line in enumerate(f, 1):
+            if not line.strip():
+                continue
+            try:
+                rows.append(json.loads(line))
+            except json.JSONDecodeError as e:
+                raise ValueError(f"{path}: line {ln}: {e}") from None
+    if not rows:
+        return {}
+    keys = set(rows[0])
+    for ln, r in enumerate(rows, 1):
+        if set(r) != keys:
+            raise ValueError(f"{path}: row {ln} schema {sorted(r)} != "
+                             f"{sorted(keys)}")
+    return {k: np.asarray([r[k] for r in rows]) for k in keys}
 
 # ---------------------------------------------------------------------------
 # dispatch-span histograms (opt-in: waits for the span to finish)
@@ -230,14 +276,14 @@ class TelemetryRecorder:
     cumulative-stats snapshot to compute interval deltas, so sharing an
     instance between controllers would interleave their deltas.
 
-    Guarantees: ``sample_cache`` only reads host-side values the
-    controller already fetched and never touches cache state, so results
-    are identical with telemetry on or off. ``span_timing`` is the opt-in
+    Guarantees: ``sample_*`` only reads host-side values the controller
+    already fetched and never touches cache state, so results are
+    identical with telemetry on or off. ``span_timing`` is the opt-in
     exception that adds synchronisation.
     """
 
-    def __init__(self, span_timing: bool = False):
-        self.journal = Journal()
+    def __init__(self, spill=None, span_timing: bool = False):
+        self.journal = Journal(spill=spill)
         self.span_timing = bool(span_timing)
         self.spans: dict[str, SpanStats] = {}
         self.overload = OverloadConfig()
@@ -319,6 +365,40 @@ class TelemetryRecorder:
                                   np.int64),
             "clean_ran": bool(clean_ran),
             "overloaded": self._flag(hits, reqs, pressure),
+        }
+        self.journal.append(row)
+        return row
+
+    def sample_serving(self, stats, *, quota, used) -> dict:
+        """One maintenance-tick sample from a serving manager's ``Stats``
+        plus the per-tenant quota state (all host-side already)."""
+        cur = {k: np.asarray([float(getattr(stats, k))])
+               for k in SERVING_DELTA_KEYS}
+        dirty = int(stats.dirty_resident)
+        d = self._deltas(cur)
+        quota = np.asarray(quota, np.int64)
+        used = np.asarray(used, np.int64)
+        # queue pressure per tenant: resident pages pressing the quota
+        pressure = (quota > 0) & (used >= np.ceil(
+            self.overload.pressure * quota).astype(np.int64))
+        global_flag = self._flag(d["hits"], d["activations"],
+                                 np.zeros(1, bool))
+        row = {
+            "requests": d["activations"][0],
+            "hits": d["hits"][0],
+            "appends": d["appends"][0],
+            "dma_read_bytes": d["dma_read_bytes"][0],
+            "dma_write_bytes": d["dma_write_bytes"][0],
+            "latency": d["latency_s"][0],
+            "flushes": d["flushes"][0],
+            "evict_flushes": d["evict_flushes"][0],
+            "dirty_dropped": d["dirty_dropped"][0],
+            "sessions_ended": d["sessions_ended"][0],
+            "pop_drops": d["pop_drops"][0],
+            "dirty_resident": dirty,
+            "quota": quota,
+            "used": used,
+            "overloaded": pressure | bool(global_flag[0]),
         }
         self.journal.append(row)
         return row

@@ -26,6 +26,10 @@ web_server            Filebench Web Server — random cold reads (Fig. 3b)
 video_server          Filebench Video Server — pure sequential reads (Fig. 3c)
 varmail               Filebench Varmail — 50/50 random read/write (Fig. 3d)
 ====================  =========================================================
+
+:func:`generate_sessions` is the serving workload's session
+arrival/churn stream (the two-tier KV manager's trace); it draws from the
+generator in the reference's order, so a seed gives the same events.
 """
 from __future__ import annotations
 
@@ -260,3 +264,144 @@ def make(name: str, n: int, seed: int = 0, addr_offset: int = 0,
             spec, working_set=max(int(spec.working_set * scale), 16))
     return generate(spec, n, seed=seed, addr_offset=addr_offset)
 
+
+
+
+# -- serving session churn --------------------------------------------------
+
+# event kinds of a SessionTrace (the serving analog of a block trace)
+SESSION_NEW = 0        # session arrives (sid, tenant)
+SESSION_ACTIVATE = 1   # session scheduled into a decode batch (KV read)
+SESSION_APPEND = 2     # session generates one KV page (WBWO write)
+SESSION_END = 3        # session leaves for good (frees tier-2 state)
+
+
+@dataclasses.dataclass
+class SessionTrace:
+    """Arrival/churn event stream driving the two-tier KV serving stack.
+
+    Parallel arrays, one entry per event: ``kind`` (the ``SESSION_*``
+    constants), ``sid`` (session id, unique per NEW), ``tenant`` (valid
+    on NEW, ``-1`` elsewhere)."""
+    kind: np.ndarray     # int8  [N]
+    sid: np.ndarray      # int32 [N]
+    tenant: np.ndarray   # int8  [N]
+
+    def __len__(self) -> int:
+        return int(self.kind.size)
+
+    @property
+    def num_sessions(self) -> int:
+        return int((self.kind == SESSION_NEW).sum())
+
+    @property
+    def max_live(self) -> int:
+        delta = np.where(self.kind == SESSION_NEW, 1,
+                         np.where(self.kind == SESSION_END, -1, 0))
+        return int(np.cumsum(delta).max(initial=0))
+
+
+@dataclasses.dataclass
+class SessionSpec:
+    """Knobs of the serving churn generator.
+
+    Models the characteristics the ETICA policy keys on, translated to
+    serving: zipf re-reference (a few hot sessions absorb most
+    activations), recency bias (new sessions are hotter), bursty
+    scheduling (a scheduled session tends to stay in the batch for a few
+    consecutive rounds), bounded lifetimes (sessions retire after a
+    bounded number of touches, so the population churns instead of
+    growing without bound)."""
+    num_tenants: int = 4
+    target_live: int = 1024     # concurrent-session level after ramp-up
+    zipf_a: float = 1.2         # skew of activation popularity over live
+                                # sessions (rank 0 = most recent arrival)
+    p_new: float = 0.05         # arrival probability per event once ramped
+    p_append: float = 0.35      # chance a touch generates a page (vs pure
+                                # activation) while below max_pages
+    max_pages: int = 8          # per-session KV budget (pages)
+    lifetime: int = 40          # touches before a session must retire
+    p_end: float = 0.02         # early-retire chance per touch once the
+                                # session has written >= 2 pages
+    burst_len: float = 4.0      # mean consecutive touches to one session
+                                # (geometric) — bursty batch residency
+    tenant_weights: tuple | None = None   # arrival mix (default uniform)
+
+
+def generate_sessions(spec: SessionSpec, n: int, seed: int = 0) -> SessionTrace:
+    """Deterministic session arrival/churn stream of ``n`` events.
+
+    O(1) per event: popularity is a precomputed zipf CDF over recency
+    ranks, sampled by ``searchsorted`` and folded onto however many
+    sessions are currently live."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, max(spec.target_live, 1) + 1, dtype=np.float64)
+    cdf = np.cumsum(ranks ** (-spec.zipf_a))
+    cdf /= cdf[-1]
+    tw = None
+    if spec.tenant_weights is not None:
+        tw = np.asarray(spec.tenant_weights, np.float64)
+        tw = tw / tw.sum()
+
+    kind = np.empty(n, np.int8)
+    sid_col = np.empty(n, np.int32)
+    ten_col = np.full(n, -1, np.int8)
+
+    live: list[int] = []          # newest last
+    pages: dict[int, int] = {}
+    touches: dict[int, int] = {}
+    next_sid = 0
+    burst_sid, burst_left = -1, 0
+    # pre-draw the cheap scalars in one block each
+    u_new = rng.random(n)
+    u_rank = rng.random(n)
+    u_act = rng.random(n)
+    u_end = rng.random(n)
+    mean_burst = max(spec.burst_len, 1.0)
+
+    i = 0
+    while i < n:
+        ramping = len(live) < spec.target_live // 2
+        p_new = max(spec.p_new, 0.0) + (0.5 if ramping else 0.0)
+        if not live or (len(live) < spec.target_live and u_new[i] < p_new):
+            sid = next_sid
+            next_sid += 1
+            live.append(sid)
+            pages[sid] = 0
+            touches[sid] = 0
+            t = (int(rng.choice(spec.num_tenants, p=tw)) if tw is not None
+                 else int(rng.integers(spec.num_tenants)))
+            kind[i] = SESSION_NEW
+            sid_col[i] = sid
+            ten_col[i] = t
+            burst_sid = sid
+            burst_left = max(int(rng.geometric(1.0 / mean_burst)), 1)
+            i += 1
+            continue
+        if burst_left > 0 and burst_sid in pages:
+            sid = burst_sid
+            burst_left -= 1
+        else:
+            r = int(np.searchsorted(cdf, u_rank[i]))
+            sid = live[-1 - (r % len(live))]     # rank 0 = newest arrival
+            burst_sid = sid
+            burst_left = max(int(rng.geometric(1.0 / mean_burst)) - 1, 0)
+        touches[sid] += 1
+        if pages[sid] == 0 or (pages[sid] < spec.max_pages
+                               and u_act[i] < spec.p_append):
+            kind[i] = SESSION_APPEND
+            pages[sid] += 1
+        else:
+            kind[i] = SESSION_ACTIVATE
+        sid_col[i] = sid
+        retire = (touches[sid] >= spec.lifetime
+                  or (pages[sid] >= 2 and u_end[i] < spec.p_end))
+        i += 1
+        if retire and len(live) > 1 and i < n:
+            kind[i] = SESSION_END
+            sid_col[i] = sid
+            live.remove(sid)
+            del pages[sid], touches[sid]
+            burst_left = 0
+            i += 1
+    return SessionTrace(kind=kind, sid=sid_col, tenant=ten_col)

@@ -165,6 +165,12 @@ def test_port_job_loads_no_jax_and_no_repro():
                              sim_chunk=200, device="cpu")
         res = eci.run(trace)
         assert sum(r.stats["reads"] + r.stats["writes"] for r in res) == 1200
+        import repro_torch.kvcache
+        from repro_torch.launch import serve
+        stats = serve.main(["--events", "300", "--live", "16",
+                            "--hbm-pages", "16", "--decode-every", "10",
+                            "--device", "cpu"])
+        assert stats["activations"] > 0
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "repro" or m.startswith("repro."))

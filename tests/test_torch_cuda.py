@@ -178,3 +178,70 @@ def test_eci_card_equals_cpu(dev):
     assert n["count_between"] > 0 and n["single_level"] > 0, n
     _same_results(card, make_eci_cache(1200, 4, device="cpu",
                                        **kw).run(trace))
+
+
+@pytest.mark.parametrize("b,h,hkv,d,pool,ps,n_pages,lengths", [
+    (5, 16, 4, 128, 40, 16, 6, [0, 1, 40, 96, 500]),
+    (2, 4, 2, 64, 16, 32, 4, [45, 128]),        # tests/test_kernels.py
+    (1, 2, 2, 32, 8, 64, 2, [70])])             # shapes: 2 tiles per page
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.bfloat16)])
+def test_paged_decode_kernel(dev, q_dtype, kv_dtype, b, h, hkv, d, pool, ps,
+                             n_pages, lengths):
+    """Against the plain version: GQA, a random page table with ids past
+    either end of the pool, a zero-length row, a row past its table's
+    end, pages of more than one 32-token tile. float32 outputs within
+    2e-5; bf16 outputs within one bf16 ulp (or 2e-5)."""
+    from repro_torch.kernels.decode_attention import ops
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.normal(size=(b, h, d)).astype(np.float32))
+    kp, vp = (torch.from_numpy(rng.normal(size=(pool, ps, hkv, d)).astype(
+        np.float32)) for _ in range(2))
+    pt = torch.from_numpy(rng.integers(-pool - 2, pool + 2,
+                                       (b, n_pages)).astype(np.int32))
+    lengths = torch.tensor(lengths, dtype=torch.int32)
+    args = [q.to(dev, q_dtype), kp.to(dev, kv_dtype), vp.to(dev, kv_dtype),
+            pt.to(dev), lengths.to(dev)]
+    got = ops.paged_decode_attention(*args).float()
+    want = ops.paged_decode_attention_plain(*args).float()
+    err = (got - want).abs()
+    if q_dtype == torch.bfloat16:
+        ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(
+            min=2**-126))) - 7)
+        assert bool((err <= ulp.clamp(min=2e-5)).all())
+    else:
+        assert float(err.max()) <= 2e-5
+
+
+def test_serving_card_equals_cpu(dev):
+    """A small churn run through the batched manager with decode, and
+    the host-dict oracle: card == CPU (Stats, placements, pools)."""
+    from repro_torch import kernels
+    from repro_torch.kvcache import TwoTierConfig, TwoTierKVManager
+    from repro_torch.launch.serve import kv_page_bank, run_events
+    from repro_torch.traces.generators import SessionSpec, generate_sessions
+    cfg = TwoTierConfig(page_size=8, hbm_pages=24, num_kv_heads=2,
+                        head_dim=16, dtype="bfloat16",
+                        maintenance_interval=16, resize_interval=64,
+                        pop_capacity=128, clean_quota=2)
+    trace = generate_sessions(SessionSpec(num_tenants=3, target_live=48,
+                                          max_pages=4, lifetime=20),
+                              1500, seed=0)
+    kb, vb = kv_page_bank(cfg, 8, 7)
+    out = {}
+    for batched in (True, False):
+        for device in ("cuda", "cpu"):
+            kernels.reset_launch_counts()
+            mgr = TwoTierKVManager(cfg, 3, batched=batched, device=device)
+            run_events(mgr, trace, kb, vb, decode_every=4)
+            out[batched, device] = mgr
+            if device == "cuda" and batched:
+                n = kernels.launch_counts()
+                assert all(n[k] > 0 for k in ("count_between", "run_sums",
+                                              "paged_decode_attention")), n
+    for batched in (True, False):
+        card, cpu = out[batched, "cuda"], out[batched, "cpu"]
+        assert card.stats == cpu.stats == out[True, "cpu"].stats
+        assert card.slot_owner == cpu.slot_owner and card.free == cpu.free
+        assert torch.equal(card.k_pool.cpu(), cpu.k_pool)
