@@ -24,7 +24,12 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    shape and at qwen3-4b batched decode (B 64, H 32, Hkv 8, D 128, 4096
    tokens, a 1 GiB bf16 pool), with poisoned tokens past each length and
    a zero-length row, beside ``scaled_dot_product_attention`` over
-   gathered pages;
+   gathered pages; holds ``popularity`` to its plain version, exactly,
+   at the staged path's shape (the 12-VM and 1024-VM first blocks, a
+   cache size per VM) and at the Pallas benchmark's (N 8192, 1024
+   blocks, cs 64), beside ``torch.exp`` + ``index_add_``; and
+   ``promote_scatter``'s dedupe branch on queues that hold every address
+   twice;
 3. runs the paper's §5.1 deployment (12 VMs x 20,000 requests, 64 x 64
    geometry) through ``EticaCache.run`` on the card and again on the
    CPU; per-VM stats and allocation histories must be identical;
@@ -47,20 +52,28 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    == CPU and equal to ``BENCH_serving.json``; ETICA with the cleaner,
    card == CPU; then ETICA at qwen3-4b's KV width (8 KV heads, head_dim
    128, bf16 pool) with a paged decode every 8th activation, every
-   decode held to its plain version on the card.
+   decode held to its plain version on the card;
+9. runs the oracle ladder on the card: the 12-VM deployment in the
+   staged (``fused_maintenance=False``) and sequential (``batched=False``)
+   modes, without and with the cleaner, each equal to phase 3's or phase
+   5's fused card run (stats, allocation histories, interval logs, final
+   DRAM and SSD states); ECI-Cache sequential equal to phase 5's batched
+   run (the logs' demands, allocations and policies included); FAST and
+   L2ARC over the same mix as one stream (256 x 64), equal to the JAX
+   package's CPU values (hard-coded below); requests/s of every mode.
 
-Each card run of phases 3 to 8 sets the launch counts to 0 just before
-and reads them just after; every kernel of that path's own set must
-have launched (on the serving paths, and no other). Phase 2 holds the
-kernels against their plain versions at the shapes of both the 12-VM
-and the 1024-VM runs.
+Each card run of phases 3 to 9 sets the launch counts to 0 just before
+and reads them just after; exactly the kernels of that path's own set
+must have launched (``popularity`` only on the staged paths). Phase 2
+holds the kernels against their plain versions at the shapes of both
+the 12-VM and the 1024-VM runs.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per
-kernel, ``launches`` from its own path: the 12-VM paths, and the
-full-width serving run for ``paged_decode_attention``); the last is
-``{"ok":
-true, "device": {...}}``. Any failed phase raises and the exit code is
-nonzero. Without a CUDA device it exits 2 and prints no result.
+kernel, ``launches`` from its own path: the 12-VM paths, the full-width
+serving run for ``paged_decode_attention`` and the staged 12-VM run for
+``popularity``); the last is ``{"ok": true, "device": {...}}``. Any
+failed phase raises and the exit code is nonzero. Without a CUDA device
+it exits 2 and prints no result.
 """
 from __future__ import annotations
 
@@ -109,11 +122,39 @@ BENCH_SERVING = {"sessions": 1358, "max_live": 1024,
                  "etica": (10360832, 13723648, "0.862"),
                  "lru": (21604352, 5136384, "0.953")}
 
+# FAST and L2ARC on the paper 12-VM mix as one stream, 256 x 64 sets x
+# ways, the JAX package on the CPU:
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "
+#   from repro.core import baselines, interleave, Geometry
+#   from repro.traces import make
+#   vms = ('hm_1', 'proj_0', 'stg_1', 'usr_0', 'ts_0', 'wdev_0', 'web_3',
+#          'usr_0', 'mds_0', 'src2_0', 'rsrch_0', 'mds_1')
+#   trace = interleave([make(n, 20_000, seed=i, addr_offset=i * 10_000_000,
+#                            scale=1.0) for i, n in enumerate(vms)], seed=42)
+#   for f in (baselines.make_fast, baselines.make_l2arc):
+#       print(f(8192, 16384, geometry=Geometry(256, 64)).run(trace).stats)"
+FAST_JAX_CPU = {
+    "reads": 136093.0, "writes": 103907.0, "read_hits_l1": 44357.0,
+    "read_hits_l2": 36625.0, "write_hits_l2": 94435.0,
+    "cache_writes_l2": 103917.0, "disk_reads": 55111.0, "disk_writes": 0.0,
+    "latency_sum": 276.98324209451675, "bypassed": 0.0, "pop_drops": 0.0,
+    "flushes": 0.0, "dirty_resident": 0.0}
+L2ARC_JAX_CPU = {
+    "reads": 136093.0, "writes": 103907.0, "read_hits_l1": 44357.0,
+    "read_hits_l2": 34489.0, "write_hits_l2": 89363.0,
+    "cache_writes_l2": 105747.0, "disk_reads": 57247.0,
+    "disk_writes": 14544.0, "latency_sum": 294.7682449221611,
+    "bypassed": 0.0, "pop_drops": 0.0, "flushes": 0.0, "dirty_resident": 0.0}
+
 # the kernels each path must launch
 ETICA_KERNELS = ("count_between", "evict_scatter", "promote_scatter",
                  "two_level", "run_sums")
 CLEAN_KERNELS = ETICA_KERNELS + ("clean_scatter",)
 ECI_KERNELS = ("count_between", "single_level")
+STAGED_KERNELS = ("count_between", "promote_scatter", "two_level",
+                  "popularity")     # + evict_scatter where a queue formed
+SEQ_KERNELS = ("count_between", "two_level")
+GLOBAL_KERNELS = ("two_level", "promote_scatter")
 SERVING_KERNELS = ("count_between", "run_sums")
 SERVING_DECODE_KERNELS = SERVING_KERNELS + ("paged_decode_attention",)
 
@@ -468,22 +509,125 @@ def check_scatters(dev, rng, v, s, w):
                                 library_ms=lib_ms,
                                 library_device_ms=lib_dev_ms)
 
-    got = ops.promote_scatter(*st, pq, ways_t, t_t)
-    want = ops.promote_scatter_plain(*st, pq, ways_t, t_t)
+    # the fused path's contract: unique queues, dedupe off
+    args = (*st, pq, ways_t, t_t)
+    got = ops.promote_scatter(*args, dedupe=False)
+    want = ops.promote_scatter_plain(*args, dedupe=False)
     err = max_abs_err(got, want)
-    ms = cuda_ms(lambda: ops.promote_scatter(*st, pq, ways_t, t_t), 50)
-    dev_ms = graph_ms(lambda: ops.promote_scatter(*st, pq, ways_t, t_t))
+    ms = cuda_ms(lambda: ops.promote_scatter(*args, dedupe=False), 50)
+    dev_ms = graph_ms(lambda: ops.promote_scatter(*args, dedupe=False))
     plain_ms = cuda_ms(
-        lambda: ops.promote_scatter_plain(*st, pq, ways_t, t_t), 10)
+        lambda: ops.promote_scatter_plain(*args, dedupe=False), 10)
     b, by = bound_ms(2 * 9.0 * v * s * w + 4.0 * v * q + 12.0 * v,
                      2.0 * (v * s * w + v * q))
     log(f"promote_scatter [{v},{s},{w}] Q={q}: exact, promoted "
         f"{int(got[3].sum())}, kernel {ms:.4f} ms (device {dev_ms:.4f} ms), "
         f"plain {plain_ms:.4f} ms, bound {b:.5f} ms ({by})")
+    # the dedupe branch (staged path, FAST, L2ARC): every address of the
+    # queue's first half twice, in random order
+    dq = np.stack([rng.permutation(np.concatenate([r[:q // 2], r[:q // 2]]))
+                   for r in pqueue])
+    dargs = (*st, torch.from_numpy(dq).to(dev), ways_t, t_t)
+    got = ops.promote_scatter(*dargs)
+    err = max(err, max_abs_err(got, ops.promote_scatter_plain(*dargs)))
+    # slots whose tag the dedupe changes (a second copy takes no way)
+    moved = int((ops.promote_scatter(*dargs, dedupe=False)[0]
+                 != got[0]).sum())
+    d_ms = cuda_ms(lambda: ops.promote_scatter(*dargs), 50)
+    d_dev_ms = graph_ms(lambda: ops.promote_scatter(*dargs))
+    d_plain_ms = cuda_ms(lambda: ops.promote_scatter_plain(*dargs), 10)
+    log(f"promote_scatter dedupe [{v},{s},{w}] Q={q}, each address twice: "
+        f"exact, promoted {int(got[3].sum())} ({moved} slots hold another "
+        f"tag without the dedupe), kernel {d_ms:.4f} ms (device "
+        f"{d_dev_ms:.4f} ms), plain {d_plain_ms:.4f} ms")
     out["promote_scatter"] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
                                   plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                                  library_ms=None)
+                                  library_ms=None, dedupe_ms=d_ms,
+                                  dedupe_device_ms=d_dev_ms,
+                                  dedupe_plain_ms=d_plain_ms)
     return out
+
+
+def check_popularity(dev, rng, blocks, label):
+    """``popularity`` against its plain version, exactly: (a) the staged
+    path's shape, the TRD channels of the window's first ``[V, chunk]``
+    block as ``_maintain_staged`` forms them, with a cache size per VM;
+    (b) the Pallas benchmark's shape (N 8192, 1024 blocks, cs 64,
+    benchmarks/kernels_bench.py). Times the kernel (call and CUDA-graph
+    device time), its plain version, and the library pair ``torch.exp`` +
+    ``index_add_`` (in atomics' order, not bit-exact)."""
+    import torch
+    from repro_torch.core import controller
+    from repro_torch.kernels.popularity import ops
+    a_np, w_np = blocks[0]
+    v = a_np.shape[0]
+    a = torch.from_numpy(a_np).to(dev)
+    w = torch.from_numpy(w_np).to(dev)
+    lens_np = (a_np >= 0).sum(axis=1).astype(np.int32)
+    lens = torch.from_numpy(lens_np).to(dev)
+    amat, dist, served = controller._trd_rows(a, w, lens, int(lens_np.max()))
+    col = torch.arange(amat.shape[1], device=dev)[None, :]
+    waddr = torch.where(col < lens[:, None], amat, -1)
+    cs = torch.from_numpy((rng.integers(8, 65, v) * 64).astype(
+        np.float32)).to(dev)
+    vm = torch.arange(v, dtype=torch.int64, device=dev)[:, None]
+    key = torch.where(waddr >= 0, (vm << 31) + waddr.long(), ops._NO_BLOCK)
+    uniq, inv = torch.unique(key.reshape(-1), return_inverse=True)
+    nb = int((uniq < ops._NO_BLOCK).sum())
+    seg = inv.reshape(amat.shape).to(torch.int32)
+    n_b = 8192
+    bench = (torch.from_numpy(rng.integers(-1, 300, n_b).astype(
+                 np.int32)).to(dev)[None],
+             torch.from_numpy(rng.random(n_b) < 0.5).to(dev)[None],
+             torch.from_numpy(rng.integers(0, 1024, n_b).astype(
+                 np.int32)).to(dev)[None], 1024,
+             torch.full((1,), 64.0, device=dev))
+    batch = [x for x in ops.block_popularity_batch(waddr, dist, served, cs)
+             if x is not None]
+    if (len(batch) != int((lens > 0).sum())
+            or sum(len(x[0]) for x in batch) != nb):
+        raise AssertionError("popularity: the batch form's segments differ "
+                             "from the grouping checked here")
+    row = None
+    for name, args in ((f"(a) {label}", (dist, served, seg, nb, cs)),
+                       ("(b) Pallas bench", bench)):
+        d, sv, sg, k, c = args
+        got = ops.popularity_rows(*args)
+        err = max_abs_err([got], [ops.popularity_rows_plain(*args)])
+        ms = cuda_ms(lambda: ops.popularity_rows(*args), 50)
+        dev_ms = graph_ms(lambda: ops.popularity_rows(*args))
+        sort_ms = graph_ms(lambda: ops._segments(sg, k))   # the grouping
+        plain_ms = cuda_ms(lambda: ops.popularity_rows_plain(*args), 3)
+        flat = sg.reshape(-1).long()
+
+        def library():
+            c_ = torch.where(sv & (d >= 0),
+                             torch.exp(-d.float() / c.clamp(min=1)[:, None]),
+                             0.0)
+            return torch.zeros(k + 1, device=dev).index_add_(
+                0, flat, c_.reshape(-1))
+        lib_ms = cuda_ms(library, 50)
+        lib_dev_ms = graph_ms(library)
+        # dist, served and the segment ids read once, each row's cache
+        # size, the scores written; ~30 operations per contributing access
+        live = float((sv & (d >= 0) & (sg < k)).sum())
+        b, by = bound_ms(9.0 * d.numel() + 4.0 * c.numel() + 4.0 * k,
+                         30.0 * live)
+        log(f"popularity {name} [{d.shape[0]},{d.shape[1]}] {k} blocks: "
+            f"exact, kernel {ms:.4f} ms (device {dev_ms:.4f} ms, of which "
+            f"the stable sort and segment starts {sort_ms:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, torch.exp + index_add_ {lib_ms:.4f} ms "
+            f"(device {lib_dev_ms:.4f} ms), bound {b:.6f} ms ({by}), "
+            f"{live:.0f} contributing accesses")
+        stats = dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
+                     segments_device_ms=sort_ms, plain_ms=plain_ms,
+                     bound_ms=b, bound_by=by,
+                     library_ms=lib_ms, library_device_ms=lib_dev_ms)
+        if row is None:
+            row = stats
+        else:
+            row["pallas_bench"] = stats
+    return row
 
 
 def check_clean(dev, rng, v, s, w):
@@ -894,29 +1038,26 @@ def fig15_config(active, total):
 
 def drive(build, trace, label, expect):
     """One card run of the controller's ``run`` with the launch counts
-    set to 0 just before and read just after (every kernel in
+    set to 0 just before and read just after (exactly the kernels in
     ``expect`` must have launched), then the same run on the CPU, which
-    must give identical results. Returns ``(launches, cache, results)``
-    of the card run."""
+    must give identical results. Returns ``(launches, cache, results,
+    requests/s)`` of the card run."""
     import torch
     from repro_torch import kernels
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     cache, res_card, wall = run_controller(build, trace, "cuda")
-    launches = kernels.launch_counts()
+    launches = serving_launches(label, expect, only=True)
     peak = torch.cuda.max_memory_allocated()
     log(f"{label} ({len(trace)} requests): card {wall:.3f} s, "
         f"{len(trace) / wall:.0f} requests/s, peak device memory "
         f"{peak / 2**20:.1f} MiB, launches {launches}")
-    missing = [k for k in expect if launches[k] == 0]
-    if missing:
-        raise AssertionError(f"{label}: kernels not launched: {missing}")
     _, res_cpu, wall_cpu = run_controller(build, trace, "cpu")
     assert_same(res_card, res_cpu, label)
     hit = float(np.mean([r.hit_ratio for r in res_card]))
     log(f"{label}: card == CPU (CPU plain path {wall_cpu:.1f} s); avg_hit "
         f"{hit:.4f}, ssd_writes {sum(r.ssd_writes for r in res_card):.0f}")
-    return launches, cache, res_card
+    return launches, cache, res_card, len(trace) / wall
 
 
 def clean_totals(cache) -> tuple[int, int, int]:
@@ -951,13 +1092,13 @@ def check_fig14(launches, scale_reqs=8000):
                       geometry_dram=geo, geometry_ssd=geo,
                       resize_interval=2_000, promo_interval=500)
     n = len(FIG14_VMS)
-    launches["fig14-etica"], _, e_res = drive(
+    launches["fig14-etica"], _, e_res, _ = drive(
         etica(cfg, n), trace, "fig14 ETICA", ETICA_KERNELS)
-    launches["fig14-eci"], _, c_res = drive(
+    launches["fig14-eci"], _, c_res, _ = drive(
         eci(1200, n, geometry=geo, resize_interval=2_000), trace,
         "fig14 ECI-Cache", ECI_KERNELS)
     ccfg = dataclasses.replace(cfg, clean_quota=CLEAN_QUOTA)
-    launches["fig14-etica-clean"], clean, cl_res = drive(
+    launches["fig14-etica-clean"], clean, cl_res, _ = drive(
         etica(ccfg, n), trace, "fig14 ETICA clean_quota=4", CLEAN_KERNELS)
     red = endurance("fig14", e_res, c_res, clean)
     got = {vm: (int(a.ssd_writes), int(b.ssd_writes))
@@ -1260,6 +1401,135 @@ def check_serving_sync(dev, rng):
             f" CPU, {ms:.4f} ms per call (plain PyTorch around run_sums)")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the oracle ladder (staged and sequential modes, FAST, L2ARC)
+# ---------------------------------------------------------------------------
+
+def drive_card(build, trace, label, expect):
+    """One card run with the launch counts set to 0 just before and read
+    just after: exactly the kernels in ``expect`` launched. Returns
+    ``(launches, cache, results, requests/s)``."""
+    from repro_torch import kernels
+    kernels.reset_launch_counts()
+    cache, res, wall = run_controller(build, trace, "cuda")
+    launches = serving_launches(label, expect, only=True)
+    rate = len(trace) / wall
+    log(f"{label} ({len(trace)} requests): card {wall:.3f} s, {rate:.0f} "
+        f"requests/s, launches {launches}")
+    return launches, cache, res, rate
+
+
+def same_run(label, want, got, ignore=()):
+    """Two controllers' results, interval logs and final states, exactly
+    (``want``/``got`` are ``(cache, results)``), but for the stats keys
+    in ``ignore``."""
+    import dataclasses
+    import torch
+    (wc, wres), (gc, gres) = want, got
+
+    def cut(res):
+        return [dataclasses.replace(r, stats={k: x for k, x in r.stats.items()
+                                              if k not in ignore})
+                for r in res]
+    assert_same(cut(gres), cut(wres), label)
+    names = ("logs",) if hasattr(wc, "logs") else ("logs_dram", "logs_ssd")
+    for name in names:
+        wl, gl = getattr(wc, name), getattr(gc, name)
+        if len(wl) != len(gl) or any(
+                not np.array_equal(a.demands, b.demands)
+                or not np.array_equal(a.alloc, b.alloc)
+                or a.policies != b.policies for a, b in zip(wl, gl)):
+            raise AssertionError(f"{label}: {name} differ")
+    views = ("vm_cache",) if hasattr(wc, "vm_cache") else ("vm_dram",
+                                                            "vm_ssd")
+    for view in views:
+        for v in range(len(wres)):
+            for a, b in zip(getattr(wc, view)(v), getattr(gc, view)(v)):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{label}: VM {v} {view} differs")
+
+
+def check_oracle_ladder(launches, paper, fused, clean, eci_run):
+    """Phase 9: the staged and sequential modes of the paper's 12-VM
+    deployment, without and with the cleaner, each equal to its fused
+    card run (phases 3 and 5); ECI-Cache sequential equal to its batched
+    run; FAST and L2ARC on the same mix as one stream, equal to the JAX
+    package's CPU values. Each run launches exactly its own kernels."""
+    import dataclasses
+    from repro_torch.core.baselines import make_fast, make_l2arc
+    from repro_torch.core.controller import EticaConfig, Geometry
+    rates = {}
+    for quota, (fc, fres, frate) in ((0, fused), (CLEAN_QUOTA, clean)):
+        tag = "-clean" if quota else ""
+        cfg = EticaConfig(dram_capacity=8192, ssd_capacity=16384,
+                          clean_quota=quota)
+        extra = ("clean_scatter",) if quota else ()
+        # the staged path launches the evict scatter only for a non-empty
+        # queue (a partition at least 90% full); the fused one always
+        if np.sum(fc.telemetry.journal.column("evict_queue")):
+            extra += ("evict_scatter",)
+        for mode, kw, expect in (
+                ("staged", dict(fused_maintenance=False),
+                 STAGED_KERNELS + extra),
+                ("seq", dict(batched=False), SEQ_KERNELS)):
+            label = f"paper-12vm{tag}-{mode}"
+            launches[label], cache, res, rates[label] = drive_card(
+                etica(dataclasses.replace(cfg, **kw), 12), paper, label,
+                expect)
+            # pop_drops counts entries pushed past the fused path's
+            # bounded [V, K] table; the trackers are unbounded
+            same_run(label, (fc, fres), (cache, res), ignore=("pop_drops",))
+            if any(r.stats["pop_drops"] for r in res):
+                raise AssertionError(f"{label}: a tracker dropped entries")
+        rates[f"paper-12vm{tag}"] = frate
+        drops = [int(r.stats["pop_drops"]) for r in fres]
+        log(f"paper-12vm{tag}: staged == sequential == fused (stats but "
+            f"pop_drops, alloc_history, logs, final DRAM and SSD states); "
+            f"the fused run's [V, {fc.cfg.pop_capacity}] table dropped "
+            f"{drops} entries per VM, the trackers none")
+    for mode in ("staged", "seq"):
+        span_breakdown(etica(dataclasses.replace(
+            EticaConfig(dram_capacity=8192, ssd_capacity=16384),
+            **(dict(fused_maintenance=False) if mode == "staged"
+               else dict(batched=False))), 12), paper, f"paper-12vm-{mode}")
+
+    ec, eres, erate = eci_run
+    launches["paper-12vm-eci-seq"], cache, res, rates["paper-12vm-eci-seq"] \
+        = drive_card(eci(8192 + 16384, 12, geometry=Geometry(64, 64),
+                         resize_interval=10_000, batched=False), paper,
+                     "paper-12vm-eci-seq", ECI_KERNELS)
+    same_run("paper-12vm-eci-seq", (ec, eres), (cache, res))
+    rates["paper-12vm-eci"] = erate
+    log("paper-12vm-eci-seq == paper-12vm-eci (stats, alloc_history, the "
+        "logs' demands, allocations and policies, final states)")
+
+    for name, factory, want in (("fast", make_fast, FAST_JAX_CPU),
+                                ("l2arc", make_l2arc, L2ARC_JAX_CPU)):
+        from repro_torch import kernels
+        import torch
+        label = f"paper-12vm-{name}"
+        kernels.reset_launch_counts()
+        cache = factory(8192, 16384, geometry=Geometry(256, 64),
+                        device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cache.run(paper)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[label] = serving_launches(label, GLOBAL_KERNELS, only=True)
+        rates[label] = len(paper) / wall
+        got = {k: res.stats[k] for k in want}
+        if got != want:
+            raise AssertionError(f"{label}: {got} != the JAX CPU values "
+                                 f"{want}")
+        log(f"{label} (one stream, 256 x 64): card {wall:.3f} s, "
+            f"{rates[label]:.0f} requests/s, hit {res.hit_ratio:.4f}, "
+            f"ssd_writes {res.ssd_writes:.0f}: equal to the JAX CPU values; "
+            f"launches {launches[label]}")
+    log("requests/s by path: " + ", ".join(f"{k} {v:.0f}"
+                                            for k, v in rates.items()))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1316,6 +1586,8 @@ def main() -> int:
     check_clean(dev, rng, 1024, 16, 32)
     rows["run_sums"] = check_maintenance(dev, rng, 12, 64, 64, (600, 1000))
     check_maintenance(dev, rng, 1024, 16, 32, (20, 60))
+    rows["popularity"] = check_popularity(dev, rng, blocks12, "12-VM staged")
+    check_popularity(dev, rng, blocks1024, "1024-VM staged")
     rows["paged_decode_attention"] = check_decode(dev, rng)
     check_serving_sync(dev, rng)
 
@@ -1323,14 +1595,14 @@ def main() -> int:
     # consolidation at 128 and 1024 VMs; card == CPU in each
     launches = {}
     cfg = EticaConfig(dram_capacity=8192, ssd_capacity=16384)
-    launches["paper-12vm"], _, paper_res = drive(
+    launches["paper-12vm"], fused, paper_res, fused_rate = drive(
         etica(cfg, 12), paper, "paper 12-VM", ETICA_KERNELS)
     span_breakdown(etica(cfg, 12), paper, "paper 12-VM")
-    launches["fig15-128vm"], _, _ = drive(
+    launches["fig15-128vm"], *_ = drive(
         etica(fig15_config(128, len(fig128)), 128), fig128, "fig15 128-VM",
         ETICA_KERNELS)
     build1024 = etica(fig15_config(1024, len(fig1024)), 1024)
-    launches["fig15-1024vm"], _, _ = drive(build1024, fig1024,
+    launches["fig15-1024vm"], *_ = drive(build1024, fig1024,
                                            "fig15 1024-VM", ETICA_KERNELS)
     span_breakdown(build1024, fig1024, "fig15 1024-VM")
     log(f"fig15 1024-VM avg_hit beside the JAX package's CPU value "
@@ -1339,14 +1611,14 @@ def main() -> int:
     # phase 5: the 12-VM deployment under the endurance comparison
     ccfg = EticaConfig(dram_capacity=8192, ssd_capacity=16384,
                        clean_quota=CLEAN_QUOTA)
-    launches["paper-12vm-clean"], clean, _ = drive(
+    launches["paper-12vm-clean"], clean, clean_res, clean_rate = drive(
         etica(ccfg, 12), paper, "paper 12-VM ETICA clean_quota=4",
         CLEAN_KERNELS)
     span_breakdown(etica(ccfg, 12), paper, "paper 12-VM ETICA clean")
     geo64 = Geometry(num_sets=64, max_ways=64)
     build_eci = eci(8192 + 16384, 12, geometry=geo64,
                     resize_interval=10_000)
-    launches["paper-12vm-eci"], _, eci_res = drive(
+    launches["paper-12vm-eci"], eci_cache, eci_res, eci_rate = drive(
         build_eci, paper, "paper 12-VM ECI-Cache", ECI_KERNELS)
     span_breakdown(build_eci, paper, "paper 12-VM ECI-Cache")
     endurance("paper 12-VM", paper_res, eci_res, clean)
@@ -1356,7 +1628,7 @@ def main() -> int:
 
     # phase 7: ECI-Cache at the fig15 1024-VM configuration
     total = len(fig1024)
-    launches["fig15-1024vm-eci"], _, _ = drive(
+    launches["fig15-1024vm-eci"], *_ = drive(
         eci(37 * 1024, 1024, geometry=Geometry(num_sets=16, max_ways=32),
             resize_interval=total // 3, sim_chunk=total // 12),
         fig1024, "fig15 1024-VM ECI-Cache", ECI_KERNELS)
@@ -1369,6 +1641,12 @@ def main() -> int:
         serving_decodes=serving["decodes"],
         serving_max_abs_err=serving["max_abs_err"])
 
+    # phase 9: the oracle ladder on the card (staged, sequential, FAST,
+    # L2ARC)
+    check_oracle_ladder(launches, paper, (fused, paper_res, fused_rate),
+                        (clean, clean_res, clean_rate),
+                        (eci_cache, eci_res, eci_rate))
+
     sources = {"count_between": "src/repro_torch/csrc/count_between.cu",
                "evict_scatter": "src/repro_torch/csrc/evict_scatter.cu",
                "promote_scatter": "src/repro_torch/csrc/promote_scatter.cu",
@@ -1377,7 +1655,8 @@ def main() -> int:
                "single_level": "src/repro_torch/csrc/single_level.cu",
                "run_sums": "src/repro_torch/csrc/run_sums.cu",
                "paged_decode_attention":
-                   "src/repro_torch/csrc/decode_attention.cu"}
+                   "src/repro_torch/csrc/decode_attention.cu",
+               "popularity": "src/repro_torch/csrc/popularity.cu"}
     replaces = {
         "count_between": "src/repro/kernels/reuse_distance/kernel.py:29",
         "evict_scatter": "src/repro/kernels/maintenance/kernel.py:51",
@@ -1390,12 +1669,14 @@ def main() -> int:
         "run_sums": "src/repro/core/popularity.py:204 (_compact_runs "
                     "scatter-add; no Pallas kernel)",
         "paged_decode_attention":
-            "src/repro/kernels/decode_attention/kernel.py:28"}
+            "src/repro/kernels/decode_attention/kernel.py:28",
+        "popularity": "src/repro/kernels/popularity/kernel.py:26"}
     # each kernel's own 12-VM path: the one whose launches it reports
     own_path = dict.fromkeys(kernels.KERNELS, "paper-12vm")
     own_path.update(clean_scatter="paper-12vm-clean",
                     single_level="paper-12vm-eci",
-                    paged_decode_attention="serving-full-width")
+                    paged_decode_attention="serving-full-width",
+                    popularity="paper-12vm-staged")
     log(smi)
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=sources[k], replaces=replaces[k],

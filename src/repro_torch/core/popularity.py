@@ -21,9 +21,13 @@ No function here synchronises with the host, so the whole maintenance
 interval stays on the device.
 
 :class:`PopularityTracker` and :func:`block_scores` are the reference's
-host-side numpy table, kept as it is: the serving manager's sequential
-oracle (``batched=False``) ranks sessions with one tracker per tenant,
-bit-identical to the device table's rows.
+host-side numpy table with its queue methods, kept as it is: the
+controller's sequential and staged maintenance modes (``batched=False``,
+``fused_maintenance=False``) keep one tracker per VM, and the serving
+manager's sequential oracle one per tenant, bit-identical to the device
+table's rows. The staged mode gets each window's block scores from the
+``popularity`` kernel (:mod:`repro_torch.kernels.popularity.ops`) and
+:meth:`PopularityTracker.merge` s them.
 """
 from __future__ import annotations
 
@@ -63,13 +67,10 @@ def block_scores(addr: np.ndarray, contrib: np.ndarray):
 class PopularityTracker:
     """Running per-block popularity with exponential aging across windows:
     a sorted (address, score) numpy table, float32, accumulated in the
-    device table's order (decay, per-window block sums, one add). The
-    reference's queue builders (``most_popular``, ``top_known``,
-    ``least_popular``) come with the staged maintenance mode that calls
-    them."""
+    device table's order (decay, per-window block sums, one add)."""
 
     def __init__(self, decay: float = 0.5):
-        self.decay = np.float32(decay)
+        self.rate = np.float32(decay)
         self._addr = np.empty(0, np.int64)   # sorted block addresses
         self._val = np.empty(0, np.float32)  # scores, aligned with _addr
 
@@ -77,9 +78,19 @@ class PopularityTracker:
         return int(self._addr.size)
 
     def update(self, addr: np.ndarray, contrib: np.ndarray) -> None:
-        self._val *= self.decay
-        uniq, scores = block_scores(addr, contrib)
-        uniq = uniq.astype(np.int64)
+        """One window: :meth:`decay`, the window's :func:`block_scores`,
+        :meth:`merge`."""
+        self.decay()
+        self.merge(*block_scores(addr, contrib))
+
+    def decay(self) -> None:
+        self._val *= self.rate
+
+    def merge(self, uniq: np.ndarray, scores: np.ndarray) -> None:
+        """Add one window's per-block scores (``uniq`` ascending and
+        unique): one add for a known block, a new entry otherwise."""
+        uniq = np.asarray(uniq).astype(np.int64)
+        scores = np.asarray(scores, np.float32)
         found = np.zeros(uniq.size, bool)
         if self._addr.size and uniq.size:
             pos = np.searchsorted(self._addr, uniq)
@@ -107,6 +118,48 @@ class PopularityTracker:
             hit[in_range] = self._addr[pos[in_range]] == addrs[in_range]
             out[hit] = self._val[pos[hit]]
         return out
+
+    def most_popular(self, candidates: np.ndarray, frac: float,
+                     limit: int | None = None) -> np.ndarray:
+        """Top-``frac`` of ``candidates`` by popularity, widened up to
+        ``limit`` (the free space); only blocks with a positive score."""
+        candidates = np.asarray(candidates)
+        if candidates.size == 0:
+            return candidates
+        s = self.scores_for(candidates)
+        k = max(int(np.ceil(np.float32(frac) * np.float32(candidates.size))),
+                1)
+        if limit is not None:
+            k = min(max(k, limit), candidates.size)
+        order = np.argsort(-s, kind="stable")
+        top = order[:k]
+        return candidates[top[s[top] > 0]]
+
+    def top_known(self, exclude: np.ndarray, limit: int) -> np.ndarray:
+        """Promotion queue: the highest-scored known blocks not in
+        ``exclude``, score descending, address descending on ties, at most
+        ``limit``."""
+        if limit <= 0 or not self._addr.size:
+            return np.empty(0, np.int64)
+        cand = self._val > 0
+        exclude = np.asarray(exclude)
+        if exclude.size:
+            cand &= ~np.isin(self._addr, exclude)
+        addrs, vals = self._addr[cand], self._val[cand]
+        order = np.lexsort((-addrs, -vals))
+        return addrs[order[:limit]]
+
+    def least_popular(self, candidates: np.ndarray, frac: float) -> np.ndarray:
+        """Eviction queue: the bottom-``frac`` of ``candidates`` (at least
+        one), lowest score first, ties in candidate order."""
+        candidates = np.asarray(candidates)
+        if candidates.size == 0:
+            return candidates
+        s = self.scores_for(candidates)
+        k = max(int(np.ceil(np.float32(frac) * np.float32(candidates.size))),
+                1)
+        order = np.argsort(s, kind="stable")
+        return candidates[order[:k]]
 
 
 class PopularityTable(NamedTuple):
@@ -144,15 +197,22 @@ def _run_sums(keys, vals, head, seg) -> torch.Tensor:
     summed left to right (float32, subnormals flushed)."""
     if keys.device.type != "cpu":
         return _run_sums_cuda(keys, vals, head, seg)
-    v, n = keys.shape
-    pos = torch.arange(n, device=keys.device).expand(v, n)
-    hpos = torch.full((v, n + 1), n, dtype=torch.int64, device=keys.device)
+    return run_sums_plain(head, seg, vals)
+
+
+def run_sums_plain(head, seg, vals) -> torch.Tensor:
+    """The plain version of :func:`_run_sums`: ``[V, N]`` sorted rows
+    whose runs start where ``head`` is set (run ordinal ``seg``); out[v,
+    r] is run r's left-to-right sum, 0 past the last run."""
+    v, n = head.shape
+    dev = head.device
+    pos = torch.arange(n, device=dev).expand(v, n)
+    hpos = torch.full((v, n + 1), n, dtype=torch.int64, device=dev)
     hpos.scatter_(1, torch.where(head, seg, n), pos)
     hpos = hpos[:, :n]                 # start of run r, n past the last run
-    nxt = torch.cat([hpos[:, 1:], torch.full((v, 1), n,
-                                             device=keys.device)], 1)
+    nxt = torch.cat([hpos[:, 1:], torch.full((v, 1), n, device=dev)], 1)
     length = torch.where(hpos < n, nxt.clamp(max=n) - hpos, 0)
-    acc = torch.zeros((v, n), dtype=torch.float32, device=keys.device)
+    acc = torch.zeros((v, n), dtype=torch.float32, device=dev)
     for k in range(int(length.max()) if length.numel() else 0):
         idx = (hpos + k).clamp(max=n - 1)
         acc = torch.where(k < length, ftz(acc + vals.gather(1, idx)), acc)

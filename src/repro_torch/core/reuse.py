@@ -32,6 +32,7 @@ from one decomposition pass, with one copy to the host at the end;
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import numpy as np
 import torch
@@ -198,6 +199,22 @@ def pod_distances(addr, is_write, policy: Policy, device="cuda",
     return r
 
 
+def urd_distances(addr, is_write, device="cuda") -> DistResult:
+    """URD (ECI-Cache) of one trace: read re-references over WB content
+    semantics (host numpy)."""
+    return pod_distances(addr, is_write, Policy.WB, device)
+
+
+def trd_distances(addr, is_write, device="cuda") -> DistResult:
+    """TRD (Centaur) of one trace: every re-access is served (host
+    numpy)."""
+    r = _distances_batch([addr], [is_write], Policy.WB, False, device)[0]
+    if r is None:
+        e = np.empty(0, np.int32)
+        r = DistResult(e, e.astype(bool), e.astype(bool))
+    return r
+
+
 def pod_distances_batch(addrs, writes, policy: Policy,
                         device="cuda") -> list[DistResult | None]:
     """Per-VM POD decompositions in one batched pass (ragged input)."""
@@ -319,11 +336,14 @@ def sizing_metrics_batch(addrs, writes, kind: str, grid, device="cuda"
 
 @dataclasses.dataclass(frozen=True)
 class SizingMetric:
-    """A baseline sizing metric: one of :data:`SIZING_KINDS` over its
-    own MRC size grid (blocks)."""
+    """A baseline sizing metric in batched and sequential forms: one of
+    :data:`SIZING_KINDS` over its own MRC size grid (blocks), and ``ref``,
+    the per-VM closure ``sub -> (demand, grid, curve)`` that the
+    sequential chassis (``batched=False``) runs, bit-identically."""
 
     kind: str
     grid: np.ndarray = dataclasses.field(compare=False)
+    ref: Callable = dataclasses.field(compare=False)
 
     def batch(self, addrs: list[np.ndarray], writes: list[np.ndarray],
               device="cuda"):

@@ -1,9 +1,14 @@
-"""Set-associative datapaths and their between-interval resize.
+"""Set-associative datapaths, their between-interval resize and the
+maintenance ops of the staged and sequential modes.
 
-The PyTorch counterpart of :mod:`repro.core.simulator` for the batched
-paths. Per-VM caches are stacked: every :class:`CacheState` tensor is
-``[V, S, W]`` (``tags``/``lru`` int32, ``-1`` = empty/never; ``dirty``
-bool), and per-VM way counts and clocks are ``[V]`` int32.
+The PyTorch counterpart of :mod:`repro.core.simulator`. Per-VM caches
+are stacked: every :class:`CacheState` tensor is ``[V, S, W]``
+(``tags``/``lru`` int32, ``-1`` = empty/never; ``dirty`` bool), and
+per-VM way counts and clocks are ``[V]`` int32. The per-state entry
+points of the sequential oracle (:func:`make_cache`,
+:func:`simulate_two_level`, :func:`simulate_single_level`,
+:func:`evict_blocks`, :func:`promote_blocks`) take one VM's ``[S, W]``
+state and run the same kernels at V = 1.
 
 :func:`simulate_two_level_batch` (ETICA's DRAM + SSD) and
 :func:`simulate_single_level_batch` (the one-level baselines, each VM
@@ -15,6 +20,12 @@ are exact no-ops, which is how ragged per-VM windows batch to a
 rectangle. Integer state and counts are bit-identical to the JAX
 reference, and ``latency_sum`` is bit-identical because both add each
 request's float32 latency in request order.
+
+The staged mode's maintenance dispatches (:func:`evict_blocks_batch`,
+:func:`promote_blocks_batch`, :func:`clean_batch`) take ragged per-VM
+queues, ``-1``-padded to a power-of-two width, through the scatter
+kernels; the numpy ``*_ref`` oracles at the end are the sequential
+mode's maintenance and resize.
 
 All functions are functional: they return new tensors and leave their
 inputs untouched.
@@ -81,6 +92,12 @@ def make_cache_batch(num_vms: int, num_sets: int, ways: int,
         tags=torch.full(shape, -1, dtype=torch.int32, device=device),
         lru=torch.full(shape, -1, dtype=torch.int32, device=device),
         dirty=torch.zeros(shape, dtype=torch.bool, device=device))
+
+
+def make_cache(num_sets: int, ways: int, device="cuda") -> CacheState:
+    """One VM's empty ``[S, W]`` cache on ``device``."""
+    return CacheState(*(x[0] for x in make_cache_batch(1, num_sets, ways,
+                                                       device)))
 
 
 def capacity_to_ways(capacity_blocks, num_sets: int,
@@ -168,6 +185,42 @@ def simulate_single_level_batch(addr, is_write, state: CacheState,
     return CacheState(tags, lru, dirty), _stats(counts, latency), t_end
 
 
+def _one(state: CacheState) -> CacheState:
+    return CacheState(*(x[None] for x in state))
+
+
+def _first(*xs):
+    return tuple(x[0] for x in xs)
+
+
+def _stats_one(st: Stats) -> Stats:
+    return Stats(*(x[0] for x in st))
+
+
+def simulate_two_level(addr, is_write, dram: CacheState, ssd: CacheState,
+                       ways_dram: int, ways_ssd: int, mode: str = "full",
+                       t0: int = 0):
+    """:func:`simulate_two_level_batch` for one VM: ``[N]`` requests over
+    ``[S, W]`` states. Returns ``(dram, ssd, Stats, t_end)`` with 0-d
+    counts."""
+    dram, ssd, st, t_end = simulate_two_level_batch(
+        np.asarray(addr)[None], np.asarray(is_write)[None], _one(dram),
+        _one(ssd), ways_dram, ways_ssd, mode, t0)
+    return (CacheState(*_first(*dram)), CacheState(*_first(*ssd)),
+            _stats_one(st), t_end[0])
+
+
+def simulate_single_level(addr, is_write, state: CacheState,
+                          ways_active: int, policy: Policy,
+                          t_cache: float = T_SSD, t0: int = 0):
+    """:func:`simulate_single_level_batch` for one VM under ``policy``.
+    Returns ``(state, Stats, t_end)`` with 0-d counts."""
+    state, st, t_end = simulate_single_level_batch(
+        np.asarray(addr)[None], np.asarray(is_write)[None], _one(state),
+        ways_active, policy_flags([policy], state.tags.device), t_cache, t0)
+    return CacheState(*_first(*state)), _stats_one(st), t_end[0]
+
+
 def _block(addr, is_write, device):
     """A ``[V, N]`` request block (numpy or tensors) as contiguous int32
     / bool tensors on ``device``."""
@@ -184,3 +237,174 @@ def _stats(counts, latency) -> Stats:
     ``[V]`` latency sums (the four maintenance channels zero)."""
     zero = torch.zeros_like(counts[:, 0])
     return Stats(*counts.unbind(1), latency, zero, zero, zero, zero)
+
+
+# ---------------------------------------------------------------------------
+# maintenance ops of the staged and sequential modes
+# ---------------------------------------------------------------------------
+
+def resident_blocks(state: CacheState, ways_active: int) -> np.ndarray:
+    """Blocks resident in one VM's first ``ways_active`` ways (host)."""
+    tags = state.tags[:, :max(ways_active, 0)].cpu().numpy()
+    return tags[tags >= 0]
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def _pad_addrs(addrs) -> np.ndarray:
+    """A queue as int32, ``-1``-padded to a power-of-two length."""
+    a = np.asarray(addrs).reshape(-1).astype(np.int32)
+    return np.pad(a, (0, _next_pow2(a.size) - a.size), constant_values=-1)
+
+
+def _pad_addrs_batch(queues: Sequence[np.ndarray]) -> np.ndarray:
+    """Ragged per-VM queues as a ``[V, Q]`` rectangle of a power-of-two
+    width, padded with ``-1``."""
+    q = _next_pow2(max((np.size(a) for a in queues), default=0))
+    out = np.full((len(queues), max(q, 1)), -1, np.int32)
+    for v, a in enumerate(queues):
+        a = np.asarray(a).reshape(-1)
+        out[v, :a.size] = a
+    return out
+
+
+def _queue(queues: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(queues).to(device)
+
+
+def evict_blocks(state: CacheState, addrs):
+    """Evict the given blocks from one VM's ``[S, W]`` state (``-1``
+    entries ignored). Returns ``(state, flushed)``, ``flushed`` the dirty
+    blocks dropped (0-d)."""
+    from repro_torch.kernels.maintenance import ops as maint_ops
+    if np.size(addrs) == 0:
+        return state, torch.zeros((), dtype=torch.int32)
+    st, flushed = maint_ops.evict(
+        _one(state), _queue(_pad_addrs(addrs)[None], state.tags.device))
+    return CacheState(*_first(*st)), flushed[0]
+
+
+def promote_blocks(state: CacheState, addrs, ways_active: int, t: int):
+    """Insert blocks into FREE active ways of one VM's ``[S, W]`` state:
+    the first occurrence of an address wins, resident blocks are skipped,
+    each set's free ways fill in way order in queue order (``-1`` entries
+    ignored). Returns ``(state, n_promoted)`` (0-d)."""
+    from repro_torch.kernels.maintenance import ops as maint_ops
+    if np.size(addrs) == 0:
+        return state, torch.zeros((), dtype=torch.int32)
+    dev = state.tags.device
+    st, n = maint_ops.promote(
+        _one(state), _queue(_pad_addrs(addrs)[None], dev),
+        _vec(ways_active, 1, dev), _vec(t, 1, dev))
+    return CacheState(*_first(*st)), n[0]
+
+
+def evict_blocks_batch(state: CacheState, queues: Sequence[np.ndarray]):
+    """Per-VM :func:`evict_blocks` over a stacked ``[V, S, W]`` state in
+    one launch. ``queues`` is one (possibly empty) address array per VM;
+    returns ``(state, flushed[V])``."""
+    from repro_torch.kernels.maintenance import ops as maint_ops
+    return maint_ops.evict(state, _queue(_pad_addrs_batch(queues),
+                                         state.tags.device))
+
+
+def promote_blocks_batch(state: CacheState, queues: Sequence[np.ndarray],
+                         ways_active, t):
+    """Per-VM :func:`promote_blocks` over a stacked ``[V, S, W]`` state in
+    one launch, with the first-occurrence dedupe; ``ways_active``/``t``
+    are ``[V]``. Returns ``(state, promoted[V])``."""
+    from repro_torch.kernels.maintenance import ops as maint_ops
+    v = state.tags.shape[0]
+    dev = state.tags.device
+    return maint_ops.promote(state, _queue(_pad_addrs_batch(queues), dev),
+                             _vec(ways_active, v, dev), _vec(t, v, dev))
+
+
+def clean_batch(state: CacheState, ways_active, quota):
+    """The background cleaner over a stacked ``[V, S, W]`` state: flush
+    up to ``quota[v]`` of VM v's oldest dirty active blocks. Returns
+    ``(state, flushed[V], dirty_left[V])``."""
+    from repro_torch.kernels.maintenance import ops as maint_ops
+    v = state.tags.shape[0]
+    dev = state.tags.device
+    return maint_ops.clean(state, _vec(ways_active, v, dev),
+                           _vec(quota, v, dev))
+
+
+# ---------------------------------------------------------------------------
+# numpy reference oracles (the sequential mode's resize and maintenance)
+# ---------------------------------------------------------------------------
+
+def _host(state: CacheState):
+    return tuple(x.cpu().numpy().copy() for x in state)
+
+
+def _like(state: CacheState, tags, lru, dirty) -> CacheState:
+    dev = state.tags.device
+    return CacheState(*(torch.from_numpy(x).to(dev)
+                        for x in (tags, lru, dirty)))
+
+
+def resize_ref(state: CacheState, old_ways: int, new_ways: int):
+    """Sequential numpy reference for one VM's resize: shrinking drops
+    the ways ``>= new_ways``. Returns ``(state, flushed)``."""
+    if new_ways >= old_ways:
+        return state, 0
+    tags, lru, dirty = _host(state)
+    flushed = int(dirty[:, new_ways:].sum())
+    tags[:, new_ways:] = -1
+    lru[:, new_ways:] = -1
+    dirty[:, new_ways:] = False
+    return _like(state, tags, lru, dirty), flushed
+
+
+def evict_blocks_ref(state: CacheState, addrs: np.ndarray):
+    """Sequential numpy reference for :func:`evict_blocks`."""
+    tags, lru, dirty = _host(state)
+    mask = np.isin(tags, addrs) & (tags >= 0)
+    flushed = int((dirty & mask).sum())
+    tags[mask] = -1
+    lru[mask] = -1
+    dirty[mask] = False
+    return _like(state, tags, lru, dirty), flushed
+
+
+def promote_blocks_ref(state: CacheState, addrs: np.ndarray,
+                       ways_active: int, t: int):
+    """Sequential numpy reference for :func:`promote_blocks`."""
+    tags, lru, dirty = _host(state)
+    num_sets, _ = tags.shape
+    n = 0
+    for a in np.asarray(addrs):
+        if a < 0:
+            continue
+        s = int(a) % num_sets
+        if (tags[s, :ways_active] == a).any():
+            continue
+        free = np.nonzero(tags[s, :ways_active] < 0)[0]
+        if free.size == 0:
+            continue
+        w = free[0]
+        tags[s, w] = a
+        lru[s, w] = t
+        dirty[s, w] = False
+        n += 1
+    return _like(state, tags, lru, dirty), n
+
+
+def clean_blocks_ref(state: CacheState, ways_active: int, quota: int):
+    """Sequential numpy reference of the background cleaner for one VM:
+    the ``quota`` oldest dirty active blocks, by (lru, ``set * W + way``),
+    become clean. Returns ``(state, flushed, dirty_left)``."""
+    tags, lru, dirty = _host(state)
+    num_sets, num_ways = tags.shape
+    wa = min(max(int(ways_active), 0), num_ways)
+    cand = [(int(lru[s, w]), s * num_ways + w, s, w)
+            for s in range(num_sets) for w in range(wa) if dirty[s, w]]
+    cand.sort()
+    take = min(max(int(quota), 0), len(cand))
+    for _, _, s, w in cand[:take]:
+        dirty[s, w] = False
+    return _like(state, tags, lru, dirty), take, len(cand) - take

@@ -34,6 +34,10 @@ class Trace:
             size=None if self.size is None else self.size[sl],
         )
 
+    @property
+    def n_reads(self) -> int:
+        return int(np.sum(~np.asarray(self.is_write)))
+
     def sizes(self) -> np.ndarray:
         """Request sizes in blocks; all-ones when no size channel."""
         if self.size is None:

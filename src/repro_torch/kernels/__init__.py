@@ -25,6 +25,9 @@ launch counter (:func:`launch_counts`), and nothing else does.
     table's float32 sums in the reference's order
   * ``decode_attention`` — ``paged_decode_attention``, one-token flash
     decode over the two-tier KV serving pool's pages
+  * ``popularity``     — ``popularity``, the Eq. 1 per-block scores
+    (contribution fused into an in-order segment sum) that the staged
+    maintenance mode merges into its host trackers
 
 ``chain_probe.cu`` is no kernel of the path: it times one dependent
 on-chip load, which prices the datapath's dependency chain.
@@ -45,13 +48,14 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("count_between.cu", "evict_scatter.cu", "promote_scatter.cu",
            "clean_scatter.cu", "datapath.cu", "single_level.cu",
-           "run_sums.cu", "decode_attention.cu", "chain_probe.cu")
+           "run_sums.cu", "decode_attention.cu", "popularity.cu",
+           "chain_probe.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 KERNELS = ("count_between", "evict_scatter", "promote_scatter",
            "clean_scatter", "two_level", "single_level", "run_sums",
-           "paged_decode_attention")
+           "paged_decode_attention", "popularity")
 _launches = dict.fromkeys(KERNELS, 0)
 _lib = None
 
@@ -60,7 +64,7 @@ _SIGNATURES = {
     "etica_count_between": (_P, _P, _P, _P, _I, _I, _P),
     "etica_evict_scatter": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "etica_promote_scatter": (_P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _P),
+                              _I, _I, _I, _I, _I, _P),
     "etica_clean_scatter": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "etica_two_level": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -70,6 +74,7 @@ _SIGNATURES = {
     "etica_run_sums": (_P, _P, _P, _P, _P, _I, _I, _P),
     "etica_paged_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                      _I, _I, _I, _F, _I, _I, _P),
+    "etica_popularity": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
     "etica_chain_probe": (_P, _I, _P, _P),
 }
 

@@ -82,14 +82,15 @@ def evict_scatter_plain(tags, lru, dirty, queue):
 # promote
 # ---------------------------------------------------------------------------
 
-def promote_scatter(tags, lru, dirty, queue, ways, t):
-    """Drain unique-address promotion queues into free active ways: per
-    set, the k-th eligible entry (valid, not resident in an active way,
-    ``ways > 0``) in queue order takes the set's k-th free active way,
-    with ``lru = t[v]`` and clean. Returns ``(tags, lru, dirty,
-    promoted[V])``."""
+def promote_scatter(tags, lru, dirty, queue, ways, t, dedupe: bool = True):
+    """Drain promotion queues into free active ways: per set, the k-th
+    eligible entry (valid, not resident in an active way, ``ways > 0``;
+    with ``dedupe``, also the first entry of its address in the VM's
+    queue) in queue order takes the set's k-th free active way, with
+    ``lru = t[v]`` and clean. ``dedupe=False`` is for queues the caller
+    knows to be unique. Returns ``(tags, lru, dirty, promoted[V])``."""
     if tags.device.type == "cpu":
-        return promote_scatter_plain(tags, lru, dirty, queue, ways, t)
+        return promote_scatter_plain(tags, lru, dirty, queue, ways, t, dedupe)
     dev = tags.device
     _check_state(tags, lru, dirty, queue, dev)
     v, s, w = tags.shape
@@ -100,16 +101,31 @@ def promote_scatter(tags, lru, dirty, queue, ways, t):
     if v and s and w and queue.shape[1]:
         ptrs = [x.data_ptr() for x in (tags, lru, dirty, queue, ways, t,
                                        promoted)]
-        kernels.launch("promote_scatter", *ptrs, v, s, w, queue.shape[1])
+        kernels.launch("promote_scatter", *ptrs, v, s, w, queue.shape[1],
+                       int(dedupe))
     return tags, lru, dirty, promoted
 
 
-def promote_scatter_plain(tags, lru, dirty, queue, ways, t):
+def _first_occurrence(queue):
+    """``[V, Q]`` mask of each row's first entry of every value: a stable
+    sort groups equal entries in queue order, and each group's head is
+    its first occurrence."""
+    order = torch.sort(queue, dim=1, stable=True).indices
+    sq = queue.gather(1, order)
+    head = torch.ones_like(sq, dtype=torch.bool)
+    head[:, 1:] = sq[:, 1:] != sq[:, :-1]
+    return torch.zeros_like(head).scatter_(1, order, head)
+
+
+def promote_scatter_plain(tags, lru, dirty, queue, ways, t,
+                          dedupe: bool = True):
     """The same contract with per-set ranks from cumulative sums."""
     v, s, w = tags.shape
     dev = tags.device
     q = queue.shape[1]
     valid = queue >= 0
+    if dedupe:
+        valid = valid & _first_occurrence(queue)
     qa = torch.where(valid, queue, 0)
     qset = (qa % s).long()                                   # [V, Q]
     widx = torch.arange(w, dtype=torch.int32, device=dev)
@@ -230,8 +246,11 @@ def evict(state: CacheState, queue):
     return CacheState(tags, lru, dirty), flushed
 
 
-def promote(state: CacheState, queue, ways, t):
-    tags, lru, dirty, n = promote_scatter(*state, queue, ways, t)
+def promote(state: CacheState, queue, ways, t, assume_unique: bool = False):
+    """``assume_unique=True`` skips the first-occurrence dedupe, for
+    queues unique by construction (the popularity table's)."""
+    tags, lru, dirty, n = promote_scatter(*state, queue, ways, t,
+                                          dedupe=not assume_unique)
     return CacheState(tags, lru, dirty), n
 
 
@@ -278,7 +297,7 @@ def maintenance_interval(ssd: CacheState, table: pop.PopularityTable,
     pqueue, pqlen = pop.table_top_known(
         table, ssd.tags, ways, free, live,
         width=_next_pow2(min(table.capacity, s * w)))
-    ssd, promoted = promote(ssd, pqueue, ways, t)
+    ssd, promoted = promote(ssd, pqueue, ways, t, assume_unique=True)
 
     # 4) the background cleaner over the post-promotion state
     if clean_quota > 0:

@@ -5,7 +5,8 @@ against ``simulate_single_level_batch`` with all five policies mixed
 across VMs; ``sizing_metrics_batch`` for the four sizing kinds; the four
 factories (ECI-Cache, Centaur, S-CAVE, vCacheShare) end to end; and a
 chassis state carried over from a JAX run — all exact, float32 bit for
-bit.
+bit. The chassis' sequential oracle is held in
+tests/test_torch_oracle_baselines.py.
 """
 import numpy as np
 import pytest
@@ -190,7 +191,8 @@ def test_load_state_carries_a_jax_chassis():
     assert np.array_equal(np.asarray(jc.t), tc.t.numpy())
 
 
-@pytest.mark.parametrize("option", [dict(batched=False), dict(mesh=object()),
+@pytest.mark.parametrize("option", [dict(batched=False, mesh=object()),
+                                    dict(mesh=object()),
                                     dict(classifier=object())])
 def test_chassis_options_outside_the_port_raise(option):
     cfg = SingleLevelConfig(capacity=100, **option)
@@ -200,8 +202,12 @@ def test_chassis_options_outside_the_port_raise(option):
 
 
 def test_chassis_metric_closure_raises():
-    with pytest.raises(NotImplementedError, match="SizingMetric"):
+    """A per-VM metric closure is a metric (the sequential sizing loop);
+    anything that is neither a SizingMetric nor callable raises."""
+    PartitionedSingleLevelCache(SingleLevelConfig(capacity=100), 2,
+                                lambda sub: (0, None, None),
+                                tbase.fixed_policy(Policy.WB), device="cpu")
+    with pytest.raises(TypeError, match="SizingMetric"):
         PartitionedSingleLevelCache(SingleLevelConfig(capacity=100), 2,
-                                    lambda sub: (0, None, None),
-                                    tbase.fixed_policy(Policy.WB),
+                                    "urd", tbase.fixed_policy(Policy.WB),
                                     device="cpu")

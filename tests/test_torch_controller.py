@@ -4,8 +4,10 @@ A fig15-style MSR mix (``benchmarks/common.py`` geometry, resize 2000,
 promo 500) through both controllers — per-VM stats dicts and allocation
 histories must be equal, in modes full and npe, at prefetch depths 0
 and 2. Also: a state carried over from a JAX run with ``load_state``,
-the options outside the port raising ``NotImplementedError``, and a
-subprocess port job that loads neither ``jax`` nor any ``repro`` module.
+the options outside the port (the mesh and the classifier, in every
+maintenance mode) raising ``NotImplementedError``, and a subprocess port
+job (every maintenance mode, the baselines, serving) that loads neither
+``jax`` nor any ``repro`` module.
 """
 import os
 import subprocess
@@ -111,7 +113,8 @@ def test_load_state_carries_a_jax_run():
 
 
 @pytest.mark.parametrize("option", [
-    dict(batched=False), dict(fused_maintenance=False), dict(mesh=object()),
+    dict(batched=False, mesh=object()),
+    dict(fused_maintenance=False, classifier=object()), dict(mesh=object()),
     dict(classifier=object())])
 def test_options_outside_the_port_raise(option):
     _, tcfg = _configs(**option)
@@ -151,20 +154,32 @@ def test_port_job_loads_no_jax_and_no_repro():
                             enumerate(["hm_1", "usr_0", "web_3"])], seed=0)
         geo = Geometry(8, 16)
         for quota in (0, 2):               # ETICA, and with the cleaner
-            cfg = EticaConfig(dram_capacity=60, ssd_capacity=120,
-                              geometry_dram=geo, geometry_ssd=geo,
-                              resize_interval=600, promo_interval=200,
-                              clean_quota=quota)
-            cache = EticaCache(cfg, 3, device="cpu")
-            res = cache.run(trace)
-            assert sum(r.stats["reads"] + r.stats["writes"]
-                       for r in res) == 1200
-        assert sum(r.stats["flushes"] for r in res) > 0
+            runs = []
+            for mode in (dict(batched=False), dict(fused_maintenance=False),
+                         {}):              # sequential, staged, fused
+                cfg = EticaConfig(dram_capacity=60, ssd_capacity=120,
+                                  geometry_dram=geo, geometry_ssd=geo,
+                                  resize_interval=600, promo_interval=200,
+                                  clean_quota=quota, **mode)
+                cache = EticaCache(cfg, 3, device="cpu")
+                runs.append([r.stats for r in cache.run(trace)])
+                assert sum(s["reads"] + s["writes"] for s in runs[-1]) == 1200
+            assert runs[0] == runs[1] == runs[2]
+        assert sum(s["flushes"] for s in runs[2]) > 0
         metrics.parse_exposition(metrics.render_cache(cache))
         eci = make_eci_cache(180, 3, geometry=geo, resize_interval=600,
                              sim_chunk=200, device="cpu")
         res = eci.run(trace)
         assert sum(r.stats["reads"] + r.stats["writes"] for r in res) == 1200
+        seq = make_eci_cache(180, 3, geometry=geo, resize_interval=600,
+                             sim_chunk=200, batched=False, device="cpu")
+        assert [r.stats for r in seq.run(trace)] == [r.stats for r in res]
+        from repro_torch.core.baselines import make_fast, make_l2arc
+        from repro_torch.kernels.maintenance import ref
+        from repro_torch.kernels.popularity import ops as pop_ops
+        for factory in (make_fast, make_l2arc):
+            assert factory(60, 120, geometry=geo, device="cpu").run(
+                trace[:400]).stats["reads"] > 0
         import repro_torch.kvcache
         from repro_torch.launch import serve
         stats = serve.main(["--events", "300", "--live", "16",

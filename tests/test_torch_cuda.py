@@ -245,3 +245,98 @@ def test_serving_card_equals_cpu(dev):
         assert card.stats == cpu.stats == out[True, "cpu"].stats
         assert card.slot_owner == cpu.slot_owner and card.free == cpu.free
         assert torch.equal(card.k_pool.cpu(), cpu.k_pool)
+
+
+@pytest.mark.parametrize("v,n,nb_space", [
+    (1, 1000, 300),         # one stream, as the Pallas signature
+    (5, 333, 40),           # N not a multiple of 32
+    (12, 1024, 500)])       # the staged path's shape
+def test_popularity_kernel(dev, v, n, nb_space):
+    """Against the plain version, bit for bit: per-VM cache sizes (one
+    of them 0, clamped to 1), -1 padding, and a VM with no valid entry."""
+    from repro_torch.kernels.popularity import ops
+    rng = np.random.default_rng(6 + v)
+    addr = rng.integers(0, nb_space, (v, n)).astype(np.int32)
+    addr[rng.random((v, n)) < 0.1] = -1
+    addr[:, n - 17:] = -1
+    if v > 1:
+        addr[1] = -1
+    dist = rng.integers(-1, 400, (v, n)).astype(np.int32)
+    served = rng.random((v, n)) < 0.7
+    cs = np.array([0, 1, 64, 512, 4096, 7, 100, 3, 9, 33, 64, 80][:v],
+                  np.float32)
+    args = [torch.from_numpy(x).to(dev) for x in (addr, dist, served, cs)]
+    got = ops.block_popularity_batch(*args)
+    want = ops.block_popularity_batch(*[x.cpu() for x in args])
+    assert len(got) == len(want) == v
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert np.array_equal(g[0], w[0])
+            assert np.array_equal(g[1].view(np.int32), w[1].view(np.int32))
+    if v > 1:
+        assert got[1] is None
+    seg = torch.from_numpy(rng.integers(0, 97, n).astype(np.int32)).to(dev)
+    _same([ops.popularity(args[1][0], args[2][0], seg, 97, 64.0).cpu()],
+          [ops.popularity(*(x.cpu() for x in (args[1][0], args[2][0], seg)),
+                          97, 64.0)])
+
+
+def test_promote_scatter_dedupe_kernel(dev):
+    """Queues with repeated addresses (across and inside 32-entry
+    batches) against the plain version, with and without the dedupe."""
+    from repro_torch.kernels.maintenance import ops
+    rng = np.random.default_rng(7)
+    v, s, w = 6, 16, 8
+    tags = np.where(rng.random((v, s, w)) < 0.3,
+                    rng.integers(0, 20, (v, s, w)) * s + np.arange(s)[:, None],
+                    -1).astype(np.int32)
+    lru = rng.integers(0, 99, (v, s, w)).astype(np.int32)
+    dirty = (rng.random((v, s, w)) < 0.5) & (tags >= 0)
+    st = [torch.from_numpy(x).to(dev) for x in (tags, lru, dirty)]
+    q = rng.integers(0, 320, (v, 256)).astype(np.int32)
+    q[:, 1::2] = q[:, ::2]                     # adjacent lanes repeat
+    q[:, 200:] = q[:, :56]                      # later batches repeat
+    q[rng.random((v, 256)) < 0.1] = -1
+    q = torch.from_numpy(q).to(dev)
+    ways = torch.tensor([0, 3, 8, 8, 5, 1], dtype=torch.int32, device=dev)
+    t = torch.arange(6, dtype=torch.int32, device=dev) + 10
+    for dedupe in (True, False):
+        _same(ops.promote_scatter(*st, q, ways, t, dedupe=dedupe),
+              ops.promote_scatter_plain(*st, q, ways, t, dedupe=dedupe))
+
+
+@pytest.mark.parametrize("clean_quota", [0, 3])
+def test_oracle_modes_card_equal_fused(dev, clean_quota):
+    """Staged and sequential controllers on the card == the fused card
+    run (stats, histories, final states), each through its own kernels."""
+    from repro_torch import kernels
+    from repro_torch.core.controller import EticaCache, EticaConfig, Geometry
+    from repro_torch.core.trace import interleave
+    from repro_torch.traces.generators import make
+    trace = interleave([make(n, 1200, seed=i, addr_offset=i * 10_000_000,
+                             scale=0.25) for i, n in
+                        enumerate(["hm_1", "usr_0", "web_3"])], seed=0)
+    geo = Geometry(8, 16)
+    out = {}
+    for name, kw in (("fused", {}), ("staged", dict(fused_maintenance=False)),
+                     ("sequential", dict(batched=False))):
+        cfg = EticaConfig(dram_capacity=60, ssd_capacity=120,
+                          geometry_dram=geo, geometry_ssd=geo,
+                          resize_interval=600, promo_interval=200,
+                          clean_quota=clean_quota, **kw)
+        kernels.reset_launch_counts()
+        cache = EticaCache(cfg, 3, device="cuda")
+        out[name] = cache, cache.run(trace), kernels.launch_counts()
+    fused, fres, _ = out["fused"]
+    clean = ("clean_scatter",) if clean_quota else ()
+    own = {"fused": ETICA_KERNELS + clean,
+           "staged": ("count_between", "two_level", "evict_scatter",
+                      "promote_scatter", "popularity") + clean,
+           "sequential": ("count_between", "two_level")}
+    for name, (cache, res, n) in out.items():
+        assert {k for k, c in n.items() if c} == set(own[name]), (name, n)
+        _same_results(res, fres)
+        for v in range(3):
+            _same(cache.vm_ssd(v), fused.vm_ssd(v))
+            _same(cache.vm_dram(v), fused.vm_dram(v))
