@@ -29,7 +29,9 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    cache size per VM) and at the Pallas benchmark's (N 8192, 1024
    blocks, cs 64), beside ``torch.exp`` + ``index_add_``; and
    ``promote_scatter``'s dedupe branch on queues that hold every address
-   twice;
+   twice; holds ``flash_attention`` to its plain version (the same
+   tolerance as decode) at tests/test_kernels.py's shapes in float32 and
+   bf16 and at the prefill shape (B 4, H 32, Hkv 8, S 4096, D 128);
 3. runs the paper's §5.1 deployment (12 VMs x 20,000 requests, 64 x 64
    geometry) through ``EticaCache.run`` on the card and again on the
    CPU; per-VM stats and allocation histories must be identical;
@@ -60,9 +62,27 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    DRAM and SSD states); ECI-Cache sequential equal to phase 5's batched
    run (the logs' demands, allocations and policies included); FAST and
    L2ARC over the same mix as one stream (256 x 64), equal to the JAX
-   package's CPU values (hard-coded below); requests/s of every mode.
+   package's CPU values (hard-coded below); requests/s of every mode;
+10. serves qwen3-4b at full width and depth (36 layers, d_model 2560,
+   4.41 B float32 parameters drawn from a seeded generator on the
+   card): ``flash_attention`` against its plain version on layer 0's
+   real q, k, v of the prompt, with its times beside
+   ``scaled_dot_product_attention``; ``make_prefill_step`` over 4 x
+   4096 random tokens (exactly 36 ``flash_attention`` launches) and 32
+   greedy ``make_decode_step`` steps (none), prefill and decode
+   tokens/s, peak memory and where a decode step's time goes; decode
+   equal to a fresh prefill of the longer prompt at B 1 within 2e-2 of
+   the logit scale (tests/test_serving.py's bar), and the same gap with
+   the plain version in place of the kernel, with decode's attention in
+   float32, beside the move of one bf16 ulp (the model's noise floor);
+   the reduced model on the card against the CPU (logits within 1e-2,
+   greedy tokens equal past a 1e-2 margin); ``serve.main --arch
+   qwen3-4b``, whose page bank comes from one prefill of the reduced
+   model, with statistics equal to a run on gaussian pages, and the
+   kernel against its plain version at that prefill's shape and on its
+   layer-0 activations.
 
-Each card run of phases 3 to 9 sets the launch counts to 0 just before
+Each card run of phases 3 to 10 sets the launch counts to 0 just before
 and reads them just after; exactly the kernels of that path's own set
 must have launched (``popularity`` only on the staged paths). Phase 2
 holds the kernels against their plain versions at the shapes of both
@@ -70,13 +90,15 @@ the 12-VM and the 1024-VM runs.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per
 kernel, ``launches`` from its own path: the 12-VM paths, the full-width
-serving run for ``paged_decode_attention`` and the staged 12-VM run for
-``popularity``); the last is ``{"ok": true, "device": {...}}``. Any
+serving run for ``paged_decode_attention``, the staged 12-VM run for
+``popularity`` and the full-width prefill for ``flash_attention``); the
+last is ``{"ok": true, "device": {...}}``. Any
 failed phase raises and the exit code is nonzero. Without a CUDA device
 it exits 2 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -91,7 +113,10 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 SCALAR_OPS_PER_S = 67e12      # H100 SXM non-tensor fp32 rate, used as the
 #                               peak for scalar integer work as well
+BF16_TENSOR_FLOPS = 989e12    # H100 SXM dense bf16 tensor-core rate
 DECODE_ATOL = 2e-5            # tests/test_kernels.py's paged decode atol
+QWEN3_PREFILL = (4, 32, 8, 4096, 128)   # B, H, Hkv, S, D of phase 10
+QWEN3_DECODE_STEPS = 32
 
 PAPER_VMS = ("hm_1", "proj_0", "stg_1", "usr_0", "ts_0", "wdev_0", "web_3",
              "usr_0", "mds_0", "src2_0", "rsrch_0", "mds_1")
@@ -207,11 +232,17 @@ def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
     return start.elapsed_time(end) / (reps * replays)
 
 
-def profiler_device_ms(fn, reps: int) -> float | None:
-    """Mean device milliseconds per call from a ``torch.profiler`` trace
-    of ``reps`` calls (kernels and copies on the card); ``None`` when the
-    trace shows no device time."""
+def device_profile(fn, reps: int, top: list | None = None
+                   ) -> tuple[float | None, float]:
+    """``(device ms, device events)`` per call from a ``torch.profiler``
+    trace of ``reps`` calls: the kernels and copies on the card, summed
+    as the profiler's own table sums them (an operator's row repeats the
+    time of the kernels it launched, so only the device's events count);
+    ``None`` ms when the trace shows no device time. ``top`` receives
+    ``(ms per call, events per call, name)`` of the five device events
+    that take the most time."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -220,11 +251,19 @@ def profiler_device_ms(fn, reps: int) -> float | None:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = 0.0
+    total_us, events, rows = 0.0, 0, []
     for ev in prof.key_averages():
-        total_us += float(getattr(ev, "self_device_time_total",
-                                  getattr(ev, "self_cuda_time_total", 0.0)))
-    return total_us / 1e3 / reps if total_us > 0 else None
+        if ev.device_type == DeviceType.CUDA and not getattr(
+                ev, "is_user_annotation", False):
+            us = float(getattr(ev, "self_device_time_total",
+                               getattr(ev, "self_cuda_time_total", 0.0)))
+            total_us += us
+            events += ev.count
+            rows.append((us / 1e3 / reps, ev.count / reps, ev.key[:60]))
+    if top is not None:
+        top.extend(sorted(rows, reverse=True)[:5])
+    ms = total_us / 1e3 / reps if total_us > 0 else None
+    return ms, events / reps
 
 
 def fmt_ms(x) -> str:
@@ -496,7 +535,7 @@ def check_scatters(dev, rng, v, s, w):
     tk = (st[0].long() + (vm << 32)[:, None, None]).reshape(-1)
     qk = (eq.long() + (vm << 32)[:, None]).reshape(-1)
     lib_ms = cuda_ms(lambda: torch.isin(tk, qk), 50)
-    lib_dev_ms = profiler_device_ms(lambda: torch.isin(tk, qk), 20)
+    lib_dev_ms = device_profile(lambda: torch.isin(tk, qk), 20)[0]
     b, by = bound_ms(2 * 9.0 * v * s * w + 4.0 * v * q + 4.0 * v,
                      2.0 * (v * s * w + v * q))
     log(f"evict_scatter [{v},{s},{w}] Q={q}: exact, flushed "
@@ -1157,14 +1196,14 @@ def run_serving(kind, cfg, trace, device, decode_every=0, telemetry=None):
     import dataclasses
     import torch
     from repro_torch.kvcache import GlobalLRUManager, TwoTierKVManager
-    from repro_torch.launch.serve import kv_page_bank, run_events
+    from repro_torch.launch.serve import gaussian_pages, run_events
     cfg = dataclasses.replace(cfg, telemetry=telemetry)
     if kind == "lru":
         mgr = GlobalLRUManager(cfg, SERVING_TENANTS, device=device)
     else:
         mgr = TwoTierKVManager(cfg, SERVING_TENANTS,
                                batched=kind == "etica", device=device)
-    kb, vb = kv_page_bank(cfg, 8, 7, pin=device == "cuda")
+    kb, vb = gaussian_pages(cfg, 8, 7, pin=device == "cuda")
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1530,6 +1569,513 @@ def check_oracle_ladder(launches, paper, fused, clean, eci_run):
                                             for k, v in rates.items()))
 
 
+# ---------------------------------------------------------------------------
+# phase 10: dense-model serving at qwen3-4b full width
+# ---------------------------------------------------------------------------
+
+def flash_bound(q, k) -> tuple[float, str, float]:
+    """Least time for one causal bf16 flash call with Sq = Skv: q, k, v
+    read once and the output written once over the HBM rate, against
+    the products' FLOPs (2 B H S² D: both products, halved by the causal
+    mask) at the bf16 tensor-core rate; also the float32 CUDA-core time
+    of those FLOPs (/ 67 T/s), the rate this first version runs at."""
+    b, h, s, d = q.shape
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    flops = 2.0 * b * h * s * s * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_TENSOR_FLOPS * 1e3
+    bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return (*bound, flops / SCALAR_OPS_PER_S * 1e3)
+
+
+def flash_check(label, args, **kw):
+    """Kernel against plain version on the same tensors (float32 within
+    2e-5, bf16 within one bf16 ulp or 2e-5); returns the max error."""
+    from repro_torch.kernels.flash_attention import ops
+    got = ops.flash_attention(*args, **kw)
+    want = ops.flash_attention_plain(*args, **{k: v for k, v in kw.items()
+                                               if k != "tq"})
+    err, bad, over_ulp = decode_tolerance_err(got, want)
+    if bad:
+        raise AssertionError(f"flash_attention {label}: {bad} elements out "
+                             f"of tolerance (max err {err:.3e})")
+    return err, over_ulp
+
+
+def check_flash_shapes(dev, rng, prefill=QWEN3_PREFILL):
+    """``flash_attention`` against its plain version at the shapes of
+    tests/test_kernels.py (float32 and bf16), its window and non-causal
+    GQA cases, and random bf16 tensors at the prefill shape (B 4, H 32,
+    Hkv 8, S 4096, D 128, causal)."""
+    import torch
+    worst = 0.0
+    cases = [((1, 2, 1, 128, 32), dict(causal=True)),
+             ((2, 4, 2, 256, 64), dict(causal=True)),
+             ((1, 8, 8, 128, 128), dict(causal=True)),
+             ((1, 2, 2, 256, 64), dict(causal=True, window=64)),
+             ((1, 2, 1, 128, 64), dict(causal=False))]
+    for (b, h, hkv, s, d), kw in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.from_numpy(rng.normal(size=(b, h, s, d)).astype(
+                np.float32)).to(dev, dt)
+            k, v = (torch.from_numpy(rng.normal(size=(b, hkv, s, d)).astype(
+                np.float32)).to(dev, dt) for _ in range(2))
+            err, _ = flash_check(f"{(b, h, hkv, s, d)} {kw}", (q, k, v),
+                                 tq=64, tk=64, **kw)
+            worst = max(worst, err)
+    b, h, hkv, s, d = prefill
+    q = torch.randn(b, h, s, d, device=dev, dtype=torch.bfloat16)
+    k, v = (torch.randn(b, hkv, s, d, device=dev, dtype=torch.bfloat16)
+            for _ in range(2))
+    err, over = flash_check("prefill shape, random", (q, k, v), causal=True,
+                            tq=s, tk=1024)
+    log(f"flash_attention == plain at the tests/test_kernels.py shapes "
+        f"(float32 and bf16, window 64, non-causal GQA; max err "
+        f"{worst:.3e}) and at the prefill shape {prefill} bf16 causal "
+        f"on random tensors (max err {err:.3e}; {over} of {q.numel()} "
+        f"outputs one bf16 ulp off)")
+    return max(worst, err)
+
+
+def time_flash(q, k, v):
+    """Times at the prefill shape on the model's own tensors (q [B, S, H,
+    D], k and v [B, S, Hkv, D] passed as transposed views, as
+    ``blocked_attention`` passes them): the kernel (calls back to back,
+    and a CUDA graph of the calls), the plain version, and
+    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` on
+    the same views, never called by the port."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    args = [x.transpose(1, 2) for x in (q, k, v)]
+    s = q.shape[1]
+
+    def kernel():
+        return ops.flash_attention(*args, causal=True, tq=s, tk=1024)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(*args, is_causal=True,
+                                              enable_gqa=True)
+    ms = cuda_ms(kernel, 5)
+    dev_ms = graph_ms(kernel, reps=4, replays=3)
+    plain_ms = cuda_ms(lambda: ops.flash_attention_plain(
+        *args, causal=True, tk=1024), 2)
+    lib_ms = cuda_ms(sdpa, 10)
+    lib_dev_ms = graph_ms(sdpa, reps=4, replays=3)
+    b, by, fp32_core_ms = flash_bound(*args[:2])
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, fp32_core_ms=fp32_core_ms, library_ms=lib_ms,
+                library_device_ms=lib_dev_ms)
+
+
+def layer0_qkv(model, cfg, toks):
+    """Layer 0's q [B, S, H, D] and k, v [B, S, Hkv, D] on a prompt, from
+    the port's ``_project_q`` / ``_project_kv`` on the embedded tokens."""
+    import torch
+    from repro_torch.models import attention as A
+    from repro_torch.models.layers import embed, rmsnorm
+    layer0 = model.layers[0]["block0"]
+    pos = torch.arange(toks.shape[1], device=toks.device)[None]
+    h = rmsnorm(layer0.norm1, embed(model.embed, toks), cfg.norm_eps)
+    return (A._project_q(layer0.mixer, cfg, h, pos),
+            *A._project_kv(layer0.mixer, cfg, h, pos))
+
+
+def logit_err(got, want) -> float:
+    """max |got - want| / max |want| (tests/test_serving.py's measure)."""
+    return float((got.float().cpu() - want.float().cpu()).abs().max()
+                 / (want.float().abs().max().cpu() + 1e-6))
+
+
+def check_dense_serving(launches, row, dev="cuda", cfg=None,
+                        prefill=QWEN3_PREFILL, n_steps=QWEN3_DECODE_STEPS,
+                        p=1022):
+    """qwen3-4b at full width and depth, weights from a seeded generator
+    on the card: the kernel on layer 0's real activations; a prefill of
+    4 x 4096 tokens through ``make_prefill_step`` (launch counts set to 0
+    just before, exactly 36 ``flash_attention`` launches after) and 32
+    greedy ``make_decode_step`` steps (no kernel of the list); logits
+    finite; decode == a fresh prefill of the longer prompt at B 1 within
+    2e-2 of the logit scale."""
+    import torch
+    from repro_torch import configs, kernels
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    dev = torch.device(dev)
+    cfg = cfg or configs.get("qwen3-4b")
+    b, _, _, s, _ = prefill
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    want_params = cfg.param_counts()[0] + (2 * cfg.num_layers + 1) * \
+        cfg.d_model + 2 * cfg.num_layers * cfg.head_dim
+    if n_params != want_params:
+        raise AssertionError(f"{n_params} parameters, expected {want_params}")
+    log(f"qwen3-4b full width: {n_params:,} float32 parameters "
+        f"({n_params * 4 / 1e9:.2f} GB) drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                         generator=gen)
+
+    # the kernel on layer 0's real activations, then its times there
+    q, k, v = layer0_qkv(model, cfg, toks)
+    err, over = flash_check("layer-0 activations",
+                            [x.transpose(1, 2) for x in (q, k, v)],
+                            causal=True, tq=s, tk=1024)
+    log(f"flash_attention == plain on layer 0's q, k, v of the prompt "
+        f"(max err {err:.3e}; {over} of {q.numel()} outputs one bf16 ulp "
+        f"off)")
+    row.update(time_flash(q, k, v))
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    log(f"flash_attention prefill shape {prefill} bf16 causal, model "
+        f"layout: kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f} "
+        f"ms), plain {row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} "
+        f"ms (device {row['library_device_ms']:.4f} ms), bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}, bf16 tensor cores); "
+        f"float32 CUDA-core time for the same FLOPs "
+        f"{row['fp32_core_ms']:.4f} ms")
+    del q, k, v
+
+    # a warm-up prefill (its logits checked), then the timed steps
+    logits, _ = M.prefill(model, cfg, {"tokens": toks},
+                          cache_len=s + n_steps)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("prefill logits not finite")
+    del logits, _
+    prefill_step = steps.make_prefill_step(cfg, s + n_steps)
+    decode_step = steps.make_decode_step(cfg)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    nxt, cache = prefill_step(model, {"tokens": toks})
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    launches["qwen3-4b-prefill"] = serving_launches(
+        "qwen3-4b prefill", ("flash_attention",), only=True)
+    if launches["qwen3-4b-prefill"]["flash_attention"] != cfg.num_layers:
+        raise AssertionError(f"{launches['qwen3-4b-prefill']} launches, "
+                             f"expected {cfg.num_layers} flash_attention")
+    kernels.reset_launch_counts()
+    out = [nxt]
+    tok = nxt[:, None]
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        tok, cache = decode_step(model, cache, tok, s + i)
+        out.append(tok[:, 0])
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    launches["qwen3-4b-decode"] = serving_launches("qwen3-4b decode", (),
+                                                   only=True)
+    gen_toks = torch.stack(out, 1)
+    if not bool(((gen_toks >= 0) & (gen_toks < cfg.vocab_size)).all()):
+        raise AssertionError("greedy tokens out of range")
+    for kv in ("k", "v"):
+        if not bool(torch.isfinite(cache["layers"]["block0"][kv]).all()):
+            raise AssertionError(f"cache {kv} not finite")
+    peak = torch.cuda.max_memory_allocated()
+    served = dict(prefill_tokens_per_s=b * s / t_prefill,
+                 decode_tokens_per_s=b * n_steps / t_decode)
+    log(f"qwen3-4b serving ({b} x {s} prompt tokens, {n_steps} "
+        f"greedy steps): prefill {t_prefill:.3f} s, "
+        f"{served['prefill_tokens_per_s']:.0f} tokens/s; decode "
+        f"{t_decode:.3f} s, {served['decode_tokens_per_s']:.1f} tokens/s "
+        f"({t_decode / n_steps * 1e3:.2f} ms a step); peak device "
+        f"memory {peak / 2**30:.2f} GiB; launches: prefill "
+        f"{launches['qwen3-4b-prefill']['flash_attention']} flash_attention,"
+        f" decode none")
+
+    served["decode_breakdown"] = decode_breakdown(
+        model, cfg, cache, tok, s + n_steps - 1, t_decode / n_steps * 1e3)
+    del cache
+    pre_dev_ms, pre_events = device_profile(
+        lambda: prefill_step(model, {"tokens": toks}), 1)
+    served["prefill_device_ms"] = pre_dev_ms
+    idle = "idle not measured" if pre_dev_ms is None else \
+        f"{pre_dev_ms:.1f} ms device time in {pre_events:.0f} kernels and " \
+        f"copies, idle {1 - pre_dev_ms / (t_prefill * 1e3):.1%}"
+    log(f"qwen3-4b prefill {t_prefill * 1e3:.1f} ms (host clock; {idle}); "
+        f"{cfg.num_layers} flash_attention calls at {row['device_ms']:.2f} "
+        f"ms = {cfg.num_layers * row['device_ms']:.1f} ms")
+
+    # decode == a fresh prefill of the longer prompt (B 1, full width);
+    # then once more with cuBLAS's reduced-precision bf16 reductions off
+    # (PyTorch's default leaves them on; the port never changes it)
+    matmul = torch.backends.cuda.matmul
+    default = matmul.allow_bf16_reduced_precision_reduction
+    one = toks[:1, :p + 2]
+    errs = {}
+    try:
+        for reduced in (default, False):
+            matmul.allow_bf16_reduced_precision_reduction = reduced
+            errs[reduced] = decode_vs_prefill(model, cfg, one, p)
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = default
+    if max(errs[default]) >= 2e-2:
+        raise AssertionError(f"decode vs prefill: {errs[default]} >= 2e-2")
+    log(f"qwen3-4b decode == prefill of the longer prompt (B 1, {p} + 2 "
+        f"tokens): relative logit error {errs[default][0]:.4e}, "
+        f"{errs[default][1]:.4e} (< 2e-2); with reduced-precision bf16 "
+        f"reductions off: {errs[False][0]:.4e}, {errs[False][1]:.4e}")
+    served["decode_vs_prefill"] = dict(
+        errs=errs[default], errs_full_precision_reductions=errs[False],
+        **decode_gap_causes(model, cfg, one, p))
+    del model
+    torch.cuda.empty_cache()
+    return served, peak, n_params
+
+
+def decode_vs_prefill(model, cfg, one, p) -> list[float]:
+    """Relative logit errors of two decode steps after a prefill of
+    ``one[:, :p]`` against fresh prefills of the longer prompts."""
+    import torch
+    from repro_torch.models import model as M
+    lp, cache = M.prefill(model, cfg, {"tokens": one[:, :p]},
+                          cache_len=p + 2)
+    errs = []
+    for i in range(2):
+        ld, cache = M.decode_step(model, cfg, one[:, p + i:p + i + 1], cache,
+                                  p + i)
+        lf, _ = M.prefill(model, cfg, {"tokens": one[:, :p + i + 1]})
+        for x in (lp, ld, lf):
+            if not bool(torch.isfinite(x).all()):
+                raise AssertionError("logits not finite")
+        errs.append(logit_err(ld[:, -1], lf[:, -1]))
+    return errs
+
+
+@contextlib.contextmanager
+def swapped(module, name, fn):
+    """``module.name`` replaced by ``fn`` inside the block."""
+    old = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def attention_decode_f32(params, cfg, x, cache_k, cache_v, pos: int):
+    """``attention_decode`` (no sliding window) with q·scale and p kept in
+    float32, as the prefill computes them; the reference rounds both to
+    bf16 on its decode path."""
+    import torch
+    from repro_torch.models import attention as A
+    from repro_torch.models.layers import dense
+    b, skv = x.shape[0], cache_k.shape[1]
+    at = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q = A._project_q(params, cfg, x, at)
+    k_new, v_new = A._project_kv(params, cfg, x, at)
+    cache_k[:, pos % skv] = k_new[:, 0].to(cache_k.dtype)
+    cache_v[:, pos % skv] = v_new[:, 0].to(cache_v.dtype)
+    qh = q[:, 0].reshape(b, cfg.num_kv_heads, -1, cfg.head_dim).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qh * cfg.head_dim ** -0.5,
+                     cache_k.float())
+    s = torch.where(torch.arange(skv, device=x.device) <= pos, s, -1e30)
+    out = torch.einsum("bhgs,bshd->bhgd", torch.softmax(s, -1),
+                       cache_v.float())
+    return dense(params.wo, out.reshape(b, 1, -1).to(x.dtype)), cache_k, \
+        cache_v
+
+
+def decode_gap_causes(model, cfg, one, p) -> dict:
+    """Where decode's departure from a fresh prefill comes from, at full
+    width (B 1): the same comparison with every prefill's attention
+    through the plain version instead of the kernel, and the kernel's
+    and the plain version's prefill logits of the longer prompt against
+    each other; the same comparison with decode's attention in float32
+    (:func:`attention_decode_f32`); and the move of the last logits when
+    one embedded element of the prompt gains one bf16 ulp, the model's
+    own noise floor."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import attention as A
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import embed, rmsnorm, unembed
+
+    def plain(q, k, v, *, causal, window, tq, tk, q_offset):
+        return ops.flash_attention_plain(q, k, v, causal=causal,
+                                         window=window, tk=tk,
+                                         q_offset=q_offset)
+    longer = {"tokens": one[:, :p + 1]}
+    with swapped(ops, "flash_attention", plain):
+        plain_errs = decode_vs_prefill(model, cfg, one, p)
+        lf_plain, _ = M.prefill(model, cfg, longer)
+    lf, _ = M.prefill(model, cfg, longer)
+    with swapped(A, "attention_decode", attention_decode_f32):
+        f32_errs = decode_vs_prefill(model, cfg, one, p)
+
+    x = embed(model.embed, one[:, :p + 1])
+    positions = torch.arange(p + 1, device=x.device)[None]
+
+    def logits(x):
+        x = M._scan_train(model, cfg, x, positions)
+        return unembed(model.unembed, rmsnorm(model.final_norm, x[:, -1:],
+                                              cfg.norm_eps))
+    base = logits(x)
+    ulp_moves = []
+    for i, j in ((0, 0), (p // 2, 5), (p, 3)):
+        xb = x.clone()
+        xb.view(torch.int16)[0, i, j] += 1      # one ulp away from zero
+        ulp_moves.append(logit_err(logits(xb), base))
+    out = dict(plain_prefill_errs=plain_errs,
+               kernel_vs_plain_prefill=logit_err(lf, lf_plain),
+               f32_decode_errs=f32_errs, one_ulp_moves=ulp_moves)
+    log("qwen3-4b decode vs prefill, its causes (B 1, full width): with "
+        "the plain version in every prefill "
+        + ", ".join(f"{e:.4e}" for e in plain_errs)
+        + f"; kernel vs plain prefill logits "
+        f"{out['kernel_vs_plain_prefill']:.4e}; with decode's attention in "
+        "float32 " + ", ".join(f"{e:.4e}" for e in f32_errs)
+        + "; one bf16 ulp on one embedded element moves the last logits "
+        + ", ".join(f"{e:.4e}" for e in ulp_moves))
+    return out
+
+
+def decode_breakdown(model, cfg, cache, tok, pos, step_ms):
+    """Where one decode step's time goes: device time of the whole step
+    (a profiler trace) against its host-clock time (the device's idle
+    share), with the trace's largest device events; and device time of
+    its parts (CUDA graphs of the calls), layer 0 times 36 where per
+    layer: the bf16 casts of one layer's weights inside ``dense``, the
+    float32 copies of one layer's K and V cache inside
+    ``attention_decode``, one whole ``attention_decode`` and one ``mlp``,
+    and ``unembed``."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import attention as A
+    from repro_torch.models.layers import embed, mlp, rmsnorm, unembed
+    layer = model.layers[0]["block0"]
+    ck, cv = (cache["layers"]["block0"][n][0] for n in ("k", "v"))
+    h = rmsnorm(layer.norm1, embed(model.embed, tok), cfg.norm_eps)
+    weights = [p for p in layer.parameters() if p.dim() == 2]
+    n = cfg.num_layers
+
+    def dev(fn, times=1):
+        return times * graph_ms(fn, reps=3, replays=3)
+    parts = dict(
+        weight_casts=dev(lambda: [w.to(torch.bfloat16) for w in weights], n),
+        cache_upcasts=dev(lambda: (ck.float(), cv.float()), n),
+        attention_decode=dev(lambda: A.attention_decode(
+            layer.mixer, cfg, h, ck, cv, pos), n),
+        mlp=dev(lambda: mlp(layer.ffn, h, cfg.mlp_act), n),
+        unembed=dev(lambda: unembed(model.unembed, h)))
+    decode_step = steps.make_decode_step(cfg)
+    top = []
+    dev_ms, events = device_profile(
+        lambda: decode_step(model, cache, tok, pos), 2, top)
+    idle = "idle not measured" if dev_ms is None else \
+        f"{dev_ms:.2f} ms device time in {events:.0f} kernels and copies, " \
+        f"idle {1 - dev_ms / step_ms:.1%}"
+    log(f"qwen3-4b decode step {step_ms:.2f} ms (host clock; {idle}); "
+        f"device time of its parts, x{n} layers: " + ", ".join(
+            f"{k} {fmt_ms(v)}" for k, v in parts.items())
+        + "; its largest device events: " + "; ".join(
+            f"{name} {ms:.2f} ms in {cnt:.0f}" for ms, cnt, name in top))
+    return dict(step_ms=step_ms, device_ms=dev_ms, device_events=events,
+                **parts)
+
+
+def check_reduced_card_cpu(dev="cuda"):
+    """Reduced qwen3-4b, one weight set on both devices: prefill (B 4, S
+    96) and 4 decode steps fed the CPU's greedy tokens; logits within
+    1e-2 of their scale, greedy tokens equal wherever the CPU's top-2
+    margin exceeds 1e-2 of it."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    cfg = configs.get_reduced("qwen3-4b")
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(2), device="cpu")
+    card = M.init_params(cfg, torch.Generator().manual_seed(2),
+                         device="cpu").to(dev)
+    toks = torch.randint(0, cfg.vocab_size, (4, 96),
+                         generator=torch.Generator().manual_seed(3))
+    lc, cc = M.prefill(card, cfg, {"tokens": toks.to(dev)}, cache_len=100)
+    lp, cp = M.prefill(cpu, cfg, {"tokens": toks}, cache_len=100)
+    errs, checked = [], 0
+    for i in range(5):
+        errs.append(logit_err(lc, lp))
+        top2 = lp[:, -1].topk(2, -1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 1e-2 * lp.abs().max()
+        if not torch.equal(lc[:, -1].argmax(-1).cpu()[sure],
+                           lp[:, -1].argmax(-1)[sure]):
+            raise AssertionError(f"reduced step {i}: greedy tokens differ")
+        checked += int(sure.sum())
+        if i == 4:
+            break
+        nxt = lp[:, -1].argmax(-1)[:, None]
+        lc, cc = M.decode_step(card, cfg, nxt.to(dev), cc, 96 + i)
+        lp, cp = M.decode_step(cpu, cfg, nxt, cp, 96 + i)
+    if max(errs) >= 1e-2:
+        raise AssertionError(f"reduced card vs CPU: {errs}")
+    log(f"reduced qwen3-4b card == CPU: prefill + 4 decode steps, relative "
+        f"logit errors {', '.join(f'{e:.4e}' for e in errs)} (< 1e-2); "
+        f"{checked} of 20 greedy tokens past the margin, all equal")
+    return max(errs)
+
+
+def check_serve_prefill(launches, dev="cuda"):
+    """``serve.main --arch qwen3-4b`` on the card with decode: its page
+    bank from one prefill of the reduced model (the kernel launches once
+    per layer); statistics equal a run of the same manager on gaussian
+    pages. Then the kernel against its plain version at that prefill's
+    shape; returns the max error."""
+    import torch
+    from repro_torch import configs, kernels
+    from repro_torch.kvcache import TwoTierConfig, TwoTierKVManager
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.traces.generators import SessionSpec, generate_sessions
+    argv = ["--arch", "qwen3-4b", "--events", "2000", "--live", "64",
+            "--decode-every", "8", "--seed", "4", "--device", dev]
+    kernels.reset_launch_counts()
+    stats = serve.main(argv)
+    torch.cuda.synchronize()
+    launches["serve-qwen3-4b"] = serving_launches(
+        "serve --arch qwen3-4b", SERVING_DECODE_KERNELS + ("flash_attention",),
+        only=True)
+    cfg = configs.get_reduced("qwen3-4b")
+    if launches["serve-qwen3-4b"]["flash_attention"] != cfg.num_layers:
+        raise AssertionError("serve: one flash_attention launch per layer "
+                             "expected")
+    hkv, d = serve.kv_geometry(cfg)
+    kv_cfg = TwoTierConfig(page_size=16, hbm_pages=64, num_kv_heads=hkv,
+                           head_dim=d, num_layers=1, dtype="float32")
+    mgr = TwoTierKVManager(kv_cfg, 4, device=dev)
+    trace = generate_sessions(SessionSpec(num_tenants=4, target_live=64,
+                                          max_pages=6), 2000, seed=4)
+    kb, vb = serve.gaussian_pages(kv_cfg, 8, 4, pin=dev == "cuda")
+    serve.run_events(mgr, trace, kb, vb, decode_every=8, seed=4)
+    if stats != mgr.stats.as_dict():
+        raise AssertionError(f"serve prefill branch {stats} != gaussian "
+                             f"{mgr.stats.as_dict()}")
+    log(f"serve --arch qwen3-4b (prefill page bank, {cfg.num_layers} "
+        f"flash_attention launches): statistics equal the gaussian-page "
+        f"run ({stats['activations']} activations)")
+
+    # the kernel at the bank prefill's own shape (B 1, H 4, Hkv 2, S 128,
+    # D 16, tq = tk = 128): on that prefill's layer-0 q, k, v (the model
+    # and tokens kv_page_bank draws from --seed 4), then on random tensors
+    model = M.init_params(cfg, torch.Generator().manual_seed(4),
+                          device="cpu").to(dev)
+    toks = torch.randint(0, cfg.vocab_size, (1, 8 * kv_cfg.page_size),
+                         generator=torch.Generator().manual_seed(5)).to(dev)
+    q, k, v = (x.transpose(1, 2) for x in layer0_qkv(model, cfg, toks))
+    s = toks.shape[1]
+    err, _ = flash_check("serve bank prefill, layer-0 activations",
+                         (q, k, v), causal=True, tq=s, tk=s)
+    rand = [torch.randn_like(x) for x in (q, k, v)]
+    err_rand, _ = flash_check("serve bank prefill shape, random", rand,
+                              causal=True, tq=s, tk=s)
+    log(f"flash_attention == plain at serve's bank prefill shape (B "
+        f"{q.shape[0]}, H {q.shape[1]}, Hkv {k.shape[1]}, S {s}, D "
+        f"{q.shape[-1]}, bf16, causal): layer-0 activations max err "
+        f"{err:.3e}, random tensors max err {err_rand:.3e}")
+    return max(err, err_rand)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1589,6 +2135,7 @@ def main() -> int:
     rows["popularity"] = check_popularity(dev, rng, blocks12, "12-VM staged")
     check_popularity(dev, rng, blocks1024, "1024-VM staged")
     rows["paged_decode_attention"] = check_decode(dev, rng)
+    rows["flash_attention"] = dict(max_abs_err=check_flash_shapes(dev, rng))
     check_serving_sync(dev, rng)
 
     # phases 3 and 4: the paper's §5.1 deployment, then fig15
@@ -1647,6 +2194,15 @@ def main() -> int:
                         (clean, clean_res, clean_rate),
                         (eci_cache, eci_res, eci_rate))
 
+    # phase 10: dense-model serving at qwen3-4b full width and depth
+    served, peak, n_params = check_dense_serving(launches,
+                                                 rows["flash_attention"])
+    rows["flash_attention"].update(
+        qwen3_4b=dict(served, peak_bytes=peak, params=n_params,
+                      reduced_card_cpu_logit_err=check_reduced_card_cpu()))
+    rows["flash_attention"]["max_abs_err"] = max(
+        rows["flash_attention"]["max_abs_err"], check_serve_prefill(launches))
+
     sources = {"count_between": "src/repro_torch/csrc/count_between.cu",
                "evict_scatter": "src/repro_torch/csrc/evict_scatter.cu",
                "promote_scatter": "src/repro_torch/csrc/promote_scatter.cu",
@@ -1656,7 +2212,8 @@ def main() -> int:
                "run_sums": "src/repro_torch/csrc/run_sums.cu",
                "paged_decode_attention":
                    "src/repro_torch/csrc/decode_attention.cu",
-               "popularity": "src/repro_torch/csrc/popularity.cu"}
+               "popularity": "src/repro_torch/csrc/popularity.cu",
+               "flash_attention": "src/repro_torch/csrc/flash_attention.cu"}
     replaces = {
         "count_between": "src/repro/kernels/reuse_distance/kernel.py:29",
         "evict_scatter": "src/repro/kernels/maintenance/kernel.py:51",
@@ -1670,13 +2227,15 @@ def main() -> int:
                     "scatter-add; no Pallas kernel)",
         "paged_decode_attention":
             "src/repro/kernels/decode_attention/kernel.py:28",
-        "popularity": "src/repro/kernels/popularity/kernel.py:26"}
+        "popularity": "src/repro/kernels/popularity/kernel.py:26",
+        "flash_attention": "src/repro/kernels/flash_attention/kernel.py:29"}
     # each kernel's own 12-VM path: the one whose launches it reports
     own_path = dict.fromkeys(kernels.KERNELS, "paper-12vm")
     own_path.update(clean_scatter="paper-12vm-clean",
                     single_level="paper-12vm-eci",
                     paged_decode_attention="serving-full-width",
-                    popularity="paper-12vm-staged")
+                    popularity="paper-12vm-staged",
+                    flash_attention="qwen3-4b-prefill")
     log(smi)
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=sources[k], replaces=replaces[k],

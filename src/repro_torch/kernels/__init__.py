@@ -28,6 +28,9 @@ launch counter (:func:`launch_counts`), and nothing else does.
   * ``popularity``     — ``popularity``, the Eq. 1 per-block scores
     (contribution fused into an in-order segment sum) that the staged
     maintenance mode merges into its host trackers
+  * ``flash_attention`` — ``flash_attention``, blocked causal /
+    sliding-window attention with an online softmax, GQA-native; the
+    model's ``blocked_attention`` (every attention layer of a prefill)
 
 ``chain_probe.cu`` is no kernel of the path: it times one dependent
 on-chip load, which prices the datapath's dependency chain.
@@ -49,17 +52,18 @@ BUILD = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("count_between.cu", "evict_scatter.cu", "promote_scatter.cu",
            "clean_scatter.cu", "datapath.cu", "single_level.cu",
            "run_sums.cu", "decode_attention.cu", "popularity.cu",
-           "chain_probe.cu")
+           "flash_attention.cu", "chain_probe.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 KERNELS = ("count_between", "evict_scatter", "promote_scatter",
            "clean_scatter", "two_level", "single_level", "run_sums",
-           "paged_decode_attention", "popularity")
+           "paged_decode_attention", "popularity", "flash_attention")
 _launches = dict.fromkeys(KERNELS, 0)
 _lib = None
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "etica_count_between": (_P, _P, _P, _P, _I, _I, _P),
     "etica_evict_scatter": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
@@ -75,6 +79,8 @@ _SIGNATURES = {
     "etica_paged_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                      _I, _I, _I, _F, _I, _I, _P),
     "etica_popularity": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "etica_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              *(_L,) * 12, _I, _I, _I, _F, _I, _P),
     "etica_chain_probe": (_P, _I, _P, _P),
 }
 

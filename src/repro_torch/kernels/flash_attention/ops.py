@@ -1,0 +1,134 @@
+"""Blocked causal / sliding-window flash attention: the kernel's wrapper
+and its plain PyTorch version.
+
+``q`` is ``[B, H, Sq, D]``; ``k`` and ``v`` are ``[B, Hkv, Skv, D]``;
+query head ``h`` reads KV head ``h // (H / Hkv)`` (GQA-native: KV is
+never expanded). q, k and v share one dtype, float32 or bfloat16;
+softmax and accumulation are float32; the output has q's dtype and
+shape. Only the last dimension must be contiguous: the kernel takes the
+strides of the other three, so the model's ``[B, S, H, D]`` tensors go
+in as transposed views without a copy, and the output keeps q's layout.
+
+CUDA tensors go through the ``flash_attention`` kernel
+(``csrc/flash_attention.cu``); CPU tensors through
+:func:`flash_attention_plain`, a transcription of the Pallas body
+(``repro.kernels.flash_attention.kernel._kernel``): an online softmax
+over ``tk``-wide KV tiles, in order. ``tq`` and ``tk`` are the
+reference's tile sizes: they set its divisibility rule (``Sq % tq ==
+0``, ``Skv % tk == 0`` after ``min`` with the lengths) and the plain
+version's KV tile width; the kernel uses its own 64 x 64 tiles, which
+changes the float32 summation order only. ``q_offset`` is the absolute
+position of ``q[0]`` relative to ``k[0]`` (the reference's
+``blocked_attention`` argument; 0 in the Pallas kernel).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import kernels
+
+NEG_INF = -1e30
+DEFAULT_TQ = 128
+DEFAULT_TK = 128
+MAX_HEAD_DIM = 128     # the kernel's zero-padded row width
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(q, k, v, tq, tk, window, q_offset):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k and v must be 4-d [B, H, S, D]")
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (b, hkv, skv, d) or v.shape != k.shape:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v dtypes {q.dtype}, {k.dtype}, {v.dtype}: "
+                        "one of float32 or bfloat16")
+    if hkv == 0 or h % hkv:
+        raise ValueError(f"{h} query heads do not group over {hkv} KV heads")
+    if q_offset < 0 or window < 0:
+        raise ValueError(f"q_offset {q_offset} and window {window} must "
+                         "not be negative")
+    tq, tk = min(tq, sq), min(tk, skv)
+    if tq <= 0 or tk <= 0 or sq % tq or skv % tk:
+        raise ValueError(f"Sq {sq} % tq {tq} and Skv {skv} % tk {tk} must "
+                         "be 0")
+    return tq, tk
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    tq: int = DEFAULT_TQ, tk: int = DEFAULT_TK,
+                    q_offset: int = 0):
+    """q: [B, H, Sq, D]; k, v: [B, Hkv, Skv, D]. Returns [B, H, Sq, D]."""
+    tq, tk = _check(q, k, v, tq, tk, window, q_offset)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     tk=tk, q_offset=q_offset)
+    dev = q.device
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if k.device != dev or v.device != dev:
+        raise ValueError(f"q on {dev}, k on {k.device}, v on {v.device}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} > {MAX_HEAD_DIM}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: the last dimension must be contiguous")
+    out = torch.empty_like(q)       # q's layout: a BSHD view stays BSHD
+    if b and h and sq and d:
+        strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+        kernels.launch("flash_attention", q.data_ptr(), k.data_ptr(),
+                       v.data_ptr(), out.data_ptr(), b, h, hkv, sq, skv, d,
+                       *strides, int(causal), int(window), int(q_offset),
+                       d ** -0.5, int(q.dtype == torch.bfloat16))
+    return out
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                          tk: int = DEFAULT_TK, q_offset: int = 0):
+    """The Pallas body over all query rows at once (a row's result does
+    not depend on the query tiling): q scaled by ``D**-0.5`` in float32
+    before the product, float32 scores masked to -1e30 at absolute
+    positions, then the running ``(m, l, acc)`` over ``tk``-wide KV
+    tiles in order; output ``acc / max(l, 1e-30)`` in q's dtype."""
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    tk = min(tk, skv)
+    g = h // hkv
+    qf = (q.float() * (d ** -0.5)).reshape(b, hkv, g, sq, d)
+    q_pos = q_offset + torch.arange(sq, device=q.device)[:, None]
+    acc = torch.zeros(b, hkv, g, sq, d, dtype=torch.float32, device=q.device)
+    m = torch.full((b, hkv, g, sq, 1), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    for k0 in range(0, skv, tk):
+        kj = k[:, :, None, k0:k0 + tk].float()             # [B, Hkv, 1, tk, D]
+        vj = v[:, :, None, k0:k0 + tk].float()
+        s = qf @ kj.transpose(-1, -2)                      # [B, Hkv, G, Sq, tk]
+        k_pos = k0 + torch.arange(kj.shape[3], device=q.device)[None, :]
+        mask = torch.ones(sq, kj.shape[3], dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= q_pos >= k_pos
+        if window:
+            mask &= k_pos > q_pos - window
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p @ vj
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.reshape(b, h, sq, d).to(q.dtype)
+
+
+def attention(q, k, v, *, causal: bool = True, window: int = 0,
+              tq: int = DEFAULT_TQ, tk: int = DEFAULT_TK, q_offset: int = 0):
+    """Model layout: q [B, Sq, H, D]; k, v [B, Skv, Hkv, D] (un-expanded
+    GQA) -> [B, Sq, H, D]. The transposes are views: the kernel reads
+    the strides, and its output comes back in q's layout."""
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=causal, window=window,
+                          tq=tq, tk=tk, q_offset=q_offset)
+    return out.transpose(1, 2)

@@ -20,8 +20,14 @@ write-back). ``--metrics-port N`` serves live ``/metrics`` and
 row per maintenance interval; ``--spans`` times the maintenance and
 sizing dispatches (each span then waits for its work).
 
-The KV geometry of ``--arch`` is the reduced configuration's, from
-:data:`ARCH_KV`. Runs on the card unless ``--device cpu``.
+The KV geometry of ``--arch`` is its reduced configuration's
+(:mod:`repro_torch.configs`). For the dense family the page bank holds
+real KV pages: one prefill of the reduced model (random weights from
+``--seed``) fills it from the first attention layer's cache, the flash
+attention kernel on the card. The other families fill it with gaussian
+pages until their models are ported; the manager only moves bytes, so
+the statistics do not depend on the contents. Runs on the card unless
+``--device cpu``.
 """
 from __future__ import annotations
 
@@ -31,33 +37,26 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import configs
 from repro_torch.kernels import resolve_device, upload
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kvcache import GlobalLRUManager, TwoTierConfig, TwoTierKVManager
+from repro_torch.models import model as M
 from repro_torch.traces.generators import (SESSION_ACTIVATE, SESSION_APPEND,
                                            SESSION_END, SESSION_NEW,
                                            SessionSpec, generate_sessions)
 
-# (num_kv_heads, head_dim) that serve derives from each architecture's
-# reduced configuration (src/repro/configs/*.py REDUCED, floored at 1
-# and 8 as the reference does)
-ARCH_KV = {
-    "jamba-v0.1-52b": (2, 16), "nemotron-4-15b": (2, 16),
-    "phi4-mini-3.8b": (2, 16), "qwen3-4b": (2, 16), "llama3-405b": (2, 16),
-    "mamba2-370m": (1, 8), "seamless-m4t-large-v2": (4, 16),
-    "deepseek-moe-16b": (4, 16), "mixtral-8x22b": (2, 16),
-    "internvl2-26b": (2, 16),
-}
+def kv_geometry(cfg) -> tuple[int, int]:
+    """(num_kv_heads, head_dim) of the pool for a model configuration,
+    floored at 1 and 8 as the reference does."""
+    return max(cfg.num_kv_heads, 1), max(cfg.head_dim, 8)
 
 
-def kv_page_bank(kv_cfg: TwoTierConfig, bank: int, seed: int,
-                 pin: bool = False):
+def gaussian_pages(kv_cfg: TwoTierConfig, bank: int, seed: int,
+                   pin: bool = False):
     """``(k_bank, v_bank)``: ``bank`` gaussian pages ``[bank, 1, PS, Hkv,
     D]`` float32 on the host (one array for both, as the reference's
-    gaussian branch), pinned when ``pin``. The manager only moves bytes,
-    so its statistics do not depend on the contents. The reference's
-    other branch, real pages from one prefill of the reduced model, waits
-    for the port of ``models/``."""
+    gaussian branch), pinned when ``pin``."""
     rng = np.random.default_rng(seed)
     pages = torch.from_numpy(rng.normal(size=(
         bank, 1, kv_cfg.page_size, kv_cfg.num_kv_heads,
@@ -65,6 +64,43 @@ def kv_page_bank(kv_cfg: TwoTierConfig, bank: int, seed: int,
     if pin:
         pages = pages.pin_memory()
     return pages, pages
+
+
+def kv_page_bank(cfg, kv_cfg: TwoTierConfig, bank: int, seed: int, *,
+                 params=None, device=None, pin: bool = False):
+    """A bank of real KV pages ``[bank, 1, PS, Hkv, D]`` float32 on the
+    host: prefill the dense model ``cfg`` once over ``bank`` pages' worth
+    of uniform token ids (from ``seed + 1``) and slice its first
+    attention layer's cache into pages. The model is ``params`` (a
+    :class:`repro_torch.models.model.Model`), which runs where its
+    weights lie, or else the one drawn from ``seed`` on the CPU and
+    moved to ``device`` (default ``"cuda"``); give one or the other.
+    Other families take :func:`gaussian_pages` (the reference does so
+    for enc-dec and vision; MoE, SSM and hybrid until their slices are
+    ported)."""
+    if params is not None and device is not None:
+        raise ValueError("give params or device, not both: the prefill "
+                         "runs where the params lie")
+    if cfg.family != "dense":
+        return gaussian_pages(kv_cfg, bank, seed, pin)
+    ps = kv_cfg.page_size
+    if params is None:
+        params = M.init_params(cfg, torch.Generator().manual_seed(seed),
+                               device="cpu").to(resolve_device(
+                                   device or "cuda"))
+    tokens = torch.randint(0, cfg.vocab_size, (1, bank * ps),
+                           generator=torch.Generator().manual_seed(seed + 1))
+    _, cache = M.prefill(params, cfg,
+                         {"tokens": tokens.to(params.embed.device)},
+                         cache_len=bank * ps)
+    first = cache["layers"]["block0"]
+    k, v = (first[n][0, 0].float().cpu() for n in ("k", "v"))  # [S, Hkv, D]
+    if (k.shape[1], k.shape[2]) != (kv_cfg.num_kv_heads, kv_cfg.head_dim):
+        raise ValueError("kv geometry mismatch between model and pool")
+    k_bank, v_bank = (a.reshape(bank, 1, ps, *a.shape[1:]) for a in (k, v))
+    if pin:
+        k_bank, v_bank = k_bank.pin_memory(), v_bank.pin_memory()
+    return k_bank, v_bank
 
 
 def run_events(mgr, trace, k_bank, v_bank, *, decode_every: int = 0,
@@ -102,7 +138,7 @@ def run_events(mgr, trace, k_bank, v_bank, *, decode_every: int = 0,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-4b", choices=sorted(ARCH_KV))
+    ap.add_argument("--arch", default="qwen3-4b", choices=configs.ARCH_IDS)
     ap.add_argument("--events", type=int, default=2000)
     ap.add_argument("--tenants", type=int, default=4)
     ap.add_argument("--live", type=int, default=256,
@@ -135,7 +171,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    hkv, head_dim = ARCH_KV[args.arch]
+    cfg = configs.get_reduced(args.arch)
+    hkv, head_dim = kv_geometry(cfg)
     recorder = None
     if args.metrics_port is not None or args.journal or args.spans:
         from repro_torch.runtime.telemetry import TelemetryRecorder
@@ -171,8 +208,8 @@ def main(argv=None):
     spec = SessionSpec(num_tenants=args.tenants, target_live=args.live,
                        max_pages=args.max_pages)
     trace = generate_sessions(spec, args.events, seed=args.seed)
-    k_bank, v_bank = kv_page_bank(kv_cfg, bank=8, seed=args.seed,
-                                  pin=dev.type == "cuda")
+    k_bank, v_bank = kv_page_bank(cfg, kv_cfg, bank=8, seed=args.seed,
+                                  device=dev, pin=dev.type == "cuda")
 
     t0 = time.time()
     decode_every = 0 if args.no_materialize else args.decode_every

@@ -186,6 +186,21 @@ def test_port_job_loads_no_jax_and_no_repro():
                             "--hbm-pages", "16", "--decode-every", "10",
                             "--device", "cpu"])
         assert stats["activations"] > 0
+        import torch
+        import repro_torch.models
+        from repro_torch import configs
+        from repro_torch.launch import steps
+        from repro_torch.models import model as M
+        cfg = configs.get_reduced("qwen3-4b")
+        params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+        toks = torch.randint(0, cfg.vocab_size, (2, 24))
+        nxt, cache = steps.make_prefill_step(cfg, 26)(params,
+                                                      {"tokens": toks})
+        nxt, cache = steps.make_decode_step(cfg)(params, cache,
+                                                 nxt[:, None], 24)
+        assert nxt.shape == (2, 1) and cache["layers"]["block0"]["k"].shape \
+            == (cfg.num_layers, 2, 26, cfg.num_kv_heads, cfg.head_dim)
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "repro" or m.startswith("repro."))

@@ -219,7 +219,7 @@ def test_serving_card_equals_cpu(dev):
     the host-dict oracle: card == CPU (Stats, placements, pools)."""
     from repro_torch import kernels
     from repro_torch.kvcache import TwoTierConfig, TwoTierKVManager
-    from repro_torch.launch.serve import kv_page_bank, run_events
+    from repro_torch.launch.serve import gaussian_pages, run_events
     from repro_torch.traces.generators import SessionSpec, generate_sessions
     cfg = TwoTierConfig(page_size=8, hbm_pages=24, num_kv_heads=2,
                         head_dim=16, dtype="bfloat16",
@@ -228,7 +228,7 @@ def test_serving_card_equals_cpu(dev):
     trace = generate_sessions(SessionSpec(num_tenants=3, target_live=48,
                                           max_pages=4, lifetime=20),
                               1500, seed=0)
-    kb, vb = kv_page_bank(cfg, 8, 7)
+    kb, vb = gaussian_pages(cfg, 8, 7)
     out = {}
     for batched in (True, False):
         for device in ("cuda", "cpu"):
@@ -340,3 +340,84 @@ def test_oracle_modes_card_equal_fused(dev, clean_quota):
         for v in range(3):
             _same(cache.vm_ssd(v), fused.vm_ssd(v))
             _same(cache.vm_dram(v), fused.vm_dram(v))
+
+
+def _bf16_err_ok(got, want):
+    """float32 within 2e-5; bf16 within one bf16 ulp (or 2e-5)."""
+    err = (got.float() - want.float()).abs()
+    if got.dtype == torch.bfloat16:
+        w = want.float()
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(
+            min=2**-126))) - 7)
+        return bool((err <= ulp.clamp(min=2e-5)).all())
+    return float(err.max()) <= 2e-5
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,skv,d,causal,window,q_offset", [
+    (1, 2, 1, 128, 128, 32, True, 0, 0),       # tests/test_kernels.py
+    (2, 4, 2, 256, 256, 64, True, 0, 0),
+    (1, 8, 8, 128, 128, 128, True, 0, 0),
+    (1, 2, 2, 256, 256, 64, True, 64, 0),      # sliding window
+    (1, 2, 1, 128, 128, 64, False, 0, 0),      # non-causal GQA
+    (1, 4, 2, 64, 192, 64, False, 0, 0),       # Sq != Skv
+    (2, 4, 2, 100, 100, 16, True, 0, 0),       # ragged 64-row tiles
+    (1, 4, 2, 128, 128, 16, True, 0, 0),       # serve's reduced bank prefill
+    (1, 4, 1, 64, 192, 128, True, 0, 128),     # cached continuation
+    (1, 2, 1, 64, 64, 32, False, 8, 200)])     # rows that keep no key
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel(dev, b, h, hkv, sq, skv, d, causal, window,
+                                q_offset, dtype):
+    """Against the plain version, on [B, H, S, D] tensors and on the
+    model's [B, S, H, D] layout passed as transposed views."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import ops
+    rng = np.random.default_rng(sq + d)
+    q = torch.from_numpy(rng.normal(size=(b, h, sq, d)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(size=(b, hkv, skv, d)).astype(
+        np.float32)) for _ in range(2))
+    args = [x.to(dev, dtype) for x in (q, k, v)]
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              tk=64 if skv % 64 == 0 else skv)
+    n = kernels.launch_counts()["flash_attention"]
+    got = ops.flash_attention(*args, tq=sq, **kw)
+    assert kernels.launch_counts()["flash_attention"] == n + 1
+    assert _bf16_err_ok(got, ops.flash_attention_plain(*args, **kw))
+    bshd = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in args]
+    got2 = ops.flash_attention(*bshd, tq=sq, **kw)
+    assert got2.stride() == bshd[0].stride()
+    assert torch.equal(got2, got)
+
+
+def test_model_card_equals_cpu(dev):
+    """Reduced qwen3-4b, one weight set on both devices: prefill (the
+    flash kernel, one launch per layer) and two decode steps; logits
+    within 1e-2 of their scale, and greedy tokens equal wherever the
+    CPU's top-2 margin exceeds 1e-2 of it."""
+    from repro_torch import configs, kernels
+    from repro_torch.models import model as M
+    cfg = configs.get_reduced("qwen3-4b")
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = M.init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu").to(dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 66),
+                         generator=torch.Generator().manual_seed(1))
+    kernels.reset_launch_counts()
+    lc, cc = M.prefill(card, cfg, {"tokens": toks[:, :64].to(dev)}, 66)
+    assert kernels.launch_counts()["flash_attention"] == cfg.num_layers
+    lp, cp = M.prefill(cpu, cfg, {"tokens": toks[:, :64]}, 66)
+    outs = [(lc, lp)]
+    for i in range(2):
+        nxt = toks[:, 64 + i:65 + i]
+        lc, cc = M.decode_step(card, cfg, nxt.to(dev), cc, 64 + i)
+        lp, cp = M.decode_step(cpu, cfg, nxt, cp, 64 + i)
+        outs.append((lc, lp))
+    assert kernels.launch_counts()["flash_attention"] == cfg.num_layers
+    for got, want in outs:
+        assert bool(torch.isfinite(got).all())
+        scale = want.abs().max()
+        err = float((got.cpu() - want).abs().max() / scale)
+        assert err < 1e-2, err
+        top2 = want[:, -1].topk(2, -1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 1e-2 * scale
+        assert torch.equal(got[:, -1].argmax(-1).cpu()[sure],
+                           want[:, -1].argmax(-1)[sure])

@@ -32,6 +32,7 @@ from repro.runtime import metrics as jmetrics
 from repro.traces import SessionSpec as JSpec
 from repro.traces import generate_sessions as jgenerate
 
+from repro_torch import configs as port_configs
 from repro_torch.core import popularity as pop
 from repro_torch.core import reuse
 from repro_torch.core.partition import size_grid
@@ -110,12 +111,14 @@ def test_tracker_and_block_scores_match():
 
 
 def test_arch_kv_geometry_matches_the_configs():
-    """serve's --arch table equals what the reference derives from each
-    reduced configuration."""
-    assert set(serve.ARCH_KV) == set(configs.ARCH_IDS)
-    for arch, kv in serve.ARCH_KV.items():
+    """serve's KV geometry for every --arch (from the port's copy of the
+    configurations) equals what the reference derives from each reduced
+    configuration."""
+    assert port_configs.ARCH_IDS == configs.ARCH_IDS
+    for arch in configs.ARCH_IDS:
         c = configs.get_reduced(arch)
-        assert kv == (max(c.num_kv_heads, 1), max(c.head_dim, 8)), arch
+        assert serve.kv_geometry(port_configs.get_reduced(arch)) == \
+            (max(c.num_kv_heads, 1), max(c.head_dim, 8)), arch
 
 
 def _maint_inputs(rng, t_axis, n, dmax):
