@@ -30,8 +30,11 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    blocks, cs 64), beside ``torch.exp`` + ``index_add_``; and
    ``promote_scatter``'s dedupe branch on queues that hold every address
    twice; holds ``flash_attention`` to its plain version (the same
-   tolerance as decode) at tests/test_kernels.py's shapes in float32 and
-   bf16 and at the prefill shape (B 4, H 32, Hkv 8, S 4096, D 128);
+   tolerance as decode) at tests/test_kernels.py's shapes in float32 (the
+   ``cuda_cores`` route) and bf16 (the ``wgmma`` route) and at the
+   prefill shape (B 4, H 32, Hkv 8, S 4096, D 128); prints what ptxas
+   said of ``flash_attention_sm90.cu`` (registers, spills), its shared
+   memory and the SASS count of ``HGMMA`` instructions;
 3. runs the paper's §5.1 deployment (12 VMs x 20,000 requests, 64 x 64
    geometry) through ``EticaCache.run`` on the card and again on the
    CPU; per-VM stats and allocation histories must be identical;
@@ -67,8 +70,10 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    4.41 B float32 parameters drawn from a seeded generator on the
    card): ``flash_attention`` against its plain version on layer 0's
    real q, k, v of the prompt, with its times beside
-   ``scaled_dot_product_attention``; ``make_prefill_step`` over 4 x
-   4096 random tokens (exactly 36 ``flash_attention`` launches) and 32
+   ``scaled_dot_product_attention``, the bound, TFLOP/s and the first
+   version's time on float32 copies; ``make_prefill_step`` over 4 x
+   4096 random tokens (exactly 36 ``flash_attention`` launches, all on
+   the ``wgmma`` route) and 32
    greedy ``make_decode_step`` steps (none), prefill and decode
    tokens/s, peak memory and where a decode step's time goes; decode
    equal to a fresh prefill of the longer prompt at B 1 within 2e-2 of
@@ -78,7 +83,8 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    the reduced model on the card against the CPU (logits within 1e-2,
    greedy tokens equal past a 1e-2 margin); ``serve.main --arch
    qwen3-4b``, whose page bank comes from one prefill of the reduced
-   model, with statistics equal to a run on gaussian pages, and the
+   model (2 launches, both on the ``wgmma`` route), with statistics
+   equal to a run on gaussian pages, and the
    kernel against its plain version at that prefill's shape and on its
    layer-0 activations.
 
@@ -1578,7 +1584,8 @@ def flash_bound(q, k) -> tuple[float, str, float]:
     read once and the output written once over the HBM rate, against
     the products' FLOPs (2 B H S² D: both products, halved by the causal
     mask) at the bf16 tensor-core rate; also the float32 CUDA-core time
-    of those FLOPs (/ 67 T/s), the rate this first version runs at."""
+    of those FLOPs (/ 67 T/s), the rate the first version (the
+    ``cuda_cores`` route) runs at."""
     b, h, s, d = q.shape
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     flops = 2.0 * b * h * s * s * d
@@ -1590,9 +1597,15 @@ def flash_bound(q, k) -> tuple[float, str, float]:
 
 def flash_check(label, args, **kw):
     """Kernel against plain version on the same tensors (float32 within
-    2e-5, bf16 within one bf16 ulp or 2e-5); returns the max error."""
+    2e-5, bf16 within one bf16 ulp or 2e-5), through the route its dtype
+    and head dim choose; returns the max error."""
     from repro_torch.kernels.flash_attention import ops
+    route = ops.route(args[0].dtype, args[0].shape[-1])
+    before = ops.route_counts()[route]
     got = ops.flash_attention(*args, **kw)
+    if ops.route_counts()[route] != before + 1:
+        raise AssertionError(f"flash_attention {label}: not on the "
+                             f"{route} route")
     want = ops.flash_attention_plain(*args, **{k: v for k, v in kw.items()
                                                if k != "tq"})
     err, bad, over_ulp = decode_tolerance_err(got, want)
@@ -1630,11 +1643,39 @@ def check_flash_shapes(dev, rng, prefill=QWEN3_PREFILL):
     err, over = flash_check("prefill shape, random", (q, k, v), causal=True,
                             tq=s, tk=1024)
     log(f"flash_attention == plain at the tests/test_kernels.py shapes "
-        f"(float32 and bf16, window 64, non-causal GQA; max err "
-        f"{worst:.3e}) and at the prefill shape {prefill} bf16 causal "
-        f"on random tensors (max err {err:.3e}; {over} of {q.numel()} "
-        f"outputs one bf16 ulp off)")
+        f"(float32 on the cuda_cores route, bf16 on the wgmma route, "
+        f"window 64, non-causal GQA; max err {worst:.3e}) and at the "
+        f"prefill shape {prefill} bf16 causal on random tensors (max err "
+        f"{err:.3e}; {over} of {q.numel()} outputs one bf16 ulp off)")
     return max(worst, err)
+
+
+def flash_build_report() -> dict:
+    """What ptxas said of ``flash_attention_sm90.cu`` (registers and
+    spills of each head-dim variant), its dynamic shared memory at D 64
+    and 128, and the SASS count of ``HGMMA`` instructions in the kernel
+    library (``cuobjdump -sass``, where the toolkit has it)."""
+    import re
+    from repro_torch import kernels
+    lines = [ln.strip() for ln in kernels.build_log().splitlines()
+             if "registers" in ln or "spill" in ln or "setmaxnreg" in ln]
+    lib = kernels.library()
+    smem = {d: lib.etica_flash_attention_sm90_smem(d) for d in (64, 128)}
+    cuobjdump = Path("/usr/local/cuda/bin/cuobjdump")
+    hgmma = None
+    if cuobjdump.exists():
+        sass = subprocess.run([str(cuobjdump), "-sass", lib._name],
+                              capture_output=True, text=True).stdout
+        hgmma = len(re.findall(r"\bHGMMA\.", sass))
+        if not hgmma:
+            raise AssertionError("no HGMMA in the kernel library's SASS")
+    for ln in lines:
+        log(f"ptxas flash_attention_sm90.cu: {ln}")
+    n_hgmma = "not measured (no cuobjdump)" if hgmma is None else hgmma
+    log(f"flash_attention_sm90: dynamic shared memory {smem[64]} bytes "
+        f"(D <= 64), {smem[128]} bytes (D <= 128); HGMMA instructions in "
+        f"the SASS: {n_hgmma}")
+    return dict(ptxas=lines, smem_bytes=smem, sass_hgmma=hgmma)
 
 
 def time_flash(q, k, v):
@@ -1655,16 +1696,25 @@ def time_flash(q, k, v):
     def sdpa():
         return F.scaled_dot_product_attention(*args, is_causal=True,
                                               enable_gqa=True)
+    f32 = [x.float() for x in args]
+
+    def first_version():
+        return ops.flash_attention(*f32, causal=True, tq=s, tk=1024)
     ms = cuda_ms(kernel, 5)
     dev_ms = graph_ms(kernel, reps=4, replays=3)
     plain_ms = cuda_ms(lambda: ops.flash_attention_plain(
         *args, causal=True, tk=1024), 2)
     lib_ms = cuda_ms(sdpa, 10)
     lib_dev_ms = graph_ms(sdpa, reps=4, replays=3)
+    first_dev_ms = graph_ms(first_version, reps=2, replays=2)
+    del f32
     b, by, fp32_core_ms = flash_bound(*args[:2])
+    bq, h, sq, d = args[0].shape
     return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b,
                 bound_by=by, fp32_core_ms=fp32_core_ms, library_ms=lib_ms,
-                library_device_ms=lib_dev_ms)
+                library_device_ms=lib_dev_ms,
+                first_version_device_ms=first_dev_ms,
+                tflops=2.0 * bq * h * sq * sq * d / dev_ms / 1e9)
 
 
 def layer0_qkv(model, cfg, toks):
@@ -1698,6 +1748,7 @@ def check_dense_serving(launches, row, dev="cuda", cfg=None,
     2e-2 of the logit scale."""
     import torch
     from repro_torch import configs, kernels
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.launch import steps
     from repro_torch.models import model as M
     dev = torch.device(dev)
@@ -1731,12 +1782,14 @@ def check_dense_serving(launches, row, dev="cuda", cfg=None,
     row.update(time_flash(q, k, v))
     row["max_abs_err"] = max(row["max_abs_err"], err)
     log(f"flash_attention prefill shape {prefill} bf16 causal, model "
-        f"layout: kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f} "
-        f"ms), plain {row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} "
-        f"ms (device {row['library_device_ms']:.4f} ms), bound "
-        f"{row['bound_ms']:.4f} ms ({row['bound_by']}, bf16 tensor cores); "
-        f"float32 CUDA-core time for the same FLOPs "
-        f"{row['fp32_core_ms']:.4f} ms")
+        f"layout: kernel (wgmma route) {row['ms']:.4f} ms (device "
+        f"{row['device_ms']:.4f} ms, {row['tflops']:.1f} TFLOP/s), plain "
+        f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms (device "
+        f"{row['library_device_ms']:.4f} ms), bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}, bf16 tensor cores); the first version "
+        f"(cuda_cores route) on float32 copies: device "
+        f"{row['first_version_device_ms']:.4f} ms; float32 CUDA-core time "
+        f"for the same FLOPs {row['fp32_core_ms']:.4f} ms")
     del q, k, v
 
     # a warm-up prefill (its logits checked), then the timed steps
@@ -1755,9 +1808,13 @@ def check_dense_serving(launches, row, dev="cuda", cfg=None,
     t_prefill = time.perf_counter() - t0
     launches["qwen3-4b-prefill"] = serving_launches(
         "qwen3-4b prefill", ("flash_attention",), only=True)
-    if launches["qwen3-4b-prefill"]["flash_attention"] != cfg.num_layers:
+    routes = flash_ops.route_counts()
+    if launches["qwen3-4b-prefill"]["flash_attention"] != cfg.num_layers \
+            or routes != {"wgmma": cfg.num_layers, "cuda_cores": 0}:
         raise AssertionError(f"{launches['qwen3-4b-prefill']} launches, "
-                             f"expected {cfg.num_layers} flash_attention")
+                             f"routes {routes}: expected {cfg.num_layers} "
+                             f"flash_attention, all on the wgmma route")
+    row["routes"] = routes
     kernels.reset_launch_counts()
     out = [nxt]
     tok = nxt[:, None]
@@ -1784,8 +1841,8 @@ def check_dense_serving(launches, row, dev="cuda", cfg=None,
         f"{t_decode:.3f} s, {served['decode_tokens_per_s']:.1f} tokens/s "
         f"({t_decode / n_steps * 1e3:.2f} ms a step); peak device "
         f"memory {peak / 2**30:.2f} GiB; launches: prefill "
-        f"{launches['qwen3-4b-prefill']['flash_attention']} flash_attention,"
-        f" decode none")
+        f"{launches['qwen3-4b-prefill']['flash_attention']} flash_attention "
+        f"(routes {routes}), decode none")
 
     served["decode_breakdown"] = decode_breakdown(
         model, cfg, cache, tok, s + n_steps - 1, t_decode / n_steps * 1e3)
@@ -2024,6 +2081,7 @@ def check_serve_prefill(launches, dev="cuda"):
     shape; returns the max error."""
     import torch
     from repro_torch import configs, kernels
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kvcache import TwoTierConfig, TwoTierKVManager
     from repro_torch.launch import serve
     from repro_torch.models import model as M
@@ -2037,9 +2095,12 @@ def check_serve_prefill(launches, dev="cuda"):
         "serve --arch qwen3-4b", SERVING_DECODE_KERNELS + ("flash_attention",),
         only=True)
     cfg = configs.get_reduced("qwen3-4b")
-    if launches["serve-qwen3-4b"]["flash_attention"] != cfg.num_layers:
-        raise AssertionError("serve: one flash_attention launch per layer "
-                             "expected")
+    routes = flash_ops.route_counts()
+    if launches["serve-qwen3-4b"]["flash_attention"] != cfg.num_layers or \
+            routes != {"wgmma": cfg.num_layers, "cuda_cores": 0}:
+        raise AssertionError(f"serve: one flash_attention launch per layer, "
+                             f"on the wgmma route, expected (routes "
+                             f"{routes})")
     hkv, d = serve.kv_geometry(cfg)
     kv_cfg = TwoTierConfig(page_size=16, hbm_pages=64, num_kv_heads=hkv,
                            head_dim=d, num_layers=1, dtype="float32")
@@ -2052,8 +2113,8 @@ def check_serve_prefill(launches, dev="cuda"):
         raise AssertionError(f"serve prefill branch {stats} != gaussian "
                              f"{mgr.stats.as_dict()}")
     log(f"serve --arch qwen3-4b (prefill page bank, {cfg.num_layers} "
-        f"flash_attention launches): statistics equal the gaussian-page "
-        f"run ({stats['activations']} activations)")
+        f"flash_attention launches, routes {routes}): statistics equal the "
+        f"gaussian-page run ({stats['activations']} activations)")
 
     # the kernel at the bank prefill's own shape (B 1, H 4, Hkv 2, S 128,
     # D 16, tq = tk = 128): on that prefill's layer-0 q, k, v (the model
@@ -2135,7 +2196,8 @@ def main() -> int:
     rows["popularity"] = check_popularity(dev, rng, blocks12, "12-VM staged")
     check_popularity(dev, rng, blocks1024, "1024-VM staged")
     rows["paged_decode_attention"] = check_decode(dev, rng)
-    rows["flash_attention"] = dict(max_abs_err=check_flash_shapes(dev, rng))
+    rows["flash_attention"] = dict(max_abs_err=check_flash_shapes(dev, rng),
+                                   **flash_build_report())
     check_serving_sync(dev, rng)
 
     # phases 3 and 4: the paper's §5.1 deployment, then fig15
@@ -2213,7 +2275,8 @@ def main() -> int:
                "paged_decode_attention":
                    "src/repro_torch/csrc/decode_attention.cu",
                "popularity": "src/repro_torch/csrc/popularity.cu",
-               "flash_attention": "src/repro_torch/csrc/flash_attention.cu"}
+               "flash_attention":
+                   "src/repro_torch/csrc/flash_attention_sm90.cu"}
     replaces = {
         "count_between": "src/repro/kernels/reuse_distance/kernel.py:29",
         "evict_scatter": "src/repro/kernels/maintenance/kernel.py:51",

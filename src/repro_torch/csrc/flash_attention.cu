@@ -54,6 +54,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "flash_tiles.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -139,18 +141,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(
   const T* kb = k + b * ksb + hk * ksh;
   const T* vb = v + b * vsb + hk * vsh;
 
-  // the KV tiles to visit (see the header: the others add nothing). A
-  // row whose window lies wholly past the last key keeps no key at all;
-  // the reference then averages V over every key, so a block holding
-  // such a row visits every tile.
-  const int q_last = q_offset + q0 + q_rows - 1;
-  int kt_lo = 0;
-  int kt_hi = (skv + kBN - 1) / kBN - 1;
-  if (window <= 0 || q_last - window + 1 <= skv - 1) {
-    if (causal) kt_hi = min(kt_hi, q_last / kBN);
-    const int first = q_offset + q0 - window + 1;  // row q0's first key
-    if (window > 0 && first > 0) kt_lo = first / kBN;
-  }
+  int kt_lo, kt_hi;   // the KV tiles to visit (the others add nothing)
+  flash_kv_tiles(q0, q_rows, skv, kBN, causal, window, q_offset, &kt_lo,
+                 &kt_hi);
 
   load_tile<T, DMAX>(q_s, qb, qss, q_rows, d, scale);
 

@@ -30,7 +30,11 @@ launch counter (:func:`launch_counts`), and nothing else does.
     maintenance mode merges into its host trackers
   * ``flash_attention`` — ``flash_attention``, blocked causal /
     sliding-window attention with an online softmax, GQA-native; the
-    model's ``blocked_attention`` (every attention layer of a prefill)
+    model's ``blocked_attention`` (every attention layer of a prefill).
+    It has two routes (:func:`route_counts`): ``wgmma``
+    (``flash_attention_sm90.cu``, bf16 on the tensor cores, D a multiple
+    of 16 up to 128) and ``cuda_cores`` (``flash_attention.cu``, float32
+    and the other head dims)
 
 ``chain_probe.cu`` is no kernel of the path: it times one dependent
 on-chip load, which prices the datapath's dependency chain.
@@ -52,14 +56,21 @@ BUILD = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("count_between.cu", "evict_scatter.cu", "promote_scatter.cu",
            "clean_scatter.cu", "datapath.cu", "single_level.cu",
            "run_sums.cu", "decode_attention.cu", "popularity.cu",
-           "flash_attention.cu", "chain_probe.cu")
+           "flash_attention.cu", "flash_attention_sm90.cu", "chain_probe.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
+# ptxas reports registers, shared memory and spills of these sources into
+# the build's log (:func:`build_log`)
+VERBOSE_SOURCES = ("flash_attention_sm90.cu",)
 
 KERNELS = ("count_between", "evict_scatter", "promote_scatter",
            "clean_scatter", "two_level", "single_level", "run_sums",
            "paged_decode_attention", "popularity", "flash_attention")
+# kernels with more than one CUDA entry point: route -> C symbol
+ROUTES = {"flash_attention": {"wgmma": "etica_flash_attention_sm90",
+                              "cuda_cores": "etica_flash_attention"}}
 _launches = dict.fromkeys(KERNELS, 0)
+_route_launches = {k: dict.fromkeys(r, 0) for k, r in ROUTES.items()}
 _lib = None
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -81,6 +92,9 @@ _SIGNATURES = {
     "etica_popularity": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
     "etica_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               *(_L,) * 12, _I, _I, _I, _F, _I, _P),
+    "etica_flash_attention_sm90": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   *(_L,) * 12, _I, _I, _I, _F, _P),
+    "etica_flash_attention_sm90_smem": (_I,),
     "etica_chain_probe": (_P, _I, _P, _P),
 }
 
@@ -113,9 +127,18 @@ def launch_counts() -> dict[str, int]:
     return dict(_launches)
 
 
+def route_counts(kernel: str) -> dict[str, int]:
+    """Launches of each of ``kernel``'s routes since the last
+    :func:`reset_launch_counts`."""
+    return dict(_route_launches[kernel])
+
+
 def reset_launch_counts() -> None:
     for k in _launches:
         _launches[k] = 0
+    for counts in _route_launches.values():
+        for r in counts:
+            counts[r] = 0
 
 
 def _nvcc() -> str:
@@ -127,7 +150,7 @@ def _nvcc() -> str:
 
 
 def _build() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + VERBOSE_SOURCES).encode())
     for name in sorted(p.name for p in CSRC.iterdir()):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -141,23 +164,34 @@ def _build() -> Path:
         for src in SOURCES:
             obj = Path(tmp) / (src + ".o")
             objs.append(str(obj))
+            verbose = ("-Xptxas", "-v") if src in VERBOSE_SOURCES else ()
             procs.append(subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(CSRC / src),
-                 "-o", str(obj)],
+                [nvcc, *NVCC_FLAGS, *verbose, "-I", str(CSRC), "-c",
+                 str(CSRC / src), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        errors = []
+        errors, logs = [], []
         for src, p in zip(SOURCES, procs):
             out, _ = p.communicate()
             if p.returncode:
                 errors.append(f"{src}:\n{out}")
+            elif out:
+                logs.append(f"{src}:\n{out}")
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        so.with_suffix(".log").write_text("\n".join(logs))
         tmp_so = Path(tmp) / so.name
         subprocess.run([nvcc, *NVCC_FLAGS, "-shared", *objs, "-o",
                         str(tmp_so)], check=True, capture_output=True,
                        text=True)
         os.replace(tmp_so, so)
     return so
+
+
+def build_log() -> str:
+    """What ``nvcc`` printed while building the loaded library (ptxas's
+    report for :data:`VERBOSE_SOURCES`); empty before the first build."""
+    log = _build().with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def library() -> ctypes.CDLL:
@@ -173,15 +207,19 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def launch(kernel: str, *args) -> None:
-    """Call ``etica_<kernel>`` on the current stream; count the launch
+def launch(kernel: str, *args, route: str | None = None) -> None:
+    """Call ``etica_<kernel>`` (or the C symbol of ``kernel``'s
+    ``route``) on the current stream; count the launch, and the route's,
     and raise on a launch error (``cudaGetLastError`` != 0)."""
+    symbol = ROUTES[kernel][route] if route else "etica_" + kernel
     stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(library(), "etica_" + kernel)(*args, stream)
+    err = getattr(library(), symbol)(*args, stream)
     if err:
-        raise RuntimeError(f"CUDA kernel {kernel} failed to launch "
-                           f"(cudaError {err})")
+        raise RuntimeError(f"CUDA kernel {kernel} ({symbol}) failed to "
+                           f"launch (cudaError {err})")
     _launches[kernel] += 1
+    if route:
+        _route_launches[kernel][route] += 1
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,

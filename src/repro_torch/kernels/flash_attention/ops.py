@@ -9,17 +9,24 @@ shape. Only the last dimension must be contiguous: the kernel takes the
 strides of the other three, so the model's ``[B, S, H, D]`` tensors go
 in as transposed views without a copy, and the output keeps q's layout.
 
-CUDA tensors go through the ``flash_attention`` kernel
-(``csrc/flash_attention.cu``); CPU tensors through
-:func:`flash_attention_plain`, a transcription of the Pallas body
-(``repro.kernels.flash_attention.kernel._kernel``): an online softmax
-over ``tk``-wide KV tiles, in order. ``tq`` and ``tk`` are the
+CUDA tensors go through the ``flash_attention`` kernel by one of two
+routes, chosen by dtype and head dim alone (:func:`route`): ``wgmma``
+(``csrc/flash_attention_sm90.cu``) for bfloat16 with ``D`` a multiple
+of 16 up to 128, the model's case, on the tensor cores; ``cuda_cores``
+(``csrc/flash_attention.cu``, the first version) for float32 and the
+other head dims. Each launch counts once for the kernel and once for
+its route (``kernels.route_counts("flash_attention")``). CPU tensors go
+through :func:`flash_attention_plain`, a transcription of the Pallas
+body (``repro.kernels.flash_attention.kernel._kernel``): an online
+softmax over ``tk``-wide KV tiles, in order. ``tq`` and ``tk`` are the
 reference's tile sizes: they set its divisibility rule (``Sq % tq ==
 0``, ``Skv % tk == 0`` after ``min`` with the lengths) and the plain
-version's KV tile width; the kernel uses its own 64 x 64 tiles, which
-changes the float32 summation order only. ``q_offset`` is the absolute
-position of ``q[0]`` relative to ``k[0]`` (the reference's
-``blocked_attention`` argument; 0 in the Pallas kernel).
+version's KV tile width; the kernels use their own tiles (64 x 64, and
+128 x 128 on the ``wgmma`` route), which changes the float32 summation
+order only. The ``wgmma`` route reads q, k and v by TMA, which needs
+16-byte aligned pointers and strides: it raises on others. ``q_offset``
+is the absolute position of ``q[0]`` relative to ``k[0]`` (the
+reference's ``blocked_attention`` argument; 0 in the Pallas kernel).
 """
 from __future__ import annotations
 
@@ -30,8 +37,20 @@ from repro_torch import kernels
 NEG_INF = -1e30
 DEFAULT_TQ = 128
 DEFAULT_TK = 128
-MAX_HEAD_DIM = 128     # the kernel's zero-padded row width
+MAX_HEAD_DIM = 128     # the kernels' zero-padded row width
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def route(dtype: torch.dtype, d: int) -> str:
+    """The CUDA route for operands of ``dtype`` and head dim ``d``."""
+    if dtype == torch.bfloat16 and d % 16 == 0 and d <= MAX_HEAD_DIM:
+        return "wgmma"
+    return "cuda_cores"
+
+
+def route_counts() -> dict[str, int]:
+    """Launches of each route since ``kernels.reset_launch_counts()``."""
+    return kernels.route_counts("flash_attention")
 
 
 def _check(q, k, v, tq, tk, window, q_offset):
@@ -76,12 +95,24 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: the last dimension must be contiguous")
     out = torch.empty_like(q)       # q's layout: a BSHD view stays BSHD
-    if b and h and sq and d:
-        strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-        kernels.launch("flash_attention", q.data_ptr(), k.data_ptr(),
-                       v.data_ptr(), out.data_ptr(), b, h, hkv, sq, skv, d,
-                       *strides, int(causal), int(window), int(q_offset),
-                       d ** -0.5, int(q.dtype == torch.bfloat16))
+    if not (b and h and sq and d):
+        return out
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+            hkv, sq, skv, d, *strides, int(causal), int(window),
+            int(q_offset), d ** -0.5)
+    if route(q.dtype, d) == "wgmma":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 or any(
+                    st % 8 for n, st in zip(t.shape[:3], t.stride()[:3])
+                    if n > 1):
+                raise ValueError(f"{name}: TMA needs a 16-byte aligned "
+                                 f"pointer and strides (strides "
+                                 f"{t.stride()})")
+        kernels.launch("flash_attention", *args, route="wgmma")
+    else:
+        kernels.launch("flash_attention", *args,
+                       int(q.dtype == torch.bfloat16), route="cuda_cores")
     return out
 
 

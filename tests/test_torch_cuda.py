@@ -378,14 +378,71 @@ def test_flash_attention_kernel(dev, b, h, hkv, sq, skv, d, causal, window,
     args = [x.to(dev, dtype) for x in (q, k, v)]
     kw = dict(causal=causal, window=window, q_offset=q_offset,
               tk=64 if skv % 64 == 0 else skv)
-    n = kernels.launch_counts()["flash_attention"]
+    kernels.reset_launch_counts()
     got = ops.flash_attention(*args, tq=sq, **kw)
-    assert kernels.launch_counts()["flash_attention"] == n + 1
+    assert kernels.launch_counts()["flash_attention"] == 1
+    assert ops.route_counts()[ops.route(dtype, d)] == 1
     assert _bf16_err_ok(got, ops.flash_attention_plain(*args, **kw))
     bshd = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in args]
     got2 = ops.flash_attention(*bshd, tq=sq, **kw)
     assert got2.stride() == bshd[0].stride()
     assert torch.equal(got2, got)
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,skv,d,causal,window,q_offset", [
+    (1, 2, 2, 77, 77, 16, True, 0, 0),         # G 1, one ragged q tile
+    (2, 8, 2, 200, 200, 32, True, 0, 0),       # G 4
+    (1, 8, 1, 333, 333, 64, True, 0, 0),       # G 8, ragged KV tile
+    (1, 8, 1, 300, 300, 128, True, 0, 0),
+    (1, 4, 1, 72, 200, 128, True, 0, 128),     # q_offset: cached prefix
+    (1, 8, 2, 330, 330, 64, True, 100, 0),     # window across tiles
+    (2, 4, 4, 150, 150, 96, False, 40, 0),     # non-causal window
+    (1, 8, 2, 70, 90, 32, False, 8, 200),      # rows that keep no key
+    (1, 4, 1, 140, 140, 16, True, 24, 60)])    # window, offset, G 4
+def test_flash_attention_wgmma_route(dev, b, h, hkv, sq, skv, d, causal,
+                                     window, q_offset):
+    """bf16 with D a multiple of 16 takes the tensor-core route at
+    ragged lengths, every GQA grouping, offsets, windows and rows that
+    keep no key, within one bf16 ulp of the plain version, on [B, H, S,
+    D] tensors and on the model's layout."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import ops
+    rng = np.random.default_rng(sq * d + skv)
+    q = torch.from_numpy(rng.normal(size=(b, h, sq, d)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(size=(b, hkv, skv, d)).astype(
+        np.float32)) for _ in range(2))
+    args = [x.to(dev, torch.bfloat16) for x in (q, k, v)]
+    kw = dict(causal=causal, window=window, q_offset=q_offset, tk=skv)
+    kernels.reset_launch_counts()
+    got = ops.flash_attention(*args, tq=sq, **kw)
+    bshd = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in args]
+    got2 = ops.flash_attention(*bshd, tq=sq, **kw)
+    assert kernels.launch_counts()["flash_attention"] == 2
+    assert ops.route_counts() == {"wgmma": 2, "cuda_cores": 0}
+    assert _bf16_err_ok(got, ops.flash_attention_plain(*args, **kw))
+    assert torch.equal(got2, got)
+
+
+def test_flash_attention_routes_and_refusals(dev):
+    """float32 and a bf16 head dim that is no multiple of 16 take the
+    first version; a bf16 operand TMA cannot read raises (no fallback)."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import ops
+    rng = np.random.default_rng(7)
+
+    def operands(d, dtype, pad=0):
+        return [torch.from_numpy(rng.normal(size=(1, 2, 128, d + pad)).astype(
+            np.float32)).to(dev, dtype)[..., :d] for _ in range(3)]
+    kernels.reset_launch_counts()
+    for d, dtype in ((64, torch.float32), (40, torch.bfloat16)):
+        args = operands(d, dtype)
+        got = ops.flash_attention(*args, causal=True, tq=128, tk=128)
+        assert _bf16_err_ok(got, ops.flash_attention_plain(*args, tk=128))
+    assert ops.route_counts() == {"wgmma": 0, "cuda_cores": 2}
+    with pytest.raises(ValueError, match="TMA"):
+        ops.flash_attention(*operands(64, torch.bfloat16, pad=1),
+                            causal=True, tq=128, tk=128)
+    assert kernels.launch_counts()["flash_attention"] == 2
 
 
 def test_model_card_equals_cpu(dev):

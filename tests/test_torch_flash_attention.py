@@ -140,6 +140,111 @@ def test_bshd_helper_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
+def _emulate_wgmma_route(q, k, v, *, causal=True, window=0, q_offset=0,
+                         split=True, bn=128):
+    """The numerics of the ``wgmma`` route (``csrc/flash_attention_sm90.cu``)
+    in plain torch: scores from the unscaled bf16 operands (exact
+    products, float32 sums), then one float32 multiply by scale·log2(e);
+    a base-2 online softmax over ``bn``-key tiles with the -1e30 mask
+    value; acc·alpha plus p·V with p as bf16 ``p_hi + p_lo`` (``split``)
+    or as one bf16 value; acc / max(l, 1e-30) in bf16."""
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    scale_log2 = torch.tensor(d ** -0.5, dtype=torch.float32) * \
+        torch.tensor(1.4426950408889634, dtype=torch.float32)
+    qf = q.float().reshape(b, hkv, h // hkv, sq, d)
+    q_pos = q_offset + torch.arange(sq)[:, None]
+    acc = torch.zeros(b, hkv, h // hkv, sq, d)
+    m = torch.full((b, hkv, h // hkv, sq, 1), -1e30)
+    l = torch.zeros_like(m)
+    for k0 in range(0, skv, bn):
+        kj = k[:, :, None, k0:k0 + bn].float()
+        vj = v[:, :, None, k0:k0 + bn].float()
+        x = (qf @ kj.transpose(-1, -2)) * scale_log2
+        k_pos = k0 + torch.arange(kj.shape[3])[None, :]
+        keep = torch.ones(sq, kj.shape[3], dtype=torch.bool)
+        if causal:
+            keep &= q_pos >= k_pos
+        if window:
+            keep &= k_pos > q_pos - window
+        x = torch.where(keep, x, -1e30)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        p = torch.exp2(x - m_new)
+        alpha = torch.exp2(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        p_hi = p.bfloat16().float()
+        pv = p_hi @ vj
+        if split:
+            pv = pv + (p - p_hi).bfloat16().float() @ vj
+        acc = acc * alpha + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.reshape(b, h, sq, d).to(q.dtype)
+
+
+def _cancelling_inputs(seed, h=2, sq=16, skv=256, d=32):
+    """bf16 q, k, v whose outputs cancel toward zero: every query row of
+    a head is the same row, so all share one softmax p (non-causal), and
+    V's rows are +-2^c with signs chosen greedily, largest p first, to
+    keep the running sum of p·v near 0. Each output is then far smaller
+    than its terms, so a 2^-9 error in each p shows."""
+    rng = np.random.default_rng(seed)
+    q = np.repeat(rng.normal(size=(1, h, 1, d)) * 2, sq, axis=2)
+    k = rng.normal(size=(1, h, skv, d))
+    q, k = (torch.from_numpy(a.astype(np.float32)).bfloat16() for a in (q, k))
+    p = torch.softmax((q[0, :, 0].float() * d ** -0.5)[:, None]
+                      @ k[0].float().transpose(-1, -2), -1)[:, 0]
+    sign = torch.empty(h, skv)
+    for g in range(h):
+        run = 0.0
+        for j in torch.argsort(p[g], descending=True).tolist():
+            sign[g, j] = -1.0 if run > 0 else 1.0
+            run += float(sign[g, j] * p[g, j])
+    v = sign[None, :, :, None] * torch.exp2(torch.arange(d) % 3.0)
+    return q, k, v.bfloat16()
+
+
+def _within_bar(got, want):
+    """decode_tolerance_err's bar: one bf16 ulp of the plain value, or
+    2e-5 where that ulp is finer."""
+    g, w = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(
+        min=2.0 ** -126))) - 7)
+    return bool(((g - w).abs() <= torch.maximum(ulp, torch.tensor(ATOL))
+                 ).all())
+
+
+def test_wgmma_numerics_hold_the_bar_on_cancelling_outputs():
+    """The ``wgmma`` route's design on the CPU: on outputs that cancel,
+    the emulated kernel stays within the bar of the plain version with
+    p = p_hi + p_lo, and a single bf16 p does not."""
+    q, k, v = _cancelling_inputs(3)
+    want = ops.flash_attention_plain(q, k, v, causal=False, tk=128)
+    assert float(want.float().abs().max()) < 1e-3      # they do cancel
+    split = _emulate_wgmma_route(q, k, v, causal=False)
+    single = _emulate_wgmma_route(q, k, v, causal=False, split=False)
+    err = [float((x.float() - want.float()).abs().max())
+           for x in (split, single)]
+    print(f"outputs up to {float(want.float().abs().max()):.2e}: p_hi + "
+          f"p_lo {err[0]:.2e} from plain, one bf16 p {err[1]:.2e}")
+    assert _within_bar(split, want)
+    assert not _within_bar(single, want)
+
+
+@pytest.mark.parametrize("causal,window,q_offset,skv", [
+    (True, 0, 0, 256), (True, 64, 0, 256), (False, 0, 0, 320),
+    (True, 0, 96, 224), (False, 8, 300, 128)])
+def test_wgmma_numerics_match_plain(causal, window, q_offset, skv):
+    """The emulated ``wgmma`` route on random bf16 inputs (GQA, masks,
+    offsets, rows that keep no key) within the bar of the plain
+    version."""
+    q, k, v = map(_torch, _inputs(skv + window, 1, 4, 2, 128, 64, skv=skv,
+                                  dtype="bfloat16"))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    assert _within_bar(_emulate_wgmma_route(q, k, v, **kw),
+                       ops.flash_attention_plain(q, k, v, tk=skv, **kw))
+
+
 @pytest.mark.parametrize("case", ["ragged_sq", "ragged_skv", "dtype_mix",
                                   "groups", "rank", "window"])
 def test_wrapper_rejects_bad_operands(case):

@@ -319,3 +319,38 @@ def test_decode_gap_at_depth(monkeypatch):
           f"{port}, port with float32 decode attention {f32}")  # pytest -rP
     assert max(port) < 2 * max(ref), (port, ref)
     assert max(f32) < max(port), (f32, port)
+
+
+def test_port_vs_jax_at_depth():
+    """Port against JAX at qwen3-4b's depth (36 layers, reduced width; B
+    1, 96 tokens, the setting of :func:`test_decode_gap_at_depth`):
+    prefill logits from each package's own prefill, then two decode
+    steps from the JAX prefill's cache, fed to both packages'
+    ``decode_step``, so decode is measured on the same cache, apart from
+    the prefill. Both within the model bar. (Where the difference comes
+    from: ``examples/torch_depth_parity.py``.)"""
+    jcfg, jp, cfg, model = _pair("qwen3-4b", num_layers=36)
+    p = 96
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                             (1, p + 2)).astype(np.int32)
+
+    def rel(got, want):
+        got, want = _f32(got)[:, -1], _f32(want)[:, -1]
+        return float(np.abs(got - want).max() / np.abs(want).max())
+    jl, jc = JM.prefill(jp, jcfg, {"tokens": jnp.asarray(toks[:, :p])},
+                        cache_len=p + 2)
+    tl, _ = M.prefill(model, cfg, {"tokens": _t(toks[:, :p])},
+                      cache_len=p + 2)
+    prefill = rel(tl, jl)
+    tc = jax.tree_util.tree_map(lambda a: _t(np.asarray(a)), jc)
+    decode = []
+    for i in range(2):
+        nxt = toks[:, p + i:p + i + 1]
+        jl, jc = JM.decode_step(jp, jcfg, jnp.asarray(nxt), jc, p + i)
+        tl, tc = M.decode_step(model, cfg, _t(nxt), tc, p + i)
+        decode.append(rel(tl, jl))
+    print(f"port vs JAX at 36 layers: prefill logits {prefill:.4e}, "
+          f"decode logits from the JAX cache "
+          f"{', '.join(f'{e:.4e}' for e in decode)}")     # pytest -rP
+    assert prefill < LOGIT_REL and max(decode) < LOGIT_REL, (prefill,
+                                                             decode)
