@@ -27,7 +27,16 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    gathered pages; holds ``popularity`` to its plain version, exactly,
    at the staged path's shape (the 12-VM and 1024-VM first blocks, a
    cache size per VM) and at the Pallas benchmark's (N 8192, 1024
-   blocks, cs 64), beside ``torch.exp`` + ``index_add_``; and
+   blocks, cs 64), beside ``torch.exp`` + ``index_add_``; holds
+   ``run_sums`` (the maintenance window's compaction) to its plain
+   version on the fused-interval check's windows and on the first
+   window of the 12-VM and 1024-VM runs, beside ``torch.sort(stable)``
+   + ``index_add_`` and the global-sort chain it replaced (device time
+   and device events); gives both kernels' longest run ``L_max`` and
+   its chain bound (``L_max`` dependent float32 adds, priced by
+   ``chain_probe.cu``); holds both at the shared-memory row limit
+   (``kernels.ROW_MAX`` entries), on one key for a whole row and on an
+   empty row, and checks that a wider row is refused; and
    ``promote_scatter``'s dedupe branch on queues that hold every address
    twice; holds ``flash_attention`` to its plain version (the same
    tolerance as decode) at tests/test_kernels.py's shapes in float32 (the
@@ -386,6 +395,40 @@ def chain_step_ns(dev) -> float:
     return (t_hi - t_lo) * 1e6 / (hi - lo)
 
 
+def fadd_step_ns(dev) -> float:
+    """Nanoseconds of one dependent float32 ``__fadd_rn``, from
+    ``chain_probe.cu``'s ``fadd_probe``: one thread adding to a running
+    sum; the difference of two step counts removes the launch overhead."""
+    import ctypes
+    import torch
+    from repro_torch import kernels
+    out = torch.empty(1, dtype=torch.float32, device=dev)
+    lib = kernels.library()
+
+    def run(steps):
+        err = lib.etica_fadd_probe(
+            1e-3, steps, ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if err:
+            raise RuntimeError(f"fadd_probe failed to launch ({err})")
+
+    lo, hi = 1 << 20, 1 << 21
+    t_lo = min(cuda_ms(lambda: run(lo), 1) for _ in range(3))
+    t_hi = min(cuda_ms(lambda: run(hi), 1) for _ in range(3))
+    return (t_hi - t_lo) * 1e6 / (hi - lo)
+
+
+def longest_run(keys, keep) -> int:
+    """Most kept entries that share one key in a row of ``keys`` (``[V,
+    N]``): the longest in-order sum a row-sorting kernel must add."""
+    import torch
+    v = keys.shape[0]
+    k = (torch.arange(v, device=keys.device)[:, None] * 2**32
+         + keys.long())[keep]
+    return int(torch.unique(k, return_counts=True)[1].max()) \
+        if k.numel() else 0
+
+
 def longest_set_chain(a, sets) -> int:
     """Most valid requests that any (VM, set) receives in block ``a``:
     those requests must run one after another."""
@@ -593,33 +636,37 @@ def check_scatters(dev, rng, v, s, w):
     return out
 
 
-def check_popularity(dev, rng, blocks, label):
+# call / device ms of the earlier global-sort designs (a stable torch.sort
+# of the segment ids or of the window, then one kernel), recorded on an
+# H100 80GB HBM3 at 700 W by an earlier run of this script (PERF.md §6).
+# Quoted in the log beside this run's times, never in the kernels line.
+RECORDED_MS = {"popularity 12-VM staged": (0.1537, 0.0720),
+              "popularity 1024-VM staged": (0.2819, 0.0679),
+              "popularity Pallas bench": (0.2213, 0.0594),
+              "run_sums 12-VM": (0.0440, 0.0042),
+              "run_sums 1024-VM": (0.0436, 0.0048)}
+
+
+def check_popularity(dev, rng, blocks, label, fadd_ns):
     """``popularity`` against its plain version, exactly: (a) the staged
     path's shape, the TRD channels of the window's first ``[V, chunk]``
     block as ``_maintain_staged`` forms them, with a cache size per VM;
     (b) the Pallas benchmark's shape (N 8192, 1024 blocks, cs 64,
     benchmarks/kernels_bench.py). Times the kernel (call and CUDA-graph
     device time), its plain version, and the library pair ``torch.exp`` +
-    ``index_add_`` (in atomics' order, not bit-exact)."""
+    ``index_add_`` (in atomics' order, not bit-exact); gives the longest
+    segment ``L_max`` and its chain bound, ``L_max`` dependent adds."""
     import torch
-    from repro_torch.core import controller
     from repro_torch.kernels.popularity import ops
-    a_np, w_np = blocks[0]
-    v = a_np.shape[0]
-    a = torch.from_numpy(a_np).to(dev)
-    w = torch.from_numpy(w_np).to(dev)
-    lens_np = (a_np >= 0).sum(axis=1).astype(np.int32)
-    lens = torch.from_numpy(lens_np).to(dev)
-    amat, dist, served = controller._trd_rows(a, w, lens, int(lens_np.max()))
-    col = torch.arange(amat.shape[1], device=dev)[None, :]
-    waddr = torch.where(col < lens[:, None], amat, -1)
+    waddr, dist, served, lens = paper_window(dev, blocks)
+    v = waddr.shape[0]
     cs = torch.from_numpy((rng.integers(8, 65, v) * 64).astype(
         np.float32)).to(dev)
     vm = torch.arange(v, dtype=torch.int64, device=dev)[:, None]
     key = torch.where(waddr >= 0, (vm << 31) + waddr.long(), ops._NO_BLOCK)
     uniq, inv = torch.unique(key.reshape(-1), return_inverse=True)
     nb = int((uniq < ops._NO_BLOCK).sum())
-    seg = inv.reshape(amat.shape).to(torch.int32)
+    seg = inv.reshape(waddr.shape).to(torch.int32)
     n_b = 8192
     bench = (torch.from_numpy(rng.integers(-1, 300, n_b).astype(
                  np.int32)).to(dev)[None],
@@ -634,14 +681,13 @@ def check_popularity(dev, rng, blocks, label):
         raise AssertionError("popularity: the batch form's segments differ "
                              "from the grouping checked here")
     row = None
-    for name, args in ((f"(a) {label}", (dist, served, seg, nb, cs)),
-                       ("(b) Pallas bench", bench)):
+    for name, args in ((label, (dist, served, seg, nb, cs)),
+                       ("Pallas bench", bench)):
         d, sv, sg, k, c = args
         got = ops.popularity_rows(*args)
         err = max_abs_err([got], [ops.popularity_rows_plain(*args)])
         ms = cuda_ms(lambda: ops.popularity_rows(*args), 50)
         dev_ms = graph_ms(lambda: ops.popularity_rows(*args))
-        sort_ms = graph_ms(lambda: ops._segments(sg, k))   # the grouping
         plain_ms = cuda_ms(lambda: ops.popularity_rows_plain(*args), 3)
         flat = sg.reshape(-1).long()
 
@@ -658,21 +704,71 @@ def check_popularity(dev, rng, blocks, label):
         live = float((sv & (d >= 0) & (sg < k)).sum())
         b, by = bound_ms(9.0 * d.numel() + 4.0 * c.numel() + 4.0 * k,
                          30.0 * live)
+        l_max = longest_run(sg, (sg >= 0) & (sg < k))
+        chain_b = l_max * fadd_ns * 1e-6
+        old_ms, old_dev_ms = RECORDED_MS[f"popularity {name}"]
         log(f"popularity {name} [{d.shape[0]},{d.shape[1]}] {k} blocks: "
-            f"exact, kernel {ms:.4f} ms (device {dev_ms:.4f} ms, of which "
-            f"the stable sort and segment starts {sort_ms:.4f} ms), plain "
-            f"{plain_ms:.4f} ms, torch.exp + index_add_ {lib_ms:.4f} ms "
-            f"(device {lib_dev_ms:.4f} ms), bound {b:.6f} ms ({by}), "
-            f"{live:.0f} contributing accesses")
+            f"exact, kernel {ms:.4f} ms (device {dev_ms:.4f} ms; the "
+            f"global-sort design as recorded in PERF.md {old_ms:.4f} ms, "
+            f"device {old_dev_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+            f"torch.exp + index_add_ "
+            f"{lib_ms:.4f} ms (device {lib_dev_ms:.4f} ms), bound {b:.6f} ms "
+            f"({by}), {live:.0f} contributing accesses, longest segment "
+            f"L_max {l_max} x {fadd_ns:.3f} ns = chain bound {chain_b:.5f} "
+            f"ms")
         stats = dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
-                     segments_device_ms=sort_ms, plain_ms=plain_ms,
-                     bound_ms=b, bound_by=by,
-                     library_ms=lib_ms, library_device_ms=lib_dev_ms)
+                     plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                     library_ms=lib_ms, library_device_ms=lib_dev_ms,
+                     l_max=l_max, chain_bound_ms=chain_b)
         if row is None:
             row = stats
         else:
             row["pallas_bench"] = stats
     return row
+
+
+def check_row_limits(dev, rng):
+    """``popularity`` and ``run_sums`` against their plain versions at the
+    edges of the shared-memory row sort: rows of ``kernels.ROW_MAX``
+    entries (heavy ties), the worst chain (one key for every entry of a
+    row) and an all-padding row; a row one entry wider must raise."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import popularity as pop
+    from repro_torch.kernels.popularity import ops
+    err = 0.0
+    for n in (kernels.ROW_MAX, 1000):
+        v = 3
+        addr = rng.integers(0, 48, (v, n)).astype(np.int32)
+        addr[1] = 7                              # the worst chain
+        wa = torch.from_numpy(addr).to(dev)
+        wc = torch.rand((v, n), device=dev)
+        nv = torch.tensor([n, n, 0], dtype=torch.int32, device=dev)
+        got = pop.window_runs(wa, wc, nv)
+        err = max(err, max_abs_err(got, pop.window_runs_plain(wa, wc, nv)))
+        seg = (wa + 48 * torch.arange(v, device=dev)[:, None]).to(
+            torch.int32)
+        seg[2] = 3 * 48                          # all padding
+        args = (torch.from_numpy(rng.integers(-1, 300, (v, n)).astype(
+                    np.int32)).to(dev),
+                torch.from_numpy(rng.random((v, n)) < 0.7).to(dev), seg,
+                3 * 48, torch.full((v,), 64.0, device=dev))
+        err = max(err, max_abs_err([ops.popularity_rows(*args)],
+                                   [ops.popularity_rows_plain(*args)]))
+        log(f"row limits [{v},{n}]: run_sums and popularity exact (heavy "
+            f"ties, one key for a whole row, an empty row)")
+    wide = torch.zeros((1, kernels.ROW_MAX + 1), dtype=torch.int32,
+                       device=dev)
+    for fn in (lambda: pop.window_runs(wide, wide.float(), wide[:, 0]),
+               lambda: ops.popularity_rows(wide, wide > 0, wide, 1,
+                                           wide[:, 0].float())):
+        try:
+            fn()
+        except ValueError as e:
+            log(f"row of {kernels.ROW_MAX + 1}: refused ({e})")
+        else:
+            raise AssertionError("a row past the limit was not refused")
+    return err
 
 
 def check_clean(dev, rng, v, s, w):
@@ -707,11 +803,13 @@ def check_clean(dev, rng, v, s, w):
                 bound_ms=b, bound_by=by, library_ms=None)
 
 
-def check_maintenance(dev, rng, v, s, w, lens_range):
+def check_maintenance(dev, rng, v, s, w, lens_range, label):
     """The fused interval on the card (kernels, no host sync allowed)
     against the same interval on the CPU (plain versions), without and
-    with the cleaner, and the run_sums helper against its plain version,
-    for ``v`` VMs whose windows hold ``lens_range`` requests."""
+    with the cleaner, and ``run_sums`` (the window compaction) on the
+    first merge's window against its plain version, for ``v`` VMs whose
+    windows hold ``lens_range`` requests. Returns the compaction's
+    ``max_abs_err``."""
     import torch
     from repro_torch.core import popularity as pop
     from repro_torch.core import reuse
@@ -769,38 +867,122 @@ def check_maintenance(dev, rng, v, s, w, lens_range):
             f"x3 intervals: card == CPU, no host sync; promoted {promoted}, "
             f"cleaned {cleaned}")
 
-    # run_sums helper on the first merge's sorted window
-    a = torch.from_numpy(amat).to(dev)
-    c = torch.rand(a.shape, device=dev)
-    sa, order = torch.sort(a, dim=1, stable=True)
-    sc = c.gather(1, order)
-    head = torch.ones_like(sa, dtype=torch.bool)
-    head[:, 1:] = sa[:, 1:] != sa[:, :-1]
-    seg = head.long().cumsum(dim=1) - 1
-    got = pop._run_sums_cuda(sa, sc, head, seg)
-    cpu = [x.cpu() for x in (sa, sc, head, seg)]
-    want = pop._run_sums(*cpu).to(dev)
-    err = max_abs_err([got], [want])
-    ms = cuda_ms(lambda: pop._run_sums_cuda(sa, sc, head, seg), 50)
-    dev_ms = graph_ms(lambda: pop._run_sums_cuda(sa, sc, head, seg))
-    plain_ms = cuda_ms(lambda: pop._run_sums(*cpu), 3)
-    # the same per-run sum as one library call, in atomics' order
-    flat = (seg + torch.arange(sa.shape[0], device=dev)[:, None]
-            * sa.shape[1]).reshape(-1)
-    vals = sc.reshape(-1)
+    # run_sums on the first merge's window: the whole compaction from the
+    # unsorted window, against its plain version (timed in
+    # check_window_runs)
+    a = torch.from_numpy(amat)
+    c = torch.rand(a.shape)
+    nv = torch.from_numpy(lens)
+    err = max_abs_err([x.cpu() for x in pop.window_runs(
+                           a.to(dev), c.to(dev), nv.to(dev))],
+                      pop.window_runs_plain(a, c, nv))
+    log(f"run_sums {label} random windows {list(a.shape)}: exact")
+    return err
 
-    def index_add():
-        return torch.zeros(sa.numel(), device=dev).index_add_(0, flat, vals)
-    lib_ms = cuda_ms(index_add, 50)
-    lib_dev_ms = graph_ms(index_add)
-    b, by = bound_ms(21.0 * sa.numel(), 2.0 * sa.numel())
-    log(f"run_sums {list(sa.shape)}: exact, kernel {ms:.4f} ms (device "
-        f"{dev_ms:.4f} ms), plain (CPU) {plain_ms:.4f} ms, index_add_ "
-        f"{lib_ms:.4f} ms (device {lib_dev_ms:.4f} ms), bound {b:.5f} ms "
-        f"({by})")
-    return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                bound_ms=b, bound_by=by, library_ms=lib_ms,
-                library_device_ms=lib_dev_ms)
+
+def check_run_sums(dev, a, c, nv, label, recorded, fadd_ns):
+    """``run_sums`` (``pop.window_runs``, the window compaction of
+    ``table_update``) on ``[V, N]`` addresses ``a``, contributions ``c``
+    and valid lengths ``nv`` against its plain version, exactly; times it
+    (call, CUDA-graph device time, device events a call) beside the
+    global-sort chain it replaced and the library pair
+    ``torch.sort(stable)`` + ``index_add_``; gives the longest run
+    ``L_max`` and its chain bound. ``recorded`` names the earlier
+    kernel's recorded times in ``RECORDED_MS``, quoted in the log."""
+    import torch
+    from repro_torch.core import popularity as pop
+    got = pop.window_runs(a, c, nv)
+    cpu = [x.cpu() for x in (a, c, nv)]
+    want = [x.to(dev) for x in pop.window_runs_plain(*cpu)]
+    err = max_abs_err(got, want)
+    ms = cuda_ms(lambda: pop.window_runs(a, c, nv), 50)
+    dev_ms = graph_ms(lambda: pop.window_runs(a, c, nv))
+    _, events = device_profile(lambda: pop.window_runs(a, c, nv), 20)
+    plain_ms = cuda_ms(lambda: pop.window_runs_plain(*cpu), 3)
+    v, n = a.shape
+    valid = torch.arange(n, device=dev)[None, :] < nv[:, None]
+    wa = torch.where(valid, a, pop.TABLE_EMPTY)
+    wc = torch.where(valid, c, 0.0)
+    rows = torch.arange(v, device=dev)[:, None]
+
+    def old_chain():
+        # the earlier design's chain: the window sort, two gathers, run
+        # heads and slots, the address scatter and a zero fill, then the
+        # per-run sums (index_add_ in the earlier kernel's place)
+        order = torch.sort(wa, dim=1, stable=True).indices
+        sa, sc = wa.gather(1, order), wc.gather(1, order)
+        head = torch.ones_like(sa, dtype=torch.bool)
+        head[:, 1:] = sa[:, 1:] != sa[:, :-1]
+        seg = head.long().cumsum(dim=1) - 1
+        caddr = torch.full_like(sa, pop.TABLE_EMPTY).scatter_(1, seg, sa)
+        cval = torch.zeros(v * n, device=dev).index_add_(
+            0, (seg + rows * n).reshape(-1), sc.reshape(-1)).view(v, n)
+        return caddr, torch.where(caddr == pop.TABLE_EMPTY, 0.0, cval)
+    chain_dev_ms = graph_ms(old_chain)
+    _, chain_events = device_profile(old_chain, 20)
+    # the same compaction as a library pair, in atomics' order: the stable
+    # sort that groups the window, index_add_ into each entry's run slot
+    key = (rows * 2**32 + wa.long()).reshape(-1)
+    slot = torch.unique(key, return_inverse=True)[1]
+    vals = wc.reshape(-1)
+
+    def library():
+        torch.sort(key, stable=True)
+        return torch.zeros(v * n, device=dev).index_add_(0, slot, vals)
+    lib_ms = cuda_ms(library, 50)
+    lib_dev_ms = graph_ms(library)
+    # addresses, contributions and lengths read once, both outputs written
+    b, by = bound_ms(16.0 * a.numel() + 4.0 * v, 2.0 * float(valid.sum()))
+    l_max = longest_run(a, valid)
+    chain_b = l_max * fadd_ns * 1e-6
+    stats = dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
+                 plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                 library_ms=lib_ms, library_device_ms=lib_dev_ms,
+                 device_events=events, l_max=l_max, chain_bound_ms=chain_b,
+                 old_chain_device_ms=chain_dev_ms,
+                 old_chain_device_events=chain_events)
+    old_ms, old_dev_ms = RECORDED_MS[recorded]
+    before = (f"; the earlier run_sums kernel alone as recorded in PERF.md "
+              f"{old_ms} ms (device {old_dev_ms} ms)")
+    log(f"run_sums {label} {list(a.shape)}: exact, kernel {ms:.4f} ms "
+        f"(device {dev_ms:.4f} ms, {events:.0f} device events a call); the "
+        f"global-sort chain it replaces (index_add_ in its kernel's place) "
+        f"device {chain_dev_ms:.4f} ms in {chain_events:.0f} device events"
+        f"{before}; plain (CPU) {plain_ms:.4f} ms, torch.sort(stable) + "
+        f"index_add_ {lib_ms:.4f} ms (device {lib_dev_ms:.4f} ms), bound "
+        f"{b:.5f} ms ({by}), longest run L_max {l_max} x {fadd_ns:.3f} ns "
+        f"= chain bound {chain_b:.5f} ms")
+    return stats
+
+
+def paper_window(dev, blocks):
+    """The TRD channels of a window's first ``[V, chunk]`` block as the
+    maintenance modes form them: ``(addresses, dist, served, lengths)``,
+    addresses past each VM's length ``-1``."""
+    import torch
+    from repro_torch.core import controller
+    a_np, w_np = blocks[0]
+    a = torch.from_numpy(a_np).to(dev)
+    w = torch.from_numpy(w_np).to(dev)
+    lens = (a >= 0).sum(dim=1).to(torch.int32)
+    amat, dist, served = controller._trd_rows(a, w, lens, int(lens.max()))
+    col = torch.arange(amat.shape[1], device=dev)[None, :]
+    return torch.where(col < lens[:, None], amat, -1), dist, served, lens
+
+
+def check_window_runs(dev, rng, blocks, label, fadd_ns):
+    """``run_sums`` on the window of the fused interval's first merge in
+    the run itself: the first block's addresses, valid lengths and Eq. 1
+    contributions at a cache size per VM (as ``maintenance_interval``
+    forms them)."""
+    import torch
+    from repro_torch.core import popularity as pop
+    waddr, dist, served, lens = paper_window(dev, blocks)
+    cs = torch.from_numpy((rng.integers(8, 65, waddr.shape[0]) * 64).astype(
+        np.float32)).to(dev)
+    contrib = pop.contributions(dist, served, cs[:, None])
+    return check_run_sums(dev, waddr, contrib, lens, f"{label} first window",
+                          f"run_sums {label}", fadd_ns)
 
 
 def decode_tolerance_err(got, want) -> tuple[float, int, int]:
@@ -1048,19 +1230,20 @@ def run_controller(build, trace, device, telemetry=None):
     return cache, res, time.perf_counter() - t0
 
 
-def span_breakdown(build, trace, label):
-    """One more card run with span timing on: CUDA-event time of the
-    sizing, datapath and maintenance spans (each span waits for its
-    work, so this run is slower than the untimed one and its results are
-    not reported as the cell's speed)."""
+def span_breakdown(build, trace, label, repeats=1):
+    """``repeats`` more card runs with span timing on: CUDA-event time of
+    the sizing, datapath and maintenance spans (each span waits for its
+    work, so these runs are slower than the untimed one and their results
+    are not reported as the cell's speed)."""
     from repro_torch.runtime.telemetry import TelemetryRecorder
-    rec = TelemetryRecorder(span_timing=True)
-    _, _, wall = run_controller(build, trace, "cuda", rec)
-    spans = {k: (s.n, s.total) for k, s in rec.spans.items()}
-    inside = sum(t for _, t in spans.values())
-    log(f"{label} span breakdown (timed run {wall:.3f} s): " + ", ".join(
-        f"{k} {n} spans {t:.3f} s" for k, (n, t) in spans.items())
-        + f", outside spans {wall - inside:.3f} s")
+    for _ in range(repeats):
+        rec = TelemetryRecorder(span_timing=True)
+        _, _, wall = run_controller(build, trace, "cuda", rec)
+        spans = {k: (s.n, s.total) for k, s in rec.spans.items()}
+        inside = sum(t for _, t in spans.values())
+        log(f"{label} span breakdown (timed run {wall:.3f} s): " + ", ".join(
+            f"{k} {n} spans {t:.3f} s" for k, (n, t) in spans.items())
+            + f", outside spans {wall - inside:.3f} s")
 
 
 def assert_same(res_a, res_b, label):
@@ -1238,18 +1421,19 @@ def serving_launches(label, expect, only=False):
     return n
 
 
-def serving_spans(kind, cfg, trace, label, decode_every=0):
-    """A span-timed card run: CUDA-event time of the maintenance and
-    sizing dispatches (each span waits for its work, so this run is not
-    the cell's speed)."""
+def serving_spans(kind, cfg, trace, label, decode_every=0, repeats=1):
+    """``repeats`` span-timed card runs: CUDA-event time of the
+    maintenance and sizing dispatches (each span waits for its work, so
+    these runs are not the cell's speed)."""
     from repro_torch.runtime.telemetry import TelemetryRecorder
-    rec = TelemetryRecorder(span_timing=True)
-    _, wall = run_serving(kind, cfg, trace, "cuda", decode_every, rec)
-    spans = {k: (v.n, v.total) for k, v in rec.spans.items()}
-    inside = sum(t for _, t in spans.values())
-    log(f"{label} span breakdown (timed run {wall:.3f} s): " + ", ".join(
-        f"{k} {n} spans {t:.3f} s" for k, (n, t) in spans.items())
-        + f", outside spans {wall - inside:.3f} s")
+    for _ in range(repeats):
+        rec = TelemetryRecorder(span_timing=True)
+        _, wall = run_serving(kind, cfg, trace, "cuda", decode_every, rec)
+        spans = {k: (v.n, v.total) for k, v in rec.spans.items()}
+        inside = sum(t for _, t in spans.values())
+        log(f"{label} span breakdown (timed run {wall:.3f} s): " + ", ".join(
+            f"{k} {n} spans {t:.3f} s" for k, (n, t) in spans.items())
+            + f", outside spans {wall - inside:.3f} s")
 
 
 def check_serving(launches):
@@ -1308,7 +1492,7 @@ def check_serving(launches):
         f"{trace.num_sessions}, max live {trace.max_live}, ETICA "
         f"{BENCH_SERVING['etica']}, LRU {BENCH_SERVING['lru']}); batched == "
         f"oracle; DMA-write reduction vs LRU {red:.3f}")
-    serving_spans("etica", cfg, trace, "serving-etica")
+    serving_spans("etica", cfg, trace, "serving-etica", repeats=3)
 
     ccfg = dataclasses.replace(cfg, clean_quota=CLEAN_QUOTA)
     kernels.reset_launch_counts()
@@ -2172,6 +2356,8 @@ def main() -> int:
     _, blocks1024b = first_blocks(fig1024[win:], 1024, win, chunk, 1)
     step_ns = chain_step_ns(dev)
     log(f"chain_probe: one dependent on-chip load {step_ns:.3f} ns")
+    fadd_ns = fadd_step_ns(dev)
+    log(f"chain_probe: one dependent float32 add {fadd_ns:.3f} ns")
     rows = {}
     rows["count_between"] = check_count_between(dev, subs12, "12-VM POD")
     check_count_between(dev, subs1024, "1024-VM POD")
@@ -2191,10 +2377,20 @@ def main() -> int:
     check_scatters(dev, rng, 1024, 16, 32)
     rows["clean_scatter"] = check_clean(dev, rng, 12, 64, 64)
     check_clean(dev, rng, 1024, 16, 32)
-    rows["run_sums"] = check_maintenance(dev, rng, 12, 64, 64, (600, 1000))
-    check_maintenance(dev, rng, 1024, 16, 32, (20, 60))
-    rows["popularity"] = check_popularity(dev, rng, blocks12, "12-VM staged")
-    check_popularity(dev, rng, blocks1024, "1024-VM staged")
+    maint_err = max(
+        check_maintenance(dev, rng, 12, 64, 64, (600, 1000), "12-VM"),
+        check_maintenance(dev, rng, 1024, 16, 32, (20, 60), "1024-VM"))
+    rows["run_sums"] = check_window_runs(dev, rng, blocks12, "12-VM",
+                                         fadd_ns)
+    rows["run_sums"]["max_abs_err"] = max(rows["run_sums"]["max_abs_err"],
+                                          maint_err)
+    check_window_runs(dev, rng, blocks1024, "1024-VM", fadd_ns)
+    rows["popularity"] = check_popularity(dev, rng, blocks12, "12-VM staged",
+                                          fadd_ns)
+    check_popularity(dev, rng, blocks1024, "1024-VM staged", fadd_ns)
+    limit_err = check_row_limits(dev, rng)
+    for k in ("run_sums", "popularity"):
+        rows[k]["max_abs_err"] = max(rows[k]["max_abs_err"], limit_err)
     rows["paged_decode_attention"] = check_decode(dev, rng)
     rows["flash_attention"] = dict(max_abs_err=check_flash_shapes(dev, rng),
                                    **flash_build_report())
@@ -2206,7 +2402,7 @@ def main() -> int:
     cfg = EticaConfig(dram_capacity=8192, ssd_capacity=16384)
     launches["paper-12vm"], fused, paper_res, fused_rate = drive(
         etica(cfg, 12), paper, "paper 12-VM", ETICA_KERNELS)
-    span_breakdown(etica(cfg, 12), paper, "paper 12-VM")
+    span_breakdown(etica(cfg, 12), paper, "paper 12-VM", repeats=3)
     launches["fig15-128vm"], *_ = drive(
         etica(fig15_config(128, len(fig128)), 128), fig128, "fig15 128-VM",
         ETICA_KERNELS)
@@ -2286,8 +2482,9 @@ def main() -> int:
                      "no Pallas kernel)",
         "single_level": "src/repro/core/simulator.py:264 (lax.scan step; "
                         "no Pallas kernel)",
-        "run_sums": "src/repro/core/popularity.py:204 (_compact_runs "
-                    "scatter-add; no Pallas kernel)",
+        "run_sums": "src/repro/core/popularity.py:238 (_row_update's "
+                    "stable argsort + _compact_runs scatter-add at :204; "
+                    "no Pallas kernel)",
         "paged_decode_attention":
             "src/repro/kernels/decode_attention/kernel.py:28",
         "popularity": "src/repro/kernels/popularity/kernel.py:26",

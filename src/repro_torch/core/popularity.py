@@ -9,8 +9,9 @@ reference bit for bit, so every float32 step follows XLA:CPU:
   * ``exp`` is :func:`repro_torch._xla_math.exp_xla_f32` and every
     float32 result is flushed with :func:`~repro_torch._xla_math.ftz`;
   * a block's contributions in one window are added left to right
-    (``_run_sums``: the ``run_sums`` CUDA helper on the card, an in-order
-    loop on the CPU) — never with atomics in no fixed order;
+    (:func:`window_runs`: the ``run_sums`` CUDA kernel on the card, a
+    stable sort and an in-order loop on the CPU) — never with atomics in
+    no fixed order;
   * ties follow the reference: stable sorts, ``searchsorted`` on the
     left side, and ``lax.top_k``'s lower-index-first order reproduced
     by a stable descending sort of the reversed row;
@@ -192,18 +193,11 @@ def _scatter_drop(base: torch.Tensor, dest: torch.Tensor, src: torch.Tensor,
     return out[:, :k].contiguous()
 
 
-def _run_sums(keys, vals, head, seg) -> torch.Tensor:
-    """``zeros.at[seg].add(vals)`` with each run of equal sorted keys
-    summed left to right (float32, subnormals flushed)."""
-    if keys.device.type != "cpu":
-        return _run_sums_cuda(keys, vals, head, seg)
-    return run_sums_plain(head, seg, vals)
-
-
 def run_sums_plain(head, seg, vals) -> torch.Tensor:
-    """The plain version of :func:`_run_sums`: ``[V, N]`` sorted rows
-    whose runs start where ``head`` is set (run ordinal ``seg``); out[v,
-    r] is run r's left-to-right sum, 0 past the last run."""
+    """In-order run sums of ``[V, N]`` sorted rows whose runs start where
+    ``head`` is set (run ordinal ``seg``): out[v, r] is run r's
+    left-to-right float32 sum, each partial sum's subnormals flushed, 0
+    past the last run."""
     v, n = head.shape
     dev = head.device
     pos = torch.arange(n, device=dev).expand(v, n)
@@ -219,30 +213,58 @@ def run_sums_plain(head, seg, vals) -> torch.Tensor:
     return acc
 
 
-def _run_sums_cuda(keys, vals, head, seg) -> torch.Tensor:
-    dev = keys.device
-    v, n = keys.shape
-    kernels.check(keys, "keys", torch.int32, (v, n), dev)
-    kernels.check(vals, "vals", torch.float32, (v, n), dev)
-    kernels.check(head, "head", torch.bool, (v, n), dev)
-    kernels.check(seg, "seg", torch.int64, (v, n), dev)
-    out = torch.zeros((v, n), dtype=torch.float32, device=dev)
-    if v and n:
-        ptrs = [x.data_ptr() for x in (keys, vals, head, seg, out)]
-        kernels.launch("run_sums", *ptrs, v, n)
-    return out
-
-
 def _compact_runs(a: torch.Tensor, c: torch.Tensor):
     """Sum runs of equal sorted keys into their run's slot (segment
-    order); the tail is :data:`TABLE_EMPTY` with value 0."""
-    v, n = a.shape
+    order); the tail is :data:`TABLE_EMPTY` with value 0. A subnormal
+    value adds as zero, as XLA:CPU's scatter-add treats it."""
     head = torch.ones_like(a, dtype=torch.bool)
     head[:, 1:] = a[:, 1:] != a[:, :-1]
     seg = head.long().cumsum(dim=1) - 1
     caddr = torch.full_like(a, TABLE_EMPTY).scatter_(1, seg, a)
-    cval = _run_sums(a.contiguous(), c.contiguous(), head, seg)
+    cval = run_sums_plain(head, seg, ftz(c))
     return caddr, torch.where(caddr == TABLE_EMPTY, 0.0, cval)
+
+
+def window_runs(waddr, contrib, n_valid):
+    """One window's per-block sums, every row: ``(uaddr, uval)`` ``[V,
+    N]``, each distinct address of row v's first ``n_valid[v]`` entries
+    once, ascending, from slot 0, with its contributions added left to
+    right in access order; the tail :data:`TABLE_EMPTY` with 0. The
+    reference's stable argsort and ``_compact_runs``. ``waddr``/``contrib``
+    ``[V, N]``, ``n_valid`` ``[V]``. A CUDA tensor takes the ``run_sums``
+    kernel, which sorts each row in shared memory (rows up to
+    :data:`repro_torch.kernels.ROW_MAX` wide); a CPU tensor
+    :func:`window_runs_plain`."""
+    if waddr.device.type == "cpu":
+        return window_runs_plain(waddr, contrib, n_valid)
+    dev = waddr.device
+    v, n = waddr.shape
+    wa = waddr.to(torch.int32).contiguous()
+    wc = contrib.to(torch.float32).contiguous()
+    nv = n_valid.to(torch.int32).contiguous()
+    kernels.check(wa, "waddr", torch.int32, (v, n), dev)
+    kernels.check(wc, "contrib", torch.float32, (v, n), dev)
+    kernels.check(nv, "n_valid", torch.int32, (v,), dev)
+    kernels.check_row("run_sums", n)
+    uaddr = torch.empty((v, n), dtype=torch.int32, device=dev)
+    uval = torch.empty((v, n), dtype=torch.float32, device=dev)
+    if v and n:
+        ptrs = [x.data_ptr() for x in (wa, wc, nv, uaddr, uval)]
+        kernels.launch("run_sums", *ptrs, v, n)
+    return uaddr, uval
+
+
+def window_runs_plain(waddr, contrib, n_valid):
+    """The plain version of :func:`window_runs`: padding masked to
+    :data:`TABLE_EMPTY`, a stable sort of each row, then the in-order run
+    sums of :func:`_compact_runs`."""
+    n = waddr.shape[1]
+    valid = (torch.arange(n, device=waddr.device)[None, :]
+             < n_valid[:, None])
+    wa = torch.where(valid, waddr.to(torch.int32), TABLE_EMPTY)
+    wc = torch.where(valid, contrib.float(), 0.0)
+    order = torch.sort(wa, dim=1, stable=True).indices
+    return _compact_runs(wa.gather(1, order), wc.gather(1, order))
 
 
 def table_update(table: PopularityTable, waddr, contrib, n_valid, live,
@@ -257,12 +279,7 @@ def table_update(table: PopularityTable, waddr, contrib, n_valid, live,
     v, k = addr.shape
     n = waddr.shape[1]
     dev = addr.device
-    valid = torch.arange(n, device=dev)[None, :] < n_valid[:, None]
-    wa = torch.where(valid, waddr.to(torch.int32), TABLE_EMPTY)
-    wc = torch.where(valid, contrib.float(), 0.0)
-
-    order = torch.sort(wa, dim=1, stable=True).indices
-    uaddr, uval = _compact_runs(wa.gather(1, order), wc.gather(1, order))
+    uaddr, uval = window_runs(waddr, contrib, n_valid)
     val_d = ftz(val * f32(decay))
 
     # blocks already in the table: one add each, table + window score

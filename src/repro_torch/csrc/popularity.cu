@@ -14,67 +14,105 @@
 // only within allclose.
 //
 // What bounds it on the H100: bytes, about 9 read per access (dist,
-// served, its position in the segment order) and 4 written per block; the
-// exp is some 30 scalar operations an access. At the staged path's shape
-// (12 VMs x 1,024 accesses) that is a fraction of a microsecond. The
-// kernel is far above it: the sum of a block is one chain of dependent
-// adds in access order, so the block with the most accesses in the
-// window (about a thousand at the paper's 12-VM shape) sets the time.
+// served, the segment id) and 4 written per block; the exp is some 30
+// scalar operations an access. At the staged path's shape (12 VMs x 1,024
+// accesses) that is a fraction of a microsecond. The kernel sits above
+// it: the sum of a block is one chain of dependent adds in access order,
+// so the block with the most accesses in a row (L_max) sets the floor,
+// L_max dependent __fadd_rn.
 //
-// Design: the wrapper sorts the segment ids stably (each segment's
-// positions in access order) and finds each segment's start. One warp
-// per segment: the lanes load 32 positions at once and compute their
-// contributions in registers, so the [V, N] contribution vector never
-// goes to memory (what the Pallas kernel keeps out of HBM), and the loads
-// and exps of a batch overlap; then every lane adds the batch's 32
-// contributions in order from __shfl_sync, so only the adds are serial.
-// Positions past every segment (padding) are never visited.
+// Design: a segment lies in one row, and a row fits in shared memory, so
+// one CTA takes one row and nothing leaves the chip between the load and
+// the scores (row_sort.cuh). The CTA drops the row's padding (segment ids
+// at or past num_blocks), computes each kept access's contribution in
+// registers, sorts the (segment, contribution) pairs stably by segment in
+// shared memory, and gives each segment to the thread that holds its
+// first pair: it finds the segment's end by a galloping search and adds
+// the contributions with the loads a chunk ahead of the adds. No global
+// sort: one launch beside the zero fill of the scores (segments absent
+// from every row).
 #include <cuda_runtime.h>
 
-#include "xla_exp.cuh"
+#include "row_sort.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
+using namespace etica;
 
-__global__ void popularity_kernel(const int* __restrict__ dist,
-                                  const unsigned char* __restrict__ served,
-                                  const int* __restrict__ perm,
-                                  const int* __restrict__ offsets,
-                                  const float* __restrict__ cs,
-                                  float* __restrict__ out, int num_blocks,
-                                  int n) {
-  const int lane = threadIdx.x % 32;
-  const int b = blockIdx.x * kWarps + threadIdx.x / 32;
-  if (b >= num_blocks) return;
-  const int end = offsets[b + 1];
-  float acc = 0.0f;
-  for (int base = offsets[b]; base < end; base += 32) {
-    const int k = base + lane;
-    float c = 0.0f;
-    if (k < end) {
-      const int i = perm[k];
-      c = etica::eq1_contribution(dist[i], served[i] != 0, cs[i / n]);
-    }
-    const int len = min(32, end - base);
+constexpr int kUnroll = 4;   // tiles whose loads are in flight together
+
+// segment ids, distances and served flags of tiles t0 .. t0 + kUnroll
+__device__ __forceinline__ void load_tiles(
+    const int* __restrict__ dist, const unsigned char* __restrict__ served,
+    const int* __restrict__ seg, long long row, int n, unsigned nb, int t0,
+    unsigned (&s)[kUnroll], int (&d)[kUnroll], bool (&sv)[kUnroll]) {
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const float x = __shfl_sync(0xffffffffu, c, j);
-      if (j < len) acc = __fadd_rn(acc, x);
+  for (int u = 0; u < kUnroll; ++u) {
+    const int i = (t0 + u) * kRowThreads + threadIdx.x;
+    const bool in = i < n;
+    s[u] = in ? (unsigned)seg[row + i] : nb;
+    d[u] = in ? dist[row + i] : -1;
+    sv[u] = in && served[row + i] != 0;
+  }
+}
+
+__global__ void __launch_bounds__(kRowThreads)
+    popularity_kernel(const int* __restrict__ dist,
+                      const unsigned char* __restrict__ served,
+                      const int* __restrict__ seg,
+                      const float* __restrict__ cs, float* __restrict__ out,
+                      int num_blocks, int n) {
+  extern __shared__ unsigned long long pairs[];
+  __shared__ RowScan scan;
+  const long long row = (long long)blockIdx.x * n;
+  const unsigned nb = (unsigned)num_blocks;
+  const int tiles = (n + kRowThreads - 1) / kRowThreads;
+  unsigned s[kUnroll];
+  int d[kUnroll];
+  bool sv[kUnroll];
+  for (int t0 = 0; t0 < tiles; t0 += kUnroll) {
+    load_tiles(dist, served, seg, row, n, nb, t0, s, d, sv);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (t0 + u < tiles) scan.count(t0 + u, s[u] < nb);
+  }
+  const int m = scan.bases(tiles);
+  if (m == 0) return;
+  const float c = cs[blockIdx.x];
+  for (int t0 = 0; t0 < tiles; t0 += kUnroll) {
+    // a row of up to kUnroll tiles is still in registers
+    if (tiles > kUnroll)
+      load_tiles(dist, served, seg, row, n, nb, t0, s, d, sv);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (t0 + u >= tiles) break;
+      const int r = scan.rank(t0 + u, s[u] < nb);
+      if (s[u] < nb)
+        pairs[r] = make_pair(s[u], eq1_contribution(d[u], sv[u], c));
     }
   }
-  if (lane == 0) out[b] = acc;
+  row_sort(pairs, m);
+  for (int i = threadIdx.x; i < m; i += kRowThreads) {
+    const unsigned s = sorted_key(pairs, i);
+    if (i > 0 && sorted_key(pairs, i - 1) == s) continue;
+    out[s] = run_sum<false>(pairs, i, run_end(pairs, i, m, s));
+  }
 }
+
+bool configured = false;
 
 }  // namespace
 
 extern "C" int etica_popularity(const int* dist, const unsigned char* served,
-                                const int* perm, const int* offsets,
-                                const float* cs, float* out, int num_blocks,
-                                int n, void* stream) {
-  if (num_blocks <= 0 || n <= 0) return 0;
-  const int blocks = (num_blocks + kWarps - 1) / kWarps;
-  popularity_kernel<<<blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(
-      dist, served, perm, offsets, cs, out, num_blocks, n);
+                                const int* seg, const float* cs, float* out,
+                                int num_blocks, int num_rows, int n,
+                                void* stream) {
+  if (num_blocks <= 0 || num_rows <= 0 || n <= 0) return 0;
+  if (n > kMaxRow) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = row_kernel_setup(popularity_kernel, configured);
+  if (err != cudaSuccess) return (int)err;
+  popularity_kernel<<<num_rows, kRowThreads, row_smem_bytes(n),
+                      (cudaStream_t)stream>>>(dist, served, seg, cs, out,
+                                              num_blocks, n);
   return (int)cudaGetLastError();
 }

@@ -21,8 +21,9 @@ launch counter (:func:`launch_counts`), and nothing else does.
     a ``lax.scan``
   * ``maintenance``    — ``evict_scatter`` / ``promote_scatter`` /
     ``clean_scatter`` and the fused per-interval maintenance;
-    ``run_sums`` is an in-order segment sum that keeps the popularity
-    table's float32 sums in the reference's order
+    ``run_sums`` compacts a maintenance window into each distinct
+    address and its in-order float32 sum, the popularity table's window
+    step in the reference's order
   * ``decode_attention`` — ``paged_decode_attention``, one-token flash
     decode over the two-tier KV serving pool's pages
   * ``popularity``     — ``popularity``, the Eq. 1 per-block scores
@@ -36,8 +37,13 @@ launch counter (:func:`launch_counts`), and nothing else does.
     of 16 up to 128) and ``cuda_cores`` (``flash_attention.cu``, float32
     and the other head dims)
 
+``popularity`` and ``run_sums`` group each row in shared memory, one
+CTA a row (``row_sort.cuh``), so a row holds at most :data:`ROW_MAX`
+entries; :func:`check_row` refuses a wider one.
+
 ``chain_probe.cu`` is no kernel of the path: it times one dependent
-on-chip load, which prices the datapath's dependency chain.
+on-chip load and one dependent float32 add, which price the datapath's
+dependency chain and the in-order sums'.
 """
 from __future__ import annotations
 
@@ -89,14 +95,19 @@ _SIGNATURES = {
     "etica_run_sums": (_P, _P, _P, _P, _P, _I, _I, _P),
     "etica_paged_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                      _I, _I, _I, _F, _I, _I, _P),
-    "etica_popularity": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "etica_popularity": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "etica_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               *(_L,) * 12, _I, _I, _I, _F, _I, _P),
     "etica_flash_attention_sm90": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    *(_L,) * 12, _I, _I, _I, _F, _P),
     "etica_flash_attention_sm90_smem": (_I,),
     "etica_chain_probe": (_P, _I, _P, _P),
+    "etica_fadd_probe": (_F, _I, _P, _P),
 }
+# the widest row that popularity and run_sums take: one CTA of 512 threads
+# sorts it in shared memory, 8 bytes an entry, and in registers, 32 entries
+# a thread (csrc/row_sort.cuh, kMaxRow)
+ROW_MAX = 16384
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -220,6 +231,21 @@ def launch(kernel: str, *args, route: str | None = None) -> None:
     _launches[kernel] += 1
     if route:
         _route_launches[kernel][route] += 1
+
+
+def check_row(kernel: str, n: int) -> None:
+    """Refuse a row wider than :data:`ROW_MAX` for a kernel that sorts
+    one row in one CTA's shared memory. The check reads the padded width
+    ``n`` from the shape (the valid lengths live on the device). The
+    controller's windows are ``reuse._bucket(longest VM row)`` wide, a
+    power of two like ``ROW_MAX``, so there a window is refused exactly
+    when one VM issues more than ``ROW_MAX`` requests in it; a serving
+    window is as wide as the whole window (at most ``resize_interval``
+    accesses) whatever each tenant's share."""
+    if n > ROW_MAX:
+        raise ValueError(
+            f"{kernel}: a row of {n} entries exceeds the {ROW_MAX} that one "
+            f"CTA sorts in shared memory (csrc/row_sort.cuh kMaxRow)")
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,

@@ -33,21 +33,14 @@ from repro_torch.core import popularity as pop
 _NO_BLOCK = 1 << 62      # grouping key of padding; above every (VM, addr)
 
 
-def _segments(seg: torch.Tensor, num_blocks: int):
-    """Positions grouped by segment in access order (a stable sort of the
-    flat segment ids) and each segment's start, ``num_blocks + 1`` of
-    them; ids at or past ``num_blocks`` sort after every segment."""
-    sseg, perm = torch.sort(seg.reshape(-1), stable=True)
-    bounds = torch.arange(num_blocks + 1, dtype=sseg.dtype, device=seg.device)
-    return (perm.to(torch.int32),
-            torch.searchsorted(sseg, bounds).to(torch.int32))
-
-
 def popularity_rows(dist, served, seg, num_blocks: int, cs):
     """Scores of the segments of ``[V, N]`` rows: ``dist`` int32, ``served``
     bool, ``seg`` int32 segment ids (``num_blocks`` or more: no segment;
     a segment lies in one row), ``cs`` float32 ``[V]`` the rows' cache
-    sizes. Returns float32 ``[num_blocks]``."""
+    sizes. Returns float32 ``[num_blocks]``. On the card one CTA a row
+    groups the row's accesses by segment in shared memory and sums them
+    there (``csrc/row_sort.cuh``), so a row holds at most
+    :data:`repro_torch.kernels.ROW_MAX` accesses."""
     if dist.device.type == "cpu":
         return popularity_rows_plain(dist, served, seg, num_blocks, cs)
     dev = dist.device
@@ -56,11 +49,11 @@ def popularity_rows(dist, served, seg, num_blocks: int, cs):
     kernels.check(served, "served", torch.bool, (v, n), dev)
     kernels.check(seg, "seg", torch.int32, (v, n), dev)
     kernels.check(cs, "cs", torch.float32, (v,), dev)
+    kernels.check_row("popularity", n)
     out = torch.zeros(num_blocks, dtype=torch.float32, device=dev)
     if num_blocks and v and n:
-        perm, starts = _segments(seg, num_blocks)
-        ptrs = [x.data_ptr() for x in (dist, served, perm, starts, cs, out)]
-        kernels.launch("popularity", *ptrs, num_blocks, n)
+        ptrs = [x.data_ptr() for x in (dist, served, seg, cs, out)]
+        kernels.launch("popularity", *ptrs, num_blocks, v, n)
     return out
 
 

@@ -282,6 +282,67 @@ def test_popularity_kernel(dev, v, n, nb_space):
                           97, 64.0)])
 
 
+@pytest.mark.parametrize("v,n,hi,longest", [
+    (12, 1024, 300, 1024),     # the paper's 12-VM window
+    (1024, 256, 40, 256),      # fig15 1024-VM's fused window
+    (8, 12800, 30, 60),        # fig15 1024-VM's block width, mostly padding
+    (3, 16384, 64, 16384)])    # the shared-memory row limit
+def test_run_sums_kernel(dev, v, n, hi, longest):
+    """The window compaction against its plain version, bit for bit:
+    the worst chain (one address for a whole row), an all-padding row,
+    random valid lengths, negative and extreme addresses."""
+    from repro_torch.core import popularity as pop
+    rng = np.random.default_rng(n)
+    wa = rng.integers(0, hi, (v, n)).astype(np.int32)
+    wa[0] = 5
+    wa[2, ::7] = pop.TABLE_EMPTY - 1
+    wa[2, 1::7] = -3
+    nv = rng.integers(0, longest + 1, v).astype(np.int32)
+    nv[0], nv[1] = longest, 0
+    wc = rng.random((v, n)).astype(np.float32)
+    args = [torch.from_numpy(x).to(dev) for x in (wa, wc, nv)]
+    got = pop.window_runs(*args)
+    _same([x.cpu() for x in got],
+          pop.window_runs_plain(*[x.cpu() for x in args]))
+
+
+@pytest.mark.parametrize("v,n", [(64, 12800), (2, 16384)])
+def test_popularity_kernel_wide_rows(dev, v, n):
+    """``popularity`` on fig15 1024-VM's block width (60 accesses a row,
+    the rest padding) and at the row limit, one segment for all of row
+    0's accesses, against its plain version."""
+    from repro_torch.kernels.popularity import ops
+    rng = np.random.default_rng(v)
+    per = 40
+    kept = 60 if n < 16384 else n
+    seg = (rng.integers(0, per, (v, n))
+           + per * np.arange(v)[:, None]).astype(np.int32)
+    seg[:, kept:] = v * per
+    seg[0, :kept] = 0
+    dist = rng.integers(-1, 400, (v, n)).astype(np.int32)
+    served = rng.random((v, n)) < 0.7
+    cs = rng.integers(1, 4096, v).astype(np.float32)
+    args = [torch.from_numpy(x) for x in (dist, served, seg)]
+    want = ops.popularity_rows_plain(*args, v * per, torch.from_numpy(cs))
+    got = ops.popularity_rows(*[x.to(dev) for x in args], v * per,
+                              torch.from_numpy(cs).to(dev))
+    _same([got.cpu()], [want])
+
+
+def test_row_kernels_refuse_wider_rows(dev):
+    """A row wider than one CTA's shared memory takes raises, with the
+    limit in the message; there is no fallback to a global sort."""
+    from repro_torch import kernels
+    from repro_torch.core import popularity as pop
+    from repro_torch.kernels.popularity import ops
+    n = kernels.ROW_MAX + 1
+    z = torch.zeros((2, n), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match=str(kernels.ROW_MAX)):
+        pop.window_runs(z, z.float(), z[:, 0])
+    with pytest.raises(ValueError, match=str(kernels.ROW_MAX)):
+        ops.popularity_rows(z, z > 0, z, 4, z[:, 0].float())
+
+
 def test_promote_scatter_dedupe_kernel(dev):
     """Queues with repeated addresses (across and inside 32-entry
     batches) against the plain version, with and without the dedupe."""
