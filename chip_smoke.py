@@ -38,7 +38,15 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    (``kernels.ROW_MAX`` entries), on one key for a whole row and on an
    empty row, and checks that a wider row is refused; and
    ``promote_scatter``'s dedupe branch on queues that hold every address
-   twice; holds ``flash_attention`` to its plain version (the same
+   twice; holds ``two_level`` and ``single_level`` (one CTA a VM walking
+   each cache set's requests in order, ``csrc/set_walk.cuh``) to their
+   plain versions at the 12-VM and 1024-VM blocks and at the set walk's
+   other shapes: V = 1 (a VM's own block, 64 x 64; FAST's and L2ARC's
+   windows, 256 x 64), 64 DRAM / 48 SSD sets, one set taking every
+   request, rows of 9,000 (two tiles) and rows of 96–128 ways, each
+   beside its longest same-set chain and chain bound and the earlier
+   one-chain kernel's recorded times (``RECORDED_MS``), with ptxas's
+   registers and spills; holds ``flash_attention`` to its plain version (the same
    tolerance as decode) at tests/test_kernels.py's shapes in float32 (the
    ``cuda_cores`` route) and bf16 (the ``wgmma`` route) and at the
    prefill shape (B 4, H 32, Hkv 8, S 4096, D 128); prints what ptxas
@@ -75,6 +83,10 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    run (the logs' demands, allocations and policies included); FAST and
    L2ARC over the same mix as one stream (256 x 64), equal to the JAX
    package's CPU values (hard-coded below); requests/s of every mode;
+   then every ``promote_scatter`` call of an L2ARC run (dedupe on,
+   [1, 256, 64], the window's DRAM evictions) held to its plain version
+   and replayed in one CUDA graph for its device time against its
+   bounds;
 10. serves qwen3-4b at full width and depth (36 layers, d_model 2560,
    4.41 B float32 parameters drawn from a seeded generator on the
    card): ``flash_attention`` against its plain version on layer 0's
@@ -440,16 +452,49 @@ def longest_set_chain(a, sets) -> int:
     return int(torch.bincount(key, minlength=1).max()) if key.numel() else 0
 
 
-def check_datapath(dev, blocks, sets, ways_max, ways, mode, label, step_ns):
+def datapath_timing(label, call, plain, a, geo, nbytes, ops_count, step_ns,
+                    time_plain):
+    """Times ``call`` (calls back to back, and device time from a CUDA
+    graph) and, with ``time_plain``, the plain version; the bound and the
+    chain bound: the longest same-set chain of each walk (one walk when
+    the levels' set counts are equal) times one dependent on-chip load."""
+    ms = cuda_ms(call, 20)
+    dev_ms = graph_ms(call, 10)
+    plain_ms = cuda_ms(plain, 1, warmup=0) if time_plain else None
+    sets = sorted({s for s, _ in geo})
+    chain = sum(longest_set_chain(a, s) for s in sets)
+    chain_b = chain * step_ns * 1e-6
+    b, by = bound_ms(nbytes, ops_count)
+    old = RECORDED_MS.get(label)
+    was = (f"; the earlier one-chain kernel {old[0]:.4f} ms (device "
+           f"{old[1]:.4f} ms)" if old else "")
+    v, n = a.shape
+    log(f"{label} [{v},{n}] {' / '.join(f'{s}x{w}' for s, w in geo)}: "
+        f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain "
+        f"{fmt_ms(plain_ms)}, bound {b:.5f} ms ({by}), "
+        f"{float((a >= 0).sum()):.0f} valid requests, longest same-set "
+        f"chain {chain} x {step_ns:.2f} ns = chain bound {chain_b:.5f} ms, "
+        f"device / chain bound {dev_ms / max(chain_b, 1e-9):.1f}x{was}")
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=None, chain=chain,
+                chain_bound_ms=chain_b)
+
+
+def check_datapath(dev, blocks, geo, ways, mode, label, step_ns,
+                   time_plain=True):
+    """``two_level`` against its plain version over chained blocks;
+    ``geo`` is ((sets, ways) of the DRAM, of the SSD); times the fullest
+    block."""
     import torch
     from repro_torch.core.simulator import make_cache_batch
     from repro_torch.kernels.datapath import ops
+    (sd, wmd), (ss, wms) = geo
     v = blocks[0][0].shape[0]
     wd = torch.as_tensor(ways[0], dtype=torch.int32, device=dev)
     ws = torch.as_tensor(ways[1], dtype=torch.int32, device=dev)
     npe = mode == "npe"
-    kstate = rstate = (*make_cache_batch(v, sets, ways_max, dev),
-                       *make_cache_batch(v, sets, ways_max, dev))
+    kstate = rstate = (*make_cache_batch(v, sd, wmd, dev),
+                       *make_cache_batch(v, ss, wms, dev))
     kt = rt = torch.zeros(v, dtype=torch.int32, device=dev)
     err, timed = 0.0, None
     for a_np, w_np in blocks:
@@ -463,38 +508,30 @@ def check_datapath(dev, blocks, sets, ways_max, ways, mode, label, step_ns):
         err = max(err, max_abs_err(kout, rout))
         kstate, kt = kout[:6], kout[8]
         rstate, rt = rout[:6], rout[8]
-    ms = cuda_ms(lambda: ops.two_level(*timed, npe=npe), 20)
-    dev_ms = graph_ms(lambda: ops.two_level(*timed, npe=npe), 10)
-    plain_ms = cuda_ms(lambda: ops.two_level_plain(*timed, npe=npe), 1,
-                       warmup=0)
-    a = timed[0]
-    n = a.shape[1]
-    valid = float((a >= 0).sum())
-    state_bytes = 2 * 2 * 9.0 * v * sets * ways_max
-    b, by = bound_ms(5.0 * v * n + state_bytes + 40.0 * v,
-                     valid * 2 * (2 * ways_max))
-    chain = longest_set_chain(a, sets)
-    chain_b = chain * step_ns * 1e-6
-    log(f"two_level {label} {mode} [{v},{n}] {sets}x{ways_max}: exact over "
-        f"{len(blocks)} blocks, kernel {ms:.4f} ms (device {dev_ms:.4f} "
-        f"ms), plain {plain_ms:.2f} ms, bound {b:.5f} ms ({by}), "
-        f"{valid:.0f} valid requests, longest same-set chain {chain} x "
-        f"{step_ns:.2f} ns = chain bound {chain_b:.5f} ms")
-    return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                bound_ms=b, bound_by=by, library_ms=None,
-                chain_bound_ms=chain_b)
+    a, n = timed[0], timed[0].shape[1]
+    state_bytes = 2 * 9.0 * v * (sd * wmd + ss * wms)
+    row = datapath_timing(
+        f"two_level {label} {mode}",
+        lambda: ops.two_level(*timed, npe=npe),
+        lambda: ops.two_level_plain(*timed, npe=npe), a, geo,
+        5.0 * v * n + state_bytes + 40.0 * v,
+        float((a >= 0).sum()) * 2 * (wmd + wms), step_ns, time_plain)
+    log(f"two_level {label} {mode}: exact over {len(blocks)} blocks")
+    return dict(max_abs_err=err, **row)
 
 
-def check_single_level(dev, rng, blocks, sets, ways_max, label, step_ns):
+def check_single_level(dev, rng, blocks, sets, ways_max, label, step_ns,
+                       time_plain=True):
     """``single_level`` against its plain version over chained blocks,
-    every VM under a random one of the five policies (each present)."""
+    every VM under a random one of the five policies (each present when
+    there are five VMs or more)."""
     import torch
     from repro_torch.core.policies import T_SSD, Policy
     from repro_torch.core.simulator import make_cache_batch, policy_flags
     from repro_torch.kernels.datapath import ops
     v = blocks[0][0].shape[0]
-    pols = list(Policy) + [Policy(p) for p in rng.choice(
-        [p.value for p in Policy], v - len(Policy))]
+    pols = (list(Policy) + [Policy(p) for p in rng.choice(
+        [p.value for p in Policy], max(v - len(Policy), 0))])[:v]
     flags = policy_flags(pols, dev)
     ways = torch.as_tensor(rng.integers(0, ways_max + 1, v),
                            dtype=torch.int32, device=dev)
@@ -513,25 +550,88 @@ def check_single_level(dev, rng, blocks, sets, ways_max, label, step_ns):
         err = max(err, max_abs_err(kout, rout))
         kstate, kt = kout[:3], kout[5]
         rstate, rt = rout[:3], rout[5]
-    ms = cuda_ms(lambda: ops.single_level(*timed, **kw), 20)
-    dev_ms = graph_ms(lambda: ops.single_level(*timed, **kw), 10)
-    plain_ms = cuda_ms(lambda: ops.single_level_plain(*timed, **kw), 1,
-                       warmup=0)
-    a = timed[0]
-    n = a.shape[1]
-    valid = float((a >= 0).sum())
-    b, by = bound_ms(5.0 * v * n + 2 * 9.0 * v * sets * ways_max + 52.0 * v,
-                     valid * 2 * ways_max)
-    chain = longest_set_chain(a, sets)
-    chain_b = chain * step_ns * 1e-6
-    log(f"single_level {label} [{v},{n}] {sets}x{ways_max}: exact over "
-        f"{len(blocks)} blocks, kernel {ms:.4f} ms (device {dev_ms:.4f} "
-        f"ms), plain {plain_ms:.2f} ms, bound {b:.5f} ms ({by}), "
-        f"{valid:.0f} valid requests, longest same-set chain {chain} x "
-        f"{step_ns:.2f} ns = chain bound {chain_b:.5f} ms")
-    return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                bound_ms=b, bound_by=by, library_ms=None,
-                chain_bound_ms=chain_b)
+    a, n = timed[0], timed[0].shape[1]
+    row = datapath_timing(
+        f"single_level {label}", lambda: ops.single_level(*timed, **kw),
+        lambda: ops.single_level_plain(*timed, **kw), a,
+        ((sets, ways_max),),
+        5.0 * v * n + 2 * 9.0 * v * sets * ways_max + 52.0 * v,
+        float((a >= 0).sum()) * 2 * ways_max, step_ns, time_plain)
+    log(f"single_level {label}: exact over {len(blocks)} blocks "
+        f"({', '.join(p.value for p in pols[:8])}"
+        f"{', ...' if v > 8 else ''})")
+    return dict(max_abs_err=err, **row)
+
+
+def stream_blocks(trace, width, count):
+    """``count`` consecutive ``[1, width]`` blocks of one stream (FAST's
+    and L2ARC's windows)."""
+    a = np.asarray(trace.addr[:width * count], np.int32)
+    w = np.asarray(trace.is_write[:width * count], bool)
+    return [(a[k * width:(k + 1) * width][None],
+             w[k * width:(k + 1) * width][None]) for k in range(count)]
+
+
+def one_set(blocks, sets):
+    """The blocks with every valid address moved to set 0 (a -> a * S mod
+    2^31, for S a power of two): each row becomes one same-set chain, the
+    set walk's worst case."""
+    return [(np.where(a >= 0, a.astype(np.int64) * sets % 2**31,
+                      -1).astype(np.int32), w) for a, w in blocks]
+
+
+def check_set_walk(dev, rng, paper, blocks12, ways12, step_ns):
+    """The datapath kernels at the other shapes the set walk must take:
+    the V = 1 blocks of the sequential modes (a VM's own 1,000-request
+    block, 64 x 64) and of FAST / L2ARC (the stream's 1,000-request
+    windows, 256 x 64); DRAM and SSD of different set counts; every
+    request of a row in one set (the longest chain); rows of 9,000
+    requests (two tiles of the kernel's 8,192); rows wider than 64 ways
+    (held in memory, not registers). Returns ``{label: row}``."""
+    from repro_torch.core.simulator import capacity_to_ways
+    out = {}
+    g64, g256 = ((64, 64), (64, 64)), ((256, 64), (256, 64))
+    vm0 = [(a[:1], w[:1]) for a, w in blocks12]
+    w0 = (ways12[0][:1], ways12[1][:1])
+    out["seq V=1"] = check_datapath(dev, vm0, g64, w0, "full",
+                                    "V=1 -seq", step_ns, time_plain=False)
+    win = stream_blocks(paper, 1_000, 2)
+    gw = ([int(capacity_to_ways(8192, 256, 64))],
+          [int(capacity_to_ways(16384, 256, 64))])
+    for mode, name in (("full", "L2ARC"), ("npe", "FAST")):
+        out[f"{name} V=1"] = check_datapath(dev, win, g256, gw, mode,
+                                            f"V=1 {name}", step_ns,
+                                            time_plain=False)
+    out["sets differ"] = check_datapath(
+        dev, blocks12, ((64, 64), (48, 64)), ways12, "npe",
+        "12-VM, 64 DRAM / 48 SSD sets", step_ns, time_plain=False)
+    out["one set"] = check_datapath(dev, one_set(blocks12, 64), g64, ways12,
+                                    "npe", "12-VM, one set", step_ns,
+                                    time_plain=False)
+    two = stream_blocks(paper, 9_000, 2)
+    two = [(np.concatenate([a for a, _ in two]),
+            np.concatenate([w for _, w in two]))]
+    out["two tiles"] = check_datapath(dev, two, g64, ([64, 40], [64, 64]),
+                                      "npe", "rows of 9,000", step_ns,
+                                      time_plain=False)
+    out["wide rows"] = check_datapath(
+        dev, blocks12, ((32, 128), (32, 96)),
+        (rng.integers(8, 129, 12), rng.integers(8, 97, 12)), "full",
+        "12-VM, 128 / 96 ways", step_ns, time_plain=False)
+    single = {}
+    single["seq V=1"] = check_single_level(dev, rng, vm0, 64, 64,
+                                           "V=1 -eci-seq", step_ns,
+                                           time_plain=False)
+    single["one set"] = check_single_level(dev, rng, one_set(blocks12, 64),
+                                           64, 64, "12-VM, one set", step_ns,
+                                           time_plain=False)
+    single["two tiles"] = check_single_level(dev, rng, two, 64, 64,
+                                             "rows of 9,000", step_ns,
+                                             time_plain=False)
+    single["wide rows"] = check_single_level(dev, rng, blocks12, 32, 128,
+                                             "12-VM, 128 ways", step_ns,
+                                             time_plain=False)
+    return out, single
 
 
 def random_state(rng, v, s, w, fill=0.75):
@@ -640,11 +740,17 @@ def check_scatters(dev, rng, v, s, w):
 # of the segment ids or of the window, then one kernel), recorded on an
 # H100 80GB HBM3 at 700 W by an earlier run of this script (PERF.md §6).
 # Quoted in the log beside this run's times, never in the kernels line.
+# The same for the datapaths' one-chain design (one warp walked a VM's
+# requests in order).
 RECORDED_MS = {"popularity 12-VM staged": (0.1537, 0.0720),
               "popularity 1024-VM staged": (0.2819, 0.0679),
               "popularity Pallas bench": (0.2213, 0.0594),
               "run_sums 12-VM": (0.0440, 0.0042),
-              "run_sums 1024-VM": (0.0436, 0.0048)}
+              "run_sums 1024-VM": (0.0436, 0.0048),
+              "two_level 12-VM full": (0.6619, 0.6510),
+              "two_level 1024-VM full": (1.1227, 1.1106),
+              "single_level 12-VM": (0.5903, 0.5842),
+              "single_level 1024-VM": (1.1084, 1.0976)}
 
 
 def check_popularity(dev, rng, blocks, label, fadd_ns):
@@ -1759,6 +1865,57 @@ def check_oracle_ladder(launches, paper, fused, clean, eci_run):
                                             for k, v in rates.items()))
 
 
+def check_l2arc_promote(paper, dev="cuda"):
+    """``promote_scatter``'s dedupe branch at L2ARC's own shape: a second
+    L2ARC run (256 x 64, window 1,000) records every ``promote_scatter``
+    call, a [1, 256, 64] state and the window's DRAM evictions padded to a
+    power of two; each call is held to its plain version, and one CUDA
+    graph of all of them gives their device time. The loss is that time
+    less the sum of the calls' bounds."""
+    from collections import Counter
+    from repro_torch.core.baselines import make_l2arc
+    from repro_torch.core.controller import Geometry
+    from repro_torch.kernels.maintenance import ops
+    calls, orig = [], ops.promote_scatter
+
+    def record(tags, lru, dirty, queue, ways, t, dedupe=True):
+        calls.append((*(x.clone() for x in (tags, lru, dirty, queue, ways,
+                                            t)), dedupe))
+        return orig(tags, lru, dirty, queue, ways, t, dedupe)
+
+    ops.promote_scatter = record
+    try:
+        make_l2arc(8192, 16384, geometry=Geometry(256, 64),
+                   device=dev).run(paper)
+    finally:
+        ops.promote_scatter = orig
+    if not calls or not all(c[6] for c in calls):
+        raise AssertionError("L2ARC: expected promote_scatter calls, all "
+                             "with the dedupe")
+    err = max(max_abs_err(ops.promote_scatter(*c[:6]),
+                          ops.promote_scatter_plain(*c[:6])) for c in calls)
+
+    def replay():
+        for c in calls:
+            ops.promote_scatter(*c[:6])
+
+    total = graph_ms(replay, reps=1, replays=5)
+    v, s, w = calls[0][0].shape
+    bounds = sum(bound_ms(2 * 9.0 * v * s * w + 4.0 * c[3].shape[1]
+                          + 12.0 * v, 2.0 * (v * s * w + c[3].numel()))[0]
+                 for c in calls)
+    widths = dict(sorted(Counter(c[3].shape[1] for c in calls).items()))
+    entries = [int((c[3] >= 0).sum()) for c in calls]
+    log(f"promote_scatter dedupe at L2ARC's shape [{v},{s},{w}]: {len(calls)} "
+        f"calls, each exact; queue widths {widths} (entries mean "
+        f"{np.mean(entries):.1f}, max {max(entries)}); device {total:.4f} ms "
+        f"for all ({total / len(calls):.5f} ms a call), bounds "
+        f"{bounds:.5f} ms, loss {total - bounds:.4f} ms a run")
+    return dict(max_abs_err=err, calls=len(calls), queue_widths=widths,
+                device_ms_total=total, device_ms_per_call=total / len(calls),
+                bound_ms_total=bounds, loss_ms=total - bounds)
+
+
 # ---------------------------------------------------------------------------
 # phase 10: dense-model serving at qwen3-4b full width
 # ---------------------------------------------------------------------------
@@ -1834,6 +1991,31 @@ def check_flash_shapes(dev, rng, prefill=QWEN3_PREFILL):
     return max(worst, err)
 
 
+def ptxas_lines(source: str) -> list[str]:
+    """ptxas's registers, spills and ``setmaxnreg`` lines for one source
+    of the kernel build (``kernels.build_log()``: each verbose source's
+    output after a line ``<source>:``)."""
+    from repro_torch import kernels
+    out, cur = [], None
+    for ln in kernels.build_log().splitlines():
+        if ln.endswith(".cu:") and " " not in ln:
+            cur = ln[:-1]
+        elif cur == source and ("registers" in ln or "spill" in ln
+                                or "setmaxnreg" in ln):
+            out.append(ln.strip())
+    return out
+
+
+def datapath_build_report(rows) -> None:
+    """What ptxas said of the datapath kernels (registers and spills of
+    each row variant), into their rows and the log."""
+    for k, src in (("two_level", "datapath.cu"),
+                   ("single_level", "single_level.cu")):
+        rows[k]["ptxas"] = ptxas_lines(src)
+        for ln in rows[k]["ptxas"]:
+            log(f"ptxas {src}: {ln}")
+
+
 def flash_build_report() -> dict:
     """What ptxas said of ``flash_attention_sm90.cu`` (registers and
     spills of each head-dim variant), its dynamic shared memory at D 64
@@ -1841,8 +2023,7 @@ def flash_build_report() -> dict:
     library (``cuobjdump -sass``, where the toolkit has it)."""
     import re
     from repro_torch import kernels
-    lines = [ln.strip() for ln in kernels.build_log().splitlines()
-             if "registers" in ln or "spill" in ln or "setmaxnreg" in ln]
+    lines = ptxas_lines("flash_attention_sm90.cu")
     lib = kernels.library()
     smem = {d: lib.etica_flash_attention_sm90_smem(d) for d in (64, 128)}
     cuobjdump = Path("/usr/local/cuda/bin/cuobjdump")
@@ -2362,17 +2543,29 @@ def main() -> int:
     rows["count_between"] = check_count_between(dev, subs12, "12-VM POD")
     check_count_between(dev, subs1024, "1024-VM POD")
     ways12 = (rng.integers(8, 65, 12), rng.integers(8, 65, 12))
-    rows["two_level"] = check_datapath(dev, blocks12 + blocks12b, 64, 64,
+    g64, g16 = ((64, 64), (64, 64)), ((16, 32), (16, 32))
+    rows["two_level"] = check_datapath(dev, blocks12 + blocks12b, g64,
                                        ways12, "full", "12-VM", step_ns)
-    check_datapath(dev, blocks12 + blocks12b, 64, 64, ways12, "npe",
-                   "12-VM", step_ns)
-    check_datapath(dev, blocks1024 + blocks1024b, 16, 32,
-                   (rng.integers(0, 33, 1024), rng.integers(0, 33, 1024)),
-                   "full", "1024-VM", step_ns)
+    npe12 = check_datapath(dev, blocks12 + blocks12b, g64, ways12, "npe",
+                           "12-VM", step_ns)
+    big = check_datapath(dev, blocks1024 + blocks1024b, g16,
+                         (rng.integers(0, 33, 1024),
+                          rng.integers(0, 33, 1024)),
+                         "full", "1024-VM", step_ns)
     rows["single_level"] = check_single_level(
         dev, rng, blocks12 + blocks12b, 64, 64, "12-VM", step_ns)
-    check_single_level(dev, rng, blocks1024 + blocks1024b, 16, 32,
-                       "1024-VM", step_ns)
+    big_single = check_single_level(dev, rng, blocks1024 + blocks1024b, 16,
+                                    32, "1024-VM", step_ns)
+    shapes, single_shapes = check_set_walk(dev, rng, paper,
+                                           blocks12 + blocks12b, ways12,
+                                           step_ns)
+    shapes.update({"12-VM npe": npe12, "1024-VM": big})
+    single_shapes["1024-VM"] = big_single
+    for k, extra in (("two_level", shapes), ("single_level", single_shapes)):
+        rows[k]["max_abs_err"] = max([rows[k]["max_abs_err"]] + [
+            r.pop("max_abs_err") for r in extra.values()])
+        rows[k]["shapes"] = extra
+    datapath_build_report(rows)
     rows.update(check_scatters(dev, rng, 12, 64, 64))
     check_scatters(dev, rng, 1024, 16, 32)
     rows["clean_scatter"] = check_clean(dev, rng, 12, 64, 64)
@@ -2451,6 +2644,7 @@ def main() -> int:
     check_oracle_ladder(launches, paper, (fused, paper_res, fused_rate),
                         (clean, clean_res, clean_rate),
                         (eci_cache, eci_res, eci_rate))
+    rows["promote_scatter"]["l2arc_dedupe"] = check_l2arc_promote(paper)
 
     # phase 10: dense-model serving at qwen3-4b full width and depth
     served, peak, n_params = check_dense_serving(launches,

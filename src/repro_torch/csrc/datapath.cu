@@ -10,7 +10,7 @@
 // advance the clock), with sd = addr % S_dram and s2 = addr % S_ssd:
 //   lookup : first active way (w < ways) whose tag equals addr;
 //   victim : first minimum of score(w) = -1 for an empty active way,
-//            lru for a full active way, INT32_MAX for an inactive way;
+//            lru for a full active way, over the active ways;
 //   read   : DRAM hit -> touch; else SSD hit -> touch SSD; a DRAM miss
 //            inserts into DRAM (clean) when ways_dram > 0;
 //   write  : invalidate a DRAM copy; SSD hit -> touch + dirty; an SSD
@@ -20,152 +20,236 @@
 // request order with __fadd_rn, so it is bit-identical to the scan. The
 // four latencies come in as arguments from repro_torch.core.policies.
 //
-// What bounds it on the H100: the dependency chain. Request k+1 of a VM
-// may read the set row request k wrote, so a VM's requests run one after
-// another: two lookups, at most one victim search and a handful of
-// stores, each a few warp-synchronous steps and global-memory round trips
-// (mostly L1/L2 hits). The bytes (the block plus each touched set row)
-// are small; time is about N x (per-request latency).
+// Design: the set walk of set_walk.cuh, one CTA of 16 warps per VM. The
+// DRAM level's update depends only on its own set and the clock; the
+// SSD's on its own set and the request's DRAM hit (a read touches the SSD
+// only on a DRAM miss). When S_dram == S_ssd one walk carries both rows
+// of a set, with both lookups issued before either is used; otherwise
+// the same launch walks the DRAM sets first, keeping each request's DRAM
+// hit, and after a barrier the SSD sets. Rows of up to 64 ways are held
+// in registers (RegRow), wider ones in the output arrays (MemRow). With
+// equal set counts and fewer VMs than SMs, a VM's sets are split across
+// several CTAs (set_walk.cuh, Split).
 //
-// Design: one warp per VM, so VMs run in parallel and requests in order.
-// In this version the state stays in global memory (the touched rows stay
-// in L1); lanes cover the ways of a set row, and lookups and the victim
-// search are warp reductions (set_lookup.cuh: __reduce_min_sync on the
-// way index, a shuffle butterfly on the (score, way) key). Lane 0 does the
-// stores and keeps the counts; __syncwarp orders one request's stores
-// before the next request's loads. The wrapper passes copies of the states, which
-// the kernel updates in place.
+// What bounds it on the H100: the longest same-set chain (about 420 of
+// the paper's 1,000-request blocks at 64 sets), each request a few
+// hundred cycles of one warp's dependent steps (lookups and at most one
+// victim search, each a warp reduction in registers, then selects); the
+// scan of the tile, one pass a set; the ordered sum, one dependent add a
+// request. At 1,024 VMs, reading the padded [V, N] block (5 bytes a
+// column).
 #include <cuda_runtime.h>
 
-#include "set_lookup.cuh"
+#include "set_walk.cuh"
 
 namespace {
 
-using etica::first_match;
-using etica::kNone;
-using etica::victim;
+using namespace etica;
 
-__global__ void two_level_kernel(
+// The DRAM level (RO) given the request's lookup `way` (-1 for a miss):
+// a read hit touches, a read miss inserts clean (when ways > 0), a write
+// invalidates a hit. Counts reads, writes, read_hits_l1; returns the hit.
+template <class Row>
+__device__ __forceinline__ bool dram_step(Row& row, int ways, int a, bool wr,
+                                          int t, int lane, int (&c)[8],
+                                          int way) {
+  const bool hit = way >= 0;
+  if (!wr) {
+    ++c[0];
+    if (hit) {
+      ++c[2];
+      row.touch(way, lane, t, false);
+    } else if (ways > 0) {
+      row.put(row.victim(ways, lane), lane, a, t, false);
+    }
+  } else {
+    ++c[1];
+    if (hit) row.put(way, lane, -1, -1, false);
+  }
+  return hit;
+}
+
+// The SSD level (WBWO) given the DRAM hit and the request's lookup `way`:
+// a read that missed DRAM touches a hit; a write touches a hit and marks
+// it dirty, and a miss goes to disk ("full") or is inserted dirty ("npe",
+// a dirty victim counting a disk write). The rest of the counts; returns
+// the latency code: 0 DRAM, 1 SSD, 2 disk read, 3 disk write.
+template <class Row>
+__device__ __forceinline__ int ssd_step(Row& row, int ways, int a, bool wr,
+                                        int t, bool d_hit, bool npe, int lane,
+                                        int (&c)[8], int way) {
+  if (!wr) {
+    if (d_hit) return 0;
+    if (way >= 0) {
+      ++c[3];
+      row.touch(way, lane, t, false);
+      return 1;
+    }
+    ++c[6];
+    return 2;
+  }
+  if (way >= 0) {
+    ++c[4];
+    ++c[5];
+    row.touch(way, lane, t, true);
+    return 1;
+  }
+  if (npe && ways > 0) {
+    const int w = row.victim(ways, lane);
+    ++c[5];
+    c[7] += row.dirty_valid(w) ? 1 : 0;
+    row.put(w, lane, a, t, true);
+    return 1;
+  }
+  ++c[7];
+  return 3;
+}
+
+template <class Row>
+__global__ void __launch_bounds__(kWalkThreads, 2) two_level_kernel(
     const int* __restrict__ addr, const unsigned char* __restrict__ is_write,
-    int* tags_d, int* lru_d, unsigned char* dirty_d, int* tags_s, int* lru_s,
+    const int* tags_d_in, const int* lru_d_in,
+    const unsigned char* dirty_d_in, const int* tags_s_in,
+    const int* lru_s_in, const unsigned char* dirty_s_in, int* tags_d,
+    int* lru_d, unsigned char* dirty_d, int* tags_s, int* lru_s,
     unsigned char* dirty_s, const int* __restrict__ ways_d_v,
     const int* __restrict__ ways_s_v, const int* __restrict__ t0,
     int* __restrict__ counts, float* __restrict__ latency,
-    int* __restrict__ t_end, int n, int sets_d, int ways_max_d, int sets_s,
-    int ways_max_s, int npe, float t_dram, float t_ssd, float t_hdd,
-    float t_hdd_write) {
-  const int v = blockIdx.x;
-  const int lane = threadIdx.x;
-  const int ways_d = max(ways_d_v[v], 0);
-  const int ways_s = max(ways_s_v[v], 0);
-  int t = t0[v];
-  int reads = 0, writes = 0, hits_l1 = 0, read_hits_l2 = 0, write_hits_l2 = 0;
-  int cache_writes_l2 = 0, disk_reads = 0, disk_writes = 0;
+    int* __restrict__ t_end, float* lat_g, int* part_counts, int* tickets,
+    int n, int sets_d, int ways_max_d, int sets_s, int ways_max_s, int npe,
+    int parts, float4 lat) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Tile& tile = *reinterpret_cast<Tile*>(smem);
+  __shared__ RowScan<kLoadTiles> scan;
+  __shared__ int total[8];
+  const Split sp(parts, lat_g, part_counts, tickets, n);
+  const int v = sp.v;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const Level D(tags_d_in, lru_d_in, dirty_d_in, tags_d, lru_d, dirty_d,
+                (long long)v * sets_d * ways_max_d, ways_max_d, ways_d_v[v]);
+  const Level S(tags_s_in, lru_s_in, dirty_s_in, tags_s, lru_s, dirty_s,
+                (long long)v * sets_s * ways_max_s, ways_max_s, ways_s_v[v]);
+  const int tv = t0[v];
+  if (threadIdx.x < 8) total[threadIdx.x] = 0;
+  int c[8] = {0, 0, 0, 0, 0, 0, 0, 0};
   float lat_sum = 0.0f;
-  const long long req0 = (long long)v * n;
-  for (int k = 0; k < n; ++k) {
-    const int a = addr[req0 + k];
-    if (a < 0) continue;
-    const bool wr = is_write[req0 + k] != 0;
-    const long long rd_ = ((long long)v * sets_d + a % sets_d) * ways_max_d;
-    const long long rs_ = ((long long)v * sets_s + a % sets_s) * ways_max_s;
-    int* td = tags_d + rd_;
-    int* ld = lru_d + rd_;
-    unsigned char* dd = dirty_d + rd_;
-    int* ts = tags_s + rs_;
-    int* ls = lru_s + rs_;
-    unsigned char* ds = dirty_s + rs_;
-    const unsigned d_way = first_match(td, ways_max_d, ways_d, a, lane);
-    const unsigned s_way = first_match(ts, ways_max_s, ways_s, a, lane);
-    const bool d_hit = d_way != kNone;
-    const bool s_hit = s_way != kNone;
-    float lat;
-    if (!wr) {
-      ++reads;
-      if (d_hit) {
-        ++hits_l1;
-        lat = t_dram;
-        if (lane == 0) ld[d_way] = t;
-      } else {
-        if (s_hit) {
-          ++read_hits_l2;
-          lat = t_ssd;
-          if (lane == 0) ls[s_way] = t;
+  const long long row0 = (long long)v * n;
+  const int valid = stream_row(
+      addr + row0, is_write + row0, n, sets_d, tile, scan,
+      [&](int fill, int base, bool first) {
+        __syncthreads();
+        const int tb = tv + base;
+        float* lat_out = sp.lat_out(tile, base);
+        if (sets_d == sets_s) {
+          for (int s = sp.first_set(warp); s < sets_d;
+               s += sp.set_step()) {
+            Row rd, rs;
+            rd.load(D, s, first, lane);
+            rs.load(S, s, first, lane);
+            for_each_request(tile, fill, s, lane, [&](int i, int a, int f) {
+              const bool wr = (f & kWrite) != 0;
+              // both lookups first, so their reductions overlap
+              const int dw = rd.find(a, D.ways, lane);
+              const int sw = rs.find(a, S.ways, lane);
+              const bool dh = dram_step(rd, D.ways, a, wr, tb + i, lane, c, dw);
+              const int code = ssd_step(rs, S.ways, a, wr, tb + i, dh,
+                                        npe != 0, lane, c, sw);
+              if (lane == 0) lat_out[i] = latency_of(code, lat);
+            });
+            rd.store(D, s, lane);
+            rs.store(S, s, lane);
+          }
         } else {
-          ++disk_reads;
-          lat = t_hdd;
-        }
-        if (ways_d > 0) {
-          const int w = victim(td, ld, ways_max_d, ways_d, lane);
-          if (lane == 0) {
-            td[w] = a;
-            ld[w] = t;
-            dd[w] = 0;
+          for (int s = sp.first_set(warp); s < sets_d;
+               s += sp.set_step()) {
+            Row rd;
+            rd.load(D, s, first, lane);
+            for_each_request(tile, fill, s, lane, [&](int i, int a, int f) {
+              const bool dh = dram_step(rd, D.ways, a, (f & kWrite) != 0,
+                                        tb + i, lane, c,
+                                        rd.find(a, D.ways, lane));
+              if (lane == 0) tile.lat[i] = dh ? 1.0f : 0.0f;
+            });
+            rd.store(D, s, lane);
+          }
+          __syncthreads();
+          rekey(tile, fill, sets_s);
+          __syncthreads();
+          for (int s = sp.first_set(warp); s < sets_s;
+               s += sp.set_step()) {
+            Row rs;
+            rs.load(S, s, first, lane);
+            for_each_request(tile, fill, s, lane, [&](int i, int a, int f) {
+              const int code = ssd_step(rs, S.ways, a, (f & kWrite) != 0,
+                                        tb + i, (f & kDHit) != 0, npe != 0,
+                                        lane, c, rs.find(a, S.ways, lane));
+              if (lane == 0) lat_out[i] = latency_of(code, lat);
+            });
+            rs.store(S, s, lane);
           }
         }
-      }
-    } else {
-      ++writes;
-      if (d_hit && lane == 0) {
-        td[d_way] = -1;
-        ld[d_way] = -1;
-        dd[d_way] = 0;
-      }
-      if (s_hit) {
-        ++write_hits_l2;
-        ++cache_writes_l2;
-        lat = t_ssd;
-        if (lane == 0) {
-          ls[s_way] = t;
-          ds[s_way] = 1;
-        }
-      } else if (npe && ways_s > 0) {
-        const int w = victim(ts, ls, ways_max_s, ways_s, lane);
-        ++cache_writes_l2;
-        lat = t_ssd;
-        if (lane == 0) {
-          disk_writes += (ts[w] >= 0 && ds[w] != 0) ? 1 : 0;
-          ts[w] = a;
-          ls[w] = t;
-          ds[w] = 1;
-        }
-      } else {
-        ++disk_writes;
-        lat = t_hdd_write;
-      }
-    }
-    lat_sum = __fadd_rn(lat_sum, lat);
-    ++t;
-    __syncwarp();
-  }
-  if (lane == 0) {
-    int* c = counts + (long long)v * 8;
-    c[0] = reads;
-    c[1] = writes;
-    c[2] = hits_l1;
-    c[3] = read_hits_l2;
-    c[4] = write_hits_l2;
-    c[5] = cache_writes_l2;
-    c[6] = disk_reads;
-    c[7] = disk_writes;
-    latency[v] = lat_sum;
-    t_end[v] = t;
-  }
+        __syncthreads();
+        if (parts == 1 && warp == 0)
+          lat_sum = ordered_sum(tile.lat, fill, lat_sum);
+      });
+  finish(c, total, sp, tile, counts, latency, t_end, lat_sum, valid,
+         tv + valid);
+}
+
+template <class Row>
+int launch(const int* addr, const unsigned char* is_write, const int* td_in,
+           const int* ld_in, const unsigned char* dd_in, const int* ts_in,
+           const int* ls_in, const unsigned char* ds_in, int* td, int* ld,
+           unsigned char* dd, int* ts, int* ls, unsigned char* ds,
+           const int* ways_d, const int* ways_s, const int* t0, int* counts,
+           float* latency, int* t_end, float* lat_g, int* part_counts,
+           int* tickets, int num_vms, int n, int sets_d, int ways_max_d,
+           int sets_s, int ways_max_s, int npe, int parts, float4 lat,
+           cudaStream_t stream) {
+  static bool configured = false;
+  const cudaError_t err =
+      walk_kernel_setup(two_level_kernel<Row>, configured);
+  if (err != cudaSuccess) return (int)err;
+  two_level_kernel<Row><<<num_vms * parts, kWalkThreads, sizeof(Tile),
+                          stream>>>(
+      addr, is_write, td_in, ld_in, dd_in, ts_in, ls_in, ds_in, td, ld, dd,
+      ts, ls, ds, ways_d, ways_s, t0, counts, latency, t_end, lat_g,
+      part_counts, tickets, n, sets_d, ways_max_d, sets_s, ways_max_s, npe,
+      parts, lat);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// The input state (*_in) is read, the output state written in full. With
+// parts > 1 (equal set counts only) each VM's sets are split across parts
+// CTAs, with lat_g ([V, n] floats), part_counts ([V, parts, 8]) and
+// tickets ([V], zeroed) as scratch; with parts == 1 these may be null.
 extern "C" int etica_two_level(
-    const int* addr, const unsigned char* is_write, int* tags_d, int* lru_d,
+    const int* addr, const unsigned char* is_write, const int* tags_d_in,
+    const int* lru_d_in, const unsigned char* dirty_d_in,
+    const int* tags_s_in, const int* lru_s_in,
+    const unsigned char* dirty_s_in, int* tags_d, int* lru_d,
     unsigned char* dirty_d, int* tags_s, int* lru_s, unsigned char* dirty_s,
     const int* ways_d, const int* ways_s, const int* t0, int* counts,
-    float* latency, int* t_end, int num_vms, int n, int sets_d, int ways_max_d,
-    int sets_s, int ways_max_s, int npe, float t_dram, float t_ssd,
+    float* latency, int* t_end, float* lat_g, int* part_counts, int* tickets,
+    int num_vms, int n, int sets_d, int ways_max_d, int sets_s,
+    int ways_max_s, int npe, int parts, float t_dram, float t_ssd,
     float t_hdd, float t_hdd_write, void* stream) {
   if (num_vms <= 0) return 0;
-  two_level_kernel<<<num_vms, 32, 0, (cudaStream_t)stream>>>(
-      addr, is_write, tags_d, lru_d, dirty_d, tags_s, lru_s, dirty_s, ways_d,
-      ways_s, t0, counts, latency, t_end, n, sets_d, ways_max_d, sets_s,
-      ways_max_s, npe, t_dram, t_ssd, t_hdd, t_hdd_write);
-  return (int)cudaGetLastError();
+  if (parts < 1 || (parts > 1 && sets_d != sets_s))
+    return (int)cudaErrorInvalidValue;
+  const int w = max(ways_max_d, ways_max_s);
+  const float4 lat = make_float4(t_dram, t_ssd, t_hdd, t_hdd_write);
+  auto go = [&](auto row) {
+    return launch<decltype(row)>(
+        addr, is_write, tags_d_in, lru_d_in, dirty_d_in, tags_s_in, lru_s_in,
+        dirty_s_in, tags_d, lru_d, dirty_d, tags_s, lru_s, dirty_s, ways_d,
+        ways_s, t0, counts, latency, t_end, lat_g, part_counts, tickets,
+        num_vms, n, sets_d, ways_max_d, sets_s, ways_max_s, npe, parts, lat,
+        (cudaStream_t)stream);
+  };
+  if (w <= 32) return go(RegRow<1>{});
+  if (w <= 64) return go(RegRow<2>{});
+  return go(MemRow{});
 }

@@ -63,7 +63,7 @@ __global__ void __launch_bounds__(kRowThreads)
                       const float* __restrict__ cs, float* __restrict__ out,
                       int num_blocks, int n) {
   extern __shared__ unsigned long long pairs[];
-  __shared__ RowScan scan;
+  __shared__ RowScan<kMaxTiles> scan;
   const long long row = (long long)blockIdx.x * n;
   const unsigned nb = (unsigned)num_blocks;
   const int tiles = (n + kRowThreads - 1) / kRowThreads;

@@ -5,7 +5,7 @@
 // reference's in-order float32 sums bit for bit.
 //
 // The row's entries are loaded coalesced, padding is dropped with a flag
-// scan (RowScan), and each kept entry becomes a 64-bit pair (key << 32 |
+// scan (RowScan, row_scan.cuh), and each kept entry becomes a 64-bit pair (key << 32 |
 // value), in access order.
 //
 // row_sort is a stable merge sort on the keys. Each thread first sorts
@@ -29,12 +29,11 @@
 
 #include <cuda_runtime.h>
 
+#include "row_scan.cuh"
 #include "xla_exp.cuh"
 
 namespace etica {
 
-constexpr int kRowThreads = 512;
-constexpr int kRowWarps = kRowThreads / 32;
 constexpr int kMaxRow = 16384;
 constexpr int kMaxTiles = kMaxRow / kRowThreads;
 constexpr int kMaxPerThread = kMaxRow / kRowThreads;
@@ -72,55 +71,6 @@ __device__ __forceinline__ unsigned signed_key(int k) {
 __device__ __forceinline__ int unsigned_key(unsigned k) {
   return (int)(k ^ 0x80000000u);
 }
-
-// An exclusive scan of one flag per position over a row cut into tiles of
-// kRowThreads positions (position t * kRowThreads + threadIdx.x of tile
-// t), in two passes: count() for every tile, bases(), then rank() for
-// every tile in the same order. Every thread of the CTA calls each.
-struct RowScan {
-  int base[kMaxTiles * kRowWarps + 1];
-
-  __device__ __forceinline__ void count(int tile, bool flag) {
-    const unsigned b = __ballot_sync(0xffffffffu, flag);
-    if ((threadIdx.x & 31) == 0)
-      base[tile * kRowWarps + (threadIdx.x >> 5)] = __popc(b);
-  }
-
-  // turns the counts of `tiles` tiles into exclusive bases; the total
-  __device__ int bases(int tiles) {
-    __syncthreads();
-    const int n = tiles * kRowWarps;
-    if (threadIdx.x < 32) {
-      const int lane = threadIdx.x;
-      const int per = (n + 31) / 32;
-      const int lo = min(lane * per, n), hi = min(lo + per, n);
-      int sum = 0;
-      for (int k = lo; k < hi; ++k) sum += base[k];
-      int incl = sum;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, incl, d);
-        if (lane >= d) incl += y;
-      }
-      int run = incl - sum;
-      for (int k = lo; k < hi; ++k) {
-        const int x = base[k];
-        base[k] = run;
-        run += x;
-      }
-      if (lane == 31) base[n] = incl;
-    }
-    __syncthreads();
-    return base[n];
-  }
-
-  // flagged positions before this thread's position of `tile`
-  __device__ __forceinline__ int rank(int tile, bool flag) const {
-    const unsigned b = __ballot_sync(0xffffffffu, flag);
-    const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
-    return base[tile * kRowWarps + (threadIdx.x >> 5)] + __popc(b & below);
-  }
-};
 
 // Sorts each thread's kChunk consecutive pairs by key, stably: odd-even
 // transposition, which swaps only a strictly greater key past a smaller.

@@ -43,7 +43,7 @@ __global__ void __launch_bounds__(kRowThreads)
                     const int* __restrict__ n_valid, int* __restrict__ uaddr,
                     float* __restrict__ uval, int n) {
   extern __shared__ unsigned long long pairs[];
-  __shared__ RowScan scan;
+  __shared__ RowScan<kMaxTiles> scan;
   const long long row = (long long)blockIdx.x * n;
   const int m = min(max(n_valid[blockIdx.x], 0), n);
 #pragma unroll 4

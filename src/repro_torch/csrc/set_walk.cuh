@@ -1,0 +1,502 @@
+// set_walk: the datapath kernels' schedule (datapath.cu, single_level.cu):
+// one CTA per VM walks each cache set's requests in order, with the sets
+// in parallel across its warps.
+//
+// Why it is exact: request k of a VM reads and writes only the rows of its
+// own set at each level (a % S), and its clock is t0 + (valid requests
+// before k). So requests to different sets commute, and only those to one
+// set must run in order. The integer counts are sums; latency_sum is the
+// one output whose order matters, so the walk records each request's
+// latency at its rank and one warp adds them in request order afterwards.
+//
+// The schedule, per VM (row of the [V, N] block):
+//   1. stream: the CTA loads kLoadCols columns a step (coalesced, the
+//      next step's loads in flight while this one is ranked), drops addr
+//      < 0 with a flag scan (RowScan) and stores each kept request at its
+//      rank in shared memory: its address, and key = set << 2 | flags.
+//      The rank i gives the clock, t = t0 + base + i.
+//   2. walk: when the next step would overflow the tile (kTileCap
+//      requests, 12 bytes each), and once at the end, warp w takes sets
+//      w, w + warps, ...: it loads the set row (RegRow: ceil(W / 32) ways a
+//      lane in registers; MemRow: rows wider than 64 ways, in the output
+//      arrays), scans the tile 32 keys at a time, picks the set's
+//      requests by __ballot_sync and applies them in order through __ffs
+//      of the ballot (the next one's address and key fetched before this
+//      one is applied), then stores the row. Lookups and the victim are
+//      warp reductions (__reduce_min_sync on the way, or on the score and
+//      then the way among the lanes holding the minimum), so "first
+//      empty active way, else first LRU minimum" keeps the reference's
+//      order. The kernel reads the input state and writes every row of
+//      the output once per tile, each row by exactly one warp.
+//   3. sum: each request's float32 latency is stored at its rank; one
+//      warp adds the tile's in request order with __fadd_rn, carrying the
+//      sum across tiles.
+//
+// While the VMs leave SMs idle (V below the SM count), a VM's sets are
+// split across `parts` CTAs (Split): CTA p walks sets p, p + parts, ...,
+// so each warp holds about one set. Every CTA streams the whole row; each
+// writes its requests' latencies (at their ranks) and its counts to
+// global scratch, and the VM's last CTA to finish (an atomic ticket)
+// adds the counts and, in request order, the latencies.
+//
+// What bounds it: the longest same-set chain (its requests one after
+// another, a few warp reductions each), the scan of the tile (one pass a
+// set) and the ordered sum (one dependent add a request); at many VMs,
+// reading the padded block.
+//
+// Tried on the H100 and dropped, each slower at the paper's [12, 1000]
+// block: lookups by __ballot_sync (a reduction's result lands in a
+// uniform register and the branches on it stay uniform; a ballot's does
+// not), every request's victims computed without branches, a packed
+// (score, way) victim in one reduction, and a 128-key scan step with a
+// queue of matches. Latency codes of one byte, decoded in the sum, put
+// the decode's latency in front of every add.
+#pragma once
+
+#include <climits>
+#include <cuda_runtime.h>
+
+#include "row_scan.cuh"
+
+namespace etica {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWalkThreads = kRowThreads;             // 16 warps
+constexpr int kWalkWarps = kWalkThreads / 32;
+constexpr int kLoadTiles = 4;                         // RowScan tiles a step
+constexpr int kLoadCols = kLoadTiles * kWalkThreads;  // columns a step
+constexpr int kTileCap = 8192;                        // requests a walk
+constexpr int kSumStep = 16;                          // adds a sum load
+
+// The compacted requests of one tile, in dynamic shared memory.
+struct Tile {
+  int addr[kTileCap];
+  int key[kTileCap];                // set << 2 | flags
+  float lat[kTileCap + kSumStep];   // latency by rank; +0.0f past the fill
+};
+// the flags of a key: the request writes; its DRAM lookup hit (set by
+// rekey for the two-level walk's second level)
+constexpr int kWrite = 1;
+constexpr int kDHit = 2;
+
+// One level of a VM's cache state: its input rows, its output rows, and
+// the ways in use.
+struct Level {
+  const int* tag_in;
+  const int* lru_in;
+  const unsigned char* dirty_in;
+  int* tag;
+  int* lru;
+  unsigned char* dirty;
+  int num_ways;   // W, the row's width
+  int ways;       // active ways, clamped to [0, W]
+
+  __device__ Level(const int* ti, const int* li, const unsigned char* di,
+                   int* to, int* lo, unsigned char* dout, long long vm_off,
+                   int w, int active)
+      : tag_in(ti + vm_off), lru_in(li + vm_off), dirty_in(di + vm_off),
+        tag(to + vm_off), lru(lo + vm_off), dirty(dout + vm_off),
+        num_ways(w), ways(min(max(active, 0), w)) {}
+};
+
+template <int K>
+__device__ __forceinline__ int pick(const int (&x)[K], int k) {
+  int out = x[0];
+#pragma unroll
+  for (int j = 1; j < K; ++j)
+    if (j == k) out = x[j];
+  return out;
+}
+
+// A set row held by one warp in registers: way w = lane + 32 k sits in
+// lane w % 32, slot k, for rows of up to 32 K ways.
+template <int K>
+struct RegRow {
+  int tag[K], lru[K], dirty[K];
+
+  // the row of set s: the input state in a VM's first tile, else what the
+  // previous tile stored
+  __device__ __forceinline__ void load(const Level& L, int s, bool first,
+                                       int lane) {
+    const long long off = (long long)s * L.num_ways;
+    const int* t = (first ? L.tag_in : L.tag) + off;
+    const int* l = (first ? L.lru_in : L.lru) + off;
+    const unsigned char* d = (first ? L.dirty_in : L.dirty) + off;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int w = lane + 32 * k;
+      const bool in = w < L.num_ways;
+      tag[k] = in ? t[w] : -1;
+      lru[k] = in ? l[w] : 0;
+      dirty[k] = in && d[w] != 0;
+    }
+  }
+
+  __device__ __forceinline__ void store(const Level& L, int s,
+                                        int lane) const {
+    const long long off = (long long)s * L.num_ways;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int w = lane + 32 * k;
+      if (w < L.num_ways) {
+        L.tag[off + w] = tag[k];
+        L.lru[off + w] = lru[k];
+        L.dirty[off + w] = (unsigned char)dirty[k];
+      }
+    }
+  }
+
+  // first active way (w < ways) holding a; -1 when none
+  __device__ __forceinline__ int find(int a, int ways, int lane) const {
+    int best = INT_MAX;
+#pragma unroll
+    for (int k = K - 1; k >= 0; --k)
+      if (lane + 32 * k < ways && tag[k] == a) best = lane + 32 * k;
+    best = __reduce_min_sync(kFull, best);
+    return best == INT_MAX ? -1 : best;
+  }
+
+  // the insert way (ways > 0): first minimum over the active ways of
+  // score = -1 for an empty way, else lru
+  __device__ __forceinline__ int victim(int ways, int lane) const {
+    int bs = INT_MAX, bw = INT_MAX;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int w = lane + 32 * k;
+      const int sc = tag[k] < 0 ? -1 : lru[k];
+      if (w < ways && (bw == INT_MAX || sc < bs)) {
+        bs = sc;
+        bw = w;
+      }
+    }
+    const int m = __reduce_min_sync(kFull, bs);
+    return __reduce_min_sync(kFull, bs == m ? bw : INT_MAX);
+  }
+
+  // (tag >= 0 and dirty) of way w
+  __device__ __forceinline__ bool dirty_valid(int w) const {
+    const int k = w >> 5;
+    const int x = pick(tag, k) >= 0 && pick(dirty, k) != 0;
+    return __shfl_sync(kFull, x, w & 31) != 0;
+  }
+
+  __device__ __forceinline__ void put(int w, int lane, int t, int l, bool d) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (lane + 32 * k == w) {
+        tag[k] = t;
+        lru[k] = l;
+        dirty[k] = d;
+      }
+  }
+
+  __device__ __forceinline__ void touch(int w, int lane, int t,
+                                        bool set_dirty) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (lane + 32 * k == w) {
+        lru[k] = t;
+        dirty[k] |= set_dirty;
+      }
+  }
+};
+
+// A set row of any width, held in the output arrays (global memory, the
+// touched rows stay in L1): lanes stride the ways, lane 0 writes, and
+// __syncwarp orders a write after the warp's reads and before its next.
+struct MemRow {
+  int* tag;
+  int* lru;
+  unsigned char* dirty;
+
+  __device__ __forceinline__ void load(const Level& L, int s, bool first,
+                                       int lane) {
+    const long long off = (long long)s * L.num_ways;
+    tag = L.tag + off;
+    lru = L.lru + off;
+    dirty = L.dirty + off;
+    if (first) {
+      for (int w = lane; w < L.num_ways; w += 32) {
+        tag[w] = L.tag_in[off + w];
+        lru[w] = L.lru_in[off + w];
+        dirty[w] = L.dirty_in[off + w];
+      }
+    }
+    __syncwarp();
+  }
+
+  __device__ __forceinline__ void store(const Level&, int, int) const {
+    __syncwarp();
+  }
+
+  __device__ __forceinline__ int find(int a, int ways, int lane) const {
+    int best = INT_MAX;
+    for (int w = lane; w < ways; w += 32)
+      if (tag[w] == a) {
+        best = w;
+        break;
+      }
+    best = __reduce_min_sync(kFull, best);
+    return best == INT_MAX ? -1 : best;
+  }
+
+  __device__ __forceinline__ int victim(int ways, int lane) const {
+    int bs = INT_MAX, bw = INT_MAX;
+    for (int w = lane; w < ways; w += 32) {
+      const int sc = tag[w] < 0 ? -1 : lru[w];
+      if (bw == INT_MAX || sc < bs) {
+        bs = sc;
+        bw = w;
+      }
+    }
+    const int m = __reduce_min_sync(kFull, bs);
+    return __reduce_min_sync(kFull, bs == m ? bw : INT_MAX);
+  }
+
+  __device__ __forceinline__ bool dirty_valid(int w) const {
+    return tag[w] >= 0 && dirty[w] != 0;
+  }
+
+  __device__ __forceinline__ void put(int w, int lane, int t, int l, bool d) {
+    __syncwarp();
+    if (lane == 0) {
+      tag[w] = t;
+      lru[w] = l;
+      dirty[w] = d;
+    }
+    __syncwarp();
+  }
+
+  __device__ __forceinline__ void touch(int w, int lane, int t,
+                                        bool set_dirty) {
+    __syncwarp();
+    if (lane == 0) {
+      lru[w] = t;
+      if (set_dirty) dirty[w] = 1;
+    }
+    __syncwarp();
+  }
+};
+
+// Applies f(i, addr, flags) to the tile's requests of set s, in order:
+// the warp tests 32 keys at a time and takes the matches by __ffs, with
+// the next match's address and key fetched before f runs.
+template <class F>
+__device__ __forceinline__ void for_each_request(const Tile& tile, int fill,
+                                                 int s, int lane, F&& f) {
+  for (int b = 0; b < fill; b += 32) {
+    const int i = b + lane;
+    const int key = i < fill ? tile.key[i] : -1;
+    unsigned m = __ballot_sync(kFull, key >= 0 && (key >> 2) == s);
+    if (!m) continue;
+    int j = __ffs(m) - 1;
+    int a = tile.addr[b + j], k = __shfl_sync(kFull, key, j);
+    for (;;) {
+      m &= m - 1;
+      const int jn = m ? __ffs(m) - 1 : j;
+      const int an = tile.addr[b + jn], kn = __shfl_sync(kFull, key, jn);
+      f(b + j, a, k & 3);
+      if (!m) break;
+      j = jn;
+      a = an;
+      k = kn;
+    }
+  }
+}
+
+// Re-keys the tile's requests by another set count, with the DRAM hit
+// that the first walk left in each latency slot (the two-level walk's
+// second level when the levels' set counts differ).
+__device__ __forceinline__ void rekey(Tile& tile, int fill, int sets) {
+  for (int i = threadIdx.x; i < fill; i += kWalkThreads)
+    tile.key[i] = (tile.addr[i] % sets) << 2 |
+                  (tile.lat[i] != 0.0f ? kDHit : 0) | (tile.key[i] & kWrite);
+}
+
+__device__ __forceinline__ float latency_of(int code, float4 lat) {
+  return code == 0 ? lat.x : code == 1 ? lat.y : code == 2 ? lat.z : lat.w;
+}
+
+// acc plus lat[0, m) added in order with __fadd_rn. lat[m, the next
+// multiple of kSumStep) are +0.0f, which adds exactly (acc >= +0.0f), so
+// each step adds kSumStep values without a branch, loaded a step ahead of
+// their adds. A whole warp runs it, every lane the same adds.
+__device__ __forceinline__ float ordered_sum(const float* lat, int m,
+                                             float acc) {
+  const float4* q = reinterpret_cast<const float4*>(lat);
+  const int steps = (m + kSumStep - 1) / kSumStep;
+  float4 nxt[kSumStep / 4];
+#pragma unroll
+  for (int u = 0; u < kSumStep / 4; ++u)
+    nxt[u] = steps > 0 ? q[u] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int i = 0; i < steps; ++i) {
+    float4 cur[kSumStep / 4];
+#pragma unroll
+    for (int u = 0; u < kSumStep / 4; ++u) {
+      cur[u] = nxt[u];
+      if (i + 1 < steps) nxt[u] = q[(i + 1) * (kSumStep / 4) + u];
+    }
+#pragma unroll
+    for (int u = 0; u < kSumStep / 4; ++u) {
+      acc = __fadd_rn(acc, cur[u].x);
+      acc = __fadd_rn(acc, cur[u].y);
+      acc = __fadd_rn(acc, cur[u].z);
+      acc = __fadd_rn(acc, cur[u].w);
+    }
+  }
+  return acc;
+}
+
+// How a VM's sets are split across CTAs: blockIdx.x = v * parts + part;
+// CTA `part` walks sets part, part + parts, ... With parts > 1 its
+// latencies go to the VM's row of global scratch (by rank) and its counts
+// to part_counts; tickets[v] is zero before the launch.
+struct Split {
+  int v, part, parts;
+  float* lat_row;
+  int* part_counts;
+  int* tickets;
+
+  __device__ Split(int parts_, float* lat_g, int* part_counts_,
+                   int* tickets_, int n)
+      : v(blockIdx.x / parts_), part(blockIdx.x % parts_), parts(parts_),
+        lat_row(parts_ > 1 ? lat_g + (long long)(blockIdx.x / parts_) * n
+                           : nullptr),
+        part_counts(part_counts_), tickets(tickets_) {}
+
+  __device__ int first_set(int warp) const { return part + parts * warp; }
+  __device__ int set_step() const { return parts * kWalkWarps; }
+  // where a tile's latencies go: the tile itself, or the VM's scratch row
+  __device__ float* lat_out(Tile& tile, int base) const {
+    return parts > 1 ? lat_row + base : tile.lat;
+  }
+};
+
+// The VM's row of requests streamed through the tile (step 1 above).
+// walk(fill, base, first) runs with the tile's fill requests (latency
+// slots +0.0f from fill to the next kSumStep), base valid requests before
+// them, and first set for the VM's first tile; it runs whenever the next
+// step would overflow the tile and once at the end, and must begin with
+// __syncthreads() and end with one after its last read of the tile's
+// addresses and keys. Returns the valid requests.
+template <class Walk>
+__device__ __forceinline__ int stream_row(const int* __restrict__ addr,
+                                          const unsigned char* __restrict__ wr,
+                                          int n, int sets, Tile& tile,
+                                          RowScan<kLoadTiles>& scan,
+                                          Walk&& walk) {
+  int a_nxt[kLoadTiles];
+  bool w_nxt[kLoadTiles];
+  auto load = [&](int c0) {
+#pragma unroll
+    for (int r = 0; r < kLoadTiles; ++r) {
+      const int col = c0 + r * kWalkThreads + threadIdx.x;
+      a_nxt[r] = col < n ? __ldg(addr + col) : -1;
+      w_nxt[r] = col < n && __ldg(wr + col) != 0;
+    }
+  };
+  load(0);
+  int fill = 0, base = 0;
+  bool first = true;
+  for (int c0 = 0;; c0 += kLoadCols) {
+    const bool more = c0 < n;
+    int a[kLoadTiles];
+    bool w[kLoadTiles];
+#pragma unroll
+    for (int r = 0; r < kLoadTiles; ++r) {
+      a[r] = a_nxt[r];
+      w[r] = w_nxt[r];
+    }
+    int cnt = 0;
+    if (more) {
+      if (c0 + kLoadCols < n) load(c0 + kLoadCols);
+#pragma unroll
+      for (int r = 0; r < kLoadTiles; ++r) scan.count(r, a[r] >= 0);
+      cnt = scan.bases(kLoadTiles);
+    }
+    if (!more || fill + cnt > kTileCap) {
+      if (threadIdx.x < kSumStep) tile.lat[fill + threadIdx.x] = 0.0f;
+      walk(fill, base, first);
+      base += fill;
+      fill = 0;
+      first = false;
+    }
+    if (!more) break;
+#pragma unroll
+    for (int r = 0; r < kLoadTiles; ++r) {
+      const int i = fill + scan.rank(r, a[r] >= 0);
+      if (a[r] >= 0) {
+        tile.addr[i] = a[r];
+        tile.key[i] = (a[r] % sets) << 2 | (w[r] ? kWrite : 0);
+      }
+    }
+    fill += cnt;
+  }
+  return base;
+}
+
+// The VM's results: its counts (each warp's, equal in every lane, added
+// into `total`), latency sum and clock. With parts > 1 each CTA leaves
+// its counts in part_counts, and the VM's last CTA adds all of them and
+// the latencies of its scratch row, in request order, through the tile.
+__device__ __forceinline__ void finish(const int (&c)[8], int* total,
+                                       const Split& sp, Tile& tile,
+                                       int* counts, float* latency,
+                                       int* t_end, float lat_sum, int valid,
+                                       int t_last) {
+  __shared__ bool last;
+  if ((threadIdx.x & 31) == 0)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) atomicAdd(&total[k], c[k]);
+  __syncthreads();
+  const long long v = sp.v;
+  if (sp.parts == 1) {
+    if (threadIdx.x < 8) counts[v * 8 + threadIdx.x] = total[threadIdx.x];
+    if (threadIdx.x == 0) {
+      latency[v] = lat_sum;
+      t_end[v] = t_last;
+    }
+    return;
+  }
+  if (threadIdx.x < 8)
+    sp.part_counts[(v * sp.parts + sp.part) * 8 + threadIdx.x] =
+        total[threadIdx.x];
+  __threadfence();   // this CTA's latencies and counts before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(&sp.tickets[v], 1) == sp.parts - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (threadIdx.x < 8) {
+    int sum = 0;
+    for (int p = 0; p < sp.parts; ++p)
+      sum += __ldcg(&sp.part_counts[(v * sp.parts + p) * 8 + threadIdx.x]);
+    counts[v * 8 + threadIdx.x] = sum;
+  }
+  float acc = 0.0f;
+  for (int c0 = 0; c0 < valid; c0 += kTileCap) {
+    const int m = min(kTileCap, valid - c0);
+    for (int i = threadIdx.x; i < m + kSumStep; i += kWalkThreads)
+      tile.lat[i] = i < m ? __ldcg(sp.lat_row + c0 + i) : 0.0f;
+    __syncthreads();
+    if ((threadIdx.x >> 5) == 0) acc = ordered_sum(tile.lat, m, acc);
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    latency[v] = acc;
+    t_end[v] = t_last;
+  }
+}
+
+// Opts `kernel` into a tile of dynamic shared memory, once (before any
+// graph capture: the first launch of each instantiation does it).
+template <typename Kernel>
+inline cudaError_t walk_kernel_setup(Kernel kernel, bool& configured) {
+  if (configured) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Tile));
+  if (err == cudaSuccess) configured = true;
+  return err;
+}
+
+}  // namespace etica

@@ -10,7 +10,7 @@
 // repro_torch.core.policies): allocates_reads (ar), write_invalidates
 // (inv), holds_dirty (hd), write_through (wt). Per valid request (addr >=
 // 0; addr = -1 is an exact no-op and does not advance the clock), with
-// s = addr % S, lookup and victim as in set_lookup.cuh:
+// s = addr % S, lookup and victim as in datapath.cu:
 //   read  : hit -> touch (lru = t), read_hits_l2, latency t_cache; miss ->
 //           disk_reads, latency t_hdd, and under ar with ways > 0 an
 //           insert (clean) that counts a cache write and, for a dirty
@@ -27,145 +27,172 @@
 // __fadd_rn, bit-identical to the scan. The latencies come in as
 // arguments from repro_torch.core.policies.
 //
-// What bounds it on the H100: the dependency chain, as for two_level
-// (datapath.cu). Request k+1 of a VM may read the set row request k
-// wrote, so a VM's requests run one after another; the bytes (the block
-// plus each touched row) are small.
+// Design: the set walk of set_walk.cuh, one CTA of 16 warps per VM (its
+// sets split across several CTAs while the VMs leave SMs idle). With one
+// level, every set is independent outright: one walk per tile, the row in
+// registers up to 64 ways (RegRow), wider in the output arrays (MemRow).
 //
-// Design: the same as two_level: one warp per VM, lanes over the ways of
-// the set row, first_match and victim as warp reductions, state in global
-// memory (L1-resident rows), lane 0 does the stores and the counts that
-// read a stored byte; __syncwarp orders request k's stores before request
-// k+1's loads. The wrapper passes a copy of the state, which the kernel
-// updates in place.
+// What bounds it on the H100: as for two_level (datapath.cu), the longest
+// same-set chain (one lookup and at most one victim search a request),
+// the scan of the tile and the ordered sum; at 1,024 VMs, reading the
+// padded block.
 #include <cuda_runtime.h>
 
-#include "set_lookup.cuh"
+#include "set_walk.cuh"
 
 namespace {
 
-using etica::first_match;
-using etica::kNone;
-using etica::victim;
+using namespace etica;
 
-__global__ void single_level_kernel(
+struct Policy {
+  bool ar, inv, hd, wt;
+};
+
+// One request under policy p. Returns the latency code: 0 t_cache,
+// 1 t_hdd, 2 t_hdd_write.
+template <class Row>
+__device__ __forceinline__ int step(Row& row, int ways, const Policy& p,
+                                    int a, bool wr, int t, int lane,
+                                    int (&c)[8]) {
+  const int way = row.find(a, ways, lane);
+  const bool hit = way >= 0;
+  if (!wr) {
+    ++c[0];
+    if (hit) {
+      ++c[3];
+      row.touch(way, lane, t, false);
+      return 0;
+    }
+    ++c[6];
+    if (p.ar && ways > 0) {
+      const int w = row.victim(ways, lane);
+      ++c[5];
+      c[7] += row.dirty_valid(w) ? 1 : 0;
+      row.put(w, lane, a, t, false);
+    }
+    return 1;
+  }
+  ++c[1];
+  if (p.inv) {
+    ++c[7];
+    if (hit) row.put(way, lane, -1, -1, false);
+    return 2;
+  }
+  if (hit || ways > 0) {
+    ++c[5];
+    c[7] += p.wt ? 1 : 0;
+    if (hit) {
+      ++c[4];
+      row.touch(way, lane, t, p.hd);
+    } else {
+      const int w = row.victim(ways, lane);
+      c[7] += row.dirty_valid(w) ? 1 : 0;
+      row.put(w, lane, a, t, p.hd);
+    }
+    return p.wt ? 2 : 0;
+  }
+  c[7] += p.wt ? 2 : 1;  // nothing committed to the cache
+  return 2;
+}
+
+template <class Row>
+__global__ void __launch_bounds__(kWalkThreads, 2) single_level_kernel(
     const int* __restrict__ addr, const unsigned char* __restrict__ is_write,
-    int* tags, int* lru, unsigned char* dirty, const int* __restrict__ ways_v,
-    const unsigned char* __restrict__ ar_v,
+    const int* tags_in, const int* lru_in, const unsigned char* dirty_in,
+    int* tags, int* lru, unsigned char* dirty,
+    const int* __restrict__ ways_v, const unsigned char* __restrict__ ar_v,
     const unsigned char* __restrict__ inv_v,
     const unsigned char* __restrict__ hd_v,
     const unsigned char* __restrict__ wt_v, const int* __restrict__ t0,
     int* __restrict__ counts, float* __restrict__ latency,
-    int* __restrict__ t_end, int n, int sets, int ways_max, float t_cache,
-    float t_hdd, float t_hdd_write) {
-  const int v = blockIdx.x;
-  const int lane = threadIdx.x;
-  const int ways = max(ways_v[v], 0);
-  const bool ar = ar_v[v] != 0;
-  const bool inv = inv_v[v] != 0;
-  const unsigned char hd = hd_v[v] != 0 ? 1 : 0;
-  const bool wt = wt_v[v] != 0;
-  int t = t0[v];
-  int reads = 0, writes = 0, read_hits = 0, write_hits = 0;
-  int cache_writes = 0, disk_reads = 0, disk_writes = 0;
+    int* __restrict__ t_end, float* lat_g, int* part_counts, int* tickets,
+    int n, int sets, int ways_max, int parts, float4 lat) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Tile& tile = *reinterpret_cast<Tile*>(smem);
+  __shared__ RowScan<kLoadTiles> scan;
+  __shared__ int total[8];
+  const Split sp(parts, lat_g, part_counts, tickets, n);
+  const int v = sp.v;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const Level L(tags_in, lru_in, dirty_in, tags, lru, dirty,
+                (long long)v * sets * ways_max, ways_max, ways_v[v]);
+  const Policy p{ar_v[v] != 0, inv_v[v] != 0, hd_v[v] != 0, wt_v[v] != 0};
+  const int tv = t0[v];
+  if (threadIdx.x < 8) total[threadIdx.x] = 0;
+  int c[8] = {0, 0, 0, 0, 0, 0, 0, 0};
   float lat_sum = 0.0f;
-  const long long req0 = (long long)v * n;
-  for (int k = 0; k < n; ++k) {
-    const int a = addr[req0 + k];
-    if (a < 0) continue;
-    const bool wr = is_write[req0 + k] != 0;
-    const long long row = ((long long)v * sets + a % sets) * ways_max;
-    int* tg = tags + row;
-    int* lr = lru + row;
-    unsigned char* dt = dirty + row;
-    const unsigned way = first_match(tg, ways_max, ways, a, lane);
-    const bool hit = way != kNone;
-    float lat;
-    if (!wr) {
-      ++reads;
-      if (hit) {
-        ++read_hits;
-        lat = t_cache;
-        if (lane == 0) lr[way] = t;
-      } else {
-        ++disk_reads;
-        lat = t_hdd;
-        if (ar && ways > 0) {
-          const int w = victim(tg, lr, ways_max, ways, lane);
-          ++cache_writes;
-          if (lane == 0) {
-            disk_writes += (tg[w] >= 0 && dt[w] != 0) ? 1 : 0;
-            tg[w] = a;
-            lr[w] = t;
-            dt[w] = 0;
-          }
+  const long long row0 = (long long)v * n;
+  const int valid = stream_row(
+      addr + row0, is_write + row0, n, sets, tile, scan,
+      [&](int fill, int base, bool first) {
+        __syncthreads();
+        const int tb = tv + base;
+        float* lat_out = sp.lat_out(tile, base);
+        for (int s = sp.first_set(warp); s < sets;
+             s += sp.set_step()) {
+          Row r;
+          r.load(L, s, first, lane);
+          for_each_request(tile, fill, s, lane, [&](int i, int a, int f) {
+            const int code = step(r, L.ways, p, a, (f & kWrite) != 0, tb + i,
+                                  lane, c);
+            if (lane == 0) lat_out[i] = latency_of(code, lat);
+          });
+          r.store(L, s, lane);
         }
-      }
-    } else {
-      ++writes;
-      if (inv) {
-        ++disk_writes;
-        lat = t_hdd_write;
-        if (hit && lane == 0) {
-          tg[way] = -1;
-          lr[way] = -1;
-          dt[way] = 0;
-        }
-      } else if (hit || ways > 0) {
-        ++cache_writes;
-        disk_writes += wt ? 1 : 0;
-        lat = wt ? t_hdd_write : t_cache;
-        if (hit) {
-          ++write_hits;
-          if (lane == 0) {
-            lr[way] = t;
-            dt[way] |= hd;
-          }
-        } else {
-          const int w = victim(tg, lr, ways_max, ways, lane);
-          if (lane == 0) {
-            disk_writes += (tg[w] >= 0 && dt[w] != 0) ? 1 : 0;
-            tg[w] = a;
-            lr[w] = t;
-            dt[w] = hd;
-          }
-        }
-      } else {
-        disk_writes += wt ? 2 : 1;  // nothing committed to the cache
-        lat = t_hdd_write;
-      }
-    }
-    lat_sum = __fadd_rn(lat_sum, lat);
-    ++t;
-    __syncwarp();
-  }
-  if (lane == 0) {
-    int* c = counts + (long long)v * 8;
-    c[0] = reads;
-    c[1] = writes;
-    c[2] = 0;
-    c[3] = read_hits;
-    c[4] = write_hits;
-    c[5] = cache_writes;
-    c[6] = disk_reads;
-    c[7] = disk_writes;
-    latency[v] = lat_sum;
-    t_end[v] = t;
-  }
+        __syncthreads();
+        if (parts == 1 && warp == 0)
+          lat_sum = ordered_sum(tile.lat, fill, lat_sum);
+      });
+  finish(c, total, sp, tile, counts, latency, t_end, lat_sum, valid,
+         tv + valid);
+}
+
+template <class Row>
+int launch(const int* addr, const unsigned char* is_write, const int* tg_in,
+           const int* lr_in, const unsigned char* dt_in, int* tg, int* lr,
+           unsigned char* dt, const int* ways, const unsigned char* ar,
+           const unsigned char* inv, const unsigned char* hd,
+           const unsigned char* wt, const int* t0, int* counts,
+           float* latency, int* t_end, float* lat_g, int* part_counts,
+           int* tickets, int num_vms, int n, int sets, int ways_max,
+           int parts, float4 lat, cudaStream_t stream) {
+  static bool configured = false;
+  const cudaError_t err =
+      walk_kernel_setup(single_level_kernel<Row>, configured);
+  if (err != cudaSuccess) return (int)err;
+  single_level_kernel<Row><<<num_vms * parts, kWalkThreads, sizeof(Tile),
+                             stream>>>(
+      addr, is_write, tg_in, lr_in, dt_in, tg, lr, dt, ways, ar, inv, hd, wt,
+      t0, counts, latency, t_end, lat_g, part_counts, tickets, n, sets,
+      ways_max, parts, lat);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// The input state (*_in) is read, the output state written in full. With
+// parts > 1 each VM's sets are split across parts CTAs, with lat_g ([V, n]
+// floats), part_counts ([V, parts, 8]) and tickets ([V], zeroed) as
+// scratch; with parts == 1 these may be null.
 extern "C" int etica_single_level(
-    const int* addr, const unsigned char* is_write, int* tags, int* lru,
+    const int* addr, const unsigned char* is_write, const int* tags_in,
+    const int* lru_in, const unsigned char* dirty_in, int* tags, int* lru,
     unsigned char* dirty, const int* ways, const unsigned char* ar,
     const unsigned char* inv, const unsigned char* hd,
     const unsigned char* wt, const int* t0, int* counts, float* latency,
-    int* t_end, int num_vms, int n, int sets, int ways_max, float t_cache,
-    float t_hdd, float t_hdd_write, void* stream) {
+    int* t_end, float* lat_g, int* part_counts, int* tickets, int num_vms,
+    int n, int sets, int ways_max, int parts, float t_cache, float t_hdd,
+    float t_hdd_write, void* stream) {
   if (num_vms <= 0) return 0;
-  single_level_kernel<<<num_vms, 32, 0, (cudaStream_t)stream>>>(
-      addr, is_write, tags, lru, dirty, ways, ar, inv, hd, wt, t0, counts,
-      latency, t_end, n, sets, ways_max, t_cache, t_hdd, t_hdd_write);
-  return (int)cudaGetLastError();
+  if (parts < 1) return (int)cudaErrorInvalidValue;
+  const float4 lat = make_float4(t_cache, t_hdd, t_hdd_write, 0.0f);
+  auto go = [&](auto row) {
+    return launch<decltype(row)>(
+        addr, is_write, tags_in, lru_in, dirty_in, tags, lru, dirty, ways, ar,
+        inv, hd, wt, t0, counts, latency, t_end, lat_g, part_counts, tickets,
+        num_vms, n, sets, ways_max, parts, lat, (cudaStream_t)stream);
+  };
+  if (ways_max <= 32) return go(RegRow<1>{});
+  if (ways_max <= 64) return go(RegRow<2>{});
+  return go(MemRow{});
 }

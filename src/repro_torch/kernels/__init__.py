@@ -39,7 +39,10 @@ launch counter (:func:`launch_counts`), and nothing else does.
 
 ``popularity`` and ``run_sums`` group each row in shared memory, one
 CTA a row (``row_sort.cuh``), so a row holds at most :data:`ROW_MAX`
-entries; :func:`check_row` refuses a wider one.
+entries; :func:`check_row` refuses a wider one. ``two_level`` and
+``single_level`` walk each VM's requests set by set, one CTA a VM or
+several while the VMs leave SMs idle (``set_walk.cuh``), and take rows
+of any length in tiles.
 
 ``chain_probe.cu`` is no kernel of the path: it times one dependent
 on-chip load and one dependent float32 add, which price the datapath's
@@ -67,7 +70,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 # ptxas reports registers, shared memory and spills of these sources into
 # the build's log (:func:`build_log`)
-VERBOSE_SOURCES = ("flash_attention_sm90.cu",)
+VERBOSE_SOURCES = ("flash_attention_sm90.cu", "datapath.cu",
+                   "single_level.cu")
 
 KERNELS = ("count_between", "evict_scatter", "promote_scatter",
            "clean_scatter", "two_level", "single_level", "run_sums",
@@ -87,11 +91,8 @@ _SIGNATURES = {
     "etica_promote_scatter": (_P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _P),
     "etica_clean_scatter": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "etica_two_level": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                        _F, _F, _F, _F, _P),
-    "etica_single_level": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
+    "etica_two_level": (*(_P,) * 23, *(_I,) * 8, _F, _F, _F, _F, _P),
+    "etica_single_level": (*(_P,) * 20, *(_I,) * 5, _F, _F, _F, _P),
     "etica_run_sums": (_P, _P, _P, _P, _P, _I, _I, _P),
     "etica_paged_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                      _I, _I, _I, _F, _I, _I, _P),

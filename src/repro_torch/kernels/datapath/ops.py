@@ -3,9 +3,12 @@
 ``two_level`` (ETICA's DRAM + SSD) and ``single_level`` (the one-level
 baselines) each run one ``[V, N]`` request block for all VMs: CUDA
 tensors go through the kernel (``csrc/datapath.cu``,
-``csrc/single_level.cu``), CPU tensors through :func:`two_level_plain` /
-:func:`single_level_plain`. All are functional: the states come back as
-new tensors (the kernels update copies in place).
+``csrc/single_level.cu``: each cache set's requests walked in order by
+one warp, the sets in parallel, one CTA a VM or several while the VMs
+leave SMs idle, ``csrc/set_walk.cuh``), CPU tensors through
+:func:`two_level_plain` / :func:`single_level_plain`. All are
+functional: the states come back as new tensors (the kernels read the
+input state and write every row of fresh outputs).
 
 Operands: ``addr`` int32 ``[V, N]`` (``-1`` = no-op), ``is_write`` bool
 ``[V, N]``; per level ``tags``/``lru`` int32 ``[V, S, W]`` and ``dirty``
@@ -25,6 +28,27 @@ COUNT_FIELDS = ("reads", "writes", "read_hits_l1", "read_hits_l2",
                 "write_hits_l2", "cache_writes_l2", "disk_reads",
                 "disk_writes")
 INT32_MAX = 2**31 - 1
+WALK_WARPS = 16      # warps of a set-walk CTA (csrc/set_walk.cuh kWalkWarps)
+
+
+def _split(dev, v: int, n: int, sets: int):
+    """``(parts, scratch)`` of a set-walk launch. While the VMs leave SMs
+    idle, each VM's sets are split across ``parts`` CTAs, about one set a
+    warp; those CTAs leave their latencies ([V, n] float32) and counts
+    ([V, parts, 8]) in scratch for the VM's last CTA, counted by a zeroed
+    ticket a VM. From shapes alone, so no host sync."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    parts = max(1, min(sms // v, sets // WALK_WARPS))
+    if parts == 1:
+        return 1, ()
+    return parts, (torch.empty(v * n, dtype=torch.float32, device=dev),
+                   torch.empty(v * parts * 8, dtype=torch.int32, device=dev),
+                   torch.zeros(v, dtype=torch.int32, device=dev))
+
+
+def _pointers(scratch) -> tuple:
+    """The scratch's device pointers; null ones without a split."""
+    return tuple(x.data_ptr() for x in scratch) if scratch else (0, 0, 0)
 
 
 def two_level(addr, is_write, tags_d, lru_d, dirty_d, tags_s, lru_s,
@@ -46,16 +70,20 @@ def two_level(addr, is_write, tags_d, lru_d, dirty_d, tags_s, lru_s,
     kernels.check(dirty_s, "dirty_s", torch.bool, (v, ss, ws), dev)
     for name, t in (("ways_d", ways_d), ("ways_s", ways_s), ("t0", t0)):
         kernels.check(t, name, torch.int32, (v,), dev)
-    out = [x.clone() for x in (tags_d, lru_d, dirty_d, tags_s, lru_s,
-                               dirty_s)]
+    state = (tags_d, lru_d, dirty_d, tags_s, lru_s, dirty_s)
+    out = [torch.empty_like(x) for x in state]
     counts = torch.empty((v, 8), dtype=torch.int32, device=dev)
     latency = torch.empty(v, dtype=torch.float32, device=dev)
     t_end = torch.empty(v, dtype=torch.int32, device=dev)
     if v:
-        ptrs = [x.data_ptr() for x in (addr, is_write, *out, ways_d, ways_s,
-                                       t0, counts, latency, t_end)]
-        kernels.launch("two_level", *ptrs, v, n, sd, wd, ss, ws, int(npe),
-                       T_DRAM, T_SSD, T_HDD, T_HDD_WRITE)
+        # the DRAM walk must see every SSD set's requests: split only when
+        # the two levels have the same sets
+        parts, scratch = _split(dev, v, n, sd) if sd == ss else (1, ())
+        ptrs = [x.data_ptr() for x in (addr, is_write, *state, *out, ways_d,
+                                       ways_s, t0, counts, latency, t_end)]
+        kernels.launch("two_level", *ptrs, *_pointers(scratch), v, n, sd, wd,
+                       ss, ws, int(npe), parts, T_DRAM, T_SSD, T_HDD,
+                       T_HDD_WRITE)
     return (*out, counts, latency, t_end)
 
 
@@ -185,15 +213,17 @@ def single_level(addr, is_write, tags, lru, dirty, ways, allocates_reads,
     for name, f in zip(("allocates_reads", "write_invalidates",
                         "holds_dirty", "write_through"), flags):
         kernels.check(f, name, torch.bool, (v,), dev)
-    out = [x.clone() for x in (tags, lru, dirty)]
+    out = [torch.empty_like(x) for x in (tags, lru, dirty)]
     counts = torch.empty((v, 8), dtype=torch.int32, device=dev)
     latency = torch.empty(v, dtype=torch.float32, device=dev)
     t_end = torch.empty(v, dtype=torch.int32, device=dev)
     if v:
-        ptrs = [x.data_ptr() for x in (addr, is_write, *out, ways, *flags,
-                                       t0, counts, latency, t_end)]
-        kernels.launch("single_level", *ptrs, v, n, s, w, t_cache, T_HDD,
-                       T_HDD_WRITE)
+        parts, scratch = _split(dev, v, n, s)
+        ptrs = [x.data_ptr() for x in (addr, is_write, tags, lru, dirty,
+                                       *out, ways, *flags, t0, counts,
+                                       latency, t_end)]
+        kernels.launch("single_level", *ptrs, *_pointers(scratch), v, n, s,
+                       w, parts, t_cache, T_HDD, T_HDD_WRITE)
     return (*out, counts, latency, t_end)
 
 

@@ -161,6 +161,56 @@ def test_single_level_kernel(dev):
                                  t_cache=2e-5))
 
 
+# (V, N, sets_d, ways_d, sets_s, ways_s, address space, one-set factor,
+# padding): the set walk's cases (csrc/set_walk.cuh)
+SET_WALK_CASES = {
+    "v1_64x64": (1, 1000, 64, 64, 64, 64, 12000, 1, 0.1),   # -seq modes
+    "v1_256x64": (1, 1000, 256, 64, 256, 64, 40000, 1, 0.0),  # FAST, L2ARC
+    "two_tiles": (3, 9000, 8, 64, 8, 64, 2000, 1, 0.0),  # 8,192 + 808
+    "one_set": (4, 800, 16, 32, 16, 32, 900, 16, 0.1),   # the worst chain
+    "wide_rows": (3, 600, 8, 100, 6, 96, 3000, 1, 0.1),  # rows in memory
+    "narrow_sets_differ": (5, 700, 32, 16, 12, 32, 1500, 1, 0.1),
+}
+
+
+def _walk_case(dev, rng, case):
+    v, n, sd, wd, ss, ws, space, one_set, pad = SET_WALK_CASES[case]
+    a = rng.integers(0, space, (v, n)).astype(np.int32) * one_set
+    a[rng.random((v, n)) < pad] = -1
+    w = rng.random((v, n)) < 0.35
+    state = [torch.from_numpy(x).to(dev) for x in (*_state(rng, v, sd, wd),
+                                                     *_state(rng, v, ss, ws))]
+    ways = [torch.from_numpy(rng.integers(0, x + 3, v).astype(np.int32)).to(
+        dev) for x in (wd, ws)]
+    t0 = torch.from_numpy(rng.integers(0, 100, v).astype(np.int32)).to(dev)
+    return (torch.from_numpy(a).to(dev), torch.from_numpy(w).to(dev), state,
+            ways, t0)
+
+
+@pytest.mark.parametrize("case", list(SET_WALK_CASES))
+@pytest.mark.parametrize("npe", [False, True])
+def test_two_level_kernel_set_walk(dev, npe, case):
+    from repro_torch.kernels.datapath import ops
+    a, w, state, (wd, ws), t0 = _walk_case(dev, np.random.default_rng(5),
+                                           case)
+    _same(ops.two_level(a, w, *state, wd, ws, t0, npe=npe),
+          ops.two_level_plain(a, w, *state, wd, ws, t0, npe=npe))
+
+
+@pytest.mark.parametrize("case", list(SET_WALK_CASES))
+def test_single_level_kernel_set_walk(dev, case):
+    from repro_torch.core.policies import Policy
+    from repro_torch.core.simulator import policy_flags
+    from repro_torch.kernels.datapath import ops
+    rng = np.random.default_rng(6)
+    a, w, state, (ways, _), t0 = _walk_case(dev, rng, case)
+    v = a.shape[0]
+    flags = policy_flags([list(Policy)[(k + v) % 5] for k in range(v)], dev)
+    _same(ops.single_level(a, w, *state[:3], ways, *flags, t0, t_cache=2e-5),
+          ops.single_level_plain(a, w, *state[:3], ways, *flags, t0,
+                                 t_cache=2e-5))
+
+
 def test_eci_card_equals_cpu(dev):
     from repro_torch import kernels
     from repro_torch.core.baselines import make_eci_cache

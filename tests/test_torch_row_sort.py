@@ -29,9 +29,10 @@ from repro_torch.core import popularity as tpop
 from repro_torch.kernels.popularity import ops as pops
 
 TABLE_EMPTY = 2**31 - 1
-THREADS = 512                 # row_sort.cuh kRowThreads
+THREADS = 512                 # row_scan.cuh kRowThreads
 HEADER = (Path(__file__).resolve().parents[1]
           / "src/repro_torch/csrc/row_sort.cuh")
+SCAN_HEADER = HEADER.with_name("row_scan.cuh")   # the flag scan's CTA
 
 
 def row_scan(flags: torch.Tensor):
@@ -320,7 +321,8 @@ def test_row_limit_is_the_header_limit_and_refuses_wider_rows():
     text = HEADER.read_text()
     assert int(re.search(r"kMaxRow = (\d+);", text).group(1)) \
         == kernels.ROW_MAX
-    assert int(re.search(r"kRowThreads = (\d+);", text).group(1)) == THREADS
+    assert int(re.search(r"kRowThreads = (\d+);",
+                         SCAN_HEADER.read_text()).group(1)) == THREADS
     assert int(re.search(r"kChunk = (\d+);", text).group(1)) == CHUNK
     assert kernels.ROW_MAX * 8 + 4 * (kernels.ROW_MAX // 32 + 1) <= 232_448
     kernels.check_row("run_sums", kernels.ROW_MAX)
