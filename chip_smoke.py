@@ -21,10 +21,11 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    interval under ``torch.cuda.set_sync_debug_mode("error")``; holds
    ``paged_decode_attention`` to its plain version (float32 outputs
    within 2e-5, bf16 within one bf16 ulp or 2e-5) at the serving path's
-   shape and at qwen3-4b batched decode (B 64, H 32, Hkv 8, D 128, 4096
+   shape (a random length, then pinned lengths of 1, 3 and 6 pages, each
+   timed) and at qwen3-4b batched decode (B 64, H 32, Hkv 8, D 128, 4096
    tokens, a 1 GiB bf16 pool), with poisoned tokens past each length and
    a zero-length row, beside ``scaled_dot_product_attention`` over
-   gathered pages; holds ``popularity`` to its plain version, exactly,
+   gathered pages, printing the launch plan (splits) chosen at each; holds ``popularity`` to its plain version, exactly,
    at the staged path's shape (the 12-VM and 1024-VM first blocks, a
    cache size per VM) and at the Pallas benchmark's (N 8192, 1024
    blocks, cs 64), beside ``torch.exp`` + ``index_add_``; holds
@@ -38,7 +39,8 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    (``kernels.ROW_MAX`` entries), on one key for a whole row and on an
    empty row, and checks that a wider row is refused; and
    ``promote_scatter``'s dedupe branch on queues that hold every address
-   twice; holds ``two_level`` and ``single_level`` (one CTA a VM walking
+   twice, with its device events a call (one: the kernel writes its
+   outputs itself); holds ``two_level`` and ``single_level`` (one CTA a VM walking
    each cache set's requests in order, ``csrc/set_walk.cuh``) to their
    plain versions at the 12-VM and 1024-VM blocks and at the set walk's
    other shapes: V = 1 (a VM's own block, 64 x 64; FAST's and L2ARC's
@@ -46,7 +48,8 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    request, rows of 9,000 (two tiles) and rows of 96–128 ways, each
    beside its longest same-set chain and chain bound and the earlier
    one-chain kernel's recorded times (``RECORDED_MS``), with ptxas's
-   registers and spills; holds ``flash_attention`` to its plain version (the same
+   registers and spills (and those of the decode kernel's routes and of
+   ``promote_scatter``); holds ``flash_attention`` to its plain version (the same
    tolerance as decode) at tests/test_kernels.py's shapes in float32 (the
    ``cuda_cores`` route) and bf16 (the ``wgmma`` route) and at the
    prefill shape (B 4, H 32, Hkv 8, S 4096, D 128); prints what ptxas
@@ -74,7 +77,8 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    == CPU and equal to ``BENCH_serving.json``; ETICA with the cleaner,
    card == CPU; then ETICA at qwen3-4b's KV width (8 KV heads, head_dim
    128, bf16 pool) with a paged decode every 8th activation, every
-   decode held to its plain version on the card;
+   decode held to its plain version on the card, with the pages each
+   decode's rows read;
 9. runs the oracle ladder on the card: the 12-VM deployment in the
    staged (``fused_maintenance=False``) and sequential (``batched=False``)
    modes, without and with the cleaner, each equal to phase 3's or phase
@@ -86,7 +90,8 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    then every ``promote_scatter`` call of an L2ARC run (dedupe on,
    [1, 256, 64], the window's DRAM evictions) held to its plain version
    and replayed in one CUDA graph for its device time against its
-   bounds;
+   bounds, and every ``count_between`` call of the sequential 12-VM run
+   the same way;
 10. serves qwen3-4b at full width and depth (36 layers, d_model 2560,
    4.41 B float32 parameters drawn from a seeded generator on the
    card): ``flash_attention`` against its plain version on layer 0's
@@ -259,7 +264,8 @@ def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
     return start.elapsed_time(end) / (reps * replays)
 
 
-def device_profile(fn, reps: int, top: list | None = None
+def device_profile(fn, reps: int, top: list | None = None,
+                   by_name: dict | None = None
                    ) -> tuple[float | None, float]:
     """``(device ms, device events)`` per call from a ``torch.profiler``
     trace of ``reps`` calls: the kernels and copies on the card, summed
@@ -267,7 +273,8 @@ def device_profile(fn, reps: int, top: list | None = None
     time of the kernels it launched, so only the device's events count);
     ``None`` ms when the trace shows no device time. ``top`` receives
     ``(ms per call, events per call, name)`` of the five device events
-    that take the most time."""
+    that take the most time; ``by_name`` receives every device event's
+    name and count per call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -287,6 +294,8 @@ def device_profile(fn, reps: int, top: list | None = None
             total_us += us
             events += ev.count
             rows.append((us / 1e3 / reps, ev.count / reps, ev.key[:60]))
+            if by_name is not None:
+                by_name[ev.key] = by_name.get(ev.key, 0) + ev.count / reps
     if top is not None:
         top.extend(sorted(rows, reverse=True)[:5])
     ms = total_us / 1e3 / reps if total_us > 0 else None
@@ -708,9 +717,11 @@ def check_scatters(dev, rng, v, s, w):
         lambda: ops.promote_scatter_plain(*args, dedupe=False), 10)
     b, by = bound_ms(2 * 9.0 * v * s * w + 4.0 * v * q + 12.0 * v,
                      2.0 * (v * s * w + v * q))
+    events = promote_events(lambda: ops.promote_scatter(*args, dedupe=False))
     log(f"promote_scatter [{v},{s},{w}] Q={q}: exact, promoted "
-        f"{int(got[3].sum())}, kernel {ms:.4f} ms (device {dev_ms:.4f} ms), "
-        f"plain {plain_ms:.4f} ms, bound {b:.5f} ms ({by})")
+        f"{int(got[3].sum())}, kernel {ms:.4f} ms (device {dev_ms:.4f} ms, "
+        f"{events} device events a call), plain {plain_ms:.4f} ms, bound "
+        f"{b:.5f} ms ({by})")
     # the dedupe branch (staged path, FAST, L2ARC): every address of the
     # queue's first half twice, in random order
     dq = np.stack([rng.permutation(np.concatenate([r[:q // 2], r[:q // 2]]))
@@ -730,10 +741,29 @@ def check_scatters(dev, rng, v, s, w):
         f"{d_dev_ms:.4f} ms), plain {d_plain_ms:.4f} ms")
     out["promote_scatter"] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
                                   plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                                  library_ms=None, dedupe_ms=d_ms,
+                                  library_ms=None, events_per_call=events,
+                                  dedupe_ms=d_ms,
                                   dedupe_device_ms=d_dev_ms,
                                   dedupe_plain_ms=d_plain_ms)
     return out
+
+
+def promote_events(call, want: int | None = 1) -> float | None:
+    """Device events a ``promote_scatter`` launch puts on the card: the
+    device events of a profiler trace of 20 calls over its kernel's
+    (the ratio stands where the trace drops events); None when the trace
+    holds no kernel. The kernel writes its outputs itself, so there must
+    be ``want`` (1): no copy or fill beside it."""
+    names = {}
+    _, events = device_profile(call, 20, by_name=names)
+    kernel = sum(n for k, n in names.items() if "promote" in k)
+    if not kernel:
+        return None
+    events /= kernel
+    if want is not None and events != want:
+        raise AssertionError(f"promote_scatter: {events} device events a "
+                             f"launch, expected {want}")
+    return events
 
 
 # call / device ms of the earlier global-sort designs (a stable torch.sort
@@ -1194,12 +1224,14 @@ def check_decode(dev, rng, big=QWEN3_DECODE):
     """``paged_decode_attention`` against its plain version: (a) the
     serving path's shape (B 1, H = Hkv = 8, D 128, PS 16, 6 pages of a
     512-page pool) in float32, with bf16 pages (as serving runs it) and
-    all bf16; (b) qwen3-4b batched decode (B 64, H 32, Hkv 8, D 128, PS
+    all bf16, at a random length, then at pinned lengths
+    (:func:`decode_pinned`); (b) qwen3-4b batched decode (B 64, H 32, Hkv 8, D 128, PS
     16, 256 pages per row, a 16,384-page bf16 pool under a permutation
     table, lengths in [1, 4096] with one row at 1 and one at 4096); (c)
     (b) with every token past each length poisoned with 999; (d) (b)
     with one row of length 0. Returns the JSON row (shape (a) with bf16
-    pages) with (b)'s numbers beside it."""
+    pages at 6 pages) with the random-length run and (b)'s numbers, and
+    the launch plans chosen at (a) and (b), beside it."""
     import torch
     from repro_torch.kernels.decode_attention import ops
     f32, bf16 = torch.float32, torch.bfloat16
@@ -1226,9 +1258,12 @@ def check_decode(dev, rng, big=QWEN3_DECODE):
             f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, gather {gather_ms:.4f}"
             f" ms + sdpa {lib_ms:.4f} ms, bound {b:.6f} ms ({by})")
         if (q_dt, kv_dt) == (f32, bf16):
-            row = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                       bound_ms=b, bound_by=by, library_ms=lib_ms,
-                       library_gather_ms=gather_ms)
+            random_len = dict(length=int(args[4][0]), ms=ms, device_ms=dev_ms,
+                              plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                              library_ms=lib_ms, library_gather_ms=gather_ms)
+    row, worst_p = decode_pinned(dev)
+    row.update(random_length=random_len)
+    worst = max(worst, worst_p)
 
     b_, h_, hkv, d, pool, ps, n_pages = big
     slots = n_pages * ps
@@ -1247,8 +1282,13 @@ def check_decode(dev, rng, big=QWEN3_DECODE):
     gather_ms, lib_ms = sdpa_ms(args)
     b, by = decode_bound(args)
     toks = int(torch_where_len(args[4].long().cpu(), slots).sum())
+    plan_b = ops.launch_plan(*args[:4])   # the plan the wrapper launched
+    if plan_b.splits < 2 or not plan_b.async_copy:
+        raise AssertionError(f"decode (b): expected a split cp.async plan, "
+                             f"the wrapper launched {plan_b}")
     log(f"paged_decode_attention (b) qwen3-4b [{b_},{h_},{d}] Hkv {hkv}, "
-        f"{n_pages}x{ps} tokens, pool {pool} bf16, {toks} tokens: max err "
+        f"{n_pages}x{ps} tokens, pool {pool} bf16, {toks} tokens, "
+        f"{plan_b}: max err "
         f"{err:.3e} (in tolerance; {over_ulp} of {got.numel()} outputs "
         f"more than one bf16 ulp off), kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain "
         f"{plain_ms:.4f} ms, gather {gather_ms:.4f} ms + sdpa {lib_ms:.4f} "
@@ -1295,8 +1335,58 @@ def check_decode(dev, rng, big=QWEN3_DECODE):
                qwen3_batched=dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                                   bound_ms=b, bound_by=by, library_ms=lib_ms,
                                   library_gather_ms=gather_ms,
-                                  max_abs_err=worst_b, tokens=toks))
+                                  max_abs_err=worst_b, tokens=toks,
+                                  over_ulp=over_ulp,
+                                  plan=plan_b._asdict()))
     return row
+
+
+DECODE_PINNED = (16, 48, 96)     # tokens: 1, 3 and 6 pages of 16
+
+
+def decode_pinned(dev):
+    """Shape (a), the serving path's (B 1, H = Hkv = 8, D 128, float32 q,
+    bf16 pages, 6 pages of 16 of a 512-page pool), at pinned lengths of
+    1, 3 and 6 pages, from a generator of its own so that the inputs do
+    not depend on earlier phases: each within tolerance, its call and
+    device times, bound and SDPA beside it. Returns the JSON row (6
+    pages) with the others under ``pinned``, and the largest error."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops
+    rng = np.random.default_rng(19)
+    pinned, worst = {}, 0.0
+    for n_tok in DECODE_PINNED:
+        args = decode_inputs(dev, rng, 1, 8, 8, 128, 512, 16, 6,
+                             torch.float32, torch.bfloat16, [n_tok])
+        plan = ops.launch_plan(*args[:4])   # the plan the wrapper launches
+        if plan.splits != 1 or not plan.async_copy:
+            raise AssertionError(f"decode (a): expected one cp.async CTA a "
+                                 f"(sequence, KV head), the wrapper "
+                                 f"launches {plan}")
+        err, bad, _ = decode_tolerance_err(
+            ops.paged_decode_attention(*args),
+            ops.paged_decode_attention_plain(*args))
+        if bad:
+            raise AssertionError(f"decode (a) at {n_tok} tokens: {bad} "
+                                 f"elements out of tolerance")
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: ops.paged_decode_attention(*args), 50)
+        dev_ms = graph_ms(lambda: ops.paged_decode_attention(*args))
+        plain_ms = cuda_ms(lambda: ops.paged_decode_attention_plain(*args),
+                           20)
+        gather_ms, lib_ms = sdpa_ms(args)
+        b, by = decode_bound(args)
+        pinned[n_tok] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                             bound_ms=b, bound_by=by, library_ms=lib_ms,
+                             library_gather_ms=gather_ms, max_abs_err=err)
+        log(f"paged_decode_attention (a) pinned {n_tok} tokens "
+            f"({n_tok // 16} pages) float32/bfloat16, {plan}: max err "
+            f"{err:.3e}, kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, gather {gather_ms:.4f} ms + sdpa "
+            f"{lib_ms:.4f} ms, bound {b:.6f} ms ({by})")
+    row = dict(pinned[DECODE_PINNED[-1]], pinned=pinned,
+               plan=plan._asdict())
+    return row, worst
 
 
 # ---------------------------------------------------------------------------
@@ -1552,6 +1642,7 @@ def check_serving(launches):
     memory), then a run that holds every decode output against the plain
     version on the card; Stats are (i)'s page counts x 65,536 bytes."""
     import dataclasses
+    from collections import Counter
     import torch
     from repro_torch import kernels
     from repro_torch.kernels.decode_attention import ops
@@ -1630,13 +1721,16 @@ def check_serving(launches):
         events.append((start, end))
         return out
 
-    errs, shapes = [], set()
+    errs, shapes, rows_pages = [], set(), []
 
     def checked(q, kv, pt, ln):
         out = real(q, kv, pt, ln)
         plain = ops.paged_decode_attention_plain(q, *kv, pt, ln)
         errs.append((out.float() - plain.float()).abs().max())
         shapes.add(tuple(pt.shape))
+        ps = kv[0].shape[1]
+        need = torch.where(ln > 0, (ln + ps - 1) // ps, pt.shape[1])
+        rows_pages.append(need.clamp(max=pt.shape[1]).tolist())
         return out
 
     torch.cuda.reset_peak_memory_stats()
@@ -1671,12 +1765,18 @@ def check_serving(launches):
             len(errs) != len(events):
         raise AssertionError(f"serving-full-width decode: max err {err:.3e} "
                              f"over {len(errs)} decodes")
+    pages = [p for r in rows_pages for p in r]
     log(f"serving-full-width: all {len(errs)} decode outputs within "
         f"{DECODE_ATOL} of the plain version on the card (max err "
         f"{err:.3e}; float32 out from bf16 pages; page-table widths "
-        f"{sorted(s[1] for s in shapes)})")
+        f"{sorted(s[1] for s in shapes)}); rows a decode "
+        f"{np.mean([len(r) for r in rows_pages]):.3f}, pages a row read: "
+        f"mean {np.mean(pages):.3f}, histogram "
+        f"{dict(sorted(Counter(pages).items()))}")
     serving_spans("etica", wcfg, trace, "serving-full-width", decode_every=8)
-    return dict(decode_ms=dec_ms, decodes=len(events), max_abs_err=err)
+    return dict(decode_ms=dec_ms, decodes=len(events), max_abs_err=err,
+                mean_pages=float(np.mean(pages)),
+                pages_histogram=dict(sorted(Counter(pages).items())))
 
 
 def check_serving_sync(dev, rng):
@@ -1865,13 +1965,14 @@ def check_oracle_ladder(launches, paper, fused, clean, eci_run):
                                             for k, v in rates.items()))
 
 
-def check_l2arc_promote(paper, dev="cuda"):
+def check_l2arc_promote(paper, dev="cuda", want_events: int | None = 1):
     """``promote_scatter``'s dedupe branch at L2ARC's own shape: a second
     L2ARC run (256 x 64, window 1,000) records every ``promote_scatter``
     call, a [1, 256, 64] state and the window's DRAM evictions padded to a
     power of two; each call is held to its plain version, and one CUDA
     graph of all of them gives their device time. The loss is that time
-    less the sum of the calls' bounds."""
+    less the sum of the calls' bounds. A call must put ``want_events``
+    events on the device (None: any)."""
     from collections import Counter
     from repro_torch.core.baselines import make_l2arc
     from repro_torch.core.controller import Geometry
@@ -1900,6 +2001,8 @@ def check_l2arc_promote(paper, dev="cuda"):
             ops.promote_scatter(*c[:6])
 
     total = graph_ms(replay, reps=1, replays=5)
+    events = promote_events(lambda: ops.promote_scatter(*calls[0][:6]),
+                            want_events)
     v, s, w = calls[0][0].shape
     bounds = sum(bound_ms(2 * 9.0 * v * s * w + 4.0 * c[3].shape[1]
                           + 12.0 * v, 2.0 * (v * s * w + c[3].numel()))[0]
@@ -1909,9 +2012,59 @@ def check_l2arc_promote(paper, dev="cuda"):
     log(f"promote_scatter dedupe at L2ARC's shape [{v},{s},{w}]: {len(calls)} "
         f"calls, each exact; queue widths {widths} (entries mean "
         f"{np.mean(entries):.1f}, max {max(entries)}); device {total:.4f} ms "
-        f"for all ({total / len(calls):.5f} ms a call), bounds "
-        f"{bounds:.5f} ms, loss {total - bounds:.4f} ms a run")
+        f"for all ({total / len(calls):.5f} ms a call, {events} device "
+        f"events a call), bounds {bounds:.5f} ms, loss "
+        f"{total - bounds:.4f} ms a run")
     return dict(max_abs_err=err, calls=len(calls), queue_widths=widths,
+                events_per_call=events,
+                device_ms_total=total, device_ms_per_call=total / len(calls),
+                bound_ms_total=bounds, loss_ms=total - bounds)
+
+
+def check_seq_count_between(paper, dev="cuda"):
+    """``count_between`` where paper-12vm-seq launches it: a second
+    sequential 12-VM run records every call (one VM's rows at a time),
+    each is held to its plain version, and one CUDA graph of all of them
+    gives their device time. The loss is that time less the sum of the
+    calls' bounds."""
+    from collections import Counter
+    from repro_torch.core import reuse
+    from repro_torch.core.controller import EticaConfig
+    from repro_torch.kernels.reuse_distance import ops
+    import torch
+    calls, orig = [], reuse.count_between
+
+    def record(prev, touch, nt):
+        calls.append(tuple(x.clone() for x in (prev, touch, nt)))
+        return orig(prev, touch, nt)
+
+    reuse.count_between = record
+    try:
+        etica(EticaConfig(dram_capacity=8192, ssd_capacity=16384,
+                          batched=False), 12)(dev).run(paper)
+    finally:
+        reuse.count_between = orig
+    err = max(max_abs_err([ops.count_between(*c)],
+                          [ops.count_between_plain(*c)]) for c in calls)
+
+    def replay():
+        for c in calls:
+            ops.count_between(*c)
+
+    total = graph_ms(replay, reps=1, replays=5)
+    bounds = 0.0
+    for prev, _, _ in calls:
+        v, n = prev.shape
+        i = torch.arange(n, device=prev.device)[None, :]
+        pairs = float((i - prev.long() - 1).clamp(min=0).sum())
+        bounds += bound_ms(13.0 * v * n, 2.0 * pairs)[0]
+    shapes = dict(sorted(Counter(f"{c[0].shape[0]}x{c[0].shape[1]}"
+                                 for c in calls).items()))
+    log(f"count_between at paper-12vm-seq's calls: {len(calls)} calls, each "
+        f"exact; shapes {shapes}; device {total:.4f} ms for all "
+        f"({total / len(calls):.5f} ms a call), bounds {bounds:.5f} ms, "
+        f"loss {total - bounds:.4f} ms a run")
+    return dict(max_abs_err=err, calls=len(calls), shapes=shapes,
                 device_ms_total=total, device_ms_per_call=total / len(calls),
                 bound_ms_total=bounds, loss_ms=total - bounds)
 
@@ -2006,11 +2159,14 @@ def ptxas_lines(source: str) -> list[str]:
     return out
 
 
-def datapath_build_report(rows) -> None:
+def build_report(rows) -> None:
     """What ptxas said of the datapath kernels (registers and spills of
-    each row variant), into their rows and the log."""
+    each row variant), the decode kernel's routes and ``promote_scatter``,
+    into their rows and the log."""
     for k, src in (("two_level", "datapath.cu"),
-                   ("single_level", "single_level.cu")):
+                   ("single_level", "single_level.cu"),
+                   ("paged_decode_attention", "decode_attention.cu"),
+                   ("promote_scatter", "promote_scatter.cu")):
         rows[k]["ptxas"] = ptxas_lines(src)
         for ln in rows[k]["ptxas"]:
             log(f"ptxas {src}: {ln}")
@@ -2565,7 +2721,6 @@ def main() -> int:
         rows[k]["max_abs_err"] = max([rows[k]["max_abs_err"]] + [
             r.pop("max_abs_err") for r in extra.values()])
         rows[k]["shapes"] = extra
-    datapath_build_report(rows)
     rows.update(check_scatters(dev, rng, 12, 64, 64))
     check_scatters(dev, rng, 1024, 16, 32)
     rows["clean_scatter"] = check_clean(dev, rng, 12, 64, 64)
@@ -2585,6 +2740,7 @@ def main() -> int:
     for k in ("run_sums", "popularity"):
         rows[k]["max_abs_err"] = max(rows[k]["max_abs_err"], limit_err)
     rows["paged_decode_attention"] = check_decode(dev, rng)
+    build_report(rows)
     rows["flash_attention"] = dict(max_abs_err=check_flash_shapes(dev, rng),
                                    **flash_build_report())
     check_serving_sync(dev, rng)
@@ -2637,7 +2793,9 @@ def main() -> int:
     rows["paged_decode_attention"].update(
         serving_decode_ms=serving["decode_ms"],
         serving_decodes=serving["decodes"],
-        serving_max_abs_err=serving["max_abs_err"])
+        serving_max_abs_err=serving["max_abs_err"],
+        serving_mean_pages=serving["mean_pages"],
+        serving_pages_histogram=serving["pages_histogram"])
 
     # phase 9: the oracle ladder on the card (staged, sequential, FAST,
     # L2ARC)
@@ -2645,6 +2803,7 @@ def main() -> int:
                         (clean, clean_res, clean_rate),
                         (eci_cache, eci_res, eci_rate))
     rows["promote_scatter"]["l2arc_dedupe"] = check_l2arc_promote(paper)
+    rows["count_between"]["seq"] = check_seq_count_between(paper)
 
     # phase 10: dense-model serving at qwen3-4b full width and depth
     served, peak, n_params = check_dense_serving(launches,

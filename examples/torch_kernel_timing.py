@@ -1,0 +1,136 @@
+#!/usr/bin/env python3
+"""Device time of ``paged_decode_attention`` and ``promote_scatter`` at the
+shapes their paths launch, for one source tree.
+
+Run on a machine with an NVIDIA card and the CUDA toolkit, from the
+repository root::
+
+    python3 examples/torch_kernel_timing.py [--src DIR] [--label NAME]
+
+``--src`` (default: this tree's ``src``) is the directory whose
+``repro_torch`` package, and so whose kernels, are timed. Two trees are
+compared on one card in one run by calling the script in turns, e.g. an
+earlier commit unpacked with ``git archive`` under ``build/`` and this
+tree: earlier, this, this, earlier.
+
+Shapes (the inputs of ``chip_smoke.py``, from generators of their own):
+
+- decode (a), the serving path's: B 1, H = Hkv = 8, D 128, float32 q,
+  bf16 pages of 16 in a 512-page pool, a 6-page table, at lengths of 16,
+  48 and 96 tokens (1, 3 and 6 pages);
+- decode (b), qwen3-4b batched decode: B 64, H 32, Hkv 8, D 128, bf16,
+  256 pages of 16 a row from a 16,384-page pool, lengths in [1, 4096];
+- promote, the fused path's: [12, 64, 64], Q 4096, unique, dedupe off;
+  the same queue with every address twice, dedupe on (the staged path);
+- promote at L2ARC's own calls: every ``promote_scatter`` call of an
+  L2ARC run on the paper's 12-VM mix ([1, 256, 64], dedupe on), replayed
+  in one CUDA graph (``chip_smoke.check_l2arc_promote``).
+
+Device time: ``chip_smoke.graph_ms``, the calls captured in a CUDA graph
+and replayed between CUDA events; what a wrapper puts on the device
+(copies, zeroed outputs) stays in. Device events a call from a profiler
+trace (``chip_smoke.device_profile``; ``chip_smoke.promote_events``:
+events a ``promote_scatter`` kernel launch). Prints one JSON line per shape,
+with the card's name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--label", default="this tree")
+    opts = ap.parse_args()
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs          # puts this tree's src on the path
+    sys.path.insert(0, opts.src)     # ahead of it: the tree to time
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_kernel_timing: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch import kernels
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.maintenance import ops as mops
+    if not Path(kernels.__file__).resolve().is_relative_to(
+            Path(opts.src).resolve()):
+        raise RuntimeError(f"repro_torch came from {kernels.__file__}")
+    kernels.library()
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+
+    def emit(**row):
+        print(json.dumps(dict(tree=opts.label, card=smi, **row)), flush=True)
+
+    def events(fn):
+        return cs.device_profile(fn, 20)[1]
+
+    rng = np.random.default_rng(19)
+    f32, bf16 = torch.float32, torch.bfloat16
+    for n_tok in (16, 48, 96):
+        args = cs.decode_inputs(dev, rng, 1, 8, 8, 128, 512, 16, 6, f32,
+                                bf16, [n_tok])
+        call = lambda: dops.paged_decode_attention(*args)  # noqa: E731
+        emit(kernel="paged_decode_attention", shape=f"(a) {n_tok} tokens",
+             device_ms=cs.graph_ms(call), call_ms=cs.cuda_ms(call, 50),
+             events_per_call=events(call), bound_ms=cs.decode_bound(args)[0])
+    b_, h_, hkv, d, pool, ps, n_pages = cs.QWEN3_DECODE
+    lens = rng.integers(1, n_pages * ps + 1, b_)
+    lens[:2] = (1, n_pages * ps)
+    args = cs.decode_inputs(dev, rng, *cs.QWEN3_DECODE, bf16, bf16, lens)
+    call = lambda: dops.paged_decode_attention(*args)  # noqa: E731
+    emit(kernel="paged_decode_attention", shape="(b) qwen3-4b batched",
+         tokens=int(lens.sum()), device_ms=cs.graph_ms(call, 10),
+         call_ms=cs.cuda_ms(call, 20), events_per_call=events(call),
+         bound_ms=cs.decode_bound(args)[0])
+    del args
+
+    v, s, w = 12, 64, 64
+    q = 4096
+    tags, lru, dirty = cs.random_state(rng, v, s, w)
+    pqueue = np.full((v, q), -1, np.int32)
+    for i in range(v):
+        res = tags[i][tags[i] >= 0]
+        fresh = np.setdiff1d(np.arange(4 * w * s), res)
+        m = min(q - 64, fresh.size)
+        pq = np.concatenate([rng.choice(fresh, m, replace=False),
+                             rng.choice(res, 64, replace=False)])
+        pqueue[i, :pq.size] = rng.permutation(pq)
+    dq = np.stack([rng.permutation(np.concatenate([r[:q // 2], r[:q // 2]]))
+                   for r in pqueue])
+    ways = rng.integers(8, w + 1, v).astype(np.int32)
+    t = rng.integers(10_000, 20_000, v).astype(np.int32)
+    st = [torch.from_numpy(x).to(dev) for x in (tags, lru, dirty)]
+    tail = [torch.from_numpy(x).to(dev) for x in (ways, t)]
+    for label, queue, dedupe in (("unique, dedupe off", pqueue, False),
+                                 ("each address twice, dedupe on", dq,
+                                  True)):
+        qt = torch.from_numpy(queue).to(dev)
+        call = lambda: mops.promote_scatter(  # noqa: E731
+            *st, qt, *tail, dedupe=dedupe)
+        emit(kernel="promote_scatter", shape=f"[{v},{s},{w}] Q {q}, {label}",
+             device_ms=cs.graph_ms(call), call_ms=cs.cuda_ms(call, 50),
+             events_per_call=cs.promote_events(call, None))
+    paper = cs.trace_mix(cs.PAPER_VMS, 20_000, 1.0)
+    l2 = cs.check_l2arc_promote(paper, want_events=None)
+    emit(kernel="promote_scatter", shape="L2ARC's calls [1,256,64], dedupe",
+         calls=l2["calls"], device_ms=l2["device_ms_per_call"],
+         device_ms_run=l2["device_ms_total"],
+         bound_ms_run=l2["bound_ms_total"], loss_ms_run=l2["loss_ms"],
+         events_per_call=l2["events_per_call"])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -71,7 +71,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # ptxas reports registers, shared memory and spills of these sources into
 # the build's log (:func:`build_log`)
 VERBOSE_SOURCES = ("flash_attention_sm90.cu", "datapath.cu",
-                   "single_level.cu")
+                   "single_level.cu", "decode_attention.cu",
+                   "promote_scatter.cu")
 
 KERNELS = ("count_between", "evict_scatter", "promote_scatter",
            "clean_scatter", "two_level", "single_level", "run_sums",
@@ -88,14 +89,13 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "etica_count_between": (_P, _P, _P, _P, _I, _I, _P),
     "etica_evict_scatter": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "etica_promote_scatter": (_P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, _P),
+    "etica_promote_scatter": (*(_P,) * 10, *(_I,) * 7, _P),
     "etica_clean_scatter": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "etica_two_level": (*(_P,) * 23, *(_I,) * 8, _F, _F, _F, _F, _P),
     "etica_single_level": (*(_P,) * 20, *(_I,) * 5, _F, _F, _F, _P),
     "etica_run_sums": (_P, _P, _P, _P, _P, _I, _I, _P),
-    "etica_paged_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                     _I, _I, _I, _F, _I, _I, _P),
+    "etica_paged_decode_attention": (*(_P,) * 6, *(_I,) * 7, _F,
+                                     *(_I,) * 8, _P),
     "etica_popularity": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "etica_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               *(_L,) * 12, _I, _I, _I, _F, _I, _P),

@@ -5,7 +5,8 @@ kernels (``csrc/evict_scatter.cu``, ``csrc/promote_scatter.cu``,
 ``csrc/clean_scatter.cu``) on CUDA tensors and the plain versions beside
 them on CPU tensors. States are stacked ``[V, S, W]`` (``tags``/``lru``
 int32, ``dirty`` bool); queues are ``[V, Q]`` int32 with ``-1`` padding.
-All are functional: the kernels update copies.
+All are functional: the kernels update copies (``promote_scatter``'s
+writes its fresh outputs itself).
 
 :func:`maintenance_interval` is one interval of ETICA maintenance for
 all VMs (the JAX ``maintenance_interval``): Eq. 1 contributions ->
@@ -82,13 +83,33 @@ def evict_scatter_plain(tags, lru, dirty, queue):
 # promote
 # ---------------------------------------------------------------------------
 
+PROMOTE_MAX_WAYS = 128   # csrc/promote_scatter.cu kMaxWays
+PROMOTE_MAX_PARTS = 8    # CTAs a VM: one portable cluster
+PROMOTE_WARPS = 16       # warps a CTA (kWarps), one a set of a part
+PROMOTE_FEW_WARPS = 4    # warps a CTA once the VMs alone fill the card
+
+
+def promote_plan(v: int, s: int, sms: int) -> tuple[int, int]:
+    """``(parts, warps)`` of a ``promote_scatter`` launch, from shapes
+    alone: while the VMs leave SMs idle, a VM's sets are split into up to
+    ``PROMOTE_MAX_PARTS`` contiguous ranges of at least ``PROMOTE_WARPS``
+    sets, one cluster a VM, ``PROMOTE_WARPS`` warps a CTA; when the VMs'
+    CTAs outnumber the SMs, CTAs of ``PROMOTE_FEW_WARPS`` warps, so that
+    several share an SM's registers."""
+    parts = max(1, min(PROMOTE_MAX_PARTS, sms // max(v, 1),
+                       -(-s // PROMOTE_WARPS)))
+    return parts, PROMOTE_WARPS if v * parts <= sms else PROMOTE_FEW_WARPS
+
+
 def promote_scatter(tags, lru, dirty, queue, ways, t, dedupe: bool = True):
     """Drain promotion queues into free active ways: per set, the k-th
     eligible entry (valid, not resident in an active way, ``ways > 0``;
     with ``dedupe``, also the first entry of its address in the VM's
     queue) in queue order takes the set's k-th free active way, with
     ``lru = t[v]`` and clean. ``dedupe=False`` is for queues the caller
-    knows to be unique. Returns ``(tags, lru, dirty, promoted[V])``."""
+    knows to be unique. Returns ``(tags, lru, dirty, promoted[V])``, new
+    tensors: on the card one launch reads the input state and writes all
+    four (``W`` at most ``PROMOTE_MAX_WAYS``)."""
     if tags.device.type == "cpu":
         return promote_scatter_plain(tags, lru, dirty, queue, ways, t, dedupe)
     dev = tags.device
@@ -96,14 +117,18 @@ def promote_scatter(tags, lru, dirty, queue, ways, t, dedupe: bool = True):
     v, s, w = tags.shape
     kernels.check(ways, "ways", torch.int32, (v,), dev)
     kernels.check(t, "t", torch.int32, (v,), dev)
-    tags, lru, dirty = tags.clone(), lru.clone(), dirty.clone()
-    promoted = torch.zeros(v, dtype=torch.int32, device=dev)
-    if v and s and w and queue.shape[1]:
-        ptrs = [x.data_ptr() for x in (tags, lru, dirty, queue, ways, t,
-                                       promoted)]
-        kernels.launch("promote_scatter", *ptrs, v, s, w, queue.shape[1],
-                       int(dedupe))
-    return tags, lru, dirty, promoted
+    if w > PROMOTE_MAX_WAYS:
+        raise ValueError(f"promote_scatter: {w} ways > {PROMOTE_MAX_WAYS}")
+    state = (tags, lru, dirty)
+    out = [torch.empty_like(x) for x in state]
+    if not (v and s and w):
+        return (*out, torch.zeros(v, dtype=torch.int32, device=dev))
+    promoted = torch.empty(v, dtype=torch.int32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ptrs = [x.data_ptr() for x in (*state, *out, queue, ways, t, promoted)]
+    kernels.launch("promote_scatter", *ptrs, v, s, w, queue.shape[1],
+                   *promote_plan(v, s, sms), int(dedupe))
+    return (*out, promoted)
 
 
 def _first_occurrence(queue):

@@ -81,6 +81,18 @@ def test_scatter_kernels(dev):
     t = torch.tensor([5, 6, 7, 8], dtype=torch.int32, device=dev)
     _same(ops.promote_scatter(*st, pq, ways, t),
           ops.promote_scatter_plain(*st, pq, ways, t))
+    # promote: queues of only padding, of only resident blocks, and wider
+    # than the kernel's 4,096-entry tile; ways 0 and W
+    res = np.stack([np.resize(tags[i][tags[i] >= 0], 100)
+                    for i in range(v)]).astype(np.int32)
+    wide = np.full((v, 5000), -1, np.int32)
+    wide[:, 4000:4200] = rng.integers(0, 320, (v, 200))
+    for queue in (np.full((v, 100), -1, np.int32), res, wide):
+        queue = torch.from_numpy(queue).to(dev)
+        for dedupe in (True, False):
+            _same(ops.promote_scatter(*st, queue, ways, t, dedupe=dedupe),
+                  ops.promote_scatter_plain(*st, queue, ways, t,
+                                            dedupe=dedupe))
 
 
 def test_controller_card_equals_cpu(dev):
@@ -230,10 +242,38 @@ def test_eci_card_equals_cpu(dev):
                                        **kw).run(trace))
 
 
-@pytest.mark.parametrize("b,h,hkv,d,pool,ps,n_pages,lengths", [
+DECODE_CASES = [  # b, h, hkv, d, pool, ps, n_pages, lengths
     (5, 16, 4, 128, 40, 16, 6, [0, 1, 40, 96, 500]),
     (2, 4, 2, 64, 16, 32, 4, [45, 128]),        # tests/test_kernels.py
-    (1, 2, 2, 32, 8, 64, 2, [70])])             # shapes: 2 tiles per page
+    (1, 2, 2, 32, 8, 64, 2, [70]),              # shapes: 2 tiles per page
+    # split tables (tests/test_torch_decode_split.py's cases)
+    (4, 8, 2, 128, 300, 16, 256, [4096, 1, 1, 1]),   # long row, rows of 1
+    (3, 16, 4, 64, 100, 8, 80, [64, 65, 8]),         # page edge, one past
+    (2, 4, 1, 128, 80, 16, 64, [20, 17]),            # later splits empty
+    (2, 4, 4, 32, 40, 64, 12, [2000, 769]),          # past the table
+    (3, 16, 1, 256, 50, 16, 48, [0, 700, -5]),       # length 0, G 16
+    (2, 32, 2, 64, 80, 16, 40, [640, 33]),           # G 16, D 64
+    (2, 32, 2, 128, 60, 16, 40, [600, 1]),           # G 16, D 128
+    (2, 2, 2, 256, 30, 64, 20, [1280, 64]),          # G 1, D 256, PS 64
+    (1, 8, 8, 128, 512, 16, 6, [96]),                # the serving shape
+    (2, 4, 2, 36, 20, 16, 40, [300, 17]),            # rows off 16 bytes
+    (1, 2, 1, 40, 10, 16, 20, [310])]                # 10 or 5 16-byte chunks
+
+
+def _decode_args(dev, q_dtype, kv_dtype, b, h, hkv, d, pool, ps, n_pages,
+                 lengths, seed=5):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.normal(size=(b, h, d)).astype(np.float32))
+    kp, vp = (torch.from_numpy(rng.normal(size=(pool, ps, hkv, d)).astype(
+        np.float32)) for _ in range(2))
+    pt = torch.from_numpy(rng.integers(-pool - 2, pool + 2,
+                                       (b, n_pages)).astype(np.int32))
+    lengths = torch.tensor(lengths, dtype=torch.int32)
+    return [q.to(dev, q_dtype), kp.to(dev, kv_dtype), vp.to(dev, kv_dtype),
+            pt.to(dev), lengths.to(dev)]
+
+
+@pytest.mark.parametrize("b,h,hkv,d,pool,ps,n_pages,lengths", DECODE_CASES)
 @pytest.mark.parametrize("q_dtype,kv_dtype", [
     (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
     (torch.bfloat16, torch.bfloat16)])
@@ -241,18 +281,14 @@ def test_paged_decode_kernel(dev, q_dtype, kv_dtype, b, h, hkv, d, pool, ps,
                              n_pages, lengths):
     """Against the plain version: GQA, a random page table with ids past
     either end of the pool, a zero-length row, a row past its table's
-    end, pages of more than one 32-token tile. float32 outputs within
-    2e-5; bf16 outputs within one bf16 ulp (or 2e-5)."""
+    end, pages of more than one 32-token tile, and tables split across
+    CTAs (a row of 4,096 tokens among rows of 1, lengths on a page edge
+    and one past, splits wholly past a length, length 0 under a split;
+    G 1, 4 and 16, D 64, 128 and 256, PS 8, 16 and 64). float32 outputs
+    within 2e-5; bf16 outputs within one bf16 ulp (or 2e-5)."""
     from repro_torch.kernels.decode_attention import ops
-    rng = np.random.default_rng(5)
-    q = torch.from_numpy(rng.normal(size=(b, h, d)).astype(np.float32))
-    kp, vp = (torch.from_numpy(rng.normal(size=(pool, ps, hkv, d)).astype(
-        np.float32)) for _ in range(2))
-    pt = torch.from_numpy(rng.integers(-pool - 2, pool + 2,
-                                       (b, n_pages)).astype(np.int32))
-    lengths = torch.tensor(lengths, dtype=torch.int32)
-    args = [q.to(dev, q_dtype), kp.to(dev, kv_dtype), vp.to(dev, kv_dtype),
-            pt.to(dev), lengths.to(dev)]
+    args = _decode_args(dev, q_dtype, kv_dtype, b, h, hkv, d, pool, ps,
+                        n_pages, lengths)
     got = ops.paged_decode_attention(*args).float()
     want = ops.paged_decode_attention_plain(*args).float()
     err = (got - want).abs()
@@ -262,6 +298,31 @@ def test_paged_decode_kernel(dev, q_dtype, kv_dtype, b, h, hkv, d, pool, ps,
         assert bool((err <= ulp.clamp(min=2e-5)).all())
     else:
         assert float(err.max()) <= 2e-5
+
+
+@pytest.mark.parametrize("case", [3, 4, 7, 11])
+def test_paged_decode_kernel_poisoned_tail_and_repeat(dev, case):
+    """Every token past each row's length (in its last page and in the
+    pages past it; none for a length <= 0, which reads every slot) set to
+    999 leaves the output bit for bit the same; a
+    second call gives the same bits (the merge runs in a fixed order)."""
+    from repro_torch.kernels.decode_attention import ops
+    b, h, hkv, d, pool, ps, n_pages, lengths = DECODE_CASES[case]
+    pool = max(pool, b * n_pages)
+    args = _decode_args(dev, torch.float32, torch.bfloat16, b, h, hkv, d,
+                        pool, ps, n_pages, lengths)
+    q, kp, vp, _, ln = args
+    pt = torch.from_numpy(np.random.default_rng(1).permutation(pool)[
+        :b * n_pages].reshape(b, n_pages).astype(np.int32)).to(dev)
+    got = ops.paged_decode_attention(q, kp, vp, pt, ln)
+    assert torch.equal(got, ops.paged_decode_attention(q, kp, vp, pt, ln))
+    pos = torch.arange(n_pages * ps, device=dev).reshape(n_pages, ps)
+    dead = (pos[None] >= ln.long()[:, None, None]) & (ln > 0)[:, None, None]
+    kp2, vp2 = kp.clone(), vp.clone()
+    for x in (kp2, vp2):
+        x[pt.long()] = torch.where(dead[..., None, None], 999.0,
+                                   x[pt.long()].float()).to(x.dtype)
+    assert torch.equal(ops.paged_decode_attention(q, kp2, vp2, pt, ln), got)
 
 
 def test_serving_card_equals_cpu(dev):
@@ -393,25 +454,53 @@ def test_row_kernels_refuse_wider_rows(dev):
         ops.popularity_rows(z, z > 0, z, 4, z[:, 0].float())
 
 
-def test_promote_scatter_dedupe_kernel(dev):
+PROMOTE_CASES = {  # v, s, w, fill, q
+    "repeats": (6, 16, 8, 0.3, 256),
+    "wider than a tile": (3, 16, 8, 0.3, 4096 + 700),
+    "L2ARC's shape": (1, 256, 64, 0.9, 512),
+    "W 128": (4, 8, 128, 0.5, 1000),
+    "fused shape": (12, 64, 64, 0.75, 4096),
+    "more VMs than SMs": (200, 16, 32, 0.75, 512),   # CTAs of 4 warps
+}
+
+
+@pytest.mark.parametrize("case", list(PROMOTE_CASES))
+def test_promote_scatter_dedupe_kernel(dev, case):
     """Queues with repeated addresses (across and inside 32-entry
-    batches) against the plain version, with and without the dedupe."""
+    batches, and across the edge of the kernel's 4,096-entry queue tile)
+    against the plain version, with and without the dedupe; V 1 at
+    256 x 64 (L2ARC's shape), W 128, ways 0 and W, more VMs than SMs."""
     from repro_torch.kernels.maintenance import ops
     rng = np.random.default_rng(7)
-    v, s, w = 6, 16, 8
-    tags = np.where(rng.random((v, s, w)) < 0.3,
-                    rng.integers(0, 20, (v, s, w)) * s + np.arange(s)[:, None],
-                    -1).astype(np.int32)
+    v, s, w, fill, qn = PROMOTE_CASES[case]
+    space = 20 if case == "repeats" else 4 * w
+    tags = np.where(rng.random((v, s, w)) < fill,
+                    rng.integers(0, space, (v, s, w)) * s
+                    + np.arange(s)[:, None], -1).astype(np.int32)
+    if case != "repeats":      # a set holds an address once
+        for i in range(v):
+            for j in range(s):
+                row = tags[i, j]
+                dup = np.ones(w, bool)
+                dup[np.unique(row, return_index=True)[1]] = False
+                row[dup] = -1
     lru = rng.integers(0, 99, (v, s, w)).astype(np.int32)
     dirty = (rng.random((v, s, w)) < 0.5) & (tags >= 0)
     st = [torch.from_numpy(x).to(dev) for x in (tags, lru, dirty)]
-    q = rng.integers(0, 320, (v, 256)).astype(np.int32)
-    q[:, 1::2] = q[:, ::2]                     # adjacent lanes repeat
-    q[:, 200:] = q[:, :56]                      # later batches repeat
-    q[rng.random((v, 256)) < 0.1] = -1
+    q = rng.integers(0, space * s, (v, qn)).astype(np.int32)
+    q[:, 1::2] = q[:, ::2][:, :qn // 2]        # adjacent lanes repeat
+    q[:, 200:] = np.resize(q[:, :56], (v, qn - 200))  # later batches repeat
+    if qn > 4096:
+        q[:, 4090:4110] = q[:, 4080:4100]      # repeats across the tile edge
+    q[rng.random((v, qn)) < 0.1] = -1
     q = torch.from_numpy(q).to(dev)
-    ways = torch.tensor([0, 3, 8, 8, 5, 1], dtype=torch.int32, device=dev)
-    t = torch.arange(6, dtype=torch.int32, device=dev) + 10
+    if case == "repeats":
+        ways = np.array([0, 3, 8, 8, 5, 1], np.int32)
+    else:
+        ways = rng.integers(0, w + 1, v).astype(np.int32)
+        ways[:2] = (w, 0) if v > 1 else (w,)
+    ways = torch.from_numpy(ways).to(dev)
+    t = torch.arange(v, dtype=torch.int32, device=dev) + 10
     for dedupe in (True, False):
         _same(ops.promote_scatter(*st, q, ways, t, dedupe=dedupe),
               ops.promote_scatter_plain(*st, q, ways, t, dedupe=dedupe))
