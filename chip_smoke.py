@@ -40,7 +40,10 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    empty row, and checks that a wider row is refused; and
    ``promote_scatter``'s dedupe branch on queues that hold every address
    twice, with its device events a call (one: the kernel writes its
-   outputs itself); holds ``two_level`` and ``single_level`` (one CTA a VM walking
+   outputs itself); ``evict_scatter`` and ``count_between`` with the
+   plans their wrappers chose (``evict_plan``: CTAs a VM and threads;
+   ``count_plan``: lanes a row, rows a CTA, threads) and their device
+   events a call (one each, asserted: ``kernel_events``); holds ``two_level`` and ``single_level`` (one CTA a VM walking
    each cache set's requests in order, ``csrc/set_walk.cuh``) to their
    plain versions at the 12-VM and 1024-VM blocks and at the set walk's
    other shapes: V = 1 (a VM's own block, 64 x 64; FAST's and L2ARC's
@@ -48,8 +51,8 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    request, rows of 9,000 (two tiles) and rows of 96–128 ways, each
    beside its longest same-set chain and chain bound and the earlier
    one-chain kernel's recorded times (``RECORDED_MS``), with ptxas's
-   registers and spills (and those of the decode kernel's routes and of
-   ``promote_scatter``); holds ``flash_attention`` to its plain version (the same
+   registers and spills (and those of the decode kernel's routes, of
+   ``promote_scatter``, ``evict_scatter`` and ``count_between``); holds ``flash_attention`` to its plain version (the same
    tolerance as decode) at tests/test_kernels.py's shapes in float32 (the
    ``cuda_cores`` route) and bf16 (the ``wgmma`` route) and at the
    prefill shape (B 4, H 32, Hkv 8, S 4096, D 128); prints what ptxas
@@ -357,10 +360,11 @@ def first_blocks(trace, num_vms, window, chunk, count):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_count_between(dev, subs, label):
+def pod_rows(dev, subs):
+    """``(prev, touch, nt)`` of the POD(WBWO) sizing rows of the window's
+    per-VM sub-traces, as the controller pads them."""
     import torch
     from repro_torch.core import reuse
-    from repro_torch.kernels.reuse_distance import ops
     addrs = [np.asarray(s.addr) for s in subs]
     writes = [np.asarray(s.is_write) for s in subs]
     lens = [len(a) for a in addrs]
@@ -369,8 +373,12 @@ def check_count_between(dev, subs, label):
     w = torch.from_numpy(wmat).to(dev)
     served = ~w & (reuse._prev_same(a, w) >= 0)          # POD(WBWO)
     touch = (w | served).contiguous()
-    prev = reuse._prev_same(a, touch)
-    nt = reuse._next_same(a, touch)
+    return reuse._prev_same(a, touch), touch, reuse._next_same(a, touch)
+
+
+def check_count_between(dev, subs, label):
+    from repro_torch.kernels.reuse_distance import ops
+    prev, touch, nt = pod_rows(dev, subs)
     got = ops.count_between(prev, touch, nt)
     want = ops.count_between_plain(prev, touch, nt)
     err = max_abs_err([got], [want])
@@ -378,14 +386,32 @@ def check_count_between(dev, subs, label):
     dev_ms = graph_ms(lambda: ops.count_between(prev, touch, nt))
     plain_ms = cuda_ms(lambda: ops.count_between_plain(prev, touch, nt), 3)
     v, n = prev.shape
-    i = torch.arange(n, device=dev)[None, :]
-    pairs = float((i - prev.long() - 1).clamp(min=0).sum())
-    b, by = bound_ms(13.0 * v * n, 2.0 * pairs)
-    log(f"count_between {label} [{v},{n}]: exact, kernel {ms:.4f} ms "
-        f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
-        f"{b:.5f} ms ({by}), pairs {pairs:.0f}")
+    b, by = count_bound(prev)
+    plan = ops.count_plan(v, n, sm_count(dev))
+    events = kernel_events(lambda: ops.count_between(prev, touch, nt),
+                           "count_between_kernel")
+    log(f"count_between {label} [{v},{n}]: exact, plan (lanes, rows, "
+        f"threads) {plan}, kernel {ms:.4f} ms (device {dev_ms:.4f} ms, "
+        f"{events} device events a call), plain {plain_ms:.4f} ms, bound "
+        f"{b:.5f} ms ({by})")
     return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                bound_ms=b, bound_by=by, library_ms=None)
+                bound_ms=b, bound_by=by, library_ms=None, plan=plan,
+                events_per_call=events)
+
+
+def count_bound(prev) -> tuple[float, str]:
+    """``count_between``'s bound on these rows: 13 bytes an element
+    against two integer operations a pair of this run's windows."""
+    import torch
+    v, n = prev.shape
+    i = torch.arange(n, device=prev.device)[None, :]
+    pairs = float((i - prev.long() - 1).clamp(min=0).sum())
+    return bound_ms(13.0 * v * n, 2.0 * pairs)
+
+
+def sm_count(dev) -> int:
+    import torch
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def chain_step_ns(dev) -> float:
@@ -658,6 +684,17 @@ def random_state(rng, v, s, w, fill=0.75):
     return tags, lru.astype(np.int32), dirty
 
 
+def evict_queue(rng, tags, q):
+    """The fused path's ``[V, Q]`` eviction queue: the bottom 5% of each
+    VM's residents (``evict_frac``), at least one, then ``-1`` padding."""
+    out = np.full((tags.shape[0], q), -1, np.int32)
+    for i in range(tags.shape[0]):
+        res = tags[i][tags[i] >= 0]
+        k = max(int(np.ceil(0.05 * res.size)), 1)
+        out[i, :k] = rng.choice(res, k, replace=False)
+    return out
+
+
 def check_scatters(dev, rng, v, s, w):
     import torch
     from repro_torch.kernels.maintenance import ops
@@ -665,12 +702,10 @@ def check_scatters(dev, rng, v, s, w):
     tags, lru, dirty = random_state(rng, v, s, w)
     ways = rng.integers(8, w + 1, v).astype(np.int32)
     t = rng.integers(10_000, 20_000, v).astype(np.int32)
-    equeue = np.full((v, q), -1, np.int32)
+    equeue = evict_queue(rng, tags, q)
     pqueue = np.full((v, q), -1, np.int32)
     for i in range(v):
         res = tags[i][tags[i] >= 0]
-        k = max(int(np.ceil(0.05 * res.size)), 1)
-        equeue[i, :k] = rng.choice(res, k, replace=False)
         fresh = np.setdiff1d(np.arange(4 * w * s), res)
         m = min(q - 64, fresh.size)
         pq = np.concatenate([rng.choice(fresh, m, replace=False),
@@ -696,15 +731,21 @@ def check_scatters(dev, rng, v, s, w):
     lib_dev_ms = device_profile(lambda: torch.isin(tk, qk), 20)[0]
     b, by = bound_ms(2 * 9.0 * v * s * w + 4.0 * v * q + 4.0 * v,
                      2.0 * (v * s * w + v * q))
+    plan = ops.evict_plan(v, s * w, sm_count(dev))
+    events = kernel_events(lambda: ops.evict_scatter(*st, eq),
+                           "evict_kernel")
     log(f"evict_scatter [{v},{s},{w}] Q={q}: exact, flushed "
-        f"{int(got[3].sum())}, kernel {ms:.4f} ms (device {dev_ms:.4f} ms), "
-        f"plain {plain_ms:.4f} ms, torch.isin {lib_ms:.4f} ms (device "
-        f"{fmt_ms(lib_dev_ms)} from a profiler trace: it cannot be captured "
-        f"in a CUDA graph), bound {b:.5f} ms ({by})")
+        f"{int(got[3].sum())}, plan (parts, threads) {plan}, live entries "
+        f"{int((eq >= 0).sum())}, kernel {ms:.4f} ms (device {dev_ms:.4f} "
+        f"ms, {events} device events a call), plain {plain_ms:.4f} ms, "
+        f"torch.isin {lib_ms:.4f} ms (device {fmt_ms(lib_dev_ms)} from a "
+        f"profiler trace: it cannot be captured in a CUDA graph), bound "
+        f"{b:.5f} ms ({by})")
     out["evict_scatter"] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
                                 plain_ms=plain_ms, bound_ms=b, bound_by=by,
                                 library_ms=lib_ms,
-                                library_device_ms=lib_dev_ms)
+                                library_device_ms=lib_dev_ms, plan=plan,
+                                events_per_call=events)
 
     # the fused path's contract: unique queues, dedupe off
     args = (*st, pq, ways_t, t_t)
@@ -717,7 +758,8 @@ def check_scatters(dev, rng, v, s, w):
         lambda: ops.promote_scatter_plain(*args, dedupe=False), 10)
     b, by = bound_ms(2 * 9.0 * v * s * w + 4.0 * v * q + 12.0 * v,
                      2.0 * (v * s * w + v * q))
-    events = promote_events(lambda: ops.promote_scatter(*args, dedupe=False))
+    events = kernel_events(lambda: ops.promote_scatter(*args, dedupe=False),
+                           "promote_kernel")
     log(f"promote_scatter [{v},{s},{w}] Q={q}: exact, promoted "
         f"{int(got[3].sum())}, kernel {ms:.4f} ms (device {dev_ms:.4f} ms, "
         f"{events} device events a call), plain {plain_ms:.4f} ms, bound "
@@ -748,21 +790,22 @@ def check_scatters(dev, rng, v, s, w):
     return out
 
 
-def promote_events(call, want: int | None = 1) -> float | None:
-    """Device events a ``promote_scatter`` launch puts on the card: the
-    device events of a profiler trace of 20 calls over its kernel's
-    (the ratio stands where the trace drops events); None when the trace
-    holds no kernel. The kernel writes its outputs itself, so there must
-    be ``want`` (1): no copy or fill beside it."""
+def kernel_events(call, name: str, want: int | None = 1) -> float | None:
+    """Device events a launch of the kernel ``name`` (a substring of its
+    CUDA function's name) puts on the card: the device events of a
+    profiler trace of 20 calls over the kernel's (the ratio stands where
+    the trace drops events); None when the trace holds no such kernel.
+    A kernel that writes its outputs itself must put ``want`` (1): no
+    copy or fill beside it."""
     names = {}
     _, events = device_profile(call, 20, by_name=names)
-    kernel = sum(n for k, n in names.items() if "promote" in k)
+    kernel = sum(n for k, n in names.items() if name in k)
     if not kernel:
         return None
     events /= kernel
     if want is not None and events != want:
-        raise AssertionError(f"promote_scatter: {events} device events a "
-                             f"launch, expected {want}")
+        raise AssertionError(f"{name}: {events} device events a launch, "
+                             f"expected {want}")
     return events
 
 
@@ -2001,8 +2044,8 @@ def check_l2arc_promote(paper, dev="cuda", want_events: int | None = 1):
             ops.promote_scatter(*c[:6])
 
     total = graph_ms(replay, reps=1, replays=5)
-    events = promote_events(lambda: ops.promote_scatter(*calls[0][:6]),
-                            want_events)
+    events = kernel_events(lambda: ops.promote_scatter(*calls[0][:6]),
+                           "promote_kernel", want_events)
     v, s, w = calls[0][0].shape
     bounds = sum(bound_ms(2 * 9.0 * v * s * w + 4.0 * c[3].shape[1]
                           + 12.0 * v, 2.0 * (v * s * w + c[3].numel()))[0]
@@ -2021,17 +2064,11 @@ def check_l2arc_promote(paper, dev="cuda", want_events: int | None = 1):
                 bound_ms_total=bounds, loss_ms=total - bounds)
 
 
-def check_seq_count_between(paper, dev="cuda"):
-    """``count_between`` where paper-12vm-seq launches it: a second
-    sequential 12-VM run records every call (one VM's rows at a time),
-    each is held to its plain version, and one CUDA graph of all of them
-    gives their device time. The loss is that time less the sum of the
-    calls' bounds."""
-    from collections import Counter
+def seq_count_calls(paper, dev="cuda") -> list:
+    """Every ``count_between`` call of a sequential 12-VM run (one VM's
+    rows at a time), recorded as its ``(prev, touch, nt)``."""
     from repro_torch.core import reuse
     from repro_torch.core.controller import EticaConfig
-    from repro_torch.kernels.reuse_distance import ops
-    import torch
     calls, orig = [], reuse.count_between
 
     def record(prev, touch, nt):
@@ -2044,6 +2081,15 @@ def check_seq_count_between(paper, dev="cuda"):
                           batched=False), 12)(dev).run(paper)
     finally:
         reuse.count_between = orig
+    return calls
+
+
+def replay_count_calls(calls) -> dict:
+    """Each recorded call held to its plain version, and one CUDA graph of
+    all of them for their device time; the loss is that time less the sum
+    of the calls' bounds."""
+    from collections import Counter
+    from repro_torch.kernels.reuse_distance import ops
     err = max(max_abs_err([ops.count_between(*c)],
                           [ops.count_between_plain(*c)]) for c in calls)
 
@@ -2052,21 +2098,33 @@ def check_seq_count_between(paper, dev="cuda"):
             ops.count_between(*c)
 
     total = graph_ms(replay, reps=1, replays=5)
-    bounds = 0.0
-    for prev, _, _ in calls:
-        v, n = prev.shape
-        i = torch.arange(n, device=prev.device)[None, :]
-        pairs = float((i - prev.long() - 1).clamp(min=0).sum())
-        bounds += bound_ms(13.0 * v * n, 2.0 * pairs)[0]
+    bounds = sum(count_bound(c[0])[0] for c in calls)
     shapes = dict(sorted(Counter(f"{c[0].shape[0]}x{c[0].shape[1]}"
                                  for c in calls).items()))
-    log(f"count_between at paper-12vm-seq's calls: {len(calls)} calls, each "
-        f"exact; shapes {shapes}; device {total:.4f} ms for all "
-        f"({total / len(calls):.5f} ms a call), bounds {bounds:.5f} ms, "
-        f"loss {total - bounds:.4f} ms a run")
     return dict(max_abs_err=err, calls=len(calls), shapes=shapes,
                 device_ms_total=total, device_ms_per_call=total / len(calls),
                 bound_ms_total=bounds, loss_ms=total - bounds)
+
+
+def check_seq_count_between(paper, dev="cuda"):
+    """``count_between`` where paper-12vm-seq launches it: a second
+    sequential 12-VM run records every call, each is held to its plain
+    version and all are replayed in one CUDA graph
+    (:func:`replay_count_calls`), with the plans the wrapper chose."""
+    from collections import Counter
+    from repro_torch.kernels.reuse_distance import ops
+    calls = seq_count_calls(paper, dev)
+    out = replay_count_calls(calls)
+    sms = sm_count(calls[0][0].device)
+    out["plans"] = dict(Counter(str(ops.count_plan(*c[0].shape, sms))
+                                for c in calls))
+    total, bounds = out["device_ms_total"], out["bound_ms_total"]
+    log(f"count_between at paper-12vm-seq's calls: {len(calls)} calls, each "
+        f"exact; shapes {out['shapes']}, plans (lanes, rows, threads) "
+        f"{out['plans']}; device {total:.4f} ms for all "
+        f"({total / len(calls):.5f} ms a call), bounds {bounds:.5f} ms, "
+        f"loss {total - bounds:.4f} ms a run")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2161,12 +2219,15 @@ def ptxas_lines(source: str) -> list[str]:
 
 def build_report(rows) -> None:
     """What ptxas said of the datapath kernels (registers and spills of
-    each row variant), the decode kernel's routes and ``promote_scatter``,
-    into their rows and the log."""
+    each row variant), the decode kernel's routes, ``promote_scatter``,
+    ``evict_scatter`` and ``count_between``, into their rows and the
+    log."""
     for k, src in (("two_level", "datapath.cu"),
                    ("single_level", "single_level.cu"),
                    ("paged_decode_attention", "decode_attention.cu"),
-                   ("promote_scatter", "promote_scatter.cu")):
+                   ("promote_scatter", "promote_scatter.cu"),
+                   ("evict_scatter", "evict_scatter.cu"),
+                   ("count_between", "count_between.cu")):
         rows[k]["ptxas"] = ptxas_lines(src)
         for ln in rows[k]["ptxas"]:
             log(f"ptxas {src}: {ln}")

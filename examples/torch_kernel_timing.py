@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Device time of ``paged_decode_attention`` and ``promote_scatter`` at the
-shapes their paths launch, for one source tree.
+"""Device time of ``paged_decode_attention``, ``promote_scatter``,
+``count_between`` and ``evict_scatter`` at the shapes their paths launch,
+for one source tree.
 
 Run on a machine with an NVIDIA card and the CUDA toolkit, from the
 repository root::
@@ -24,13 +25,19 @@ Shapes (the inputs of ``chip_smoke.py``, from generators of their own):
   the same queue with every address twice, dedupe on (the staged path);
 - promote at L2ARC's own calls: every ``promote_scatter`` call of an
   L2ARC run on the paper's 12-VM mix ([1, 256, 64], dedupe on), replayed
-  in one CUDA graph (``chip_smoke.check_l2arc_promote``).
+  in one CUDA graph (``chip_smoke.check_l2arc_promote``);
+- ``count_between`` at the POD rows of the paper's 12-VM first window
+  ([12, 1024]) and of fig15's 1024-VM first window, and at every call of
+  the sequential 12-VM run ([1, 1024], one VM's row at a time), replayed
+  in one CUDA graph (``chip_smoke.replay_count_calls``);
+- ``evict_scatter`` at the fused path's [12, 64, 64], Q 4096, and at the
+  1024-VM [1024, 16, 32], Q 512, each queue the bottom 5% of a VM's
+  residents then ``-1`` padding (``chip_smoke.evict_queue``).
 
 Device time: ``chip_smoke.graph_ms``, the calls captured in a CUDA graph
 and replayed between CUDA events; what a wrapper puts on the device
-(copies, zeroed outputs) stays in. Device events a call from a profiler
-trace (``chip_smoke.device_profile``; ``chip_smoke.promote_events``:
-events a ``promote_scatter`` kernel launch). Prints one JSON line per shape,
+(copies, zeroed outputs) stays in. Device events a launch from a profiler
+trace (``chip_smoke.kernel_events``). Prints one JSON line per shape,
 with the card's name and power limit.
 """
 from __future__ import annotations
@@ -61,6 +68,7 @@ def main() -> int:
     from repro_torch import kernels
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.maintenance import ops as mops
+    from repro_torch.kernels.reuse_distance import ops as rops
     if not Path(kernels.__file__).resolve().is_relative_to(
             Path(opts.src).resolve()):
         raise RuntimeError(f"repro_torch came from {kernels.__file__}")
@@ -121,7 +129,7 @@ def main() -> int:
             *st, qt, *tail, dedupe=dedupe)
         emit(kernel="promote_scatter", shape=f"[{v},{s},{w}] Q {q}, {label}",
              device_ms=cs.graph_ms(call), call_ms=cs.cuda_ms(call, 50),
-             events_per_call=cs.promote_events(call, None))
+             events_per_call=cs.kernel_events(call, "promote_kernel", None))
     paper = cs.trace_mix(cs.PAPER_VMS, 20_000, 1.0)
     l2 = cs.check_l2arc_promote(paper, want_events=None)
     emit(kernel="promote_scatter", shape="L2ARC's calls [1,256,64], dedupe",
@@ -129,6 +137,37 @@ def main() -> int:
          device_ms_run=l2["device_ms_total"],
          bound_ms_run=l2["bound_ms_total"], loss_ms_run=l2["loss_ms"],
          events_per_call=l2["events_per_call"])
+
+    fig1024 = cs.trace_mix((cs.FIG15_WORKLOADS * 64)[:1024], 150, 0.25)
+    subs12, _ = cs.first_blocks(paper, 12, 10_000, 1_000, 0)
+    subs1024, _ = cs.first_blocks(fig1024, 1024, len(fig1024) // 3,
+                                  len(fig1024) // 12, 0)
+    for label, subs in (("12-VM POD", subs12), ("1024-VM POD", subs1024)):
+        rows = cs.pod_rows(dev, subs)
+        call = lambda: rops.count_between(*rows)  # noqa: E731
+        emit(kernel="count_between",
+             shape=f"{label} [{rows[0].shape[0]},{rows[0].shape[1]}]",
+             device_ms=cs.graph_ms(call), call_ms=cs.cuda_ms(call, 50),
+             events_per_call=cs.kernel_events(call, "count_between_kernel",
+                                              None),
+             bound_ms=cs.count_bound(rows[0])[0])
+    seq = cs.replay_count_calls(cs.seq_count_calls(paper))
+    emit(kernel="count_between", shape="paper-12vm-seq's calls [1,1024]",
+         calls=seq["calls"], device_ms=seq["device_ms_per_call"],
+         device_ms_run=seq["device_ms_total"],
+         bound_ms_run=seq["bound_ms_total"], loss_ms_run=seq["loss_ms"])
+
+    for v, s, w, q in ((12, 64, 64, 4096), (1024, 16, 32, 512)):
+        tags, lru, dirty = cs.random_state(rng, v, s, w)
+        st = [torch.from_numpy(x).to(dev) for x in (tags, lru, dirty)]
+        eq = torch.from_numpy(cs.evict_queue(rng, tags, q)).to(dev)
+        call = lambda: mops.evict_scatter(*st, eq)  # noqa: E731
+        emit(kernel="evict_scatter", shape=f"[{v},{s},{w}] Q {q}",
+             live_entries=int((eq >= 0).sum()),
+             device_ms=cs.graph_ms(call), call_ms=cs.cuda_ms(call, 50),
+             events_per_call=cs.kernel_events(call, "evict_kernel", None),
+             bound_ms=cs.bound_ms(18.0 * v * s * w + 4.0 * v * q + 4.0 * v,
+                                  2.0 * (v * s * w + v * q))[0])
     return 0
 
 

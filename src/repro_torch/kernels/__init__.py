@@ -72,7 +72,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # the build's log (:func:`build_log`)
 VERBOSE_SOURCES = ("flash_attention_sm90.cu", "datapath.cu",
                    "single_level.cu", "decode_attention.cu",
-                   "promote_scatter.cu")
+                   "promote_scatter.cu", "count_between.cu",
+                   "evict_scatter.cu")
 
 KERNELS = ("count_between", "evict_scatter", "promote_scatter",
            "clean_scatter", "two_level", "single_level", "run_sums",
@@ -87,8 +88,8 @@ _lib = None
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "etica_count_between": (_P, _P, _P, _P, _I, _I, _P),
-    "etica_evict_scatter": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "etica_count_between": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "etica_evict_scatter": (*(_P,) * 8, *(_I,) * 5, _P),
     "etica_promote_scatter": (*(_P,) * 10, *(_I,) * 7, _P),
     "etica_clean_scatter": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "etica_two_level": (*(_P,) * 23, *(_I,) * 8, _F, _F, _F, _F, _P),

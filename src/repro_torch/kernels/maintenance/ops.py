@@ -5,8 +5,9 @@ kernels (``csrc/evict_scatter.cu``, ``csrc/promote_scatter.cu``,
 ``csrc/clean_scatter.cu``) on CUDA tensors and the plain versions beside
 them on CPU tensors. States are stacked ``[V, S, W]`` (``tags``/``lru``
 int32, ``dirty`` bool); queues are ``[V, Q]`` int32 with ``-1`` padding.
-All are functional: the kernels update copies (``promote_scatter``'s
-writes its fresh outputs itself).
+All are functional: ``evict_scatter``'s and ``promote_scatter``'s
+kernels write fresh outputs themselves, ``clean_scatter``'s updates
+copies.
 
 :func:`maintenance_interval` is one interval of ETICA maintenance for
 all VMs (the JAX ``maintenance_interval``): Eq. 1 contributions ->
@@ -46,21 +47,44 @@ def _check_state(tags, lru, dirty, queue, dev):
 # evict
 # ---------------------------------------------------------------------------
 
+EVICT_MAX_PARTS = 8      # CTAs a VM: one portable cluster
+EVICT_THREADS = 256      # threads a CTA (csrc/evict_scatter.cu kThreads)
+EVICT_FEW_THREADS = 128  # threads a CTA once the VMs alone fill the card
+EVICT_PART_SLOTS = 512   # slots a CTA, at least, where a VM is split
+
+
+def evict_plan(v: int, sw: int, sms: int) -> tuple[int, int]:
+    """``(parts, threads)`` of an ``evict_scatter`` launch, from shapes
+    alone: while the VMs leave SMs idle, a VM's ``sw`` slots are split
+    into up to ``EVICT_MAX_PARTS`` contiguous ranges of at least
+    ``EVICT_PART_SLOTS`` slots, one cluster a VM, ``EVICT_THREADS``
+    threads a CTA; when the VMs' CTAs outnumber the SMs, CTAs of
+    ``EVICT_FEW_THREADS``, so that more of them share an SM."""
+    parts = max(1, min(EVICT_MAX_PARTS, sms // max(v, 1),
+                       -(-sw // EVICT_PART_SLOTS)))
+    return parts, EVICT_THREADS if v * parts <= sms else EVICT_FEW_THREADS
+
+
 def evict_scatter(tags, lru, dirty, queue):
     """Clear every slot whose tag (>= 0) is in the VM's queue; returns
     ``(tags, lru, dirty, flushed[V])`` — flushed counts dirty slots
-    cleared."""
+    cleared. New tensors: on the card one launch reads the input state
+    and the queue (of any width, 0 included) and writes all four."""
     if tags.device.type == "cpu":
         return evict_scatter_plain(tags, lru, dirty, queue)
     dev = tags.device
     _check_state(tags, lru, dirty, queue, dev)
     v, s, w = tags.shape
-    tags, lru, dirty = tags.clone(), lru.clone(), dirty.clone()
-    flushed = torch.zeros(v, dtype=torch.int32, device=dev)
-    if v and s * w and queue.shape[1]:
-        ptrs = [x.data_ptr() for x in (tags, lru, dirty, queue, flushed)]
-        kernels.launch("evict_scatter", *ptrs, v, s * w, queue.shape[1])
-    return tags, lru, dirty, flushed
+    state = (tags, lru, dirty)
+    out = [torch.empty_like(x) for x in state]
+    if not (v and s * w):
+        return (*out, torch.zeros(v, dtype=torch.int32, device=dev))
+    flushed = torch.empty(v, dtype=torch.int32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ptrs = [x.data_ptr() for x in (*state, *out, queue, flushed)]
+    kernels.launch("evict_scatter", *ptrs, v, s * w, queue.shape[1],
+                   *evict_plan(v, s * w, sms))
+    return (*out, flushed)
 
 
 def evict_scatter_plain(tags, lru, dirty, queue):

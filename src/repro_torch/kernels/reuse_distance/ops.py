@@ -7,8 +7,9 @@ For ``[V, N]`` rows (``prev``/``nt`` int32, ``touch`` bool)::
 the number of distinct blocks touched between an access and the
 previous touch of its block (each qualifying j is the last touch of its
 address before i). CUDA tensors go through the ``count_between`` kernel
-(``csrc/count_between.cu``); CPU tensors through
-:func:`count_between_plain`. Counts are int32 and exact either way.
+(``csrc/count_between.cu``: a group of lanes a row, planned by
+:func:`count_plan`); CPU tensors through :func:`count_between_plain`.
+Counts are int32 and exact either way.
 """
 from __future__ import annotations
 
@@ -17,6 +18,30 @@ import torch
 from repro_torch import kernels
 
 _PLAIN_ELEMS = 1 << 24   # pair-mask elements per plain-version chunk
+COUNT_THREADS = 256      # threads a CTA, at most (csrc kThreads)
+COUNT_MAX_ROWS = 256     # rows a CTA, at most (csrc kMaxRows)
+COUNT_WAVE = 1024        # threads an SM that the rows' lanes may fill
+
+
+def count_plan(v: int, n: int, sms: int) -> tuple[int, int, int]:
+    """``(lanes, rows, threads)`` of a ``count_between`` launch, from
+    shapes alone. ``lanes`` a row: 32 for rows of more than 512 columns,
+    16 up to 512, 8 up to 256, so that a window takes few rounds (4
+    columns a lane a round); halved, down to 8, while the rows' lanes
+    would overfill ``COUNT_WAVE`` threads an SM, since then each row's
+    fixed cost (its sum across the lanes) outweighs its rounds. ``rows``
+    consecutive rows a CTA: a power of two, about two CTAs an SM, at most
+    ``COUNT_MAX_ROWS`` and the row's length, at least four warps' worth.
+    ``threads`` a CTA: a lane for every (row, lane) pair, at most
+    ``COUNT_THREADS``, the rest of the rows taken in turn."""
+    lanes = 32 if n > 512 else 16 if n > 256 else 8
+    while lanes > 8 and v * n * lanes > sms * COUNT_WAVE:
+        lanes //= 2
+    fill = max(1, v * n // (2 * max(sms, 1)))
+    rows = min(COUNT_MAX_ROWS, 1 << (fill.bit_length() - 1),
+               1 << max(n - 1, 0).bit_length())
+    rows = max(128 // lanes, rows)
+    return lanes, rows, min(COUNT_THREADS, rows * lanes)
 
 
 def count_between(prev: torch.Tensor, touch: torch.Tensor,
@@ -30,8 +55,10 @@ def count_between(prev: torch.Tensor, touch: torch.Tensor,
     kernels.check(nt, "nt", torch.int32, (v, n), dev)
     out = torch.empty((v, n), dtype=torch.int32, device=dev)
     if v and n:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         ptrs = [x.data_ptr() for x in (prev, touch, nt, out)]
-        kernels.launch("count_between", *ptrs, v, n)
+        kernels.launch("count_between", *ptrs, v, n,
+                       *count_plan(v, n, sms))
     return out
 
 

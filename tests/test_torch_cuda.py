@@ -29,17 +29,58 @@ def _same(a, b):
         assert torch.equal(x, y)
 
 
-def test_count_between_kernel(dev):
+COUNT_SHAPES = {  # v, n, address space, touch share
+    "5 x 1000": (5, 1000, 300, 0.7),
+    "-seq's one VM, 1 x 1024": (1, 1024, 300, 0.7),
+    "12-VM POD, 12 x 1024": (12, 1024, 300, 0.7),
+    "1024 VMs x 256": (1024, 256, 60, 0.8),
+    "rows past one column tile, 1 x 20000": (1, 20_000, 20_000, 0.9),
+    "N 1": (3, 1, 1, 1.0),
+}
+
+
+@pytest.mark.parametrize("shape", list(COUNT_SHAPES))
+def test_count_between_kernel(dev, shape):
     from repro_torch.core import reuse
     from repro_torch.kernels.reuse_distance import ops
+    v, n, space, p_touch = COUNT_SHAPES[shape]
     rng = np.random.default_rng(0)
-    a = torch.from_numpy(rng.integers(0, 300, (5, 1000)).astype(
+    a = torch.from_numpy(rng.integers(0, space, (v, n)).astype(
         np.int32)).to(dev)
-    touch = torch.from_numpy(rng.random((5, 1000)) < 0.7).to(dev)
+    touch = torch.from_numpy(rng.random((v, n)) < p_touch).to(dev)
+    if n == 20_000:   # first touches' windows reach back to column 0,
+        a[0, ::997] = 7   # across five 4,096-key tiles; these ~997 long
+        touch[0, ::997] = True
     prev = reuse._prev_same(a, touch)
     nt = reuse._next_same(a, touch)
     _same([ops.count_between(prev, touch, nt)],
           [ops.count_between_plain(prev, touch, nt)])
+
+
+def test_count_between_kernel_edges(dev):
+    """Windows of length 0 and 1, touch all false and all true, one
+    address for a whole row, arbitrary prev / nt, and no rows."""
+    from repro_torch.core import reuse
+    from repro_torch.kernels.reuse_distance import ops
+    n = 1500
+    seq = torch.arange(n, dtype=torch.int32, device=dev)[None]
+    ones = torch.ones((2, n), dtype=torch.bool, device=dev)
+    cases = [(seq.repeat(2, 1), ones), (seq * 0, ones[:1]),
+             (seq * 0, ~ones[:1]), (seq % 2, ones[:1])]
+    for a, touch in cases:
+        prev = reuse._prev_same(a, touch)
+        nt = reuse._next_same(a, touch)
+        _same([ops.count_between(prev, touch, nt)],
+              [ops.count_between_plain(prev, touch, nt)])
+    rng = np.random.default_rng(3)
+    prev, nt = (torch.from_numpy(rng.integers(-3, n + 3, (3, n)).astype(
+        np.int32)).to(dev) for _ in range(2))
+    touch = torch.from_numpy(rng.random((3, n)) < 0.6).to(dev)
+    _same([ops.count_between(prev, touch, nt)],
+          [ops.count_between_plain(prev, touch, nt)])
+    for v, n in ((0, 8), (4, 0)):
+        e = torch.zeros((v, n), dtype=torch.int32, device=dev)
+        assert ops.count_between(e, e.bool(), e).shape == (v, n)
 
 
 @pytest.mark.parametrize("npe", [False, True])
@@ -60,6 +101,73 @@ def test_two_level_kernel(dev, npe):
           ops.two_level_plain(a, w, *state, ways, ways.flip(0), t0, npe=npe))
 
 
+def _inconsistent_state(rng, v, s, w, space):
+    """Tags anywhere in [0, space), unique per VM and set, as
+    tests/test_torch_maintenance.py builds them: a block need not lie in
+    set ``tag % S``, and one block may lie in several sets."""
+    tags = np.full((v, s, w), -1, np.int32)
+    for i in range(v):
+        for j in range(s):
+            k = int(rng.integers(0, w + 1))
+            tags[i, j, :k] = rng.permutation(space)[:k]
+    lru = rng.integers(-1, 100, tags.shape).astype(np.int32)
+    dirty = (rng.random(tags.shape) < 0.5) & (tags >= 0)
+    return tags, lru, dirty
+
+
+def _evict_queues(rng, tags, q):
+    """[V, Q] queues, a kind a VM in turn: repeats and absent blocks;
+    negative entries other than -1; every resident block; live entries
+    on both sides of the kernel's 4,096-entry tile edge; only -1."""
+    v = tags.shape[0]
+    out = np.full((v, q), -1, np.int32)
+    for i in range(v):
+        res = tags[i][tags[i] >= 0]
+        kind = i % 5
+        if kind == 0:
+            row = np.concatenate([np.repeat(res[:9], 3),
+                                  rng.integers(0, 4 * res.size + 64, 30)])
+        elif kind == 1:
+            row = rng.permutation(np.concatenate(
+                [res[:11], [-2, -5, -(2 ** 31), -100]]))
+        elif kind == 2:
+            row = rng.permutation(res)
+        elif kind == 3:
+            row = np.full(q, -1)
+            pos = rng.choice(q, min(res.size, q), replace=False)
+            row[pos] = res[:pos.size]
+            if q > 4100:
+                row[4093:4099] = np.resize(res, 6)
+        else:
+            row = np.empty(0, np.int32)
+        out[i, :min(q, row.size)] = row[:q]
+    return out
+
+
+EVICT_SHAPES = {  # v, s, w, address space, q
+    "set-inconsistent, Q 3000": (5, 16, 8, 400, 3000),
+    "set-inconsistent, Q wider than a tile": (5, 16, 16, 900, 5000),
+    "the five queue kinds, [12, 64, 64] Q 4096": (12, 64, 64, 8192, 4096),
+    "V 1": (1, 64, 64, 9000, 4096),
+    "V 1024, [1024, 16, 32] Q 512": (1024, 16, 32, 2048, 512),
+    "Q 1": (3, 4, 4, 32, 1),
+}
+
+
+@pytest.mark.parametrize("shape", list(EVICT_SHAPES))
+def test_evict_scatter_kernel(dev, shape):
+    from repro_torch.kernels.maintenance import ops
+    v, s, w, space, q = EVICT_SHAPES[shape]
+    rng = np.random.default_rng(q + v)
+    st = [torch.from_numpy(x).to(dev)
+          for x in _inconsistent_state(rng, v, s, w, space)]
+    queue = torch.from_numpy(_evict_queues(rng, st[0].cpu().numpy(),
+                                           q)).to(dev)
+    got = ops.evict_scatter(*st, queue)
+    _same(got, ops.evict_scatter_plain(*st, queue))
+    assert all(x.data_ptr() != y.data_ptr() for x, y in zip(got, st))
+
+
 def test_scatter_kernels(dev):
     from repro_torch.kernels.maintenance import ops
     rng = np.random.default_rng(2)
@@ -74,6 +182,21 @@ def test_scatter_kernels(dev):
     q[:, 2500:2560] = rng.integers(0, 320, (v, 60))
     q = torch.from_numpy(q).to(dev)
     _same(ops.evict_scatter(*st, q), ops.evict_scatter_plain(*st, q))
+    # evict: Q 0, an all -1 queue, a queue naming every resident block
+    # of a set-inconsistent state; no VMs, no slots
+    ist = [torch.from_numpy(x).to(dev)
+           for x in _inconsistent_state(rng, v, s, w, 48)]
+    for eq in (np.full((v, 0), -1, np.int32), np.full((v, 64), -1, np.int32),
+               np.tile(np.arange(48, dtype=np.int32), (v, 1))):
+        eq = torch.from_numpy(eq).to(dev)
+        for state in (st, ist):
+            _same(ops.evict_scatter(*state, eq),
+                  ops.evict_scatter_plain(*state, eq))
+    for shape in ((0, 4, 4), (3, 0, 4)):
+        e = [torch.zeros(shape, dtype=d, device=dev)
+             for d in (torch.int32, torch.int32, torch.bool)]
+        eq = torch.zeros((shape[0], 8), dtype=torch.int32, device=dev)
+        _same(ops.evict_scatter(*e, eq), ops.evict_scatter_plain(*e, eq))
     pq = torch.from_numpy(np.stack([rng.permutation(320)[:100]
                                     for _ in range(v)]).astype(
                                         np.int32)).to(dev)
