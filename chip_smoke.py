@@ -35,9 +35,15 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    + ``index_add_`` and the global-sort chain it replaced (device time
    and device events); gives both kernels' longest run ``L_max`` and
    its chain bound (``L_max`` dependent float32 adds, priced by
-   ``chain_probe.cu``); holds both at the shared-memory row limit
-   (``kernels.ROW_MAX`` entries), on one key for a whole row and on an
-   empty row, and checks that a wider row is refused; and
+   ``chain_probe.cu``); holds both, on heavy ties, one key for a whole
+   row, an empty row and runs across every multiple of
+   ``kernels.ROW_MAX``, at the ``row`` route's widest row
+   (``kernels.ROW_MAX`` entries) and at 16,385 and 40,000 entries
+   through the ``tiled`` route, each call's route checked and timed;
+   holds the cleaner (``ops.clean``: one ``clean_scatter`` launch that
+   finds each VM's cutoff itself, one device event a call, asserted) to
+   ``_clean_cutoffs`` + ``clean_scatter_plain`` at the 12-VM and 1024-VM
+   shapes, with its plan; and
    ``promote_scatter``'s dedupe branch on queues that hold every address
    twice, with its device events a call (one: the kernel writes its
    outputs itself); ``evict_scatter`` and ``count_between`` with the
@@ -115,16 +121,23 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    model (2 launches, both on the ``wgmma`` route), with statistics
    equal to a run on gaussian pages, and the
    kernel against its plain version at that prefill's shape and on its
-   layer-0 activations.
+   layer-0 activations;
+11. runs two paths whose maintenance windows are wider than
+   ``kernels.ROW_MAX``, card == CPU, each of which must launch
+   ``run_sums`` on the ``tiled`` route: ``EticaCache.run`` on two of the
+   paper's VMs with one 34,000-request window (17,000 requests a VM),
+   and two-tier KV serving on 30,000 churn events with a 20,000-access
+   trace ring.
 
-Each card run of phases 3 to 10 sets the launch counts to 0 just before
+Each card run of phases 3 to 11 sets the launch counts to 0 just before
 and reads them just after; exactly the kernels of that path's own set
 must have launched (``popularity`` only on the staged paths). Phase 2
 holds the kernels against their plain versions at the shapes of both
 the 12-VM and the 1024-VM runs.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per
-kernel, ``launches`` from its own path: the 12-VM paths, the full-width
+kernel; ``routes`` and ``routes_by_path``, where a kernel has more than
+one route, count each route's launches; ``launches`` from its own path: the 12-VM paths, the full-width
 serving run for ``paged_decode_attention``, the staged 12-VM run for
 ``popularity`` and the full-width prefill for ``flash_attention``); the
 last is ``{"ok": true, "device": {...}}``. Any
@@ -794,14 +807,21 @@ def kernel_events(call, name: str, want: int | None = 1) -> float | None:
     """Device events a launch of the kernel ``name`` (a substring of its
     CUDA function's name) puts on the card: the device events of a
     profiler trace of 20 calls over the kernel's (the ratio stands where
-    the trace drops events); None when the trace holds no such kernel.
-    A kernel that writes its outputs itself must put ``want`` (1): no
-    copy or fill beside it."""
-    names = {}
-    _, events = device_profile(call, 20, by_name=names)
-    kernel = sum(n for k, n in names.items() if name in k)
-    if not kernel:
-        return None
+    the trace drops events). A trace that holds no such kernel is taken
+    again, up to three times; then the result is None, or, with ``want``
+    set, a failure. A kernel that writes its outputs itself must put
+    ``want`` (1): no copy or fill beside it."""
+    for _ in range(3):
+        names = {}
+        _, events = device_profile(call, 20, by_name=names)
+        kernel = sum(n for k, n in names.items() if name in k)
+        if kernel:
+            break
+    else:
+        if want is None:
+            return None
+        raise AssertionError(f"{name}: no such kernel in three profiler "
+                             f"traces (device events: {names})")
     events /= kernel
     if want is not None and events != want:
         raise AssertionError(f"{name}: {events} device events a launch, "
@@ -906,80 +926,165 @@ def check_popularity(dev, rng, blocks, label, fadd_ns):
     return row
 
 
+ROW_WIDTHS = (1000, 16_384, 16_385, 40_000)   # rows of the row-limit check
+
+
+def row_cases(rng, v, n):
+    """``[v, n]`` addresses for the row-limit check: heavy ties (48 keys),
+    one key for a whole row, an empty row (its valid length 0), runs of 80
+    entries across each multiple of ``ROW_MAX`` (the tiled route's tile
+    edges); row 4 random over 4,096 keys."""
+    from repro_torch import kernels
+    addr = rng.integers(0, 48, (v, n)).astype(np.int32)
+    addr[1] = 7
+    addr[3] = rng.integers(0, 4096, n)
+    for e in range(kernels.ROW_MAX, n, kernels.ROW_MAX):
+        addr[3, e - 40:e + 40] = 5000 + e // kernels.ROW_MAX
+    addr[4] = rng.integers(0, 4096, n)
+    nv = np.array([n, n, 0, n, n], np.int32)
+    return addr, nv
+
+
 def check_row_limits(dev, rng):
-    """``popularity`` and ``run_sums`` against their plain versions at the
-    edges of the shared-memory row sort: rows of ``kernels.ROW_MAX``
-    entries (heavy ties), the worst chain (one key for every entry of a
-    row) and an all-padding row; a row one entry wider must raise."""
+    """``popularity`` and ``run_sums`` against their plain versions,
+    exactly, at the ``row`` route's widest row (``kernels.ROW_MAX``
+    entries), a row of 1,000, and the ``tiled`` route's 16,385 (two
+    tiles, the second of one entry) and 40,000 (three: a run without a
+    partner in the merge), on ``row_cases``; each call's route is
+    checked (the route counts of that call alone) and timed (call and
+    CUDA-graph device time, the plain version once on the CPU, the
+    bound). Returns
+    ``(max_abs_err, {kernel: {width: stats}})``."""
     import torch
     from repro_torch import kernels
     from repro_torch.core import popularity as pop
     from repro_torch.kernels.popularity import ops
-    err = 0.0
-    for n in (kernels.ROW_MAX, 1000):
-        v = 3
-        addr = rng.integers(0, 48, (v, n)).astype(np.int32)
-        addr[1] = 7                              # the worst chain
+    err, out = 0.0, {"run_sums": {}, "popularity": {}}
+    for n in ROW_WIDTHS:
+        v = 5
+        addr, nv_np = row_cases(rng, v, n)
         wa = torch.from_numpy(addr).to(dev)
         wc = torch.rand((v, n), device=dev)
-        nv = torch.tensor([n, n, 0], dtype=torch.int32, device=dev)
-        got = pop.window_runs(wa, wc, nv)
-        err = max(err, max_abs_err(got, pop.window_runs_plain(wa, wc, nv)))
-        seg = (wa + 48 * torch.arange(v, device=dev)[:, None]).to(
+        nv = torch.from_numpy(nv_np).to(dev)
+        per = int(addr.max()) + 1
+        seg = (wa + per * torch.arange(v, device=dev)[:, None]).to(
             torch.int32)
-        seg[2] = 3 * 48                          # all padding
-        args = (torch.from_numpy(rng.integers(-1, 300, (v, n)).astype(
-                    np.int32)).to(dev),
-                torch.from_numpy(rng.random((v, n)) < 0.7).to(dev), seg,
-                3 * 48, torch.full((v,), 64.0, device=dev))
-        err = max(err, max_abs_err([ops.popularity_rows(*args)],
-                                   [ops.popularity_rows_plain(*args)]))
-        log(f"row limits [{v},{n}]: run_sums and popularity exact (heavy "
-            f"ties, one key for a whole row, an empty row)")
-    wide = torch.zeros((1, kernels.ROW_MAX + 1), dtype=torch.int32,
-                       device=dev)
-    for fn in (lambda: pop.window_runs(wide, wide.float(), wide[:, 0]),
-               lambda: ops.popularity_rows(wide, wide > 0, wide, 1,
-                                           wide[:, 0].float())):
-        try:
-            fn()
-        except ValueError as e:
-            log(f"row of {kernels.ROW_MAX + 1}: refused ({e})")
-        else:
-            raise AssertionError("a row past the limit was not refused")
-    return err
+        seg[2] = v * per                         # all padding
+        pargs = (torch.from_numpy(rng.integers(-1, 300, (v, n)).astype(
+                     np.int32)).to(dev),
+                 torch.from_numpy(rng.random((v, n)) < 0.7).to(dev), seg,
+                 v * per, torch.full((v,), 64.0, device=dev))
+        route = kernels.row_route(n)
+        cpu = [x.cpu() for x in (wa, wc, nv)]
+        pcpu = [x.cpu() if torch.is_tensor(x) else x for x in pargs]
+        for name, call, plain, nbytes in (
+                ("run_sums", lambda: pop.window_runs(wa, wc, nv),
+                 lambda: pop.window_runs_plain(*cpu),
+                 16.0 * v * n + 4.0 * v),
+                ("popularity", lambda: [ops.popularity_rows(*pargs)],
+                 lambda: [ops.popularity_rows_plain(*pcpu)],
+                 9.0 * v * n + 4.0 * v + 4.0 * v * per)):
+            kernels.reset_launch_counts()
+            got = call()
+            if kernels.route_counts(name)[route] != 1:
+                raise AssertionError(f"{name} [{v},{n}]: not one launch on "
+                                     f"the {route} route: "
+                                     f"{kernels.route_counts(name)}")
+            t0 = time.perf_counter()
+            want = plain()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            e = max_abs_err([x.cpu() for x in got], want)
+            err = max(err, e)
+            ms = cuda_ms(call, 20)
+            dev_ms = graph_ms(call, reps=5, replays=4)
+            b, by = bound_ms(nbytes, 2.0 * float(nv.sum()))
+            out[name][n] = dict(route=route, max_abs_err=e, ms=ms,
+                                device_ms=dev_ms, plain_ms=plain_ms,
+                                bound_ms=b, bound_by=by)
+            log(f"row limits: {name} [{v},{n}] route {route}: exact (heavy "
+                f"ties, one key for a whole row, an empty row, runs across "
+                f"the tile edges), kernel {ms:.4f} ms (device {dev_ms:.4f} "
+                f"ms), plain (one call, CPU) {plain_ms:.1f} ms, bound "
+                f"{b:.6f} ms ({by})")
+    return err, out
+
+
+def select_passes(dirty, lru, ways, take) -> int:
+    """The radix passes ``clean_scatter``'s selection makes in all (8
+    bits each below the bits that every candidate key of a VM shares,
+    for each VM with ``take > 0``; ``csrc/clean_scatter.cu``)."""
+    v, s, w = dirty.shape
+    b = (s * w - 1).bit_length() if s * w > 1 else 0
+    flat = np.arange(s * w)
+    passes = 0
+    for r in range(v):
+        cand = dirty[r].reshape(-1) & (flat % w < ways[r])
+        if take[r] <= 0:
+            continue
+        keys = (((lru[r].reshape(-1)[cand].astype(np.int64) ^ -2**31)
+                 & 0xFFFFFFFF) << b) | flat[cand]
+        passes += -(-(int(keys.min()) ^ int(keys.max())).bit_length() // 8)
+    return passes
 
 
 def check_clean(dev, rng, v, s, w):
-    """``clean_scatter`` against its plain version, with random ways,
-    random quotas and the cutoffs ``_clean_cutoffs`` gives them."""
+    """The cleaner as one launch (``ops.clean``: the kernel finds each
+    VM's cutoff from its quota) against ``_clean_cutoffs`` +
+    ``clean_scatter_plain`` on the CPU, all seven outputs, with random
+    ways and quotas and lru ties; the cutoff form ``clean_scatter`` at
+    the cutoffs it found against ``clean_scatter_plain``. Asserts one
+    device event a call, prints the plan, and times ``clean`` whole (the
+    parent's ``_clean_cutoffs`` + kernel) beside the plain composition on
+    the card's tensors and the bound."""
     import torch
+    from repro_torch.core.simulator import CacheState
     from repro_torch.kernels.maintenance import ops
     tags, lru, dirty = random_state(rng, v, s, w)
-    lru = np.where(tags >= 0, rng.integers(0, 64, tags.shape), -1)  # ties
-    ways = torch.as_tensor(rng.integers(0, w + 1, v), dtype=torch.int32,
-                           device=dev)
-    quota = torch.as_tensor(rng.integers(0, 2 * s * w // 3, v),
-                            dtype=torch.int32, device=dev)
-    d = torch.from_numpy(dirty).to(dev)
-    l = torch.from_numpy(lru.astype(np.int32)).to(dev)
-    lcut, icut, take, _ = ops._clean_cutoffs(d, l, ways, quota)
-    args = (d, l, ways, lcut, icut)
-    got = ops.clean_scatter(*args)
-    err = max_abs_err(got, ops.clean_scatter_plain(*args))
-    if not torch.equal(got[1], take):
-        raise AssertionError("clean_scatter flushed other than the quota")
-    ms = cuda_ms(lambda: ops.clean_scatter(*args), 50)
-    dev_ms = graph_ms(lambda: ops.clean_scatter(*args))
-    plain_ms = cuda_ms(lambda: ops.clean_scatter_plain(*args), 10)
+    lru = np.where(tags >= 0, rng.integers(0, 64, tags.shape),
+                   -1).astype(np.int32)                          # ties
+    ways_np = rng.integers(0, w + 1, v).astype(np.int32)
+    quota_np = rng.integers(0, 2 * s * w // 3, v).astype(np.int32)
+    quota_np[1] = 0                                  # the sentinel cutoff
+    d, l, ways, quota = [torch.from_numpy(x).to(dev)
+                         for x in (dirty, lru, ways_np, quota_np)]
+    got = ops.clean_select(d, l, ways, quota)
+    want = ops.clean_select(*[x.cpu() for x in (d, l, ways, quota)])
+    err = max_abs_err([x.cpu() for x in got], want)
+    if not torch.equal(got[1], got[4].clamp(min=0)):
+        raise AssertionError("clean flushed other than the quota")
+    err = max(err, max_abs_err(ops.clean_scatter(d, l, ways, got[2], got[3]),
+                               ops.clean_scatter_plain(d, l, ways, got[2],
+                                                       got[3])))
+    state = CacheState(torch.from_numpy(tags).to(dev), l, d)
+    call = lambda: ops.clean(state, ways, quota)  # noqa: E731
+
+    def plain():
+        lcut, icut, take, n_cand = ops._clean_cutoffs(d, l, ways, quota)
+        return (ops.clean_scatter_plain(d, l, ways, lcut, icut),
+                n_cand - take)
+    events = kernel_events(call, "clean_kernel")
+    ms = cuda_ms(call, 50)
+    dev_ms = graph_ms(call)
+    plain_ms = cuda_ms(plain, 10)
     cut_ms = cuda_ms(lambda: ops._clean_cutoffs(d, l, ways, quota), 10)
-    b, by = bound_ms(6.0 * v * s * w + 16.0 * v, 4.0 * v * s * w)
-    log(f"clean_scatter [{v},{s},{w}]: exact, flushed {int(got[1].sum())}, "
-        f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain "
-        f"{plain_ms:.4f} ms, bound {b:.5f} ms ({by}); _clean_cutoffs (two "
-        f"stable sorts, plain torch) {cut_ms:.4f} ms")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = ops.clean_plan(v, s * w, sms)
+    passes = select_passes(dirty, lru, ways_np, want[4].numpy())
+    # dirty and lru read once, dirty written, ways and quota read, five
+    # [V] outputs and flushed written; a test and a key a slot a pass
+    b, by = bound_ms(6.0 * v * s * w + 32.0 * v,
+                     4.0 * v * s * w + 4.0 * passes * s * w)
+    log(f"clean [{v},{s},{w}]: one launch == _clean_cutoffs + "
+        f"clean_scatter_plain (all seven outputs; the cutoff form == "
+        f"clean_scatter_plain), flushed {int(got[1].sum())}, plan (parts, "
+        f"threads) {plan}, {passes} radix passes in all, {events:.0f} device "
+        f"events a call, clean {ms:.4f} ms (device {dev_ms:.4f} ms), plain "
+        f"(_clean_cutoffs + clean_scatter_plain on the card) {plain_ms:.4f} "
+        f"ms, of which _clean_cutoffs {cut_ms:.4f} ms, bound {b:.6f} ms "
+        f"({by})")
     return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                bound_ms=b, bound_by=by, library_ms=None)
+                bound_ms=b, bound_by=by, library_ms=None,
+                device_events=events, plan=list(plan), radix_passes=passes)
 
 
 def check_maintenance(dev, rng, v, s, w, lens_range, label):
@@ -1657,6 +1762,9 @@ def serving_launches(label, expect, only=False):
     if missing or (only and extra):
         raise AssertionError(f"{label}: kernels not launched {missing}, "
                              f"launched off the path {extra}: {n}")
+    routes = {k: {r: c for r, c in kernels.route_counts(k).items() if c}
+              for k in kernels.ROUTES}
+    n["routes"] = {k: r for k, r in routes.items() if r}
     return n
 
 
@@ -2719,6 +2827,57 @@ def check_serve_prefill(launches, dev="cuda"):
     return max(err, err_rand)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: windows wider than one CTA's row sort (the tiled route)
+# ---------------------------------------------------------------------------
+
+WIDE_REQS = 17_000      # requests a VM of the 2-VM run: one chunk of both
+WIDE_EVENTS = 30_000    # events of the serving run (about 20,800 activations)
+WIDE_WINDOW = 20_000    # its trace ring: maintenance windows up to 20,000
+
+
+def check_wide_rows(launches):
+    """Two runs whose maintenance windows are wider than
+    ``kernels.ROW_MAX``, card == CPU, each of which must launch
+    ``run_sums`` on the ``tiled`` route: ``EticaCache.run`` on two of the
+    paper's VMs with ``promo_interval`` (and ``resize_interval``) the
+    whole 34,000-request trace, so the one window holds 17,000 requests a
+    VM (rows of 32,768); and serving's churn trace at 30,000 events with
+    a 20,000-access trace ring and maintenance every 2,048 activations,
+    so the later windows hold more than 16,384 accesses (rows of
+    32,768)."""
+    from repro_torch.core.controller import EticaConfig
+    from repro_torch.traces.generators import SessionSpec, generate_sessions
+    from repro_torch import kernels
+    trace = trace_mix(PAPER_VMS[:2], WIDE_REQS, 1.0)
+    cfg = EticaConfig(dram_capacity=4096, ssd_capacity=8192,
+                      resize_interval=len(trace), promo_interval=len(trace))
+    launches["paper-2vm-wide"], *_ = drive(
+        etica(cfg, 2), trace, "paper 2-VM, one 34,000-request window",
+        ETICA_KERNELS)
+    spec = SessionSpec(num_tenants=SERVING_TENANTS, target_live=1024,
+                       max_pages=6)
+    strace = generate_sessions(spec, WIDE_EVENTS, seed=1)
+    scfg = serving_cfg(resize_interval=WIDE_WINDOW,
+                       maintenance_interval=2048)
+    kernels.reset_launch_counts()
+    mgr, wall = run_serving("etica", scfg, strace, "cuda")
+    launches["serving-wide"] = serving_launches("serving-wide",
+                                                SERVING_KERNELS, only=True)
+    cpu, wall_cpu = run_serving("etica", scfg, strace, "cpu")
+    if mgr.stats != cpu.stats or placements(mgr) != placements(cpu):
+        raise AssertionError(f"serving-wide: card != CPU\n  {mgr.stats}\n"
+                             f"  {cpu.stats}")
+    log(f"serving-wide ({len(strace)} events, {mgr.stats.activations} "
+        f"activations, trace ring {WIDE_WINDOW}): card {wall:.3f} s, card "
+        f"== CPU (CPU plain path {wall_cpu:.1f} s); launches "
+        f"{launches['serving-wide']}")
+    for label in ("paper-2vm-wide", "serving-wide"):
+        if not launches[label]["routes"].get("run_sums", {}).get("tiled"):
+            raise AssertionError(f"{label}: run_sums never took the tiled "
+                                 f"route: {launches[label]}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2797,9 +2956,10 @@ def main() -> int:
     rows["popularity"] = check_popularity(dev, rng, blocks12, "12-VM staged",
                                           fadd_ns)
     check_popularity(dev, rng, blocks1024, "1024-VM staged", fadd_ns)
-    limit_err = check_row_limits(dev, rng)
+    limit_err, limit_rows = check_row_limits(dev, rng)
     for k in ("run_sums", "popularity"):
         rows[k]["max_abs_err"] = max(rows[k]["max_abs_err"], limit_err)
+        rows[k]["widths"] = limit_rows[k]
     rows["paged_decode_attention"] = check_decode(dev, rng)
     build_report(rows)
     rows["flash_attention"] = dict(max_abs_err=check_flash_shapes(dev, rng),
@@ -2875,6 +3035,9 @@ def main() -> int:
     rows["flash_attention"]["max_abs_err"] = max(
         rows["flash_attention"]["max_abs_err"], check_serve_prefill(launches))
 
+    # phase 11: windows wider than ROW_MAX, through the tiled route
+    check_wide_rows(launches)
+
     sources = {"count_between": "src/repro_torch/csrc/count_between.cu",
                "evict_scatter": "src/repro_torch/csrc/evict_scatter.cu",
                "promote_scatter": "src/repro_torch/csrc/promote_scatter.cu",
@@ -2910,10 +3073,20 @@ def main() -> int:
                     paged_decode_attention="serving-full-width",
                     popularity="paper-12vm-staged",
                     flash_attention="qwen3-4b-prefill")
+
+    def routes(k):
+        """Launches of ``k``'s routes on its own path and on each path."""
+        if k not in kernels.ROUTES:
+            return {}
+        by_path = {p: n["routes"][k] for p, n in launches.items()
+                   if k in n.get("routes", {})}
+        return dict(routes=by_path.get(own_path[k], {}),
+                    routes_by_path=by_path)
     log(smi)
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=sources[k], replaces=replaces[k],
-             launches=launches[own_path[k]][k], path=own_path[k], **rows[k],
+             launches=launches[own_path[k]][k], path=own_path[k],
+             **{**rows[k], **routes(k)},
              launches_by_path={p: n[k] for p, n in launches.items()})
         for k in kernels.KERNELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

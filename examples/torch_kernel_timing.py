@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Device time of ``paged_decode_attention``, ``promote_scatter``,
-``count_between`` and ``evict_scatter`` at the shapes their paths launch,
-for one source tree.
+``count_between``, ``evict_scatter``, the cleaner and the wide-row route
+of ``run_sums`` and ``popularity`` at the shapes their paths launch, for
+one source tree.
 
 Run on a machine with an NVIDIA card and the CUDA toolkit, from the
 repository root::
@@ -32,7 +33,13 @@ Shapes (the inputs of ``chip_smoke.py``, from generators of their own):
   in one CUDA graph (``chip_smoke.replay_count_calls``);
 - ``evict_scatter`` at the fused path's [12, 64, 64], Q 4096, and at the
   1024-VM [1024, 16, 32], Q 512, each queue the bottom 5% of a VM's
-  residents then ``-1`` padding (``chip_smoke.evict_queue``).
+  residents then ``-1`` padding (``chip_smoke.evict_queue``);
+- the cleaner, ``ops.clean`` whole (whatever a tree runs for it: the
+  cutoffs in plain PyTorch and then the kernel, or one launch), at the
+  same two states, lru in [0, 64) (ties), random ways and quotas;
+- ``run_sums`` and ``popularity`` on ``[5, n]`` rows of
+  ``chip_smoke.row_cases`` at n 16,385 and 40,000 (a tree whose kernels
+  refuse such rows prints the refusal).
 
 Device time: ``chip_smoke.graph_ms``, the calls captured in a CUDA graph
 and replayed between CUDA events; what a wrapper puts on the device
@@ -168,6 +175,54 @@ def main() -> int:
              events_per_call=cs.kernel_events(call, "evict_kernel", None),
              bound_ms=cs.bound_ms(18.0 * v * s * w + 4.0 * v * q + 4.0 * v,
                                   2.0 * (v * s * w + v * q))[0])
+
+    from repro_torch.core import popularity as pop
+    from repro_torch.core.simulator import CacheState
+    from repro_torch.kernels.popularity import ops as pops
+    for v, s, w in ((12, 64, 64), (1024, 16, 32)):
+        tags, lru, dirty = cs.random_state(rng, v, s, w)
+        lru = np.where(tags >= 0, rng.integers(0, 64, tags.shape),
+                       -1).astype(np.int32)
+        st = CacheState(*[torch.from_numpy(x).to(dev)
+                          for x in (tags, lru, dirty)])
+        ways = torch.from_numpy(rng.integers(0, w + 1, v).astype(
+            np.int32)).to(dev)
+        quota = torch.from_numpy(rng.integers(0, 2 * s * w // 3, v).astype(
+            np.int32)).to(dev)
+        call = lambda: mops.clean(st, ways, quota)  # noqa: E731
+        emit(kernel="clean", shape=f"[{v},{s},{w}]",
+             device_ms=cs.graph_ms(call), call_ms=cs.cuda_ms(call, 50),
+             events_per_call=events(call),
+             bound_ms=cs.bound_ms(6.0 * v * s * w + 32.0 * v, 0.0)[0])
+
+    for n in (16_385, 40_000):
+        v = 5
+        addr, nv = cs.row_cases(rng, v, n)
+        wa = torch.from_numpy(addr).to(dev)
+        wc = torch.rand((v, n), device=dev)
+        nvt = torch.from_numpy(nv).to(dev)
+        per = int(addr.max()) + 1
+        seg = (wa + per * torch.arange(v, device=dev)[:, None]).to(
+            torch.int32)
+        seg[2] = v * per
+        pargs = (torch.from_numpy(rng.integers(-1, 300, (v, n)).astype(
+                     np.int32)).to(dev),
+                 torch.from_numpy(rng.random((v, n)) < 0.7).to(dev), seg,
+                 v * per, torch.full((v,), 64.0, device=dev))
+        for name, call, nbytes in (
+                ("run_sums", lambda: pop.window_runs(wa, wc, nvt),
+                 16.0 * v * n + 4.0 * v),
+                ("popularity", lambda: pops.popularity_rows(*pargs),
+                 9.0 * v * n + 4.0 * v + 4.0 * v * per)):
+            try:
+                call()
+            except ValueError as e:
+                emit(kernel=name, shape=f"[{v},{n}]", refused=str(e))
+                continue
+            emit(kernel=name, shape=f"[{v},{n}]",
+                 device_ms=cs.graph_ms(call, reps=5, replays=4),
+                 call_ms=cs.cuda_ms(call, 20), events_per_call=events(call),
+                 bound_ms=cs.bound_ms(nbytes, 2.0 * float(nv.sum()))[0])
     return 0
 
 

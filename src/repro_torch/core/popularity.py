@@ -206,11 +206,34 @@ def run_sums_plain(head, seg, vals) -> torch.Tensor:
     hpos = hpos[:, :n]                 # start of run r, n past the last run
     nxt = torch.cat([hpos[:, 1:], torch.full((v, 1), n, device=dev)], 1)
     length = torch.where(hpos < n, nxt.clamp(max=n) - hpos, 0)
-    acc = torch.zeros((v, n), dtype=torch.float32, device=dev)
-    for k in range(int(length.max()) if length.numel() else 0):
-        idx = (hpos + k).clamp(max=n - 1)
-        acc = torch.where(k < length, ftz(acc + vals.gather(1, idx)), acc)
-    return acc
+    out = torch.zeros(v * n, dtype=torch.float32, device=dev)
+    # the runs as flat lists (output slot, first value, length), each
+    # added left to right; every time the unfinished runs have halved,
+    # the finished ones are written out and dropped, so a long run costs
+    # its own length in small steps, not in [V, N]-wide ones
+    slot = torch.nonzero(length.reshape(-1) > 0).reshape(-1)
+    first = (hpos.reshape(-1)[slot]
+             + torch.div(slot, n, rounding_mode="floor") * n)
+    left = length.reshape(-1)[slot]
+    flat_vals = vals.reshape(-1)
+    acc = torch.zeros(slot.numel(), dtype=torch.float32, device=dev)
+    # unfinished runs after k steps: the runs longer than k
+    ends = np.sort(left.cpu().numpy())
+    k, live = 0, slot.numel()
+    while slot.numel():
+        more = k < left
+        acc = torch.where(more, ftz(acc + flat_vals[(first + k).clamp(
+            max=v * n - 1)]), acc)
+        k += 1
+        still = ends.size - int(np.searchsorted(ends, k, side="right"))
+        if still * 2 <= live:
+            done = left <= k
+            out[slot[done]] = acc[done]
+            keep = ~done
+            slot, first, left, acc = (slot[keep], first[keep], left[keep],
+                                      acc[keep])
+            live = still
+    return out.view(v, n)
 
 
 def _compact_runs(a: torch.Tensor, c: torch.Tensor):
@@ -232,9 +255,10 @@ def window_runs(waddr, contrib, n_valid):
     right in access order; the tail :data:`TABLE_EMPTY` with 0. The
     reference's stable argsort and ``_compact_runs``. ``waddr``/``contrib``
     ``[V, N]``, ``n_valid`` ``[V]``. A CUDA tensor takes the ``run_sums``
-    kernel, which sorts each row in shared memory (rows up to
-    :data:`repro_torch.kernels.ROW_MAX` wide); a CPU tensor
-    :func:`window_runs_plain`."""
+    kernel: rows up to :data:`repro_torch.kernels.ROW_MAX` wide by the
+    ``row`` route (each row sorted in one CTA's shared memory), wider ones
+    by the ``tiled`` route (:func:`repro_torch.kernels.row_route`); a CPU
+    tensor :func:`window_runs_plain`."""
     if waddr.device.type == "cpu":
         return window_runs_plain(waddr, contrib, n_valid)
     dev = waddr.device
@@ -245,12 +269,13 @@ def window_runs(waddr, contrib, n_valid):
     kernels.check(wa, "waddr", torch.int32, (v, n), dev)
     kernels.check(wc, "contrib", torch.float32, (v, n), dev)
     kernels.check(nv, "n_valid", torch.int32, (v,), dev)
-    kernels.check_row("run_sums", n)
     uaddr = torch.empty((v, n), dtype=torch.int32, device=dev)
     uval = torch.empty((v, n), dtype=torch.float32, device=dev)
     if v and n:
-        ptrs = [x.data_ptr() for x in (wa, wc, nv, uaddr, uval)]
-        kernels.launch("run_sums", *ptrs, v, n)
+        route = kernels.row_route(n)
+        scratch = kernels.row_scratch(v, n, dev) if route == "tiled" else []
+        ptrs = [x.data_ptr() for x in (wa, wc, nv, uaddr, uval, *scratch)]
+        kernels.launch("run_sums", *ptrs, v, n, route=route)
     return uaddr, uval
 
 

@@ -21,9 +21,10 @@
 // so the block with the most accesses in a row (L_max) sets the floor,
 // L_max dependent __fadd_rn.
 //
-// Design: a segment lies in one row, and a row fits in shared memory, so
-// one CTA takes one row and nothing leaves the chip between the load and
-// the scores (row_sort.cuh). The CTA drops the row's padding (segment ids
+// Design, route "row" (rows of up to kMaxRow entries): a segment lies in
+// one row, and such a row fits in shared memory, so one CTA takes one row
+// and nothing leaves the chip between the load and the scores
+// (row_sort.cuh). The CTA drops the row's padding (segment ids
 // at or past num_blocks), computes each kept access's contribution in
 // registers, sorts the (segment, contribution) pairs stably by segment in
 // shared memory, and gives each segment to the thread that holds its
@@ -31,8 +32,15 @@
 // the contributions with the loads a chunk ahead of the adds. No global
 // sort: one launch beside the zero fill of the scores (segments absent
 // from every row).
+//
+// Route "tiled" (wider rows, row_merge.cuh): the same CTA body sorts each
+// tile of kTile entries and writes its pairs out; merge rounds put a row's
+// tiles back together in access order, and one thread a segment adds the
+// merged row's run from global memory. The wrapper picks the route from
+// the padded width.
 #include <cuda_runtime.h>
 
+#include "row_merge.cuh"
 #include "row_sort.cuh"
 
 namespace {
@@ -56,33 +64,45 @@ __device__ __forceinline__ void load_tiles(
   }
 }
 
+// With kTiled (the tiled route, row_merge.cuh) the CTA takes tile
+// blockIdx.x % row_tiles(n) of row blockIdx.x / row_tiles(n), at most kTile
+// entries, and writes its sorted pairs to `sorted` at the tile's offset and
+// their count to count[blockIdx.x]; otherwise it takes row blockIdx.x whole
+// and writes its segments' scores.
+template <bool kTiled>
 __global__ void __launch_bounds__(kRowThreads)
     popularity_kernel(const int* __restrict__ dist,
                       const unsigned char* __restrict__ served,
                       const int* __restrict__ seg,
                       const float* __restrict__ cs, float* __restrict__ out,
-                      int num_blocks, int n) {
+                      unsigned long long* __restrict__ sorted,
+                      int* __restrict__ count, int num_blocks, int n) {
   extern __shared__ unsigned long long pairs[];
   __shared__ RowScan<kMaxTiles> scan;
-  const long long row = (long long)blockIdx.x * n;
+  const int row_parts = kTiled ? row_tiles(n) : 1;
+  const long long v = blockIdx.x / row_parts;
+  const int col = kTiled ? (int)(blockIdx.x % row_parts) * kTile : 0;
+  const int len = kTiled ? min(kTile, n - col) : n;
+  const long long row = v * n + col;   // the CTA's first entry
   const unsigned nb = (unsigned)num_blocks;
-  const int tiles = (n + kRowThreads - 1) / kRowThreads;
+  const int tiles = (len + kRowThreads - 1) / kRowThreads;
   unsigned s[kUnroll];
   int d[kUnroll];
   bool sv[kUnroll];
   for (int t0 = 0; t0 < tiles; t0 += kUnroll) {
-    load_tiles(dist, served, seg, row, n, nb, t0, s, d, sv);
+    load_tiles(dist, served, seg, row, len, nb, t0, s, d, sv);
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
       if (t0 + u < tiles) scan.count(t0 + u, s[u] < nb);
   }
   const int m = scan.bases(tiles);
+  if (kTiled && threadIdx.x == 0) count[blockIdx.x] = m;
   if (m == 0) return;
-  const float c = cs[blockIdx.x];
+  const float c = cs[v];
   for (int t0 = 0; t0 < tiles; t0 += kUnroll) {
     // a row of up to kUnroll tiles is still in registers
     if (tiles > kUnroll)
-      load_tiles(dist, served, seg, row, n, nb, t0, s, d, sv);
+      load_tiles(dist, served, seg, row, len, nb, t0, s, d, sv);
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       if (t0 + u >= tiles) break;
@@ -92,6 +112,11 @@ __global__ void __launch_bounds__(kRowThreads)
     }
   }
   row_sort(pairs, m);
+  if (kTiled) {
+    for (int i = threadIdx.x; i < m; i += kRowThreads)
+      sorted[row + i] = pairs[i];
+    return;
+  }
   for (int i = threadIdx.x; i < m; i += kRowThreads) {
     const unsigned s = sorted_key(pairs, i);
     if (i > 0 && sorted_key(pairs, i - 1) == s) continue;
@@ -99,7 +124,24 @@ __global__ void __launch_bounds__(kRowThreads)
   }
 }
 
-bool configured = false;
+// The tiled route's run pass: the merged row's kept pairs (base[tiles] of
+// them), each segment's score added by the thread of its first pair.
+__global__ void __launch_bounds__(kRowThreads)
+    popularity_runs_kernel(const unsigned long long* __restrict__ sorted,
+                           const int* __restrict__ base,
+                           float* __restrict__ out, int n, int tiles) {
+  const int chunks = row_chunks(n);
+  const long long r = blockIdx.x / chunks;
+  const int i = (int)(blockIdx.x % chunks) * kRowThreads + threadIdx.x;
+  const int m = base[r * (tiles + 1) + tiles];
+  if (i >= m) return;
+  const unsigned long long* pr = sorted + r * n;
+  const unsigned s = sorted_key(pr, i);
+  if (i > 0 && sorted_key(pr, i - 1) == s) return;
+  out[s] = run_sum<false>(pr, i, run_end(pr, i, m, s));
+}
+
+bool configured = false, configured_tiled = false;
 
 }  // namespace
 
@@ -109,10 +151,42 @@ extern "C" int etica_popularity(const int* dist, const unsigned char* served,
                                 void* stream) {
   if (num_blocks <= 0 || num_rows <= 0 || n <= 0) return 0;
   if (n > kMaxRow) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = row_kernel_setup(popularity_kernel, configured);
+  const cudaError_t err = row_kernel_setup(popularity_kernel<false>,
+                                           configured);
   if (err != cudaSuccess) return (int)err;
-  popularity_kernel<<<num_rows, kRowThreads, row_smem_bytes(n),
-                      (cudaStream_t)stream>>>(dist, served, seg, cs, out,
-                                              num_blocks, n);
+  popularity_kernel<false><<<num_rows, kRowThreads, row_smem_bytes(n),
+                             (cudaStream_t)stream>>>(
+      dist, served, seg, cs, out, nullptr, nullptr, num_blocks, n);
+  return (int)cudaGetLastError();
+}
+
+// The tiled route (row_merge.cuh), rows of any width. Scratch: sorted_a and
+// sorted_b [num_rows, n] pairs, count [num_rows, row_tiles(n)], base
+// [num_rows, row_tiles(n) + 1]; out zeroed by the caller.
+extern "C" int etica_popularity_tiled(
+    const int* dist, const unsigned char* served, const int* seg,
+    const float* cs, float* out, unsigned long long* sorted_a,
+    unsigned long long* sorted_b, int* count, int* base, int num_blocks,
+    int num_rows, int n, void* stream) {
+  if (num_blocks <= 0 || num_rows <= 0 || n <= 0) return 0;
+  cudaError_t err = row_kernel_setup(popularity_kernel<true>,
+                                     configured_tiled);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int tiles = row_tiles(n);
+  const size_t smem = row_smem_bytes(n < kTile ? n : kTile);
+  popularity_kernel<true><<<(unsigned)((long long)num_rows * tiles),
+                            kRowThreads, smem, st>>>(
+      dist, served, seg, cs, out, sorted_a, count, num_blocks, n);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = launch_tile_bases(count, base, num_rows, tiles, st)) !=
+      cudaSuccess)
+    return (int)err;
+  const unsigned long long* sorted =
+      merge_rows(sorted_a, sorted_b, base, num_rows, n, tiles, st, err);
+  if (err != cudaSuccess) return (int)err;
+  popularity_runs_kernel<<<(unsigned)((long long)num_rows * row_chunks(n)),
+                           kRowThreads, 0, st>>>(sorted, base, out, n,
+                                                 tiles);
   return (int)cudaGetLastError();
 }

@@ -22,9 +22,11 @@
 // barrier at each of its log2(p) (log2(p) + 1) / 2 steps, and merge-path
 // merges serialise their loads; both sorted a 1,024-entry row more slowly.
 //
-// Limit: rows of up to kMaxRow entries: 8 bytes of dynamic shared memory
+// One CTA sorts up to kMaxRow entries: 8 bytes of dynamic shared memory
 // a pair (row_smem_bytes) and kMaxPerThread pairs in each thread's
-// registers during a round. A wider row is refused by the launcher.
+// registers during a round. A wider row takes the tiled route
+// (row_merge.cuh): tiles of kMaxRow sorted here, then merged in global
+// memory.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -37,9 +37,12 @@ launch counter (:func:`launch_counts`), and nothing else does.
     of 16 up to 128) and ``cuda_cores`` (``flash_attention.cu``, float32
     and the other head dims)
 
-``popularity`` and ``run_sums`` group each row in shared memory, one
-CTA a row (``row_sort.cuh``), so a row holds at most :data:`ROW_MAX`
-entries; :func:`check_row` refuses a wider one. ``two_level`` and
+``popularity`` and ``run_sums`` have two routes each, chosen on the
+host from the padded row width (:func:`row_route`): ``row`` groups each
+row in one CTA's shared memory (``row_sort.cuh``), for rows of up to
+:data:`ROW_MAX` entries; ``tiled`` (``row_merge.cuh``) sorts tiles of
+``ROW_MAX`` entries and merges them in global memory, for rows of any
+width. ``two_level`` and
 ``single_level`` walk each VM's requests set by set, one CTA a VM or
 several while the VMs leave SMs idle (``set_walk.cuh``), and take rows
 of any length in tiles.
@@ -73,14 +76,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 VERBOSE_SOURCES = ("flash_attention_sm90.cu", "datapath.cu",
                    "single_level.cu", "decode_attention.cu",
                    "promote_scatter.cu", "count_between.cu",
-                   "evict_scatter.cu")
+                   "evict_scatter.cu", "clean_scatter.cu", "run_sums.cu",
+                   "popularity.cu")
 
 KERNELS = ("count_between", "evict_scatter", "promote_scatter",
            "clean_scatter", "two_level", "single_level", "run_sums",
            "paged_decode_attention", "popularity", "flash_attention")
 # kernels with more than one CUDA entry point: route -> C symbol
 ROUTES = {"flash_attention": {"wgmma": "etica_flash_attention_sm90",
-                              "cuda_cores": "etica_flash_attention"}}
+                              "cuda_cores": "etica_flash_attention"},
+          "popularity": {"row": "etica_popularity",
+                         "tiled": "etica_popularity_tiled"},
+          "run_sums": {"row": "etica_run_sums",
+                       "tiled": "etica_run_sums_tiled"}}
 _launches = dict.fromkeys(KERNELS, 0)
 _route_launches = {k: dict.fromkeys(r, 0) for k, r in ROUTES.items()}
 _lib = None
@@ -91,13 +99,15 @@ _SIGNATURES = {
     "etica_count_between": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "etica_evict_scatter": (*(_P,) * 8, *(_I,) * 5, _P),
     "etica_promote_scatter": (*(_P,) * 10, *(_I,) * 7, _P),
-    "etica_clean_scatter": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "etica_clean_scatter": (*(_P,) * 11, *(_I,) * 5, _P),
     "etica_two_level": (*(_P,) * 23, *(_I,) * 8, _F, _F, _F, _F, _P),
     "etica_single_level": (*(_P,) * 20, *(_I,) * 5, _F, _F, _F, _P),
     "etica_run_sums": (_P, _P, _P, _P, _P, _I, _I, _P),
+    "etica_run_sums_tiled": (*(_P,) * 10, _I, _I, _P),
     "etica_paged_decode_attention": (*(_P,) * 6, *(_I,) * 7, _F,
                                      *(_I,) * 8, _P),
     "etica_popularity": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "etica_popularity_tiled": (*(_P,) * 9, _I, _I, _I, _P),
     "etica_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               *(_L,) * 12, _I, _I, _I, _F, _I, _P),
     "etica_flash_attention_sm90": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -106,10 +116,12 @@ _SIGNATURES = {
     "etica_chain_probe": (_P, _I, _P, _P),
     "etica_fadd_probe": (_F, _I, _P, _P),
 }
-# the widest row that popularity and run_sums take: one CTA of 512 threads
-# sorts it in shared memory, 8 bytes an entry, and in registers, 32 entries
-# a thread (csrc/row_sort.cuh, kMaxRow)
+# the widest row that popularity's and run_sums' "row" route takes: one CTA
+# of 512 threads sorts it in shared memory, 8 bytes an entry, and in
+# registers, 32 entries a thread (csrc/row_sort.cuh, kMaxRow); also the
+# "tiled" route's tile (csrc/row_merge.cuh, kTile)
 ROW_MAX = 16384
+ROW_THREADS = 512    # csrc/row_scan.cuh kRowThreads: a chunk of positions
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -235,19 +247,31 @@ def launch(kernel: str, *args, route: str | None = None) -> None:
         _route_launches[kernel][route] += 1
 
 
-def check_row(kernel: str, n: int) -> None:
-    """Refuse a row wider than :data:`ROW_MAX` for a kernel that sorts
-    one row in one CTA's shared memory. The check reads the padded width
-    ``n`` from the shape (the valid lengths live on the device). The
-    controller's windows are ``reuse._bucket(longest VM row)`` wide, a
-    power of two like ``ROW_MAX``, so there a window is refused exactly
-    when one VM issues more than ``ROW_MAX`` requests in it; a serving
-    window is as wide as the whole window (at most ``resize_interval``
-    accesses) whatever each tenant's share."""
-    if n > ROW_MAX:
-        raise ValueError(
-            f"{kernel}: a row of {n} entries exceeds the {ROW_MAX} that one "
-            f"CTA sorts in shared memory (csrc/row_sort.cuh kMaxRow)")
+def row_route(n: int) -> str:
+    """The route of ``popularity`` and ``run_sums`` for rows padded to
+    ``n`` entries, chosen from the shape (the valid lengths live on the
+    device): ``row`` (one CTA sorts a row in shared memory) up to
+    :data:`ROW_MAX`, ``tiled`` (tiles of ``ROW_MAX`` merged in global
+    memory) above it. The controller's windows are ``reuse._bucket(longest
+    VM row)`` wide, a power of two like ``ROW_MAX``, so a window takes the
+    tiled route exactly when one VM issues more than ``ROW_MAX`` requests
+    in it; a serving window is as wide as the whole window (at most
+    ``resize_interval`` accesses) whatever each tenant's share."""
+    return "row" if n <= ROW_MAX else "tiled"
+
+
+def row_scratch(v: int, n: int, device: torch.device) -> list:
+    """The tiled route's scratch for ``[v, n]`` rows: two pair buffers
+    (int64 ``[v, n]``), the tile counts (int32 ``[v, tiles]``), their
+    bases (``[v, tiles + 1]``) and the run heads of each 512-position
+    chunk (``[v, chunks]``; ``csrc/row_merge.cuh``)."""
+    tiles = -(-n // ROW_MAX)
+    chunks = -(-n // ROW_THREADS)
+    return [torch.empty((v, n), dtype=torch.int64, device=device),
+            torch.empty((v, n), dtype=torch.int64, device=device),
+            torch.empty((v, tiles), dtype=torch.int32, device=device),
+            torch.empty((v, tiles + 1), dtype=torch.int32, device=device),
+            torch.empty((v, chunks), dtype=torch.int32, device=device)]
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,

@@ -5,9 +5,9 @@ kernels (``csrc/evict_scatter.cu``, ``csrc/promote_scatter.cu``,
 ``csrc/clean_scatter.cu``) on CUDA tensors and the plain versions beside
 them on CPU tensors. States are stacked ``[V, S, W]`` (``tags``/``lru``
 int32, ``dirty`` bool); queues are ``[V, Q]`` int32 with ``-1`` padding.
-All are functional: ``evict_scatter``'s and ``promote_scatter``'s
-kernels write fresh outputs themselves, ``clean_scatter``'s updates
-copies.
+All are functional: each kernel writes fresh outputs itself.
+``clean_select`` is the cleaner as one launch: the kernel behind
+``clean_scatter`` finds each VM's cutoff from its quota as well.
 
 :func:`maintenance_interval` is one interval of ETICA maintenance for
 all VMs (the JAX ``maintenance_interval``): Eq. 1 contributions ->
@@ -212,28 +212,56 @@ def promote_scatter_plain(tags, lru, dirty, queue, ways, t,
 INT32_MIN = -2**31
 
 
+def clean_plan(v: int, sw: int, sms: int) -> tuple[int, int]:
+    """``(parts, threads)`` of a ``clean_scatter`` launch, from shapes
+    alone: the split of :func:`evict_plan` (one cluster of up to 8 CTAs a
+    VM while the VMs leave SMs idle, CTAs of 128 threads once they fill
+    the card); ``csrc/clean_scatter.cu`` has the same limits."""
+    return evict_plan(v, sw, sms)
+
+
+def _check_clean(dirty, lru, vectors):
+    dev = dirty.device
+    v, s, w = dirty.shape
+    kernels.check(dirty, "dirty", torch.bool, (v, s, w), dev)
+    kernels.check(lru, "lru", torch.int32, (v, s, w), dev)
+    for name, x in vectors.items():
+        kernels.check(x, name, torch.int32, (v,), dev)
+
+
+def _launch_clean(dirty, lru, ways, quota, outs):
+    """One ``clean_scatter`` launch: ``outs`` are the five ``[V]`` cutoff
+    and count tensors (inputs ``lru_cut``, ``idx_cut`` and three
+    ``None`` when ``quota`` is ``None``); returns ``(dirty, flushed)``."""
+    v, s, w = dirty.shape
+    out = torch.empty_like(dirty)
+    flushed = torch.empty(v, dtype=torch.int32, device=dirty.device)
+    sms = torch.cuda.get_device_properties(
+        dirty.device).multi_processor_count
+    ptrs = [None if x is None else x.data_ptr()
+            for x in (dirty, lru, ways, quota, *outs, out, flushed)]
+    kernels.launch("clean_scatter", *ptrs, v, s, w,
+                   *clean_plan(v, s * w, sms))
+    return out, flushed
+
+
 def clean_scatter(dirty, lru, ways, lru_cut, idx_cut):
     """Clear the dirty bit of every dirty active slot whose age key
     ``(lru, set * W + way)`` is at or below the VM's cutoff ``(lru_cut,
     idx_cut)`` (``(INT32_MIN, -1)`` flushes nothing). ``dirty`` bool and
     ``lru`` int32 are ``[V, S, W]``; the rest ``[V]`` int32. Returns
-    ``(dirty, flushed[V])``."""
+    ``(dirty, flushed[V])``, new tensors: on the card one launch with the
+    cutoffs given (the kernel's selection skipped)."""
     if dirty.device.type == "cpu":
         return clean_scatter_plain(dirty, lru, ways, lru_cut, idx_cut)
-    dev = dirty.device
+    _check_clean(dirty, lru, dict(ways=ways, lru_cut=lru_cut,
+                                  idx_cut=idx_cut))
     v, s, w = dirty.shape
-    kernels.check(dirty, "dirty", torch.bool, (v, s, w), dev)
-    kernels.check(lru, "lru", torch.int32, (v, s, w), dev)
-    for name, x in (("ways", ways), ("lru_cut", lru_cut),
-                    ("idx_cut", idx_cut)):
-        kernels.check(x, name, torch.int32, (v,), dev)
-    dirty = dirty.clone()
-    flushed = torch.zeros(v, dtype=torch.int32, device=dev)
-    if v and s * w:
-        ptrs = [x.data_ptr() for x in (dirty, lru, ways, lru_cut, idx_cut,
-                                       flushed)]
-        kernels.launch("clean_scatter", *ptrs, v, s, w)
-    return dirty, flushed
+    if not (v and s * w):
+        return (torch.empty_like(dirty),
+                torch.zeros(v, dtype=torch.int32, device=dirty.device))
+    return _launch_clean(dirty, lru, ways, None,
+                         (lru_cut, idx_cut, None, None, None))
 
 
 def clean_scatter_plain(dirty, lru, ways, lru_cut, idx_cut):
@@ -260,6 +288,11 @@ def _clean_cutoffs(dirty, lru, ways, quota):
     and then by not-candidate, put the candidates first in key order
     (the reference's int32-safe lexsort)."""
     v, s, w = dirty.shape
+    if s * w == 0:                       # no slot: no candidate
+        n_cand = torch.zeros(v, dtype=torch.int32, device=dirty.device)
+        return (torch.full_like(n_cand, INT32_MIN),
+                torch.full_like(n_cand, -1), torch.minimum(quota, n_cand),
+                n_cand)
     widx = torch.arange(w, dtype=torch.int32, device=dirty.device)
     active = widx[None, None, :] < ways[:, None, None]
     cflat = (dirty & active).reshape(v, s * w)
@@ -278,16 +311,38 @@ def _clean_cutoffs(dirty, lru, ways, quota):
             torch.where(has, idx_k.to(torch.int32), -1), take, n_cand)
 
 
+def clean_select(dirty, lru, ways, quota):
+    """The cleaner's flush with its cutoffs found from ``quota`` ``[V]``
+    int32: ``(dirty, flushed, lru_cut, idx_cut, take, n_cand,
+    dirty_left)``, every count and cutoff ``[V]`` int32 (those of
+    :func:`_clean_cutoffs`, ``dirty_left = n_cand - take``). On the card
+    one launch, one device event (``csrc/clean_scatter.cu``: a radix
+    select in each VM's cluster, then the flush); on the CPU
+    :func:`_clean_cutoffs` and :func:`clean_scatter_plain`."""
+    if dirty.device.type == "cpu":
+        lcut, icut, take, n_cand = _clean_cutoffs(dirty, lru, ways, quota)
+        out, flushed = clean_scatter_plain(dirty, lru, ways, lcut, icut)
+        return out, flushed, lcut, icut, take, n_cand, n_cand - take
+    _check_clean(dirty, lru, dict(ways=ways, quota=quota))
+    v, s, w = dirty.shape
+    if not (v and s * w):
+        lcut, icut, take, n_cand = _clean_cutoffs(dirty, lru, ways, quota)
+        return (torch.empty_like(dirty), torch.zeros_like(n_cand), lcut,
+                icut, take, n_cand, n_cand - take)
+    outs = [torch.empty(v, dtype=torch.int32, device=dirty.device)
+            for _ in range(5)]
+    out, flushed = _launch_clean(dirty, lru, ways, quota, outs)
+    return (out, flushed, *outs)
+
+
 def clean(state: CacheState, ways, quota):
     """Flush up to ``quota[v]`` of VM v's oldest dirty active blocks
     (they stay resident and clean). ``ways``/``quota`` are ``[V]`` int32
     tensors on the state's device. Returns ``(state, flushed[V],
-    dirty_left[V])``."""
-    lcut, icut, take, n_cand = _clean_cutoffs(state.dirty, state.lru, ways,
-                                              quota)
-    dirty, flushed = clean_scatter(state.dirty, state.lru, ways, lcut, icut)
-    return (CacheState(state.tags, state.lru, dirty), flushed,
-            n_cand - take)
+    dirty_left[V])``; on the card one launch (:func:`clean_select`)."""
+    dirty, flushed, *_, left = clean_select(state.dirty, state.lru, ways,
+                                            quota)
+    return CacheState(state.tags, state.lru, dirty), flushed, left
 
 
 def evict(state: CacheState, queue):

@@ -37,10 +37,12 @@ def popularity_rows(dist, served, seg, num_blocks: int, cs):
     """Scores of the segments of ``[V, N]`` rows: ``dist`` int32, ``served``
     bool, ``seg`` int32 segment ids (``num_blocks`` or more: no segment;
     a segment lies in one row), ``cs`` float32 ``[V]`` the rows' cache
-    sizes. Returns float32 ``[num_blocks]``. On the card one CTA a row
-    groups the row's accesses by segment in shared memory and sums them
-    there (``csrc/row_sort.cuh``), so a row holds at most
-    :data:`repro_torch.kernels.ROW_MAX` accesses."""
+    sizes. Returns float32 ``[num_blocks]``. On the card, rows of up to
+    :data:`repro_torch.kernels.ROW_MAX` accesses take the ``row`` route
+    (one CTA a row groups its accesses by segment in shared memory and
+    sums them there, ``csrc/row_sort.cuh``), wider ones the ``tiled``
+    route (tiles sorted, then merged in global memory,
+    ``csrc/row_merge.cuh``); :func:`repro_torch.kernels.row_route`."""
     if dist.device.type == "cpu":
         return popularity_rows_plain(dist, served, seg, num_blocks, cs)
     dev = dist.device
@@ -49,11 +51,13 @@ def popularity_rows(dist, served, seg, num_blocks: int, cs):
     kernels.check(served, "served", torch.bool, (v, n), dev)
     kernels.check(seg, "seg", torch.int32, (v, n), dev)
     kernels.check(cs, "cs", torch.float32, (v,), dev)
-    kernels.check_row("popularity", n)
     out = torch.zeros(num_blocks, dtype=torch.float32, device=dev)
     if num_blocks and v and n:
-        ptrs = [x.data_ptr() for x in (dist, served, seg, cs, out)]
-        kernels.launch("popularity", *ptrs, num_blocks, v, n)
+        route = kernels.row_route(n)
+        scratch = kernels.row_scratch(v, n, dev)[:4] if route == "tiled" \
+            else []
+        ptrs = [x.data_ptr() for x in (dist, served, seg, cs, out, *scratch)]
+        kernels.launch("popularity", *ptrs, num_blocks, v, n, route=route)
     return out
 
 

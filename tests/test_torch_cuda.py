@@ -276,6 +276,63 @@ def test_clean_scatter_kernel(dev):
     assert int(got[1].sum()) > 0
 
 
+CLEAN_CASES = {  # v, s, w, dirty share, lru range, quota range
+    "fused shape": (12, 64, 64, 0.5, 30_000, (0, 50)),
+    "1024 VMs": (1024, 16, 32, 0.5, 2000, (0, 8)),
+    "lru ties": (6, 24, 16, 0.8, 3, (1, 200)),
+    "every slot dirty": (4, 32, 32, 1.0, 500, (0, 1500)),
+    "extreme lru": (5, 16, 8, 0.6, None, (0, 60)),
+    "one slot a VM": (7, 1, 1, 0.5, 10, (0, 2)),
+}
+
+
+@pytest.mark.parametrize("case", list(CLEAN_CASES))
+def test_clean_select_kernel(dev, case):
+    """The cleaner in one launch (its cutoffs found in the kernel) ==
+    ``_clean_cutoffs`` + ``clean_scatter_plain`` on the CPU, all seven
+    outputs: the sentinel where take is 0, ways 0 and all ways, quotas
+    past the candidates; and the flush == the cutoff-form call at the
+    cutoffs it found."""
+    from repro_torch.core.simulator import CacheState
+    from repro_torch.kernels.maintenance import ops
+    v, s, w, share, lru_hi, (qlo, qhi) = CLEAN_CASES[case]
+    rng = np.random.default_rng(v * s + w)
+    dirty = rng.random((v, s, w)) < share
+    if lru_hi is None:
+        lru = rng.choice(np.array([-2**31, 2**31 - 1, -1, 0, 7], np.int32),
+                         (v, s, w))
+    else:
+        lru = rng.integers(0, lru_hi, (v, s, w)).astype(np.int32)
+    ways = rng.integers(0, w + 1, v).astype(np.int32)
+    ways[0], ways[-1] = 0, w
+    quota = rng.integers(qlo, qhi, v).astype(np.int32)
+    quota[1 % v] = 0
+    args = [torch.from_numpy(x).to(dev) for x in (dirty, lru, ways, quota)]
+    got = ops.clean_select(*args)
+    want = ops.clean_select(*[x.cpu() for x in args])
+    _same([x.cpu() for x in got], want)
+    assert int(got[2][1 % v]) == ops.INT32_MIN and int(got[3][1 % v]) == -1
+    _same(ops.clean_scatter(*args[:3], got[2], got[3]), got[:2])
+    state = CacheState(torch.zeros_like(args[1]), args[1], args[0])
+    st, flushed, left = ops.clean(state, args[2], args[3])
+    _same([st.dirty, flushed, left], [got[0], got[1], got[6]])
+
+
+def test_clean_select_kernel_empty(dev):
+    """V 0 and S*W 0: no launch, the sentinel cutoffs and zero counts."""
+    from repro_torch.kernels.maintenance import ops
+    for v, s, w in ((0, 4, 4), (3, 0, 4), (3, 4, 0)):
+        args = [torch.zeros((v, s, w), dtype=torch.bool, device=dev),
+                torch.zeros((v, s, w), dtype=torch.int32, device=dev),
+                torch.full((v,), w, dtype=torch.int32, device=dev),
+                torch.full((v,), 3, dtype=torch.int32, device=dev)]
+        got = ops.clean_select(*args)
+        want = ops.clean_select(*[x.cpu() for x in args])
+        _same([x.cpu() for x in got], want)
+        d, fl = ops.clean_scatter(*args[:3], got[2], got[3])
+        assert d.shape == (v, s, w) and fl.tolist() == [0] * v
+
+
 def test_single_level_kernel(dev):
     from repro_torch.core.policies import Policy
     from repro_torch.core.simulator import make_cache_batch, policy_flags
@@ -563,18 +620,45 @@ def test_popularity_kernel_wide_rows(dev, v, n):
     _same([got.cpu()], [want])
 
 
-def test_row_kernels_refuse_wider_rows(dev):
-    """A row wider than one CTA's shared memory takes raises, with the
-    limit in the message; there is no fallback to a global sort."""
+@pytest.mark.parametrize("n", [16_385, 40_000])
+def test_row_kernels_wide_rows_equal_plain(dev, n):
+    """Rows past ``ROW_MAX`` take the tiled route (tiles sorted in shared
+    memory, merged in global memory) and equal the plain versions bit for
+    bit: heavy ties, one key for a whole row, an empty row, runs across
+    every tile edge, random valid lengths."""
     from repro_torch import kernels
     from repro_torch.core import popularity as pop
     from repro_torch.kernels.popularity import ops
-    n = kernels.ROW_MAX + 1
-    z = torch.zeros((2, n), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match=str(kernels.ROW_MAX)):
-        pop.window_runs(z, z.float(), z[:, 0])
-    with pytest.raises(ValueError, match=str(kernels.ROW_MAX)):
-        ops.popularity_rows(z, z > 0, z, 4, z[:, 0].float())
+    rng = np.random.default_rng(n)
+    v = 5
+    wa = rng.integers(0, 48, (v, n)).astype(np.int32)      # heavy ties
+    wa[1] = 7                                  # one key for a whole row
+    edges = np.arange(kernels.ROW_MAX, n, kernels.ROW_MAX)
+    for e in edges:                            # runs across the tile edges
+        wa[3, e - 40:e + 40] = 1000 + e
+    wa[4, ::5] = pop.TABLE_EMPTY
+    nv = np.array([n, n, 0, n, rng.integers(kernels.ROW_MAX, n)], np.int32)
+    wc = rng.random((v, n)).astype(np.float32)
+    wc[0, ::9] = 1e-39                         # subnormal: adds as zero
+    args = [torch.from_numpy(x).to(dev) for x in (wa, wc, nv)]
+    kernels.reset_launch_counts()
+    got = pop.window_runs(*args)
+    assert kernels.route_counts("run_sums") == {"row": 0, "tiled": 1}
+    _same([x.cpu() for x in got],
+          pop.window_runs_plain(*[x.cpu() for x in args]))
+    per = 48 + 1000 + n
+    seg = (wa.astype(np.int64) % per + per * np.arange(v)[:, None]).astype(
+        np.int32)
+    seg[2] = v * per                           # an empty row
+    dist = rng.integers(-1, 400, (v, n)).astype(np.int32)
+    served = rng.random((v, n)) < 0.7
+    cs = rng.integers(1, 4096, v).astype(np.float32)
+    pargs = [torch.from_numpy(x) for x in (dist, served, seg)]
+    want = ops.popularity_rows_plain(*pargs, v * per, torch.from_numpy(cs))
+    got = ops.popularity_rows(*[x.to(dev) for x in pargs], v * per,
+                              torch.from_numpy(cs).to(dev))
+    assert kernels.route_counts("popularity") == {"row": 0, "tiled": 1}
+    _same([got.cpu()], [want])
 
 
 PROMOTE_CASES = {  # v, s, w, fill, q

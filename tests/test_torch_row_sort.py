@@ -314,17 +314,32 @@ def test_popularity_emulation_equals_plain(v, n, num_blocks):
     assert np.array_equal(_bits(got), _bits(want.numpy()))
 
 
-def test_row_limit_is_the_header_limit_and_refuses_wider_rows():
-    """``kernels.ROW_MAX`` is ``kMaxRow`` of the header, its shared memory
-    (8 bytes a pair and the scan's counts) fits a CTA's 227 KB, and a
-    wider row raises with the limit named."""
+def test_row_limit_is_the_header_limit_and_picks_the_route():
+    """``kernels.ROW_MAX`` is ``kMaxRow`` of the header and the tiled
+    route's tile (``kTile`` of ``row_merge.cuh``), its shared memory (8
+    bytes a pair and the scan's counts) fits a CTA's 227 KB, and the route
+    changes there: ``row`` up to ``ROW_MAX`` entries, ``tiled`` from
+    ``ROW_MAX + 1`` on, with the tiled route's scratch sized from the
+    shape."""
     text = HEADER.read_text()
     assert int(re.search(r"kMaxRow = (\d+);", text).group(1)) \
         == kernels.ROW_MAX
+    assert "constexpr int kTile = kMaxRow;" in \
+        HEADER.with_name("row_merge.cuh").read_text()
     assert int(re.search(r"kRowThreads = (\d+);",
-                         SCAN_HEADER.read_text()).group(1)) == THREADS
+                         SCAN_HEADER.read_text()).group(1)) == THREADS \
+        == kernels.ROW_THREADS
     assert int(re.search(r"kChunk = (\d+);", text).group(1)) == CHUNK
     assert kernels.ROW_MAX * 8 + 4 * (kernels.ROW_MAX // 32 + 1) <= 232_448
-    kernels.check_row("run_sums", kernels.ROW_MAX)
-    with pytest.raises(ValueError, match=str(kernels.ROW_MAX)):
-        kernels.check_row("popularity", kernels.ROW_MAX + 1)
+    assert kernels.row_route(1) == "row"
+    assert kernels.row_route(kernels.ROW_MAX) == "row"
+    assert kernels.row_route(kernels.ROW_MAX + 1) == "tiled"
+    assert kernels.row_route(40_000) == "tiled"
+    a, b, count, base, heads = kernels.row_scratch(3, 40_000,
+                                                   torch.device("cpu"))
+    assert a.shape == b.shape == (3, 40_000) and a.dtype == torch.int64
+    assert count.shape == (3, 3) and base.shape == (3, 4)
+    assert heads.shape == (3, -(-40_000 // THREADS))
+    for kernel in ("popularity", "run_sums"):
+        assert set(kernels.ROUTES[kernel]) == {"row", "tiled"}
+        assert set(kernels.route_counts(kernel)) == {"row", "tiled"}
