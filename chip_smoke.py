@@ -127,9 +127,25 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    ``run_sums`` on the ``tiled`` route: ``EticaCache.run`` on two of the
    paper's VMs with one 34,000-request window (17,000 requests a VM),
    and two-tier KV serving on 30,000 churn events with a 20,000-access
-   trace ring.
+   trace ring;
+12. runs the paper's figures through ``examples/torch_paper_figures.py``
+   on the card at the benchmarks' own sizes: fig3 (4 workloads x 3
+   policies x 6,000 requests, 16 x 32), fig10/11 (8 workloads x 10
+   intervals of 1,000), fig12/13 (6 VMs x 8,000; ETICA-Full, ETICA-NPE
+   and ECI-Cache; DRAM 400 / SSD 800, ECI-Cache at 1,200, resize 2,000,
+   promotion 500) and fig17 (3 VMs x 6,000, promotion intervals 100 to
+   2,000, from the telemetry journal), each held to the JAX package's
+   CPU values (hard-coded below: integer counts exact, ``latency_sum``
+   the same float32 value, derived floats equal, ``format_report``
+   lines equal) with its launches counted per path; holds the per-state
+   ``resize`` and ``clean_blocks`` to ``resize_ref`` /
+   ``clean_blocks_ref`` at 64 x 64 and 16 x 32; prints fig12/13's
+   derived rows at the §5.1 deployment from phases 3 and 5.
 
-Each card run of phases 3 to 11 sets the launch counts to 0 just before
+The §5.1 deployment (VMs, requests, intervals, the DRAM share of the
+capacity) comes from ``src/repro_torch/configs/etica_paper.py``.
+
+Each card run of phases 3 to 12 sets the launch counts to 0 just before
 and reads them just after; exactly the kernels of that path's own set
 must have launched (``popularity`` only on the staged paths). Phase 2
 holds the kernels against their plain versions at the shapes of both
@@ -147,6 +163,7 @@ it exits 2 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -166,8 +183,8 @@ DECODE_ATOL = 2e-5            # tests/test_kernels.py's paged decode atol
 QWEN3_PREFILL = (4, 32, 8, 4096, 128)   # B, H, Hkv, S, D of phase 10
 QWEN3_DECODE_STEPS = 32
 
-PAPER_VMS = ("hm_1", "proj_0", "stg_1", "usr_0", "ts_0", "wdev_0", "web_3",
-             "usr_0", "mds_0", "src2_0", "rsrch_0", "mds_1")
+PAPER_CACHE_BLOCKS = 24_576   # DRAM + SSD blocks of the 12-VM cells, split
+#                               by the §5.1 config's dram_fraction
 FIG15_WORKLOADS = ["hm_1", "proj_0", "stg_1", "usr_0", "ts_0", "wdev_0",
                    "web_3", "src2_0"] * 2
 FIG15_JAX_CPU_AVG_HIT_1024 = 0.271   # benchmarks/BENCH_sharding.json
@@ -230,6 +247,26 @@ SEQ_KERNELS = ("count_between", "two_level")
 GLOBAL_KERNELS = ("two_level", "promote_scatter")
 SERVING_KERNELS = ("count_between", "run_sums")
 SERVING_DECODE_KERNELS = SERVING_KERNELS + ("paged_decode_attention",)
+
+
+def paper_config():
+    """The §5.1 deployment: ``CONFIG`` of this checkout's
+    ``src/repro_torch/configs/etica_paper.py``, loaded from its file so
+    that the timing scripts read it whichever tree they time."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "etica_paper_config",
+        ROOT / "src" / "repro_torch" / "configs" / "etica_paper.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.CONFIG
+
+
+def paper_caps() -> tuple[int, int]:
+    """(DRAM, SSD) blocks of the 12-VM cells: ``dram_fraction`` of
+    ``PAPER_CACHE_BLOCKS``, and the rest (8,192 and 16,384)."""
+    dram = round(PAPER_CACHE_BLOCKS * paper_config().dram_fraction)
+    return dram, PAPER_CACHE_BLOCKS - dram
 
 
 def log(msg: str) -> None:
@@ -644,8 +681,9 @@ def check_set_walk(dev, rng, paper, blocks12, ways12, step_ns):
     out["seq V=1"] = check_datapath(dev, vm0, g64, w0, "full",
                                     "V=1 -seq", step_ns, time_plain=False)
     win = stream_blocks(paper, 1_000, 2)
-    gw = ([int(capacity_to_ways(8192, 256, 64))],
-          [int(capacity_to_ways(16384, 256, 64))])
+    dram, ssd = paper_caps()
+    gw = ([int(capacity_to_ways(dram, 256, 64))],
+          [int(capacity_to_ways(ssd, 256, 64))])
     for mode, name in (("full", "L2ARC"), ("npe", "FAST")):
         out[f"{name} V=1"] = check_datapath(dev, win, g256, gw, mode,
                                             f"V=1 {name}", step_ns,
@@ -1543,7 +1581,6 @@ def decode_pinned(dev):
 
 def etica(cfg, num_vms):
     """A builder ``(device, telemetry=None) -> EticaCache``."""
-    import dataclasses
     from repro_torch.core.controller import EticaCache
 
     def build(device, telemetry=None):
@@ -1655,7 +1692,6 @@ def endurance(label, etica_res, eci_res, clean_cache):
 def check_fig14(launches, scale_reqs=8000):
     """fig14_endurance.py's mix and three controllers, card == CPU, held
     to the JAX package's CPU values; the exporter round trip."""
-    import dataclasses
     from repro_torch.core.controller import EticaConfig, Geometry
     from repro_torch.runtime import metrics
     trace = trace_mix(FIG14_VMS, scale_reqs, 0.25)
@@ -1726,7 +1762,6 @@ def serving_cfg(**kw):
 def run_serving(kind, cfg, trace, device, decode_every=0, telemetry=None):
     """One replay of ``trace`` through ``run_events`` (bank seed 7, as the
     benchmark); returns ``(manager, wall seconds)``."""
-    import dataclasses
     import torch
     from repro_torch.kvcache import GlobalLRUManager, TwoTierKVManager
     from repro_torch.launch.serve import gaussian_pages, run_events
@@ -1792,7 +1827,6 @@ def check_serving(launches):
     activation: a timed run (launch counts, events/s, decode time, peak
     memory), then a run that holds every decode output against the plain
     version on the card; Stats are (i)'s page counts x 65,536 bytes."""
-    import dataclasses
     from collections import Counter
     import torch
     from repro_torch import kernels
@@ -2009,7 +2043,6 @@ def same_run(label, want, got, ignore=()):
     """Two controllers' results, interval logs and final states, exactly
     (``want``/``got`` are ``(cache, results)``), but for the stats keys
     in ``ignore``."""
-    import dataclasses
     import torch
     (wc, wres), (gc, gres) = want, got
 
@@ -2041,13 +2074,13 @@ def check_oracle_ladder(launches, paper, fused, clean, eci_run):
     card run (phases 3 and 5); ECI-Cache sequential equal to its batched
     run; FAST and L2ARC on the same mix as one stream, equal to the JAX
     package's CPU values. Each run launches exactly its own kernels."""
-    import dataclasses
     from repro_torch.core.baselines import make_fast, make_l2arc
     from repro_torch.core.controller import EticaConfig, Geometry
     rates = {}
+    dram, ssd = paper_caps()
     for quota, (fc, fres, frate) in ((0, fused), (CLEAN_QUOTA, clean)):
         tag = "-clean" if quota else ""
-        cfg = EticaConfig(dram_capacity=8192, ssd_capacity=16384,
+        cfg = EticaConfig(dram_capacity=dram, ssd_capacity=ssd,
                           clean_quota=quota)
         extra = ("clean_scatter",) if quota else ()
         # the staged path launches the evict scatter only for a non-empty
@@ -2075,14 +2108,15 @@ def check_oracle_ladder(launches, paper, fused, clean, eci_run):
             f"{drops} entries per VM, the trackers none")
     for mode in ("staged", "seq"):
         span_breakdown(etica(dataclasses.replace(
-            EticaConfig(dram_capacity=8192, ssd_capacity=16384),
+            EticaConfig(dram_capacity=dram, ssd_capacity=ssd),
             **(dict(fused_maintenance=False) if mode == "staged"
                else dict(batched=False))), 12), paper, f"paper-12vm-{mode}")
 
     ec, eres, erate = eci_run
     launches["paper-12vm-eci-seq"], cache, res, rates["paper-12vm-eci-seq"] \
-        = drive_card(eci(8192 + 16384, 12, geometry=Geometry(64, 64),
-                         resize_interval=10_000, batched=False), paper,
+        = drive_card(eci(dram + ssd, 12, geometry=Geometry(64, 64),
+                         resize_interval=paper_config().resize_interval,
+                         batched=False), paper,
                      "paper-12vm-eci-seq", ECI_KERNELS)
     same_run("paper-12vm-eci-seq", (ec, eres), (cache, res))
     rates["paper-12vm-eci"] = erate
@@ -2095,7 +2129,7 @@ def check_oracle_ladder(launches, paper, fused, clean, eci_run):
         import torch
         label = f"paper-12vm-{name}"
         kernels.reset_launch_counts()
-        cache = factory(8192, 16384, geometry=Geometry(256, 64),
+        cache = factory(dram, ssd, geometry=Geometry(256, 64),
                         device="cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2116,15 +2150,11 @@ def check_oracle_ladder(launches, paper, fused, clean, eci_run):
                                             for k, v in rates.items()))
 
 
-def check_l2arc_promote(paper, dev="cuda", want_events: int | None = 1):
-    """``promote_scatter``'s dedupe branch at L2ARC's own shape: a second
-    L2ARC run (256 x 64, window 1,000) records every ``promote_scatter``
-    call, a [1, 256, 64] state and the window's DRAM evictions padded to a
-    power of two; each call is held to its plain version, and one CUDA
-    graph of all of them gives their device time. The loss is that time
-    less the sum of the calls' bounds. A call must put ``want_events``
-    events on the device (None: any)."""
-    from collections import Counter
+def l2arc_promote_calls(paper, dev="cuda") -> list:
+    """Every ``promote_scatter`` call of an L2ARC run (256 x 64, window
+    1,000) on ``paper``, recorded: a [1, 256, 64] state, the window's
+    DRAM evictions padded to a power of two, ways, t and ``dedupe``
+    (always on)."""
     from repro_torch.core.baselines import make_l2arc
     from repro_torch.core.controller import Geometry
     from repro_torch.kernels.maintenance import ops
@@ -2137,13 +2167,27 @@ def check_l2arc_promote(paper, dev="cuda", want_events: int | None = 1):
 
     ops.promote_scatter = record
     try:
-        make_l2arc(8192, 16384, geometry=Geometry(256, 64),
+        make_l2arc(*paper_caps(), geometry=Geometry(256, 64),
                    device=dev).run(paper)
     finally:
         ops.promote_scatter = orig
     if not calls or not all(c[6] for c in calls):
         raise AssertionError("L2ARC: expected promote_scatter calls, all "
                              "with the dedupe")
+    return calls
+
+
+def check_l2arc_promote(paper, dev="cuda", want_events: int | None = 1):
+    """``promote_scatter``'s dedupe branch at L2ARC's own shape: a second
+    L2ARC run (256 x 64, window 1,000) records every ``promote_scatter``
+    call, a [1, 256, 64] state and the window's DRAM evictions padded to a
+    power of two; each call is held to its plain version, and one CUDA
+    graph of all of them gives their device time. The loss is that time
+    less the sum of the calls' bounds. A call must put ``want_events``
+    events on the device (None: any)."""
+    from collections import Counter
+    from repro_torch.kernels.maintenance import ops
+    calls = l2arc_promote_calls(paper, dev)
     err = max(max_abs_err(ops.promote_scatter(*c[:6]),
                           ops.promote_scatter_plain(*c[:6])) for c in calls)
 
@@ -2185,7 +2229,8 @@ def seq_count_calls(paper, dev="cuda") -> list:
 
     reuse.count_between = record
     try:
-        etica(EticaConfig(dram_capacity=8192, ssd_capacity=16384,
+        dram, ssd = paper_caps()
+        etica(EticaConfig(dram_capacity=dram, ssd_capacity=ssd,
                           batched=False), 12)(dev).run(paper)
     finally:
         reuse.count_between = orig
@@ -2849,7 +2894,7 @@ def check_wide_rows(launches):
     from repro_torch.core.controller import EticaConfig
     from repro_torch.traces.generators import SessionSpec, generate_sessions
     from repro_torch import kernels
-    trace = trace_mix(PAPER_VMS[:2], WIDE_REQS, 1.0)
+    trace = trace_mix(paper_config().vms[:2], WIDE_REQS, 1.0)
     cfg = EticaConfig(dram_capacity=4096, ssd_capacity=8192,
                       resize_interval=len(trace), promo_interval=len(trace))
     launches["paper-2vm-wide"], *_ = drive(
@@ -2878,6 +2923,390 @@ def check_wide_rows(launches):
                                  f"route: {launches[label]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the paper's figures (fig3, fig10/11, fig12/13, fig17)
+# ---------------------------------------------------------------------------
+
+FIG3_KERNELS = ("single_level",)
+FIG10_KERNELS = ("count_between",)
+NPE_KERNELS = ("count_between", "two_level")   # mode npe: no maintenance
+
+# The figures of examples/torch_paper_figures.py on the JAX package, CPU,
+# at the benchmarks' own sizes (fig3 4 workloads x 3 policies x 6,000
+# requests; fig10 8 workloads x 10 intervals of 1,000; fig12 6 VMs x
+# 8,000, three controllers; fig17 3 VMs x 6,000 at 5 intervals), printed
+# by (the same experiments through the JAX package's public API):
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_figures.py
+# FIG3: workload/policy -> the 13 Stats fields in order (latency_sum the
+# float32 value), then the IOPS. FIG10: workload -> per-interval URD,
+# POD(RO), POD(WBWO) demands, then their means. FIG12: controller -> per
+# VM the 13 Stats fields and evict_flushes; the VMs' (mean latency, hit
+# ratio, contended latency); a digest of the allocation histories; the
+# summary (latency improvement, NPE's, under contention, hit gain).
+# FIG17: interval -> summarize_journal's intervals, total_requests,
+# mean_hit_ratio, peak_dirty, overloaded_intervals, then latency_norm,
+# ssd_writes_norm, and format_report's line count and digest. The rows'
+# digests cover every printed "name,derived" line of each figure.
+FIG3_JAX_CPU = {
+    "fio_randrw/WB":
+        (4207, 1793, 0, 3738, 1386, 2262, 469, 196, 2.400388479232788, 0, 0, 0,
+         0, 2499.595399623697),
+    "fio_randrw/RO":
+        (4207, 1793, 0, 2376, 0, 1831, 1831, 1793, 10.075201034545898, 0, 0, 0,
+         0, 595.5216158394429),
+    "fio_randrw/WBWO":
+        (4207, 1793, 0, 3621, 1300, 1793, 586, 32, 2.9842309951782227, 0, 0, 0,
+         0, 2010.5682199851528),
+    "web_server/WB":
+        (5431, 569, 0, 771, 271, 5229, 4660, 326, 23.312091827392578, 0, 0, 0,
+         0, 257.3771605064534),
+    "web_server/RO":
+        (5431, 569, 0, 576, 0, 4855, 4855, 569, 24.563892364501953, 0, 0, 0, 0,
+         244.2609628379087),
+    "web_server/WBWO":
+        (5431, 569, 0, 769, 276, 569, 4662, 0, 23.322032928466797, 0, 0, 0, 0,
+         257.26745255883844),
+    "video_server/WB":
+        (6000, 0, 0, 0, 0, 6000, 6000, 0, 29.997968673706055, 0, 0, 0, 0,
+         200.01354309230763),
+    "video_server/RO":
+        (6000, 0, 0, 0, 0, 6000, 6000, 0, 29.997968673706055, 0, 0, 0, 0,
+         200.01354309230763),
+    "video_server/WBWO":
+        (6000, 0, 0, 0, 0, 0, 6000, 0, 29.997968673706055, 0, 0, 0, 0,
+         200.01354309230763),
+    "varmail/WB":
+        (3006, 2994, 0, 2698, 2551, 3302, 308, 157, 1.5969922542572021, 0, 0,
+         0, 0, 3757.062680802255),
+    "varmail/RO":
+        (3006, 2994, 0, 1233, 0, 1773, 1773, 2994, 10.374372482299805, 0, 0, 0,
+         0, 578.3482336147922),
+    "varmail/WBWO":
+        (3006, 2994, 0, 2625, 2456, 2994, 381, 32, 1.9612618684768677, 0, 0, 0,
+         0, 3059.2549095239638),
+}
+FIG10_JAX_CPU = {
+    "hm_1": (
+        (133, 151, 132, 138, 151, 116, 124, 113, 125, 128),
+        (127, 145, 128, 136, 148, 114, 120, 109, 118, 121),
+        (20, 11, 14, 17, 15, 15, 13, 14, 14, 22),
+        (131.1, 126.6, 15.5),
+    ),
+    "proj_0": (
+        (221, 193, 218, 219, 195, 217, 187, 222, 211, 215),
+        (169, 162, 176, 144, 162, 154, 144, 160, 162, 162),
+        (124, 103, 107, 112, 95, 122, 94, 114, 106, 104),
+        (209.8, 159.5, 108.1),
+    ),
+    "rsrch_0": (
+        (75, 104, 74, 101, 68, 43, 73, 78, 70, 88),
+        (29, 30, 19, 33, 26, 18, 30, 39, 29, 34),
+        (65, 87, 67, 90, 59, 40, 66, 65, 58, 80),
+        (77.4, 28.7, 67.7),
+    ),
+    "web_3": (
+        (717, 593, 565, 689, 726, 528, 657, 695, 620, 749),
+        (706, 583, 556, 681, 491, 521, 643, 686, 612, 734),
+        (14, 20, 16, 15, 18, 14, 20, 16, 15, 19),
+        (653.9, 621.3, 16.7),
+    ),
+    "ts_0": (
+        (34, 43, 53, 45, 36, 45, 56, 43, 32, 32),
+        (19, 33, 43, 38, 26, 39, 48, 35, 29, 26),
+        (30, 37, 41, 34, 35, 39, 43, 35, 29, 29),
+        (41.9, 33.6, 35.2),
+    ),
+    "wdev_0": (
+        (42, 36, 17, 35, 49, 25, 28, 35, 26, 29),
+        (31, 18, 9, 21, 34, 18, 26, 27, 17, 21),
+        (41, 32, 16, 34, 20, 25, 27, 34, 25, 28),
+        (32.2, 22.2, 28.2),
+    ),
+    "usr_0": (
+        (40, 58, 38, 45, 47, 34, 43, 38, 45, 51),
+        (5, 9, 12, 12, 12, 17, 6, 16, 10, 9),
+        (37, 56, 37, 40, 45, 32, 41, 37, 44, 48),
+        (43.9, 10.8, 41.7),
+    ),
+    "src2_0": (
+        (61, 57, 55, 46, 34, 41, 53, 60, 59, 49),
+        (41, 23, 28, 33, 20, 31, 32, 39, 32, 18),
+        (43, 51, 54, 40, 34, 37, 50, 55, 53, 42),
+        (51.5, 29.7, 45.9),
+    ),
+}
+FIG11_JAX_CPU_REDUCTION = 0.4397197390674077
+FIG12_JAX_CPU_STATS = {
+    "etica_full": (
+        (7599.0, 401.0, 6106.0, 631.0, 338.0, 435.0, 959.0, 63.0,
+         4.354249536991119, 0.0, 0.0, 0.0, 0.0, 0.0),
+        (4341.0, 3659.0, 2144.0, 1962.0, 3334.0, 3454.0, 355.0, 325.0,
+         1.3915303340181708, 0.0, 0.0, 0.0, 0.0, 0.0),
+        (1621.0, 6379.0, 280.0, 1223.0, 5791.0, 5869.0, 196.0, 588.0,
+         0.9542781449854374, 0.0, 0.0, 0.0, 0.0, 0.0),
+        (7747.0, 253.0, 1350.0, 443.0, 141.0, 230.0, 6043.0, 112.0,
+         29.832480788230896, 0.0, 0.0, 0.0, 0.0, 0.0),
+        (4012.0, 3988.0, 1818.0, 2007.0, 3687.0, 3777.0, 277.0, 301.0,
+         1.1433483613654971, 0.0, 0.0, 0.0, 0.0, 0.0),
+        (3216.0, 4784.0, 1090.0, 1910.0, 4376.0, 4485.0, 325.0, 409.0,
+         1.3474033093079925, 0.0, 0.0, 0.0, 0.0, 1.0),
+    ),
+    "etica_npe": (
+        (7599.0, 401.0, 6106.0, 551.0, 311.0, 401.0, 942.0, 3.0,
+         4.722582504153252, 0.0, 0.0, 0.0, 0.0, 1.0),
+        (4341.0, 3659.0, 2144.0, 2157.0, 3512.0, 3659.0, 40.0, 24.0,
+         0.25923195597715676, 0.0, 0.0, 0.0, 0.0, 8.0),
+        (1621.0, 6379.0, 280.0, 1326.0, 6181.0, 6379.0, 15.0, 64.0,
+         0.1521901092492044, 0.0, 0.0, 0.0, 0.0, 24.0),
+        (7747.0, 253.0, 1350.0, 390.0, 122.0, 253.0, 6007.0, 17.0,
+         30.042070508003235, 0.0, 0.0, 0.0, 0.0, 5.0),
+        (4012.0, 3988.0, 1818.0, 2171.0, 3877.0, 3988.0, 23.0, 9.0,
+         0.1774989403784275, 0.0, 0.0, 0.0, 0.0, 4.0),
+        (3216.0, 4784.0, 1090.0, 2086.0, 4603.0, 4784.0, 40.0, 38.0,
+         0.2692448680754751, 0.0, 0.0, 0.0, 0.0, 16.0),
+    ),
+    "eci_cache": (
+        (7599.0, 401.0, 0.0, 6600.0, 0.0, 999.0, 999.0, 401.0,
+         5.2614927142858505, 0.0, 0.0, 0.0, 0.0, 0.0),
+        (4341.0, 3659.0, 0.0, 4305.0, 3533.0, 3695.0, 36.0, 13.0,
+         0.259639963041991, 0.0, 0.0, 0.0, 0.0, 8.0),
+        (1621.0, 6379.0, 0.0, 1608.0, 6196.0, 6392.0, 13.0, 43.0,
+         0.14487011032178998, 0.0, 0.0, 0.0, 0.0, 23.0),
+        (7747.0, 253.0, 0.0, 1503.0, 0.0, 6244.0, 6244.0, 253.0,
+         31.361521363258362, 0.0, 0.0, 0.0, 0.0, 0.0),
+        (4012.0, 3988.0, 0.0, 3991.0, 3893.0, 4009.0, 21.0, 2.0,
+         0.1847898717969656, 0.0, 0.0, 0.0, 0.0, 0.0),
+        (3216.0, 4784.0, 0.0, 3183.0, 4628.0, 4817.0, 33.0, 20.0,
+         0.24466986814513803, 0.0, 0.0, 0.0, 0.0, 9.0),
+    ),
+}
+FIG12_JAX_CPU_MEANS = {
+    "etica_full":
+        (0.0008129852182270648, 0.8048125, 0.0008434018848937314),
+    "etica_npe":
+        (0.0007421420601215989, 0.8348958333333334, 0.000774582060121599),
+    "eci_cache":
+        (0.0007803538310593769, 0.8216666666666667, 0.0008239471643927102),
+}
+FIG12_JAX_CPU_ALLOC = {"etica_full": "f9eb4e52d9055cdf",
+                       "etica_npe": "f9eb4e52d9055cdf",
+                       "eci_cache": "fe3ffd93abdf998b"}
+FIG12_JAX_CPU_SUMMARY = (-0.041816142714887095, 0.04896723693392169,
+                         -0.02361161169279624, -0.016854166666666615)
+FIG17_JAX_CPU = {
+    100:
+        (64, 18000.0, 0.9198333333333333, 0.0, 0, 1.0, 1.0, 66,
+         'c8b63818a5093328'),
+    250:
+        (27, 18000.0, 0.9104444444444444, 0.0, 0, 1.0542714841273126,
+         0.9852123185456518, 29, '43e90e7871d30b67'),
+    500:
+        (18, 18000.0, 0.8896111111111111, 0.0, 0, 1.1984150069145494,
+         0.9500746167412835, 20, 'c4c43256e2aeb4f4'),
+    1000:
+        (9, 18000.0, 0.8767777777777778, 0.0, 0, 1.2849556551789894,
+         0.9306742640075973, 11, '9b552bfc0be96bb5'),
+    2000:
+        (9, 18000.0, 0.8767777777777778, 0.0, 0, 1.2849556551789894,
+         0.9306742640075973, 11, '9b552bfc0be96bb5'),
+}
+FIGURE_ROWS_JAX_CPU = {
+    "fig3": "0004c14ec97a2ecc",
+    "fig10": "c6668e4db31e6ae0",
+    "fig12": "02291b1151102da7",
+    "fig17": "9c9a2c604a80f832",
+}
+
+
+def paper_figures():
+    """``examples/torch_paper_figures.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_paper_figures", ROOT / "examples" / "torch_paper_figures.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def digest(lines) -> str:
+    """tests/test_torch_figures.py's report_digest."""
+    import hashlib
+    return hashlib.sha256("\n".join(lines).encode()).hexdigest()[:16]
+
+
+def figure_path_kernels(name: str) -> tuple:
+    """The kernels one figure path must launch, and no other."""
+    if name == "fig3":
+        return FIG3_KERNELS
+    if name == "fig10":
+        return FIG10_KERNELS
+    if name == "fig12-eci_cache":
+        return ECI_KERNELS
+    if name == "fig12-etica_npe":
+        return NPE_KERNELS
+    return ETICA_KERNELS              # fig12-etica_full, fig17-<interval>
+
+
+def counted(launches):
+    """The figure functions' ``around``: the launch counts set to 0 just
+    before a named path and read just after it, which must have launched
+    exactly :func:`figure_path_kernels`."""
+    import torch
+    from repro_torch import kernels
+
+    @contextlib.contextmanager
+    def around(name):
+        kernels.reset_launch_counts()
+        yield
+        torch.cuda.synchronize()
+        launches[name] = serving_launches(name, figure_path_kernels(name),
+                                          only=True)
+    return around
+
+
+def expect_equal(label, got, want):
+    if got != want:
+        raise AssertionError(f"{label} differs from the JAX CPU values:\n"
+                             f"  card {got}\n  JAX  {want}")
+
+
+def check_paper_figures(launches) -> dict:
+    """The four figures on the card at the benchmarks' sizes, each path's
+    launches counted, every output held to the JAX package's CPU values:
+    integer counts exact, ``latency_sum`` the same float32 value, derived
+    floats equal, report lines equal. Logs each path's wall time and
+    requests/s, then the span breakdown of a second, span-timed run of
+    fig12's ETICA-Full and ECI-Cache and fig17's promotion interval
+    100."""
+    from repro_torch.core import Stats
+    figs = paper_figures()
+    around = counted(launches)
+    keys = Stats._fields
+    speed = {}
+
+    f3 = figs.fig3("cuda", around=around)
+    for (w, p), run in f3["runs"].items():
+        expect_equal(f"fig3 {w}/{p}",
+                     tuple(run["stats"][k] for k in keys) + (run["iops"],),
+                     FIG3_JAX_CPU[f"{w}/{p}"])
+    speed["fig3"] = (f3["seconds"], f3["requests"])
+
+    f10 = figs.fig10("cuda", around=around)
+    for w, sizes in f10["sizes"].items():
+        expect_equal(f"fig10 {w}", tuple(map(tuple, sizes))
+                     + (f10["means"][w],), FIG10_JAX_CPU[w])
+    expect_equal("fig11 reduction", f10["reduction"], FIG11_JAX_CPU_REDUCTION)
+    speed["fig10"] = (f10["seconds"], f10["requests"])
+
+    f12 = figs.fig12("cuda", around=around)
+    for name, run in f12["runs"].items():
+        expect_equal(f"fig12 {name} stats", tuple(
+            tuple(s[k] for k in keys + ("evict_flushes",))
+            for s in run["stats"]), FIG12_JAX_CPU_STATS[name])
+        expect_equal(f"fig12 {name} alloc_history",
+                     digest([json.dumps(run["alloc_history"])]),
+                     FIG12_JAX_CPU_ALLOC[name])
+        expect_equal(f"fig12 {name} means", f12["means"][name],
+                     FIG12_JAX_CPU_MEANS[name])
+        speed[f"fig12-{name}"] = (run["seconds"], f12["requests"])
+    expect_equal("fig12 summary", f12["summary"], FIG12_JAX_CPU_SUMMARY)
+
+    f17 = figs.fig17("cuda", around=around)
+    for iv, run in f17["runs"].items():
+        s = run["summary"]
+        expect_equal(f"fig17 interval {iv}", (
+            s["intervals"], s["total_requests"], s["mean_hit_ratio"],
+            s["peak_dirty"], s["overloaded_intervals"], run["latency_norm"],
+            run["ssd_writes_norm"], len(run["report"]),
+            digest(run["report"])), FIG17_JAX_CPU[iv])
+        speed[f"fig17-{iv}"] = (run["seconds"], f17["requests"])
+
+    for key, out in (("fig3", f3), ("fig10", f10), ("fig12", f12),
+                     ("fig17", f17)):
+        expect_equal(f"{key} rows", digest([f"{n},{d}" for n, d in
+                                            out["rows"]]),
+                     FIGURE_ROWS_JAX_CPU[key])
+        for n, d in out["rows"]:
+            log(f"  {n},{d}")
+    for path, (sec, n) in speed.items():
+        counts = {k: v for k, v in launches[path].items()
+                  if k != "routes" and v}
+        log(f"{path}: {n} requests in {sec:.3f} s on the card, "
+            f"{n / sec:.0f} requests/s, launches {counts}")
+    log("phase 12: fig3, fig10/11, fig12/13 and fig17 on the card equal the "
+        "JAX package's CPU values (stats, latency sums, derived floats, "
+        "report lines)")
+    fig12_mix = figs.vm_mix(figs.FIG12_VMS)
+    span_breakdown(etica(figs.etica_config("full"), len(figs.FIG12_VMS)),
+                   fig12_mix, "fig12 ETICA-Full")
+    span_breakdown(eci(figs.DRAM_CAP + figs.SSD_CAP, len(figs.FIG12_VMS),
+                       geometry=figs.GEO, resize_interval=figs.RESIZE),
+                   fig12_mix, "fig12 ECI-Cache")
+    span_breakdown(etica(figs.etica_config("full", promo=100),
+                         len(figs.FIG17_VMS)),
+                   figs.vm_mix(figs.FIG17_VMS, figs.FIG17_REQS),
+                   "fig17 promotion 100")
+
+
+def check_state_ops(dev, rng):
+    """Per-state ``resize`` and ``clean_blocks`` on the card at the 64 x
+    64 and 16 x 32 geometries, equal to ``resize_ref`` and
+    ``clean_blocks_ref`` on seeded random states (random ways and
+    quotas, a quota of 0 and one above the dirty count)."""
+    import torch
+    from repro_torch.core.simulator import (CacheState, clean_blocks,
+                                            clean_blocks_ref, resize,
+                                            resize_ref)
+
+    def same(label, got, want):
+        for a, b in zip(got, want):
+            if not torch.equal(a.cpu(), b.cpu()):
+                raise AssertionError(f"{label}: card != numpy oracle")
+
+    n = 0
+    for s, w in ((64, 64), (16, 32)):
+        for trial in range(6):
+            st = CacheState(*(torch.from_numpy(np.ascontiguousarray(x[0]))
+                              .to(dev) for x in random_state(rng, 1, s, w)))
+            old, new = (int(x) for x in rng.integers(0, w + 1, 2))
+            got, fl = resize(st, old, new)
+            want, wfl = resize_ref(st, old, new)
+            if int(fl) != wfl:
+                raise AssertionError(f"resize [{s},{w}] {old}->{new}: "
+                                     f"flushed {int(fl)} != {wfl}")
+            same(f"resize [{s},{w}] {old}->{new}", got, want)
+            ways = w if trial % 2 else int(rng.integers(0, w + 1))
+            n_dirty = int(st.dirty[:, :ways].sum())
+            for quota in (int(rng.integers(1, n_dirty + 2)), 0, n_dirty + 7):
+                got, fl, left = clean_blocks(st, ways, quota)
+                want, wfl, wleft = clean_blocks_ref(st, ways, quota)
+                if (int(fl), int(left)) != (wfl, wleft):
+                    raise AssertionError(
+                        f"clean_blocks [{s},{w}] ways {ways} quota {quota}: "
+                        f"{(int(fl), int(left))} != {(wfl, wleft)}")
+                same(f"clean_blocks [{s},{w}] ways {ways} quota {quota}",
+                     got, want)
+                n += 1
+    log(f"per-state resize (12 states) and clean_blocks ({n} calls, quotas "
+        f"0 and above the dirty count included) on the card at [64, 64] "
+        f"and [16, 32] equal resize_ref / clean_blocks_ref")
+
+
+def paper_fig12_rows(etica_res, eci_res) -> None:
+    """fig12/13's derived rows at the §5.1 deployment, from phase 3's
+    ETICA-Full run and phase 5's ECI-Cache run (ETICA-NPE is not run
+    there)."""
+    figs = paper_figures()
+    full, eci = figs.vm_means(etica_res), figs.vm_means(eci_res)
+    for name, (lat, hit, clat) in (("etica_full", full), ("eci_cache", eci)):
+        log(f"  fig12/paper-12vm/{name}: mean_latency_ms={lat*1e3:.4f} "
+            f"contended_ms={clat*1e3:.4f} hit_ratio={hit:.4f}")
+    log(f"  fig12/paper-12vm/summary: etica_latency_improvement="
+        f"{1 - full[0] / eci[0]:.4f} (paper: 0.45) "
+        f"with_ssd_write_contention={1 - full[2] / eci[2]:.4f} "
+        f"hit_gain={full[1] - eci[1]:.4f} (paper: +0.30); npe not run")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2903,12 +3332,14 @@ def main() -> int:
     # phase 2: every kernel against its plain version at the shapes of
     # the 12-VM and 1024-VM runs (the JSON rows are the 12-VM ones)
     rng = np.random.default_rng(0)
-    paper = trace_mix(PAPER_VMS, 20_000, 1.0)
+    pcfg = paper_config()
+    paper = trace_mix(pcfg.vms, pcfg.requests_per_vm, 1.0)
     fig128 = trace_mix((FIG15_WORKLOADS * 8)[:128], 150, 0.25)
     fig1024 = trace_mix((FIG15_WORKLOADS * 64)[:1024], 150, 0.25)
     win, chunk = len(fig1024) // 3, len(fig1024) // 12
-    subs12, blocks12 = first_blocks(paper, 12, 10_000, 1_000, 1)
-    _, blocks12b = first_blocks(paper[10_000:], 12, 10_000, 1_000, 1)
+    iv = (pcfg.resize_interval, pcfg.promo_interval)
+    subs12, blocks12 = first_blocks(paper, 12, *iv, 1)
+    _, blocks12b = first_blocks(paper[iv[0]:], 12, *iv, 1)
     subs1024, blocks1024 = first_blocks(fig1024, 1024, win, chunk, 1)
     _, blocks1024b = first_blocks(fig1024[win:], 1024, win, chunk, 1)
     step_ns = chain_step_ns(dev)
@@ -2969,7 +3400,10 @@ def main() -> int:
     # phases 3 and 4: the paper's §5.1 deployment, then fig15
     # consolidation at 128 and 1024 VMs; card == CPU in each
     launches = {}
-    cfg = EticaConfig(dram_capacity=8192, ssd_capacity=16384)
+    dram, ssd = paper_caps()
+    cfg = EticaConfig(dram_capacity=dram, ssd_capacity=ssd,
+                      resize_interval=pcfg.resize_interval,
+                      promo_interval=pcfg.promo_interval)
     launches["paper-12vm"], fused, paper_res, fused_rate = drive(
         etica(cfg, 12), paper, "paper 12-VM", ETICA_KERNELS)
     span_breakdown(etica(cfg, 12), paper, "paper 12-VM", repeats=3)
@@ -2984,15 +3418,14 @@ def main() -> int:
         f"{FIG15_JAX_CPU_AVG_HIT_1024} (benchmarks/BENCH_sharding.json)")
 
     # phase 5: the 12-VM deployment under the endurance comparison
-    ccfg = EticaConfig(dram_capacity=8192, ssd_capacity=16384,
-                       clean_quota=CLEAN_QUOTA)
+    ccfg = dataclasses.replace(cfg, clean_quota=CLEAN_QUOTA)
     launches["paper-12vm-clean"], clean, clean_res, clean_rate = drive(
         etica(ccfg, 12), paper, "paper 12-VM ETICA clean_quota=4",
         CLEAN_KERNELS)
     span_breakdown(etica(ccfg, 12), paper, "paper 12-VM ETICA clean")
     geo64 = Geometry(num_sets=64, max_ways=64)
-    build_eci = eci(8192 + 16384, 12, geometry=geo64,
-                    resize_interval=10_000)
+    build_eci = eci(dram + ssd, 12, geometry=geo64,
+                    resize_interval=pcfg.resize_interval)
     launches["paper-12vm-eci"], eci_cache, eci_res, eci_rate = drive(
         build_eci, paper, "paper 12-VM ECI-Cache", ECI_KERNELS)
     span_breakdown(build_eci, paper, "paper 12-VM ECI-Cache")
@@ -3037,6 +3470,12 @@ def main() -> int:
 
     # phase 11: windows wider than ROW_MAX, through the tiled route
     check_wide_rows(launches)
+
+    # phase 12: the paper's figures on the card, held to the JAX package's
+    # CPU values; the per-state maintenance ops; fig12/13 at §5.1
+    check_state_ops(dev, rng)
+    check_paper_figures(launches)
+    paper_fig12_rows(paper_res, eci_res)
 
     sources = {"count_between": "src/repro_torch/csrc/count_between.cu",
                "evict_scatter": "src/repro_torch/csrc/evict_scatter.cu",

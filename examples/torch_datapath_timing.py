@@ -26,8 +26,9 @@ traces and blocks of ``chip_smoke.py``):
 
 Device time: ``chip_smoke.graph_ms``, 10 calls captured in a CUDA graph
 and replayed between CUDA events; what a wrapper puts on the device
-(state copies, outputs) stays in. Prints one JSON line per shape, with
-the card's name and power limit.
+(state copies, outputs) stays in. At V = 1 also a call's time back to
+back (host included) and the plain version's. Prints one JSON line per
+shape, with the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -66,7 +67,15 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
 
-    paper = cs.trace_mix(cs.PAPER_VMS, 20_000, 1.0)
+    def v1_times(v, call, plain) -> dict:
+        """At V = 1 (the per-VM and one-stream shapes): a call back to
+        back with the host's share, and the plain version's call."""
+        if v != 1:
+            return {}
+        return dict(call_ms=cs.cuda_ms(call, 50),
+                    plain_ms=cs.cuda_ms(plain, 1, warmup=0))
+
+    paper = cs.trace_mix(cs.paper_config().vms, 20_000, 1.0)
     fig = cs.trace_mix((cs.FIG15_WORKLOADS * 64)[:1024], 150, 0.25)
     b12 = [cs.first_blocks(paper[w0:], 12, 10_000, 1_000, 1)[1][0]
            for w0 in (0, 10_000)]
@@ -95,9 +104,14 @@ def main() -> int:
               *make_cache_batch(v, sets, ways_max, dev))
         out = ops.two_level(a0, w0, *st, wd, ws, t0, npe=mode == "npe")
         args = (a1, w1, *out[:6], wd, ws, out[8])
-        ms = cs.graph_ms(lambda: ops.two_level(*args, npe=mode == "npe"), 10)
+        npe = mode == "npe"
+        ms = cs.graph_ms(lambda: ops.two_level(*args, npe=npe), 10)
         print(json.dumps(dict(row, kernel="two_level", mode=mode,
-                              device_ms=ms)), flush=True)
+                              device_ms=ms, **v1_times(
+                                  v, lambda: ops.two_level(*args, npe=npe),
+                                  lambda: ops.two_level_plain(*args,
+                                                              npe=npe)))),
+              flush=True)
         if name == "V=1 stream":
             continue
         flags = policy_flags([list(Policy)[k % 5] for k in range(v)], dev)
@@ -107,7 +121,11 @@ def main() -> int:
         sargs = (a1, w1, *out[:3], wd, *flags, out[5])
         ms = cs.graph_ms(lambda: ops.single_level(*sargs, t_cache=T_SSD), 10)
         print(json.dumps(dict(row, kernel="single_level",
-                              mode="mixed policies", device_ms=ms)),
+                              mode="mixed policies", device_ms=ms,
+                              **v1_times(v, lambda: ops.single_level(
+                                  *sargs, t_cache=T_SSD),
+                                  lambda: ops.single_level_plain(
+                                      *sargs, t_cache=T_SSD)))),
               flush=True)
     return 0
 

@@ -26,11 +26,14 @@ Shapes (the inputs of ``chip_smoke.py``, from generators of their own):
   the same queue with every address twice, dedupe on (the staged path);
 - promote at L2ARC's own calls: every ``promote_scatter`` call of an
   L2ARC run on the paper's 12-VM mix ([1, 256, 64], dedupe on), replayed
-  in one CUDA graph (``chip_smoke.check_l2arc_promote``);
+  in one CUDA graph (``chip_smoke.check_l2arc_promote``), and run back
+  to back through the kernel and through its plain version for the
+  call time of each;
 - ``count_between`` at the POD rows of the paper's 12-VM first window
   ([12, 1024]) and of fig15's 1024-VM first window, and at every call of
   the sequential 12-VM run ([1, 1024], one VM's row at a time), replayed
-  in one CUDA graph (``chip_smoke.replay_count_calls``);
+  in one CUDA graph (``chip_smoke.replay_count_calls``), and run back
+  to back through the kernel and through its plain version;
 - ``evict_scatter`` at the fused path's [12, 64, 64], Q 4096, and at the
   1024-VM [1024, 16, 32], Q 512, each queue the bottom 5% of a VM's
   residents then ``-1`` padding (``chip_smoke.evict_queue``);
@@ -39,7 +42,10 @@ Shapes (the inputs of ``chip_smoke.py``, from generators of their own):
   same two states, lru in [0, 64) (ties), random ways and quotas;
 - ``run_sums`` and ``popularity`` on ``[5, n]`` rows of
   ``chip_smoke.row_cases`` at n 16,385 and 40,000 (a tree whose kernels
-  refuse such rows prints the refusal).
+  refuse such rows prints the refusal), each beside its one-call
+  PyTorch pair on the same inputs: ``torch.sort(stable=True)`` +
+  ``index_add_`` and ``torch.exp`` + ``index_add_`` (call time, and
+  device time from a profiler trace).
 
 Device time: ``chip_smoke.graph_ms``, the calls captured in a CUDA graph
 and replayed between CUDA events; what a wrapper puts on the device
@@ -91,6 +97,14 @@ def main() -> int:
     def events(fn):
         return cs.device_profile(fn, 20)[1]
 
+    def per_call_ms(fn, calls):
+        """Mean ms of one of ``calls``, all run back to back (host
+        included) between CUDA events."""
+        def run():
+            for c in calls:
+                fn(*c)
+        return cs.cuda_ms(run, 1) / len(calls)
+
     rng = np.random.default_rng(19)
     f32, bf16 = torch.float32, torch.bfloat16
     for n_tok in (16, 48, 96):
@@ -137,13 +151,16 @@ def main() -> int:
         emit(kernel="promote_scatter", shape=f"[{v},{s},{w}] Q {q}, {label}",
              device_ms=cs.graph_ms(call), call_ms=cs.cuda_ms(call, 50),
              events_per_call=cs.kernel_events(call, "promote_kernel", None))
-    paper = cs.trace_mix(cs.PAPER_VMS, 20_000, 1.0)
+    paper = cs.trace_mix(cs.paper_config().vms, 20_000, 1.0)
     l2 = cs.check_l2arc_promote(paper, want_events=None)
+    l2_calls = [c[:6] for c in cs.l2arc_promote_calls(paper)]
     emit(kernel="promote_scatter", shape="L2ARC's calls [1,256,64], dedupe",
          calls=l2["calls"], device_ms=l2["device_ms_per_call"],
          device_ms_run=l2["device_ms_total"],
          bound_ms_run=l2["bound_ms_total"], loss_ms_run=l2["loss_ms"],
-         events_per_call=l2["events_per_call"])
+         events_per_call=l2["events_per_call"],
+         call_ms=per_call_ms(mops.promote_scatter, l2_calls),
+         plain_ms=per_call_ms(mops.promote_scatter_plain, l2_calls))
 
     fig1024 = cs.trace_mix((cs.FIG15_WORKLOADS * 64)[:1024], 150, 0.25)
     subs12, _ = cs.first_blocks(paper, 12, 10_000, 1_000, 0)
@@ -158,11 +175,14 @@ def main() -> int:
              events_per_call=cs.kernel_events(call, "count_between_kernel",
                                               None),
              bound_ms=cs.count_bound(rows[0])[0])
-    seq = cs.replay_count_calls(cs.seq_count_calls(paper))
+    seq_calls = cs.seq_count_calls(paper)
+    seq = cs.replay_count_calls(seq_calls)
     emit(kernel="count_between", shape="paper-12vm-seq's calls [1,1024]",
          calls=seq["calls"], device_ms=seq["device_ms_per_call"],
          device_ms_run=seq["device_ms_total"],
-         bound_ms_run=seq["bound_ms_total"], loss_ms_run=seq["loss_ms"])
+         bound_ms_run=seq["bound_ms_total"], loss_ms_run=seq["loss_ms"],
+         call_ms=per_call_ms(rops.count_between, seq_calls),
+         plain_ms=per_call_ms(rops.count_between_plain, seq_calls))
 
     for v, s, w, q in ((12, 64, 64, 4096), (1024, 16, 32, 512)):
         tags, lru, dirty = cs.random_state(rng, v, s, w)
@@ -223,6 +243,35 @@ def main() -> int:
                  device_ms=cs.graph_ms(call, reps=5, replays=4),
                  call_ms=cs.cuda_ms(call, 20), events_per_call=events(call),
                  bound_ms=cs.bound_ms(nbytes, 2.0 * float(nv.sum()))[0])
+        # the one-call PyTorch pairs beside them, as chip_smoke.py times
+        # them at the row route's shapes: the stable sort that groups the
+        # window and index_add_ into each entry's run slot; Eq. 1's
+        # contributions by torch.exp and index_add_ into the blocks
+        key = (torch.arange(v, device=dev)[:, None] * 2**32
+               + wa.long()).reshape(-1)
+        slot = torch.unique(key, return_inverse=True)[1]
+        dist, served, _, nb, csz = pargs
+        contrib = served & (dist >= 0)
+        flat = seg.reshape(-1).long()
+
+        def sort_index_add():
+            torch.sort(key, stable=True)
+            return torch.zeros(v * n, device=dev).index_add_(
+                0, slot, wc.reshape(-1))
+
+        def exp_index_add():
+            c = torch.where(contrib, torch.exp(
+                -dist.float() / csz.clamp(min=1)[:, None]), 0.0)
+            return torch.zeros(nb + 1, device=dev).index_add_(
+                0, flat, c.reshape(-1))
+        for name, call in (("run_sums library: torch.sort(stable) + "
+                            "index_add_", sort_index_add),
+                           ("popularity library: torch.exp + index_add_",
+                            exp_index_add)):
+            dev_ms, ev = cs.device_profile(call, 20)
+            emit(kernel=name, shape=f"[{v},{n}]",
+                 call_ms=cs.cuda_ms(call, 20), profiler_device_ms=dev_ms,
+                 events_per_call=ev)
     return 0
 
 

@@ -47,7 +47,7 @@ import torch
 from repro_torch.core import popularity as pop
 from repro_torch.core import reuse, simulator
 from repro_torch.core.partition import partition as _partition
-from repro_torch.core.policies import Policy
+from repro_torch.core.policies import T_SSD, Policy
 from repro_torch.core.simulator import (CacheState, Stats, capacity_to_ways,
                                         make_cache, make_cache_batch,
                                         policy_flags, resize_batch,
@@ -93,6 +93,22 @@ class VMResult:
     def mean_latency(self) -> float:
         return self.stats["latency_sum"] / max(
             self.stats["reads"] + self.stats["writes"], 1)
+
+    def contended_latency(self, beta: float = 8.0) -> float:
+        """Mean latency under an SSD write-contention model: sustained
+        writes trigger SSD garbage collection, which slows every SSD
+        access, modelled as ``t_ssd_eff = T_SSD * (1 + beta *
+        write_share)`` with write_share = SSD writes / SSD accesses (host
+        float64, in the reference's order of operations)."""
+        s = self.stats
+        ssd_accesses = (s["read_hits_l2"] + s["write_hits_l2"]
+                        + s["cache_writes_l2"])
+        if ssd_accesses <= 0:
+            return self.mean_latency
+        write_share = s["cache_writes_l2"] / ssd_accesses
+        extra = ssd_accesses * T_SSD * beta * write_share
+        return (s["latency_sum"] + extra) / max(
+            s["reads"] + s["writes"], 1)
 
     @property
     def ssd_writes(self) -> float:

@@ -22,7 +22,9 @@ The O(N^2) count is :func:`repro_torch.kernels.reuse_distance.ops
 .count_between` (the CUDA kernel on the card); the previous/next-touch
 indices come from one stable sort and a segmented running maximum, with
 no loop over requests. Host-side analytics (:func:`demand_blocks`,
-:func:`hit_counts_at_sizes`) stay numpy.
+:func:`hit_counts_at_sizes`) stay numpy. :func:`pod`, :func:`urd`,
+:func:`trd` (a trace's largest distance) and :func:`mrc` (its hit-ratio
+curve) take one trace through one decomposition pass.
 
 :func:`sizing_metrics_batch` is the one-level baselines' sizing: one of
 four metrics (:data:`SIZING_KINDS`) for every VM, reduced on the device
@@ -227,6 +229,22 @@ def trd_distances_batch(addrs, writes,
     return _distances_batch(addrs, writes, Policy.WB, False, device)
 
 
+def pod(trace, policy: Policy, device="cuda") -> int:
+    """Max POD of one trace under ``policy`` (-1 if nothing is served):
+    one :func:`pod_distances` pass."""
+    return pod_distances(trace.addr, trace.is_write, policy, device).max
+
+
+def urd(trace, device="cuda") -> int:
+    """Max URD of one trace (-1 if no read is re-referenced)."""
+    return urd_distances(trace.addr, trace.is_write, device).max
+
+
+def trd(trace, device="cuda") -> int:
+    """Max TRD of one trace (-1 if nothing is re-accessed)."""
+    return trd_distances(trace.addr, trace.is_write, device).max
+
+
 def demand_blocks(metric_value: int) -> int:
     """Cache size (blocks) implied by a max reuse distance (POD + 1)."""
     return int(metric_value) + 1 if metric_value >= 0 else 0
@@ -237,6 +255,17 @@ def hit_counts_at_sizes(dist, served, sizes) -> np.ndarray:
     d = np.where(np.asarray(served), np.asarray(dist), np.int32(2**30))
     return np.sum(d[None, :] < np.asarray(sizes)[:, None], axis=1,
                   dtype=np.int64)
+
+
+def mrc(trace, policy: Policy, sizes, device="cuda") -> np.ndarray:
+    """Hit-ratio curve H(c) of one trace under ``policy`` at ``sizes``
+    (blocks): by LRU stack inclusion a served access hits iff its
+    policy-filtered distance is below the size. The ratio is over all
+    requests, so curves compare across policies. One
+    :func:`pod_distances` pass; the counts are numpy float64."""
+    r = pod_distances(trace.addr, trace.is_write, policy, device)
+    hits = hit_counts_at_sizes(r.dist, r.served, np.asarray(sizes, np.int32))
+    return np.asarray(hits, dtype=np.float64) / max(len(trace), 1)
 
 
 # ---------------------------------------------------------------------------

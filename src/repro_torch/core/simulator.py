@@ -7,8 +7,10 @@ are stacked: every :class:`CacheState` tensor is ``[V, S, W]``
 per-VM way counts and clocks are ``[V]`` int32. The per-state entry
 points of the sequential oracle (:func:`make_cache`,
 :func:`simulate_two_level`, :func:`simulate_single_level`,
-:func:`evict_blocks`, :func:`promote_blocks`) take one VM's ``[S, W]``
-state and run the same kernels at V = 1.
+:func:`resize`, :func:`evict_blocks`, :func:`promote_blocks`,
+:func:`clean_blocks`) take one VM's ``[S, W]`` state and run the same
+kernels at V = 1 (:func:`stack_states` / :func:`unstack_states` move
+between the two layouts).
 
 :func:`simulate_two_level_batch` (ETICA's DRAM + SSD) and
 :func:`simulate_single_level_batch` (the one-level baselines, each VM
@@ -48,9 +50,9 @@ class CacheState(NamedTuple):
 
 
 class Stats(NamedTuple):
-    """Per-VM ``[V]`` counters of one block; ``latency_sum`` is float32,
-    the rest int32. The last four are maintenance/classifier channels
-    the datapath leaves at zero."""
+    """Per-VM ``[V]`` counters of one block (0-d from the per-state entry
+    points); ``latency_sum`` is float32, the rest int32. The last four
+    are maintenance/classifier channels the datapath leaves at zero."""
     reads: torch.Tensor
     writes: torch.Tensor
     read_hits_l1: torch.Tensor     # DRAM hits
@@ -64,6 +66,35 @@ class Stats(NamedTuple):
     pop_drops: torch.Tensor
     flushes: torch.Tensor
     dirty_resident: torch.Tensor
+
+    @staticmethod
+    def zero() -> "Stats":
+        """0-d CPU counters at zero: int32, ``latency_sum`` float32. A
+        0-d CPU tensor adds to a card tensor on the card, with no host
+        read, so they merge with counters from either device."""
+        z = torch.zeros((), dtype=torch.int32)
+        lat = torch.zeros((), dtype=torch.float32)
+        return Stats(z, z, z, z, z, z, z, z, lat, z, z, z, z)
+
+    def merge(self, o: "Stats") -> "Stats":
+        """Field-wise sums in each field's own dtype (``latency_sum`` in
+        float32, as the reference adds it)."""
+        return Stats(*[a + b for a, b in zip(self, o)])
+
+    # -- derived metrics -------------------------------------------------
+    @property
+    def total(self):
+        return self.reads + self.writes
+
+    @property
+    def hits(self):
+        return self.read_hits_l1 + self.read_hits_l2 + self.write_hits_l2
+
+    def hit_ratio(self) -> float:
+        return float(self.hits) / max(int(self.total), 1)
+
+    def mean_latency(self) -> float:
+        return float(self.latency_sum) / max(int(self.total), 1)
 
 
 class PolicyFlags(NamedTuple):
@@ -100,6 +131,17 @@ def make_cache(num_sets: int, ways: int, device="cuda") -> CacheState:
                                                        device)))
 
 
+def stack_states(states: Sequence[CacheState]) -> CacheState:
+    """Per-VM ``[S, W]`` states as one stacked ``[V, S, W]`` state."""
+    return CacheState(*(torch.stack(xs) for xs in zip(*states)))
+
+
+def unstack_states(state: CacheState) -> list[CacheState]:
+    """A stacked ``[V, S, W]`` state as V per-VM ``[S, W]`` views."""
+    return [CacheState(*(x[i] for x in state))
+            for i in range(state.tags.shape[0])]
+
+
 def capacity_to_ways(capacity_blocks, num_sets: int,
                      max_ways: int) -> np.ndarray:
     """Blocks -> active ways (ceil), clipped to the geometry (host)."""
@@ -132,6 +174,14 @@ def resize_batch(state: CacheState, old_ways, new_ways):
         tags=state.tags.masked_fill(clear, -1),
         lru=state.lru.masked_fill(clear, -1),
         dirty=state.dirty.masked_fill(clear, False)), flushed
+
+
+def resize(state: CacheState, old_ways, new_ways):
+    """:func:`resize_batch` for one VM's ``[S, W]`` state: a shrink drops
+    the ways ``>= new_ways``, a grow is a no-op. Returns ``(state,
+    flushed)``, ``flushed`` the dirty blocks dropped (0-d int32)."""
+    st, flushed = resize_batch(_one(state), old_ways, new_ways)
+    return CacheState(*_first(*st)), flushed[0]
 
 
 def resize_levels(dram: CacheState, ssd: CacheState, old_dram, new_dram,
@@ -331,6 +381,15 @@ def clean_batch(state: CacheState, ways_active, quota):
     dev = state.tags.device
     return maint_ops.clean(state, _vec(ways_active, v, dev),
                            _vec(quota, v, dev))
+
+
+def clean_blocks(state: CacheState, ways_active, quota):
+    """:func:`clean_batch` for one VM's ``[S, W]`` state: the ``quota``
+    oldest dirty blocks in active ways, by (lru, ``set * W + way``),
+    become clean and stay resident. Returns ``(state, flushed,
+    dirty_left)``, both 0-d int32 counts from the one ``clean`` call."""
+    st, flushed, left = clean_batch(_one(state), ways_active, quota)
+    return CacheState(*_first(*st)), flushed[0], left[0]
 
 
 # ---------------------------------------------------------------------------

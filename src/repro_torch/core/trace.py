@@ -38,16 +38,47 @@ class Trace:
     def n_reads(self) -> int:
         return int(np.sum(~np.asarray(self.is_write)))
 
+    @property
+    def n_writes(self) -> int:
+        return int(np.sum(np.asarray(self.is_write)))
+
     def sizes(self) -> np.ndarray:
         """Request sizes in blocks; all-ones when no size channel."""
         if self.size is None:
             return np.ones(len(self), np.int32)
         return np.asarray(self.size, np.int32)
 
+    def for_vm(self, vm_id: int) -> "Trace":
+        """Reference per-VM demux: one boolean-mask scan per VM. The
+        controllers use :func:`split_by_vm` (one stable sort for all VMs,
+        the same sub-traces); this stays as its oracle."""
+        assert self.vm is not None
+        m = np.asarray(self.vm) == vm_id
+        return Trace(np.asarray(self.addr)[m], np.asarray(self.is_write)[m],
+                     size=None if self.size is None
+                     else np.asarray(self.size)[m])
+
     def intervals(self, interval: int) -> Iterator["Trace"]:
         """Yield consecutive fixed-size request windows (paper: 10k reqs)."""
         for start in range(0, len(self), interval):
             yield self[start : start + interval]
+
+    @staticmethod
+    def concat(traces: list["Trace"]) -> "Trace":
+        """The traces one after another; ``vm`` is kept when every trace
+        has it, ``size`` when any has it (all-ones for those without)."""
+        vm = None
+        if all(t.vm is not None for t in traces):
+            vm = np.concatenate([np.asarray(t.vm) for t in traces])
+        size = None
+        if any(t.size is not None for t in traces):
+            size = np.concatenate([t.sizes() for t in traces])
+        return Trace(
+            addr=np.concatenate([np.asarray(t.addr) for t in traces]),
+            is_write=np.concatenate([np.asarray(t.is_write) for t in traces]),
+            vm=vm,
+            size=size,
+        )
 
     @staticmethod
     def from_ops(ops: list[tuple[str, int]]) -> "Trace":

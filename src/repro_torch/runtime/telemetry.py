@@ -15,18 +15,31 @@ and the serving manager use, without JAX:
   on, a span on the card is timed with CUDA events recorded on the
   current stream and waits for the end event at close, which is the one
   synchronisation it adds; elsewhere it reads the host clock.
+  ``profile()`` records a ``torch.profiler`` trace of a region into
+  ``profile_dir`` (opt-in as well).
 * :func:`overload_flags` — LBICA-style per-interval overload detection.
+* :func:`summarize_journal` / :func:`format_report` — a journal's
+  per-interval series and totals, and the report lines
+  ``examples/torch_run_report.py`` prints.
 """
 from __future__ import annotations
 
 import bisect
 import collections
+import contextlib
 import dataclasses
 import json
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
+
+__all__ = [
+    "DISPATCH_BUCKETS", "Journal", "OverloadConfig", "SpanStats",
+    "TelemetryRecorder", "format_report", "load_journal", "overload_flags",
+    "summarize_journal",
+]
 
 DISPATCH_BUCKETS = (0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
                     0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5)
@@ -53,9 +66,10 @@ class Journal:
     (``{"i": <row index>, <column>: <value>, ...}``) and flushed at once.
     """
 
-    window = 512
-
-    def __init__(self, spill=None):
+    def __init__(self, window: int = 512, spill=None):
+        if window <= 0:
+            raise ValueError("journal window must be positive")
+        self.window = int(window)
         self.total = 0                 # rows ever appended
         self._cols: dict[str, np.ndarray] = {}
         self._spill_path = spill
@@ -71,6 +85,10 @@ class Journal:
     def retained(self) -> int:
         """Rows currently held in memory (≤ ``window``)."""
         return min(self.total, self.window)
+
+    @property
+    def columns(self) -> tuple[str, ...]:
+        return tuple(self._cols)
 
     def append(self, row: dict) -> None:
         pos = self.total % self.window
@@ -112,6 +130,11 @@ class Journal:
             raise IndexError("empty journal")
         pos = (self.total - 1) % self.window
         return {k: buf[pos] for k, buf in self._cols.items()}
+
+    def rows(self) -> list[dict]:
+        """Retained rows oldest-first (each a plain column dict)."""
+        return [{k: buf[i] for k, buf in self._cols.items()}
+                for i in self._order()]
 
     def close(self) -> None:
         if self._spill_f is not None:
@@ -222,6 +245,17 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
+@contextlib.contextmanager
+def _profile(out_dir: Path):
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield prof
+    out_dir.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out_dir / f"trace_{time.time_ns()}.json"))
+
+
 # ---------------------------------------------------------------------------
 # LBICA-style overload detection (detection only — no rebalancing)
 # ---------------------------------------------------------------------------
@@ -278,15 +312,19 @@ class TelemetryRecorder:
 
     Guarantees: ``sample_*`` only reads host-side values the controller
     already fetched and never touches cache state, so results are
-    identical with telemetry on or off. ``span_timing`` is the opt-in
-    exception that adds synchronisation.
+    identical with telemetry on or off. ``span_timing`` and
+    ``profile_dir`` are the opt-in exceptions that add synchronisation.
     """
 
-    def __init__(self, spill=None, span_timing: bool = False):
-        self.journal = Journal(spill=spill)
+    def __init__(self, window: int = 512, spill=None,
+                 span_timing: bool = False,
+                 overload: OverloadConfig | None = None,
+                 profile_dir=None):
+        self.journal = Journal(window=window, spill=spill)
         self.span_timing = bool(span_timing)
         self.spans: dict[str, SpanStats] = {}
-        self.overload = OverloadConfig()
+        self.overload = overload if overload is not None else OverloadConfig()
+        self.profile_dir = profile_dir
         self._prev: dict[str, np.ndarray] = {}
         self._ov_hits = collections.deque(maxlen=self.overload.window)
         self._ov_reqs = collections.deque(maxlen=self.overload.window)
@@ -303,6 +341,15 @@ class TelemetryRecorder:
         if s is None:
             s = self.spans[name] = SpanStats()
         s.observe(seconds)
+
+    def profile(self):
+        """A ``torch.profiler`` trace of the region (CPU, and CUDA where
+        a card is present), written as a Chrome trace
+        ``trace_<ns>.json`` under ``profile_dir`` when the region ends;
+        a null context when ``profile_dir`` is None."""
+        if self.profile_dir is None:
+            return contextlib.nullcontext()
+        return _profile(Path(self.profile_dir))
 
     # -- interval samples -------------------------------------------------
     def _deltas(self, cur: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
@@ -418,3 +465,77 @@ class TelemetryRecorder:
         col = self.journal.column(column)
         return [col[i] for i in np.flatnonzero(
             self.journal.column("clean_ran"))]
+
+
+# ---------------------------------------------------------------------------
+# journal summaries (examples/torch_run_report.py and fig17 render these)
+# ---------------------------------------------------------------------------
+
+def summarize_journal(cols: dict[str, np.ndarray]) -> dict:
+    """Aggregate a loaded (or in-memory) journal's columns.
+
+    ``cols`` maps column name -> ``[rows, ...]`` arrays (the shape
+    :func:`load_journal` returns). Returns per-interval 1-D series
+    (requests, hit_ratio, dirty, overloaded count) plus scalar totals.
+    """
+    if not cols:
+        return {"intervals": 0}
+    reqs = np.asarray(cols["requests"], np.float64)
+    hits = np.asarray(cols["hits"], np.float64)
+    if reqs.ndim > 1:                      # per-VM rows -> per-interval sums
+        reqs_i, hits_i = reqs.sum(axis=1), hits.sum(axis=1)
+    else:
+        reqs_i, hits_i = reqs, hits
+    dirty = np.asarray(cols.get("dirty_resident", np.zeros_like(reqs)),
+                       np.float64)
+    dirty_i = dirty.sum(axis=1) if dirty.ndim > 1 else dirty
+    over = np.asarray(cols.get("overloaded", np.zeros_like(reqs)), bool)
+    over_i = over.sum(axis=1) if over.ndim > 1 else over.astype(np.int64)
+    ratio = hits_i / np.maximum(reqs_i, 1.0)
+    return {
+        "intervals": int(reqs_i.shape[0]),
+        "requests": reqs_i,
+        "hit_ratio": ratio,
+        "dirty": dirty_i,
+        "overloaded": over_i,
+        "total_requests": float(reqs_i.sum()),
+        "mean_hit_ratio": float(hits_i.sum() / max(reqs_i.sum(), 1.0)),
+        "peak_dirty": float(dirty_i.max(initial=0.0)),
+        "overloaded_intervals": int((over_i > 0).sum()),
+    }
+
+
+def format_report(cols: dict[str, np.ndarray], last: int | None = None,
+                  vm: int | None = None) -> list[str]:
+    """Per-interval report lines of a journal (``last``: only the last
+    intervals; ``vm``: one VM's columns of a per-VM journal), then a
+    summary line."""
+    s = summarize_journal(cols)
+    if not s["intervals"]:
+        return ["empty journal"]
+    idx = np.asarray(cols.get("i", np.arange(s["intervals"])), np.int64)
+    reqs, ratio = s["requests"], s["hit_ratio"]
+    dirty, over = s["dirty"], s["overloaded"]
+    if vm is not None:
+        r = np.asarray(cols["requests"], np.float64)
+        if r.ndim < 2:
+            raise ValueError("journal has no per-VM columns (serving run?)")
+        h = np.asarray(cols["hits"], np.float64)
+        reqs, ratio = r[:, vm], h[:, vm] / np.maximum(r[:, vm], 1.0)
+        d = np.asarray(cols["dirty_resident"], np.float64)
+        o = np.asarray(cols["overloaded"], bool)
+        dirty, over = d[:, vm], o[:, vm].astype(np.int64)
+    lines = [f"{'interval':>8} {'requests':>9} {'hit_ratio':>9} "
+             f"{'dirty':>7} {'overloaded':>10}"]
+    sel = range(s["intervals"]) if last is None else \
+        range(max(s["intervals"] - last, 0), s["intervals"])
+    for i in sel:
+        lines.append(f"{int(idx[i]):>8} {reqs[i]:>9.0f} {ratio[i]:>9.3f} "
+                     f"{dirty[i]:>7.0f} {int(over[i]):>10}")
+    lines.append(
+        f"summary: intervals={s['intervals']} "
+        f"requests={s['total_requests']:.0f} "
+        f"mean_hit_ratio={s['mean_hit_ratio']:.3f} "
+        f"peak_dirty={s['peak_dirty']:.0f} "
+        f"overloaded_intervals={s['overloaded_intervals']}")
+    return lines

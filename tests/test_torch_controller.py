@@ -6,8 +6,9 @@ histories must be equal, in modes full and npe, at prefetch depths 0
 and 2. Also: a state carried over from a JAX run with ``load_state``,
 the options outside the port (the mesh and the classifier, in every
 maintenance mode) raising ``NotImplementedError``, and a subprocess port
-job (every maintenance mode, the baselines, serving) that loads neither
-``jax`` nor any ``repro`` module.
+job (every maintenance mode, the baselines, serving, the ``core`` and
+``traces`` exports, the §5.1 config and ``examples/torch_paper_figures.py``)
+that loads neither ``jax`` nor any ``repro`` module.
 """
 import os
 import subprocess
@@ -201,6 +202,24 @@ def test_port_job_loads_no_jax_and_no_repro():
                                                  nxt[:, None], 24)
         assert nxt.shape == (2, 1) and cache["layers"]["block0"]["k"].shape \
             == (cfg.num_layers, 2, 26, cfg.num_kv_heads, cfg.head_dim)
+        import importlib.util
+        import repro_torch.core
+        import repro_torch.traces
+        from repro_torch.configs.etica_paper import CONFIG
+        for pkg in (repro_torch.core, repro_torch.traces):
+            for name in pkg.__all__:
+                getattr(pkg, name)
+        assert len(CONFIG.vms) == 12
+        spec = importlib.util.spec_from_file_location(
+            "torch_paper_figures", sys.argv[1])
+        figs = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(figs)
+        out = figs.fig10("cpu", workloads=("hm_1",), interval=200,
+                         n_intervals=2)
+        assert out["rows"][-1][0] == "fig11/average_reduction"
+        out = figs.fig17("cpu", vms=("hm_1", "usr_0"), reqs=300,
+                         intervals=(100,))
+        assert out["runs"][100]["report"][-1].startswith("summary:")
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "repro" or m.startswith("repro."))
@@ -208,7 +227,9 @@ def test_port_job_loads_no_jax_and_no_repro():
         sys.exit(1 if bad else 0)
     """)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run([sys.executable, "-c", code], env=env,
+    out = subprocess.run([sys.executable, "-c", code,
+                          str(ROOT / "examples" / "torch_paper_figures.py")],
+                         env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "LOADED []" in out.stdout

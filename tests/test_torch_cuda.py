@@ -885,3 +885,81 @@ def test_model_card_equals_cpu(dev):
         sure = (top2[:, 0] - top2[:, 1]) > 1e-2 * scale
         assert torch.equal(got[:, -1].argmax(-1).cpu()[sure],
                            want[:, -1].argmax(-1)[sure])
+
+
+# ---------------------------------------------------------------------------
+# the per-state maintenance ops, mrc and fig10 (the paper's figures' API)
+# ---------------------------------------------------------------------------
+
+def _random_one(rng, s, w):
+    tags = np.where(rng.random((s, w)) < 0.3, -1,
+                    rng.integers(0, 4 * s * w, (s, w))).astype(np.int32)
+    lru = np.where(tags >= 0, rng.integers(0, 64, (s, w)), -1).astype(
+        np.int32)
+    dirty = (tags >= 0) & (rng.random((s, w)) < 0.4)
+    return tags, lru, dirty
+
+
+@pytest.mark.parametrize("s,w", [(64, 64), (16, 32), (3, 5)])
+def test_state_ops_card_equal_plain(dev, s, w):
+    """Per-state ``resize`` and ``clean_blocks`` (one ``clean_scatter``
+    launch) on the card == on the CPU == the numpy oracles."""
+    from repro_torch import kernels
+    from repro_torch.core.simulator import (CacheState, clean_blocks,
+                                            clean_blocks_ref, resize,
+                                            resize_ref)
+    rng = np.random.default_rng(s * w)
+    for trial in range(4):
+        arrays = _random_one(rng, s, w)
+        card = CacheState(*(torch.from_numpy(x).to(dev) for x in arrays))
+        cpu = CacheState(*(torch.from_numpy(x.copy()) for x in arrays))
+        old, new = (int(x) for x in rng.integers(0, w + 1, 2))
+        got, fl = resize(card, old, new)
+        want, wfl = resize(cpu, old, new)
+        ref, rfl = resize_ref(cpu, old, new)
+        assert int(fl) == int(wfl) == rfl
+        _same([x.cpu() for x in got], list(want))
+        _same(list(want), list(ref))
+        ways = w if trial % 2 else int(rng.integers(0, w + 1))
+        n_dirty = int(arrays[2][:, :ways].sum())
+        for quota in (0, int(rng.integers(1, n_dirty + 2)), n_dirty + 3):
+            kernels.reset_launch_counts()
+            got, fl, left = clean_blocks(card, ways, quota)
+            assert kernels.launch_counts()["clean_scatter"] == 1
+            want, wfl, wleft = clean_blocks(cpu, ways, quota)
+            ref, rfl, rleft = clean_blocks_ref(cpu, ways, quota)
+            assert (int(fl), int(left)) == (int(wfl), int(wleft)) == \
+                (rfl, rleft)
+            _same([x.cpu() for x in got], list(want))
+            _same(list(want), list(ref))
+
+
+def test_mrc_and_sizing_card_equal_cpu(dev):
+    """``pod``/``urd``/``trd`` and ``mrc`` (one ``count_between`` launch
+    each) on the card == on the CPU."""
+    from repro_torch import kernels
+    from repro_torch.core import Policy, mrc, pod, trd, urd
+    from repro_torch.traces import make
+    sizes = np.arange(0, 600, 25)
+    for i, name in enumerate(("hm_1", "web_3", "usr_0", "varmail")):
+        tr = make(name, 1_000 + 700 * i, seed=i, scale=0.25)
+        for p in Policy:
+            kernels.reset_launch_counts()
+            got = mrc(tr, p, sizes, "cuda")
+            assert kernels.launch_counts()["count_between"] == 1
+            assert np.array_equal(got, mrc(tr, p, sizes, "cpu"))
+            assert pod(tr, p, "cuda") == pod(tr, p, "cpu")
+        assert urd(tr, "cuda") == urd(tr, "cpu")
+        assert trd(tr, "cuda") == trd(tr, "cpu")
+
+
+def test_fig10_card_equals_cpu(dev):
+    """fig10/11 at the tests' reduced size: card == CPU, every interval's
+    demand and the reduction."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from test_torch_figures import figures, strip_seconds
+    f = figures()
+    assert strip_seconds(f.fig10("cuda", **f.SMOKE["fig10"])) == \
+        strip_seconds(f.fig10("cpu", **f.SMOKE["fig10"]))
