@@ -140,12 +140,29 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    lines equal) with its launches counted per path; holds the per-state
    ``resize`` and ``clean_blocks`` to ``resize_ref`` /
    ``clean_blocks_ref`` at 64 x 64 and 16 x 32; prints fig12/13's
-   derived rows at the §5.1 deployment from phases 3 and 5.
+   derived rows at the §5.1 deployment from phases 3 and 5;
+13. feeds the controllers from on-disk trace stores
+   (``repro_torch.traces.TraceStore``): (a) the §5.1 deployment written
+   to a store of shards of 4,096, run by ETICA at prefetch depth 2 and
+   0, with ``prefetch=False`` and from a pre-built
+   ``StreamingTraceSource``, by ETICA with the cleaner and by
+   ECI-Cache, each equal to its in-memory card run of phases 3 and 5
+   (stats, allocation histories, interval logs, final states), with
+   requests/s beside the in-memory rate and a span breakdown; (b)
+   fig15's streaming section
+   (``examples/torch_trace_streaming.py``) at 32, 64 and 128 VMs, 32
+   equal to the in-memory CPU run, with requests/s and the
+   ``tracemalloc`` peak; (c) the §5.1 mix at 12 x 20,000 and 12 x
+   100,000 requests in shards of 65,536, streamed == in memory, the two
+   streamed ``tracemalloc`` peaks within 1.5x of each other while the
+   trace grows 5x; (d) ``examples/torch_stream_external_trace.py``'s
+   MSR import, streamed == in memory; (e) fig3, fig12/13 and fig17 in
+   their ``--streamed`` forms, held to the JAX package's CPU values.
 
 The §5.1 deployment (VMs, requests, intervals, the DRAM share of the
 capacity) comes from ``src/repro_torch/configs/etica_paper.py``.
 
-Each card run of phases 3 to 12 sets the launch counts to 0 just before
+Each card run of phases 3 to 13 sets the launch counts to 0 just before
 and reads them just after; exactly the kernels of that path's own set
 must have launched (``popularity`` only on the staged paths). Phase 2
 holds the kernels against their plain versions at the shapes of both
@@ -1611,7 +1628,7 @@ def run_controller(build, trace, device, telemetry=None):
     return cache, res, time.perf_counter() - t0
 
 
-def span_breakdown(build, trace, label, repeats=1):
+def span_breakdown(build, trace, label, repeats=1, dev="cuda"):
     """``repeats`` more card runs with span timing on: CUDA-event time of
     the sizing, datapath and maintenance spans (each span waits for its
     work, so these runs are slower than the untimed one and their results
@@ -1619,7 +1636,7 @@ def span_breakdown(build, trace, label, repeats=1):
     from repro_torch.runtime.telemetry import TelemetryRecorder
     for _ in range(repeats):
         rec = TelemetryRecorder(span_timing=True)
-        _, _, wall = run_controller(build, trace, "cuda", rec)
+        _, _, wall = run_controller(build, trace, dev, rec)
         spans = {k: (s.n, s.total) for k, s in rec.spans.items()}
         inside = sum(t for _, t in spans.values())
         log(f"{label} span breakdown (timed run {wall:.3f} s): " + ", ".join(
@@ -3116,13 +3133,32 @@ FIGURE_ROWS_JAX_CPU = {
     "fig12": "02291b1151102da7",
     "fig17": "9c9a2c604a80f832",
 }
+# fig3's streamed form (examples/torch_paper_figures.py --streamed: a
+# one-VM store a workload, shards of 1,024 fed to the simulator one by
+# one) on the JAX package, CPU, by the same script: (latency_sum, IOPS)
+# a run, the float32 sums added a shard at a time; every count equals
+# FIG3_JAX_CPU's, and the rows' digest is FIGURE_ROWS_JAX_CPU's.
+FIG3_STREAMED_JAX_CPU = {
+    "fio_randrw/WB": (2.400331974029541, 2499.654241545406),
+    "fio_randrw/RO": (10.075263977050781, 595.5178954781404),
+    "fio_randrw/WBWO": (2.9841701984405518, 2010.6091814519968),
+    "web_server/WB": (23.31366729736328, 257.35976770495415),
+    "web_server/RO": (24.56553077697754, 244.2446717098054),
+    "web_server/WBWO": (23.323646545410156, 257.24965383600085),
+    "video_server/WB": (30.00040054321289, 199.99732974756577),
+    "video_server/RO": (30.00040054321289, 199.99732974756577),
+    "video_server/WBWO": (30.00040054321289, 199.99732974756577),
+    "varmail/WB": (1.596924901008606, 3757.2211418398224),
+    "varmail/RO": (10.374307632446289, 578.3518488727507),
+    "varmail/WBWO": (1.9612005949020386, 3059.3504894891685),
+}
 
 
-def paper_figures():
-    """``examples/torch_paper_figures.py`` as a module."""
+def example(name: str):
+    """``examples/<name>.py`` as a module."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        "torch_paper_figures", ROOT / "examples" / "torch_paper_figures.py")
+        name, ROOT / "examples" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -3147,10 +3183,10 @@ def figure_path_kernels(name: str) -> tuple:
     return ETICA_KERNELS              # fig12-etica_full, fig17-<interval>
 
 
-def counted(launches):
+def counted(launches, suffix="", kernels_of=figure_path_kernels):
     """The figure functions' ``around``: the launch counts set to 0 just
-    before a named path and read just after it, which must have launched
-    exactly :func:`figure_path_kernels`."""
+    before a named path and read just after it (kept as ``launches[name
+    + suffix]``), which must have launched exactly ``kernels_of(name)``."""
     import torch
     from repro_torch import kernels
 
@@ -3159,8 +3195,8 @@ def counted(launches):
         kernels.reset_launch_counts()
         yield
         torch.cuda.synchronize()
-        launches[name] = serving_launches(name, figure_path_kernels(name),
-                                          only=True)
+        launches[name + suffix] = serving_launches(
+            name + suffix, kernels_of(name), only=True)
     return around
 
 
@@ -3179,7 +3215,7 @@ def check_paper_figures(launches) -> dict:
     fig12's ETICA-Full and ECI-Cache and fig17's promotion interval
     100."""
     from repro_torch.core import Stats
-    figs = paper_figures()
+    figs = example("torch_paper_figures")
     around = counted(launches)
     keys = Stats._fields
     speed = {}
@@ -3199,40 +3235,12 @@ def check_paper_figures(launches) -> dict:
     speed["fig10"] = (f10["seconds"], f10["requests"])
 
     f12 = figs.fig12("cuda", around=around)
-    for name, run in f12["runs"].items():
-        expect_equal(f"fig12 {name} stats", tuple(
-            tuple(s[k] for k in keys + ("evict_flushes",))
-            for s in run["stats"]), FIG12_JAX_CPU_STATS[name])
-        expect_equal(f"fig12 {name} alloc_history",
-                     digest([json.dumps(run["alloc_history"])]),
-                     FIG12_JAX_CPU_ALLOC[name])
-        expect_equal(f"fig12 {name} means", f12["means"][name],
-                     FIG12_JAX_CPU_MEANS[name])
-        speed[f"fig12-{name}"] = (run["seconds"], f12["requests"])
-    expect_equal("fig12 summary", f12["summary"], FIG12_JAX_CPU_SUMMARY)
-
+    speed.update(expect_fig12(f12))
     f17 = figs.fig17("cuda", around=around)
-    for iv, run in f17["runs"].items():
-        s = run["summary"]
-        expect_equal(f"fig17 interval {iv}", (
-            s["intervals"], s["total_requests"], s["mean_hit_ratio"],
-            s["peak_dirty"], s["overloaded_intervals"], run["latency_norm"],
-            run["ssd_writes_norm"], len(run["report"]),
-            digest(run["report"])), FIG17_JAX_CPU[iv])
-        speed[f"fig17-{iv}"] = (run["seconds"], f17["requests"])
-
-    for key, out in (("fig3", f3), ("fig10", f10), ("fig12", f12),
-                     ("fig17", f17)):
-        expect_equal(f"{key} rows", digest([f"{n},{d}" for n, d in
-                                            out["rows"]]),
-                     FIGURE_ROWS_JAX_CPU[key])
-        for n, d in out["rows"]:
-            log(f"  {n},{d}")
-    for path, (sec, n) in speed.items():
-        counts = {k: v for k, v in launches[path].items()
-                  if k != "routes" and v}
-        log(f"{path}: {n} requests in {sec:.3f} s on the card, "
-            f"{n / sec:.0f} requests/s, launches {counts}")
+    speed.update(expect_fig17(f17))
+    expect_rows((("fig3", f3), ("fig10", f10), ("fig12", f12),
+                 ("fig17", f17)))
+    log_speed(launches, speed)
     log("phase 12: fig3, fig10/11, fig12/13 and fig17 on the card equal the "
         "JAX package's CPU values (stats, latency sums, derived floats, "
         "report lines)")
@@ -3246,6 +3254,60 @@ def check_paper_figures(launches) -> dict:
                          len(figs.FIG17_VMS)),
                    figs.vm_mix(figs.FIG17_VMS, figs.FIG17_REQS),
                    "fig17 promotion 100")
+
+
+def expect_fig12(f12, label="fig12") -> dict:
+    """fig12's three controllers held to the JAX CPU values; returns
+    each path's (seconds, requests)."""
+    from repro_torch.core import Stats
+    keys = Stats._fields
+    speed = {}
+    for name, run in f12["runs"].items():
+        expect_equal(f"{label} {name} stats", tuple(
+            tuple(s[k] for k in keys + ("evict_flushes",))
+            for s in run["stats"]), FIG12_JAX_CPU_STATS[name])
+        expect_equal(f"{label} {name} alloc_history",
+                     digest([json.dumps(run["alloc_history"])]),
+                     FIG12_JAX_CPU_ALLOC[name])
+        expect_equal(f"{label} {name} means", f12["means"][name],
+                     FIG12_JAX_CPU_MEANS[name])
+        speed[f"fig12-{name}"] = (run["seconds"], f12["requests"])
+    expect_equal(f"{label} summary", f12["summary"], FIG12_JAX_CPU_SUMMARY)
+    return speed
+
+
+def expect_fig17(f17, label="fig17") -> dict:
+    """fig17's sweep held to the JAX CPU values; returns each path's
+    (seconds, requests)."""
+    speed = {}
+    for iv, run in f17["runs"].items():
+        s = run["summary"]
+        expect_equal(f"{label} interval {iv}", (
+            s["intervals"], s["total_requests"], s["mean_hit_ratio"],
+            s["peak_dirty"], s["overloaded_intervals"], run["latency_norm"],
+            run["ssd_writes_norm"], len(run["report"]),
+            digest(run["report"])), FIG17_JAX_CPU[iv])
+        speed[f"fig17-{iv}"] = (run["seconds"], f17["requests"])
+    return speed
+
+
+def expect_rows(outs, label="", show=True) -> None:
+    """Each figure's printed rows held to the JAX CPU digest, then
+    logged (with ``show``)."""
+    for key, out in outs:
+        expect_equal(f"{key}{label} rows", digest([f"{n},{d}" for n, d in
+                                                   out["rows"]]),
+                     FIGURE_ROWS_JAX_CPU[key])
+        for n, d in out["rows"] if show else ():
+            log(f"  {n},{d}")
+
+
+def log_speed(launches, speed, suffix="") -> None:
+    for path, (sec, n) in speed.items():
+        counts = {k: v for k, v in launches[path + suffix].items()
+                  if k != "routes" and v}
+        log(f"{path}{suffix}: {n} requests in {sec:.3f} s on the card, "
+            f"{n / sec:.0f} requests/s, launches {counts}")
 
 
 def check_state_ops(dev, rng):
@@ -3296,7 +3358,7 @@ def paper_fig12_rows(etica_res, eci_res) -> None:
     """fig12/13's derived rows at the §5.1 deployment, from phase 3's
     ETICA-Full run and phase 5's ECI-Cache run (ETICA-NPE is not run
     there)."""
-    figs = paper_figures()
+    figs = example("torch_paper_figures")
     full, eci = figs.vm_means(etica_res), figs.vm_means(eci_res)
     for name, (lat, hit, clat) in (("etica_full", full), ("eci_cache", eci)):
         log(f"  fig12/paper-12vm/{name}: mean_latency_ms={lat*1e3:.4f} "
@@ -3305,6 +3367,232 @@ def paper_fig12_rows(etica_res, eci_res) -> None:
         f"{1 - full[0] / eci[0]:.4f} (paper: 0.45) "
         f"with_ssd_write_contention={1 - full[2] / eci[2]:.4f} "
         f"hit_gain={full[1] - eci[1]:.4f} (paper: +0.30); npe not run")
+
+
+# ---------------------------------------------------------------------------
+# phase 13: streamed ingestion from the on-disk trace store
+# ---------------------------------------------------------------------------
+
+STORE_SHARD = 4_096           # a 10,000-request window spans 3 or 4 shards
+BOUNDED_SHARD = 65_536
+BOUNDED_REQS = (20_000, 100_000)   # a VM: 240,000 and 1.2 M requests
+PEAK_RATIO = 1.5              # streamed tracemalloc peaks, 1.2 M vs 240 k
+
+
+def only(kernel_set):
+    """A ``kernels_of`` for :func:`counted`: every path ``kernel_set``."""
+    return lambda name: kernel_set
+
+
+def drive_stream(build, source, n, label, expect, dev="cuda"):
+    """One run of ``build(dev).run(source)`` with the launch counts set
+    to 0 just before and read just after (exactly ``expect`` launched).
+    Returns ``(launches, cache, results, requests/s)``."""
+    from repro_torch import kernels
+    kernels.reset_launch_counts()
+    cache, res, wall = run_controller(build, source, dev)
+    return serving_launches(label, expect, only=True), cache, res, n / wall
+
+
+def traced_peak(build, source, dev="cuda") -> int:
+    """The ``tracemalloc`` peak (bytes of the Python heap, numpy arrays
+    included) of one ``run`` from ``source``; the build is outside."""
+    import torch
+    import tracemalloc
+    cache = build(dev)
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    tracemalloc.start()
+    try:
+        cache.run(source)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        return tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+
+
+def launch_summary(n) -> dict:
+    return {k: v for k, v in n.items() if k != "routes" and v}
+
+
+def check_streamed_paper(launches, paper, cfg, ccfg, build_eci, fused,
+                         clean, eci_run, dev="cuda"):
+    """Phase 13 (a): the §5.1 deployment written to a store of shards of
+    4,096 and run from it: ETICA at prefetch depth 2 (the default) and
+    0, with ``prefetch=False`` and from a pre-built
+    ``StreamingTraceSource``; the cleaner; ECI-Cache. Each equal to its
+    in-memory card run of phases 3 and 5 (stats, allocation histories,
+    interval logs, final states) and launching exactly its path's
+    kernels; requests/s beside the in-memory rate (phase 3's or 5's, and
+    for ETICA, the cleaner and ECI-Cache one more in-memory run now);
+    the span breakdown of a span-timed streamed ETICA run."""
+    import tempfile
+    from repro_torch.traces import StreamingTraceSource, TraceStore
+    n = len(paper)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as tmp:
+        path = Path(tmp) / "paper"
+        t0 = time.perf_counter()
+        store = TraceStore.from_trace(path, paper, shard_size=STORE_SHARD)
+        log(f"paper 12-VM store: {n} requests in {store.num_shards} shards "
+            f"of {STORE_SHARD} ({time.perf_counter() - t0:.3f} s to write)")
+        prebuilt = StreamingTraceSource(TraceStore.open(path), num_vms=1,
+                                        window=1, chunk=1)
+        cases = (
+            ("paper-12vm-streamed", etica(cfg, 12), None, ETICA_KERNELS,
+             fused),
+            ("paper-12vm-streamed-depth0",
+             etica(dataclasses.replace(cfg, prefetch_depth=0), 12), None,
+             ETICA_KERNELS, fused),
+            ("paper-12vm-streamed-no-prefetch",
+             etica(dataclasses.replace(cfg, prefetch=False), 12), None,
+             ETICA_KERNELS, fused),
+            ("paper-12vm-streamed-prebuilt", etica(cfg, 12), prebuilt,
+             ETICA_KERNELS, fused),
+            ("paper-12vm-clean-streamed", etica(ccfg, 12), None,
+             CLEAN_KERNELS, clean),
+            ("paper-12vm-eci-streamed", build_eci, None, ECI_KERNELS,
+             eci_run))
+        for label, build, source, expect, (want_cache, want_res,
+                                           want_rate) in cases:
+            source = source or TraceStore.open(path)
+            launches[label], cache, res, rate = drive_stream(
+                build, source, n, label, expect, dev)
+            same_run(label, (want_cache, want_res), (cache, res))
+            again = ""
+            if label in ("paper-12vm-streamed", "paper-12vm-clean-streamed",
+                         "paper-12vm-eci-streamed"):
+                # in memory once more, beside the streamed run
+                _, _, mem_s = run_controller(build, paper, dev)
+                again = f", {n / mem_s:.0f} again now"
+            log(f"{label}: {rate:.0f} requests/s from the store "
+                f"(in memory: {want_rate:.0f} in phase 3/5{again}); equal "
+                f"to the in-memory card run; launches "
+                f"{launch_summary(launches[label])}")
+        span_breakdown(etica(cfg, 12), TraceStore.open(path),
+                       "paper-12vm-streamed", dev=dev)
+
+
+def check_streamed_fig15(launches, dev="cuda"):
+    """Phase 13 (b): fig15's streaming section at 32, 64 and 128 VMs
+    (``examples/torch_trace_streaming.py``): 32 VMs equal to the
+    in-memory CPU run; requests/s and the ``tracemalloc`` peak a
+    scale; the span breakdown at 128 VMs."""
+    import tempfile
+    from repro_torch.traces import TraceStore
+    mod = example("torch_trace_streaming")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fig15_") as tmp:
+        out = mod.streaming_scaling(
+            Path(tmp), dev, around=counted(launches,
+                                           kernels_of=only(ETICA_KERNELS)))
+        big = max(out)
+        span_breakdown(etica(mod.etica_config("full", dram=200, ssd=400),
+                             big),
+                       TraceStore.open(Path(tmp) / f"mix_{big}"),
+                       f"fig15-streaming-{big}vm", dev=dev)
+    for active, r in out.items():
+        log(f"fig15-streaming-{active}vm: {r['requests']} requests, "
+            f"{r['requests'] / r['seconds']:.0f} requests/s, tracemalloc "
+            f"peak {r['peak'] / 2**20:.3f} MiB, avg_hit {r['avg_hit']:.4f}"
+            + ("; equal to the in-memory CPU run" if r["checked"] else "")
+            + f"; launches "
+            f"{launch_summary(launches[f'fig15-streaming-{active}vm'])}")
+
+
+def check_bounded_memory(launches, cfg, paper, fused, reqs=BOUNDED_REQS,
+                         shard=BOUNDED_SHARD, dev="cuda"):
+    """Phase 13 (c): the §5.1 mix at 12 x 20,000 (phase 3's trace) and
+    12 x 100,000 requests in stores of shards of 65,536, each streamed
+    run equal to its in-memory card run (phase 3's at 240 k); the
+    streamed ``tracemalloc`` peaks within ``PEAK_RATIO`` of each other
+    while the trace grows 5x; the span breakdown at 1.2 M."""
+    import tempfile
+    from repro_torch.traces import TraceStore
+    pcfg = paper_config()
+    peaks = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bounded_") as tmp:
+        for r in reqs:
+            t0 = time.perf_counter()
+            trace = (paper if r == pcfg.requests_per_vm
+                     else trace_mix(pcfg.vms, r, 1.0))
+            path = Path(tmp) / f"paper_{r}"
+            TraceStore.from_trace(path, trace, shard_size=shard)
+            n = len(trace)
+            log(f"paper 12 x {r}: {n} requests generated and stored in "
+                f"{time.perf_counter() - t0:.3f} s "
+                f"({n * 9 / 1e6:.1f} MB of columns)")
+            label = (f"paper-12vm-{n / 1e6:g}M-streamed" if n >= 10**6
+                     else f"paper-12vm-streamed-shard{shard}")
+            launches[label], cache, res, rate = drive_stream(
+                etica(cfg, 12), TraceStore.open(path), n, label,
+                ETICA_KERNELS, dev)
+            if trace is paper:
+                want, mem_rate = fused, None
+            else:
+                mem_label = label.replace("-streamed", "")
+                launches[mem_label], *want, mem_rate = drive_stream(
+                    etica(cfg, 12), trace, n, mem_label, ETICA_KERNELS, dev)
+            same_run(label, want, (cache, res))
+            peaks[n] = traced_peak(etica(cfg, 12), TraceStore.open(path),
+                                   dev)
+            if n >= 10**6:
+                span_breakdown(etica(cfg, 12), TraceStore.open(path), label,
+                               dev=dev)
+            log(f"{label}: {rate:.0f} requests/s from the store"
+                + (f" (in memory {mem_rate:.0f})" if mem_rate else "")
+                + f"; equal to the in-memory card run; streamed "
+                f"tracemalloc peak {peaks[n] / 2**20:.3f} MiB; launches "
+                f"{launch_summary(launches[label])}")
+    lo, hi = min(peaks.values()), max(peaks.values())
+    if hi > PEAK_RATIO * lo:
+        raise AssertionError(f"streamed host memory grows with the trace: "
+                             f"tracemalloc peaks {peaks}")
+    log(f"bounded host memory: streamed peaks {hi / lo:.3f}x apart while "
+        f"the trace grows {max(peaks) / min(peaks):.0f}x "
+        f"(limit {PEAK_RATIO}x)")
+    return peaks
+
+
+def check_streamed_external(launches, dev="cuda"):
+    """Phase 13 (d): ``examples/torch_stream_external_trace.py``'s MSR
+    import, streamed == in memory on the card."""
+    out = example("torch_stream_external_trace").stream_external(
+        dev, around=counted(launches, kernels_of=only(ETICA_KERNELS)))
+    n = out["requests"]
+    log(f"external-streamed: {n} MSR requests imported in "
+        f"{out['import_s']:.3f} s into {out['shards']} shards "
+        f"({out['num_vms']} VMs); {n / out['streamed_s']:.0f} requests/s "
+        f"streamed, {n / out['in_memory_s']:.0f} in memory, equal; launches "
+        f"{launch_summary(launches['external-streamed'])}")
+
+
+def check_streamed_figures(launches, dev="cuda"):
+    """Phase 13 (e): fig3, fig12/13 and fig17 in their ``--streamed``
+    forms, held to the JAX package's CPU values (fig3's float32 latency
+    sums and IOPS to its streamed form's, ``FIG3_STREAMED_JAX_CPU``),
+    each path's launches counted."""
+    from repro_torch.core import Stats
+    figs = example("torch_paper_figures")
+    around = counted(launches, suffix="-streamed")
+    keys = Stats._fields
+    f3 = figs.fig3(dev, streamed=True, around=around)
+    for (w, p), run in f3["runs"].items():
+        want = list(FIG3_JAX_CPU[f"{w}/{p}"])
+        want[keys.index("latency_sum")], want[-1] = \
+            FIG3_STREAMED_JAX_CPU[f"{w}/{p}"]
+        expect_equal(f"fig3 streamed {w}/{p}",
+                     tuple(run["stats"][k] for k in keys) + (run["iops"],),
+                     tuple(want))
+    speed = {"fig3": (f3["seconds"], f3["requests"])}
+    f12 = figs.fig12(dev, streamed=True, around=around)
+    speed.update(expect_fig12(f12, "fig12 streamed"))
+    f17 = figs.fig17(dev, streamed=True, around=around)
+    speed.update(expect_fig17(f17, "fig17 streamed"))
+    expect_rows((("fig3", f3), ("fig12", f12), ("fig17", f17)),
+                " streamed", show=False)
+    log_speed(launches, speed, "-streamed")
+    log("phase 13: fig3, fig12/13 and fig17 streamed from trace stores "
+        "equal the JAX package's CPU values")
 
 
 def main() -> int:
@@ -3476,6 +3764,18 @@ def main() -> int:
     check_state_ops(dev, rng)
     check_paper_figures(launches)
     paper_fig12_rows(paper_res, eci_res)
+
+    # phase 13: streamed ingestion from the on-disk trace store
+    t13 = time.perf_counter()
+    check_streamed_paper(launches, paper, cfg, ccfg, build_eci,
+                         (fused, paper_res, fused_rate),
+                         (clean, clean_res, clean_rate),
+                         (eci_cache, eci_res, eci_rate))
+    check_streamed_fig15(launches)
+    check_bounded_memory(launches, cfg, paper, (fused, paper_res))
+    check_streamed_external(launches)
+    check_streamed_figures(launches)
+    log(f"phase 13: {time.perf_counter() - t13:.1f} s")
 
     sources = {"count_between": "src/repro_torch/csrc/count_between.cu",
                "evict_scatter": "src/repro_torch/csrc/evict_scatter.cu",

@@ -6,6 +6,7 @@ promotion-interval sweep, read from the telemetry journal).
 
     PYTHONPATH=src python examples/torch_paper_figures.py --device cpu --smoke
     PYTHONPATH=src python examples/torch_paper_figures.py --fig 12
+    PYTHONPATH=src python examples/torch_paper_figures.py --fig 12 --streamed
 
 Each ``figN`` function runs the experiment of ``benchmarks/fig*.py`` at
 that script's sizes by default (``--smoke`` shrinks them) and returns
@@ -19,6 +20,16 @@ the card unless ``device="cpu"``. The CLI prints the rows as
 ``fig17`` keeps the JAX script's two checks: the journal's JSONL spill
 reloads to the ring's retained series, and the journal's interval
 deltas sum to the controller's own Stats.
+
+``--streamed`` (``streamed=True``) is the JAX scripts' streamed form of
+fig3, fig12/13 and fig17: the requests go through an on-disk
+:class:`~repro_torch.traces.store.TraceStore` in a temporary directory.
+fig3 makes a one-VM store of shards of 1,024 per workload and feeds
+``iter_shards()`` to the simulator chunk by chunk (the counts equal the
+in-memory form's; ``latency_sum`` is summed in float32 a chunk at a
+time, as the JAX script sums it); fig12 and fig17 run the controllers on
+``make_store``'s store of shards of 4,096, which gives results
+identical to the in-memory mix. fig10/11 has no streamed form.
 """
 from __future__ import annotations
 
@@ -42,7 +53,7 @@ from repro_torch.core import (EticaCache, EticaConfig, Geometry,  # noqa: E402
 from repro_torch.runtime.telemetry import (TelemetryRecorder,  # noqa: E402
                                            format_report, load_journal,
                                            summarize_journal)
-from repro_torch.traces import make  # noqa: E402
+from repro_torch.traces import make, make_store  # noqa: E402
 
 # benchmarks/common.py
 GEO = Geometry(num_sets=16, max_ways=32)
@@ -56,6 +67,7 @@ SCALE = 0.25
 FIG3_WORKLOADS = ("fio_randrw", "web_server", "video_server", "varmail")
 FIG3_POLICIES = (Policy.WB, Policy.RO, Policy.WBWO)
 FIG3_N = 6_000
+FIG3_SHARD = 1_024          # the streamed form's store shards
 # benchmarks/fig10_cache_size.py
 FIG10_WORKLOADS = ("hm_1", "proj_0", "rsrch_0", "web_3", "ts_0", "wdev_0",
                    "usr_0", "src2_0")
@@ -68,6 +80,8 @@ FIG12_CONTROLLERS = ("etica_full", "etica_npe", "eci_cache")
 FIG17_VMS = ("hm_1", "usr_0", "ts_0")
 FIG17_INTERVALS = (100, 250, 500, 1000, 2000)
 FIG17_REQS = 6_000
+# benchmarks/common.py vm_mix_source(streamed=True)
+MIX_SHARD = 4_096
 
 # the reduced sizes of --smoke (and of the CPU parity tests)
 SMOKE = {
@@ -97,6 +111,22 @@ def vm_mix(names, reqs=REQS, scale=SCALE):
                       seed=42)
 
 
+@contextlib.contextmanager
+def mix_source(names, reqs=REQS, scale=SCALE, streamed=False,
+               shard_size=MIX_SHARD):
+    """``benchmarks/common.py``'s ``vm_mix_source``: the mix in memory,
+    or with ``streamed`` the same arrival stream in a
+    :func:`make_store` store (same per-VM seeds, address stride and
+    interleave seed, so results are identical) that lives while the
+    context is open."""
+    if not streamed:
+        yield vm_mix(names, reqs, scale)
+        return
+    with tempfile.TemporaryDirectory(prefix="torch_fig_store_") as tmp:
+        yield make_store(Path(tmp) / "store", list(names), reqs, seed=0,
+                         scale=scale, shard_size=shard_size)
+
+
 def stats_dict(st: Stats) -> dict:
     """0-d :class:`Stats` as host numbers: ints, ``latency_sum`` the
     float32 value as a Python float."""
@@ -116,23 +146,36 @@ def etica_config(mode="full", resize=RESIZE, promo=PROMO) -> EticaConfig:
 # Fig. 3: the write policy's effect on IOPS and SSD writes
 # ---------------------------------------------------------------------------
 
-def fig3(device="cuda", n=FIG3_N, around=_null) -> dict:
+def _fig3_run(chunks, policy, device) -> Stats:
+    """One policy over a workload's request chunks on a fresh cache."""
+    state = make_cache(GEO.num_sets, GEO.max_ways, device)
+    stats, t = Stats.zero(), 0
+    for chunk in chunks:
+        state, st, t = simulate_single_level(
+            np.asarray(chunk.addr), np.asarray(chunk.is_write), state,
+            GEO.max_ways, policy, t0=t)
+        stats = stats.merge(st)
+    return stats
+
+
+def fig3(device="cuda", n=FIG3_N, streamed=False, around=_null) -> dict:
     """Each workload under each one-level policy on a 16 x 32 cache:
     IOPS (1 / mean latency) and SSD writes, then the WBWO/WB and RO/WB
-    ratios. ``around(name)`` is a context wrapped around the runs."""
+    ratios. With ``streamed`` each workload is written to a one-VM
+    store and fed shard by shard. ``around(name)`` is a context wrapped
+    around the runs."""
     runs, rows = {}, []
     t0 = time.perf_counter()
-    with around("fig3"):
+    with around("fig3"), tempfile.TemporaryDirectory(
+            prefix="torch_fig3_store_") as tmp:
         for w in FIG3_WORKLOADS:
+            store = (make_store(Path(tmp) / w, [w], n, seed=0, scale=0.25,
+                                shard_size=FIG3_SHARD) if streamed else None)
             for p in FIG3_POLICIES:
                 r0 = time.perf_counter()
-                state = make_cache(GEO.num_sets, GEO.max_ways, device)
-                stats, t = Stats.zero(), 0
-                for chunk in (make(w, n, seed=0, scale=0.25),):
-                    state, st, t = simulate_single_level(
-                        np.asarray(chunk.addr), np.asarray(chunk.is_write),
-                        state, GEO.max_ways, p, t0=t)
-                    stats = stats.merge(st)
+                stats = _fig3_run(
+                    store.iter_shards() if streamed
+                    else [make(w, n, seed=0, scale=0.25)], p, device)
                 iops = 1.0 / max(stats.mean_latency(), 1e-12)
                 writes = int(stats.cache_writes_l2)
                 runs[(w, p.value)] = dict(
@@ -212,13 +255,18 @@ def vm_means(res) -> tuple[float, float, float]:
 
 
 def fig12(device="cuda", vms=FIG12_VMS, reqs=REQS, resize=RESIZE,
-          promo=PROMO, around=_null) -> dict:
+          promo=PROMO, streamed=False, around=_null) -> dict:
     """The VMs' mix through each controller at equal total space
     (ECI-Cache sized at DRAM + SSD): mean latency, hit ratio and
     contended latency, per VM and averaged; then ETICA's improvements
     over ECI-Cache (paper: 45% latency, NPE 27%, +30% hit ratio).
+    With ``streamed`` every controller runs on one store of the mix.
     ``around(name)`` wraps each controller's run."""
-    trace = vm_mix(vms, reqs)
+    with mix_source(vms, reqs, streamed=streamed) as trace:
+        return _fig12(device, trace, vms, resize, promo, around)
+
+
+def _fig12(device, trace, vms, resize, promo, around) -> dict:
     controllers = {
         "etica_full": lambda: EticaCache(
             etica_config("full", resize, promo), len(vms), device=device),
@@ -296,12 +344,18 @@ def _sweep_one(iv: int, trace, spill: Path, num_vms: int, device):
 
 
 def fig17(device="cuda", vms=FIG17_VMS, reqs=FIG17_REQS,
-          intervals=FIG17_INTERVALS, journal=None, around=_null) -> dict:
+          intervals=FIG17_INTERVALS, journal=None, streamed=False,
+          around=_null) -> dict:
     """ETICA-Full swept over promotion intervals, latency and SSD writes
     read from the journal columns and normalised to the first interval;
     each run's journal summary and report lines. ``journal`` keeps the
-    last run's spill at that path; ``around(name)`` wraps each run."""
-    trace = vm_mix(vms, reqs)
+    last run's spill at that path; with ``streamed`` every run reads one
+    store of the mix; ``around(name)`` wraps each run."""
+    with mix_source(vms, reqs, streamed=streamed) as trace:
+        return _fig17(device, trace, vms, intervals, journal, around)
+
+
+def _fig17(device, trace, vms, intervals, journal, around) -> dict:
     base, runs, rows = None, {}, []
     with tempfile.TemporaryDirectory(prefix="fig17_journal_") as tmp:
         for iv in intervals:
@@ -344,11 +398,16 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--journal", default=None,
                     help="fig17: keep the last swept run's JSONL spill here")
+    ap.add_argument("--streamed", action="store_true",
+                    help="fig3, fig12 and fig17 read their requests from "
+                         "an on-disk trace store")
     args = ap.parse_args(argv)
     for key in (FIGS if args.fig == "all" else [args.fig]):
         kw = dict(SMOKE[f"fig{key}"]) if args.smoke else {}
         if key == "17":
             kw["journal"] = args.journal
+        if args.streamed and key != "10":
+            kw["streamed"] = True
         t0 = time.perf_counter()
         out = FIGS[key](args.device, **kw)
         us = (time.perf_counter() - t0) * 1e6 / out["requests"]

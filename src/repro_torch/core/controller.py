@@ -2,9 +2,11 @@
 of the one-level baselines.
 
 The PyTorch counterpart of :class:`repro.core.controller.EticaCache`
-(no classifier, no mesh, over an in-memory
-:class:`~repro_torch.core.trace.Trace`) in its three maintenance modes,
-which give identical results:
+(no classifier, no mesh; over an in-memory
+:class:`~repro_torch.core.trace.Trace`, an on-disk
+:class:`~repro_torch.traces.store.TraceStore` or a
+:class:`~repro_torch.traces.stream.StreamingTraceSource`) in its three
+maintenance modes, which give identical results:
 
   * fused (the default): batched ``[V, S, W]`` states, one device
     maintenance interval (popularity table, queues, evict, promote,
@@ -203,6 +205,7 @@ class EticaConfig:
     mrc_points: int = 17
     batched: bool = True             # stacked states; False: the per-VM
     #                                  sequential oracle
+    prefetch: bool = True            # pipeline host->device blocks
     prefetch_depth: int = 2          # blocks in flight beyond the consumed
     #                                  (0: copy each block when consumed)
     mesh: object | None = None       # not ported
@@ -590,14 +593,21 @@ class EticaCache:
         self.ways_dram, self.ways_ssd = wd, ws
 
     # -- main loop ----------------------------------------------------------
-    def run(self, trace: Trace) -> list[VMResult]:
-        """Drive the controller over a whole in-memory trace."""
+    def run(self, trace) -> list[VMResult]:
+        """Drive the controller over a whole trace.
+
+        ``trace`` may be an in-memory :class:`Trace`, an on-disk
+        :class:`repro_torch.traces.store.TraceStore`, or a pre-built
+        :class:`repro_torch.traces.stream.StreamingTraceSource` — all
+        three give bit-identical results; the store and stream paths
+        hold one resize window (plus the in-flight ``[V, chunk]``
+        blocks) in host memory. Anything else raises ``TypeError``."""
         cfg = self.cfg
         gd, gs = cfg.geometry_dram, cfg.geometry_ssd
         alloc_hist = [[] for _ in range(self.num_vms)]
         source = window_source(trace, self.num_vms, cfg.resize_interval,
-                               cfg.promo_interval, self.device,
-                               cfg.prefetch_depth)
+                               cfg.promo_interval, cfg.prefetch,
+                               cfg.prefetch_depth, self.device)
         for win in source.windows():
             subs = win.subs
             # 1) POD sizing + PPC partitioning at both levels (§4.3)
@@ -652,6 +662,7 @@ class SingleLevelConfig:
     mrc_points: int = 17
     batched: bool = True             # stacked states; False: the per-VM
     #                                  sequential oracle
+    prefetch: bool = True            # pipeline host->device blocks
     prefetch_depth: int = 2          # blocks in flight beyond the consumed
     mesh: object | None = None       # not ported
     classifier: object | None = None  # not ported
@@ -820,15 +831,19 @@ class PartitionedSingleLevelCache:
                     _acc_one(self.stats[v], st)
             self._sample_interval()
 
-    def run(self, trace: Trace) -> list[VMResult]:
-        """Drive the chassis over a whole in-memory trace."""
+    def run(self, trace) -> list[VMResult]:
+        """Drive the chassis over a :class:`Trace`, an on-disk
+        :class:`repro_torch.traces.store.TraceStore`, or a pre-built
+        :class:`repro_torch.traces.stream.StreamingTraceSource` —
+        bit-identical results either way (the streamed paths hold one
+        resize window at a time). Anything else raises ``TypeError``."""
         cfg = self.cfg
         g = cfg.geometry
         grid = _mrc_grid(g, cfg.mrc_points)
         alloc_hist = [[] for _ in range(self.num_vms)]
         source = window_source(trace, self.num_vms, cfg.resize_interval,
-                               cfg.sim_chunk, self.device,
-                               cfg.prefetch_depth)
+                               cfg.sim_chunk, cfg.prefetch,
+                               cfg.prefetch_depth, self.device)
         for win in source.windows():
             subs = win.subs
             demands, curves, policies = self._size(subs, grid)

@@ -273,10 +273,12 @@ def simulate_single_level(addr, is_write, state: CacheState,
 
 def _block(addr, is_write, device):
     """A ``[V, N]`` request block (numpy or tensors) as contiguous int32
-    / bool tensors on ``device``."""
+    / bool tensors on ``device``. A read-only array (a trace store's
+    memory-mapped shard) is copied once here, so no tensor aliases the
+    mapping."""
     if not isinstance(addr, torch.Tensor):
-        addr = np.ascontiguousarray(addr, np.int32)
-        is_write = np.ascontiguousarray(is_write, bool)
+        addr = np.require(addr, np.int32, ("C", "W"))
+        is_write = np.require(is_write, bool, ("C", "W"))
     addr = torch.as_tensor(addr, device=device).to(torch.int32)
     is_write = torch.as_tensor(is_write, device=device).to(torch.bool)
     return addr.contiguous(), is_write.contiguous()

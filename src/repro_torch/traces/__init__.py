@@ -1,18 +1,20 @@
-"""Trace generators and the controller's window source.
+"""Trace generators, the on-disk trace store and the controllers'
+window source.
 
-The names below are those of :mod:`repro.traces` that the port has (the
-on-disk trace store is not ported yet). Each is imported from its module
-on first use.
+The names below are those of :mod:`repro.traces`. Each is imported from
+its module on first use, so importing the package builds no kernel.
 """
 from __future__ import annotations
 
 import importlib
 
 _EXPORTS = {
-    "generators": ("SPECS", "WorkloadSpec", "generate", "make",
+    "generators": ("SCAN_HEAVY_MIX", "SPECS", "WorkloadSpec", "generate",
+                   "generate_to_store", "make", "make_store", "names",
                    "SESSION_NEW", "SESSION_ACTIVATE", "SESSION_APPEND",
                    "SESSION_END", "SessionSpec", "SessionTrace",
                    "generate_sessions"),
+    "store": ("TraceStore", "parse_blktrace", "parse_msr_csv"),
     "stream": ("StreamingTraceSource", "StreamWindow", "window_source"),
 }
 _MODULE_OF = {name: mod for mod, names in _EXPORTS.items() for name in names}

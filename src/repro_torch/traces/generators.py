@@ -30,6 +30,8 @@ varmail               Filebench Varmail — 50/50 random read/write (Fig. 3d)
 :func:`generate_sessions` is the serving workload's session
 arrival/churn stream (the two-tier KV manager's trace); it draws from the
 generator in the reference's order, so a seed gives the same events.
+:func:`make_store` and :func:`generate_to_store` write a mix straight
+into an on-disk :class:`~repro_torch.traces.store.TraceStore`.
 """
 from __future__ import annotations
 
@@ -128,11 +130,13 @@ def generate(spec: WorkloadSpec, n: int, seed: int = 0,
         k = int(len(reads) * spec.raw_fraction)
         if k and write_pos.size:
             pick = rng.choice(reads, size=k, replace=False)
-            for i in pick:
-                prev_w = write_pos[write_pos < i]
-                if prev_w.size:
+            # writes before each pick, by binary search (the reference
+            # scans write_pos per pick; the draws are the same)
+            before = np.searchsorted(write_pos, pick)
+            for i, cnt in zip(pick, before):
+                if cnt:
                     # read one of the last few written blocks (RAW / RARAW)
-                    j = prev_w[-1 - rng.integers(0, min(8, prev_w.size))]
+                    j = write_pos[cnt - 1 - rng.integers(0, min(8, cnt))]
                     addr[i] = addr[j]
 
     return Trace(addr=(addr + addr_offset).astype(np.int32),
@@ -254,6 +258,12 @@ SPECS: dict[str, WorkloadSpec] = {
                                 big_size=8),
 }
 
+# the classification benchmarks' default multi-VM mix: two scan-heavy
+# streams next to two reuse-friendly victims whose working sets the
+# scans would otherwise flush
+SCAN_HEAVY_MIX = ["scan_mix", "hm_1", "backup_scan", "src2_0"]
+
+
 def make(name: str, n: int, seed: int = 0, addr_offset: int = 0,
          scale: float = 1.0) -> Trace:
     """Instantiate a named workload; ``scale`` shrinks the working set for
@@ -265,6 +275,8 @@ def make(name: str, n: int, seed: int = 0, addr_offset: int = 0,
     return generate(spec, n, seed=seed, addr_offset=addr_offset)
 
 
+def names() -> list[str]:
+    return list(SPECS)
 
 
 # -- serving session churn --------------------------------------------------
@@ -405,3 +417,41 @@ def generate_sessions(spec: SessionSpec, n: int, seed: int = 0) -> SessionTrace:
             burst_left = 0
             i += 1
     return SessionTrace(kind=kind, sid=sid_col, tenant=ten_col)
+
+
+# -- generate-to-store ------------------------------------------------------
+
+def generate_to_store(path, spec: WorkloadSpec, n: int, seed: int = 0,
+                      addr_offset: int = 0, shard_size: int | None = None):
+    """Generate one workload straight into an on-disk
+    :class:`~repro_torch.traces.store.TraceStore` (vm-less single stream).
+
+    The synthetic generator itself is in-memory (its permutations are
+    global), but the store is written shard-by-shard, so the result can
+    be consumed at bounded memory like any imported trace."""
+    from .store import DEFAULT_SHARD_SIZE, TraceStore
+    trace = generate(spec, n, seed=seed, addr_offset=addr_offset)
+    return TraceStore.from_trace(path, trace,
+                                 shard_size=shard_size or DEFAULT_SHARD_SIZE)
+
+
+def make_store(path, workloads: list[str], reqs_per_vm: int, seed: int = 0,
+               scale: float = 1.0, addr_stride: int = 10_000_000,
+               interleave_seed: int = 42, shard_size: int | None = None):
+    """Generate a consolidated multi-VM mix straight into a TraceStore.
+
+    One named workload per VM (``workloads[i]`` drives VM ``i``, disjoint
+    address spaces via ``addr_stride``), randomly interleaved into one
+    hypervisor arrival stream — the same recipe the benchmarks use
+    in-memory, persisted shard-by-shard for the streaming ingestion
+    path. The store's files equal those of
+    :func:`repro.traces.generators.make_store` with the same arguments."""
+    from repro_torch.core.trace import interleave
+
+    from .store import DEFAULT_SHARD_SIZE, TraceStore
+    traces = [make(w, reqs_per_vm, seed=seed + i, addr_offset=i * addr_stride,
+                   scale=scale)
+              for i, w in enumerate(workloads)]
+    mixed = interleave(traces, seed=interleave_seed)
+    return TraceStore.from_trace(path, mixed,
+                                 shard_size=shard_size or DEFAULT_SHARD_SIZE)

@@ -5,10 +5,13 @@ promo 500) through both controllers — per-VM stats dicts and allocation
 histories must be equal, in modes full and npe, at prefetch depths 0
 and 2. Also: a state carried over from a JAX run with ``load_state``,
 the options outside the port (the mesh and the classifier, in every
-maintenance mode) raising ``NotImplementedError``, and a subprocess port
-job (every maintenance mode, the baselines, serving, the ``core`` and
-``traces`` exports, the §5.1 config and ``examples/torch_paper_figures.py``)
-that loads neither ``jax`` nor any ``repro`` module.
+maintenance mode) raising ``NotImplementedError``, inputs other than a
+port ``Trace``, ``TraceStore`` or ``StreamingTraceSource`` raising
+``TypeError``, and a subprocess port job (every maintenance mode, the
+baselines, serving, the ``core`` and ``traces`` exports, the trace store
+and streamed ingestion, the §5.1 config and
+``examples/torch_paper_figures.py``) that loads neither ``jax`` nor any
+``repro`` module.
 """
 import os
 import subprocess
@@ -126,10 +129,10 @@ def test_options_outside_the_port_raise(option):
 def test_non_trace_inputs_raise():
     _, tcfg = _configs()
     cache = EticaCache(tcfg, 2, device="cpu")
-    with pytest.raises(NotImplementedError):
-        cache.run(str(ROOT))          # e.g. a TraceStore path
+    with pytest.raises(TypeError):
+        cache.run(str(ROOT))          # a path, not an opened TraceStore
     jtrace, _ = _traces()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         cache.run(jtrace)             # the JAX package's Trace
 
 
@@ -220,6 +223,31 @@ def test_port_job_loads_no_jax_and_no_repro():
         out = figs.fig17("cpu", vms=("hm_1", "usr_0"), reqs=300,
                          intervals=(100,))
         assert out["runs"][100]["report"][-1].startswith("summary:")
+        import tempfile
+        from pathlib import Path
+        import repro_torch.traces.store
+        import repro_torch.traces.stream
+        from repro_torch.traces.store import TraceStore, main as store_cli
+        with tempfile.TemporaryDirectory() as tmp:
+            TraceStore.from_trace(Path(tmp) / "s", trace, shard_size=256)
+            store = TraceStore.open(Path(tmp) / "s")
+            ecfg = EticaConfig(dram_capacity=60, ssd_capacity=120,
+                               geometry_dram=geo, geometry_ssd=geo,
+                               resize_interval=600, promo_interval=200,
+                               clean_quota=2)
+            streamed = EticaCache(ecfg, 3, device="cpu").run(store)
+            assert [r.stats for r in streamed] == runs[2]
+            src = repro_torch.traces.stream.StreamingTraceSource(
+                store, num_vms=3, window=600, chunk=200, prefetch=False)
+            eci = make_eci_cache(180, 3, geometry=geo, resize_interval=600,
+                                 sim_chunk=200, device="cpu")
+            assert [r.stats for r in eci.run(src)] == \
+                [r.stats for r in res]
+            csv = Path(tmp) / "t.csv"
+            csv.write_text("0,h,0,Read,8192,8192,1\\n1,h,1,Write,0,4096,1\\n")
+            assert store_cli(["import", str(csv), str(Path(tmp) / "m")]) == 0
+            assert TraceStore.open(Path(tmp) / "m").num_vms == 2
+            del store, src
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "repro" or m.startswith("repro."))

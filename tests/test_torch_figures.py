@@ -11,12 +11,14 @@ exact, ``latency_sum`` the same float32 value and every derived float
 equal.
 
 Run as a script, it prints the JAX package's values at the benchmarks'
-own sizes, the constants ``chip_smoke.py`` phase 12 holds the card to::
+own sizes, the constants ``chip_smoke.py`` phases 12 and 13 hold the
+card to (``FIG3_STREAMED``: fig3's streamed form)::
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_figures.py
 """
 from __future__ import annotations
 
+import functools
 import hashlib
 import importlib.util
 import json
@@ -70,21 +72,30 @@ def jax_stats_dict(st) -> dict:
 
 
 def jax_fig3(n=6_000, workloads=("fio_randrw", "web_server",
-                                 "video_server", "varmail")) -> dict:
-    """benchmarks/fig3_write_policy.py's ``run_one`` and ``main``."""
+                                 "video_server", "varmail"),
+             streamed=False) -> dict:
+    """benchmarks/fig3_write_policy.py's ``run_one`` and ``main``; with
+    ``streamed``, its ``_workload_chunks`` store of shards of 1,024 (in a
+    temporary directory)."""
     from benchmarks.common import GEO
     from repro.core import Policy, Stats, make_cache, simulate_single_level
-    from repro.traces import make
+    from repro.traces import make, make_store
     runs, rows = {}, []
+    tmp = tempfile.TemporaryDirectory()
     for w in workloads:
         for p in (Policy.WB, Policy.RO, Policy.WBWO):
             state = make_cache(GEO.num_sets, GEO.max_ways)
             stats, t0 = Stats.zero(), 0
-            for chunk in (make(w, n, seed=0, scale=0.25),):
+            chunks = ((make(w, n, seed=0, scale=0.25),) if not streamed
+                      else make_store(Path(tmp.name) / f"{w}_{p.value}",
+                                      [w], n, seed=0, scale=0.25,
+                                      shard_size=1024).iter_shards())
+            for chunk in chunks:
                 state, st, t0 = simulate_single_level(
                     np.asarray(chunk.addr), np.asarray(chunk.is_write),
                     state, GEO.max_ways, p, t0=t0)
                 stats = stats.merge(st)
+            del chunk, chunks
             iops = 1.0 / max(stats.mean_latency(), 1e-12)
             writes = int(stats.cache_writes_l2)
             runs[(w, p.value)] = dict(stats=jax_stats_dict(stats), iops=iops,
@@ -99,6 +110,7 @@ def jax_fig3(n=6_000, workloads=("fio_randrw", "web_server",
                      f"WBWO_writes/WB={wo_w/max(wb_w,1):.2f} "
                      f"RO_writes/WB={ro_w/max(wb_w,1):.2f} "
                      f"WBWO_iops/WB={wo_i/max(wb_i,1e-9):.2f}"))
+    tmp.cleanup()
     return dict(rows=rows, runs=runs, requests=n * len(runs))
 
 
@@ -224,14 +236,36 @@ def jax_fig17(reqs=6_000, intervals=(100, 250, 500, 1000, 2000)) -> dict:
 # fig3 and fig10/11 at reduced sizes
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def jax_fig3_smoke(streamed=False) -> dict:
+    """:func:`jax_fig3` at ``--smoke`` size, once per form."""
+    return jax_fig3(streamed=streamed, **figures().SMOKE["fig3"])
+
+
 def test_fig3_port_equals_jax():
     """4 workloads x 3 policies at N 1,500: every Stats field (the
     float32 ``latency_sum`` through ``Stats.zero``/``merge``), IOPS and
     SSD writes, and the printed rows."""
     f = figures()
     got = strip_seconds(f.fig3("cpu", **f.SMOKE["fig3"]))
-    want = jax_fig3(**f.SMOKE["fig3"])
+    want = jax_fig3_smoke()
     assert got == want
+
+
+def test_fig3_streamed_port_equals_jax():
+    """fig3's streamed form (a one-VM store per workload, shards of
+    1,024 fed to the simulator one by one) at N 1,500: equal to the JAX
+    script's streamed form; the counts also equal the in-memory form's
+    (``latency_sum`` is summed a chunk at a time in both packages)."""
+    f = figures()
+    got = strip_seconds(f.fig3("cpu", streamed=True, **f.SMOKE["fig3"]))
+    assert got == jax_fig3_smoke(streamed=True)
+    mem = jax_fig3_smoke()
+    for key, run in got["runs"].items():
+        counts = {k: v for k, v in run["stats"].items()
+                  if k != "latency_sum"}
+        assert counts == {k: v for k, v in mem["runs"][key]["stats"].items()
+                          if k != "latency_sum"}, key
 
 
 def test_fig10_port_equals_jax():
@@ -250,7 +284,7 @@ def test_smoke_cli_prints_every_figure(capsys):
     f = figures()
     assert f.main(["--fig", "3", "--device", "cpu", "--smoke"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
-    want = jax_fig3(**f.SMOKE["fig3"])["rows"]
+    want = jax_fig3_smoke()["rows"]
     assert [(ln.split(",")[0], ln.split(",", 2)[2]) for ln in lines] == want
 
 
@@ -258,11 +292,14 @@ def test_smoke_cli_prints_every_figure(capsys):
 # the JAX package's values at the benchmarks' sizes (chip_smoke phase 12)
 # ---------------------------------------------------------------------------
 
-def constants(f3, f10, f12, f17) -> dict:
+def constants(f3, f10, f12, f17, f3s) -> dict:
     """The four figures' outputs in the layout of chip_smoke.py's
-    constants."""
+    constants; ``f3s`` is fig3's streamed form, whose float32 latency
+    sums (and IOPS) are summed a shard at a time."""
     stat_keys = list(f3["runs"][("fio_randrw", "WB")]["stats"])
     return {
+        "FIG3_STREAMED": {f"{w}/{p}": [r["stats"]["latency_sum"], r["iops"]]
+                          for (w, p), r in f3s["runs"].items()},
         "FIG3": {f"{w}/{p}": [r["stats"][k] for k in stat_keys] + [r["iops"]]
                  for (w, p), r in f3["runs"].items()},
         "FIG10": {w: [list(map(int, s)) for s in f10["sizes"][w]]
@@ -290,4 +327,5 @@ def constants(f3, f10, f12, f17) -> dict:
 
 if __name__ == "__main__":
     print(json.dumps(constants(jax_fig3(), jax_fig10(), jax_fig12(),
-                               jax_fig17()), indent=1))
+                               jax_fig17(), jax_fig3(streamed=True)),
+                     indent=1))
