@@ -63,7 +63,17 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    ``cuda_cores`` route) and bf16 (the ``wgmma`` route) and at the
    prefill shape (B 4, H 32, Hkv 8, S 4096, D 128); prints what ptxas
    said of ``flash_attention_sm90.cu`` (registers, spills), its shared
-   memory and the SASS count of ``HGMMA`` instructions;
+   memory and the SASS count of ``HGMMA`` instructions; holds the IO
+   classifier's ``classified`` routes of ``two_level`` and
+   ``single_level`` to their plain versions, exactly, at the paper's
+   [12, 1000] blocks, the 1024-VM blocks, V = 1, rows of 9,000, rows of
+   128 ways and one set taking every request (four classes drawn at
+   random: the default pool, an exclusive slice, an empty slice, a
+   bypass class; at one level the five policies mixed across (VM,
+   class)), each with its call and device time beside the unclassified
+   route's, bound, chain bound, plan, one device event a call
+   (asserted) and ptxas's registers and spills; match-all tables equal
+   the unclassified routes;
 3. runs the paper's §5.1 deployment (12 VMs x 20,000 requests, 64 x 64
    geometry) through ``EticaCache.run`` on the card and again on the
    CPU; per-VM stats and allocation histories must be identical;
@@ -157,14 +167,29 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    streamed ``tracemalloc`` peaks within 1.5x of each other while the
    trace grows 5x; (d) ``examples/torch_stream_external_trace.py``'s
    MSR import, streamed == in memory; (e) fig3, fig12/13 and fig17 in
-   their ``--streamed`` forms, held to the JAX package's CPU values.
+   their ``--streamed`` forms, held to the JAX package's CPU values;
+14. IO classification: (a) ``benchmarks/classification_bench.py``'s
+   protocol (``SCAN_HEAVY_MIX``, 4 VMs x 8,000, Centaur and ETICA
+   unclassified, with ``match_all()`` and with ``seq_cutoff(48)``,
+   Centaur batched and sequential, ETICA fused, staged and sequential),
+   each run on its own datapath route, match-all == unclassified, the
+   modes equal, every stats dict and per-class count equal to the JAX
+   package's CPU values (``CLASS_BENCH_JAX_CPU``) and
+   ``BENCH_classification.json``'s six numbers; (b) the §5.1 deployment
+   with ``seq_cutoff(48)`` and with a four-class classifier, ETICA and
+   ECI-Cache, card == CPU (stats, histories, logs, final states,
+   per-class counts), requests/s beside unclassified ETICA's (three
+   interleaved runs each), span breakdowns; (c) the seq-cutoff ETICA run
+   from a store of shards of 4,096 == (b)'s in-memory card run.
 
 The §5.1 deployment (VMs, requests, intervals, the DRAM share of the
 capacity) comes from ``src/repro_torch/configs/etica_paper.py``.
 
-Each card run of phases 3 to 13 sets the launch counts to 0 just before
+Each card run of phases 3 to 14 sets the launch counts to 0 just before
 and reads them just after; exactly the kernels of that path's own set
-must have launched (``popularity`` only on the staged paths). Phase 2
+must have launched (``popularity`` only on the staged paths), and in
+phase 14 only the datapath route of its run (``classified`` with a
+classifier). Phase 2
 holds the kernels against their plain versions at the shapes of both
 the 12-VM and the 1024-VM runs.
 
@@ -172,10 +197,14 @@ The line before the last is ``{"kernels": [...]}`` (one entry per
 kernel; ``routes`` and ``routes_by_path``, where a kernel has more than
 one route, count each route's launches; ``launches`` from its own path: the 12-VM paths, the full-width
 serving run for ``paged_decode_attention``, the staged 12-VM run for
-``popularity`` and the full-width prefill for ``flash_attention``); the
+``popularity`` and the full-width prefill for ``flash_attention``; the
+``classified`` routes as entries of their own, ``two_level_classified``
+and ``single_level_classified``, with their route's launches on the
+seq-cutoff 12-VM runs); the
 last is ``{"ok": true, "device": {...}}``. Any
 failed phase raises and the exit code is nonzero. Without a CUDA device
-it exits 2 and prints no result.
+it exits 2 and prints no result; run from a directory without the
+repository's ``src/repro_torch`` it exits 1 and prints no result.
 """
 from __future__ import annotations
 
@@ -735,6 +764,245 @@ def check_set_walk(dev, rng, paper, blocks12, ways12, step_ns):
                                              "12-VM, 128 ways", step_ns,
                                              time_plain=False)
     return out, single
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the classified datapath routes (IO classification)
+# ---------------------------------------------------------------------------
+
+def kernel_classes():
+    """The classes of the classified kernels' checks: the default pool,
+    an exclusive slice (a quarter of the ways), an empty slice
+    (``ways_frac`` 0) and a bypass class."""
+    from repro_torch.classify import Classifier, IOClass
+    return Classifier([IOClass("default"), IOClass("slice", ways_frac=0.25),
+                       IOClass("empty", ways_frac=0.0),
+                       IOClass("bypass", bypass=True)])
+
+
+def ptxas_by_kernel(source: str) -> dict:
+    """ptxas's registers and spills of each walk kernel instantiation of
+    one source (``kernels.build_log()``), keyed ``kernel<Row>``."""
+    import re
+    from repro_torch import kernels
+    out, cur, name = {}, None, None
+    for ln in kernels.build_log().splitlines():
+        if ln.endswith(".cu:") and " " not in ln:
+            cur = ln[:-1]
+        elif cur != source:
+            continue
+        elif "Compiling entry function" in ln:
+            k = re.search(r"((?:two|single)_level[a-z_]*_kernel)I", ln)
+            row = re.search(r"(MemRow|RegRowILi(\d)E)", ln)
+            name = (f"{k.group(1) if k else '?'}<"
+                    f"{'RegRow<' + row.group(2) + '>' if row and row.group(2) else 'MemRow'}>")
+        elif name and ("registers" in ln or "spill" in ln):
+            out[name] = (out.get(name, "") + " " + ln.split(":", 1)[-1]
+                         .strip()).strip()
+    return out
+
+
+def walk_parts(dev, v, sets_d, sets_s) -> int:
+    """The CTAs a VM of a datapath launch (``ops._split``'s plan)."""
+    from repro_torch.kernels.datapath import ops
+    if sets_d != sets_s:
+        return 1
+    return max(1, min(sm_count(dev) // v, sets_d // ops.WALK_WARPS))
+
+
+def random_policy_flags(rng, v, c, dev) -> list:
+    """``[V, C]`` policy flags, the five policies mixed across (VM,
+    class)."""
+    import torch
+    from repro_torch.core.policies import Policy
+    pick = rng.integers(0, len(Policy), (v, c))
+    return [torch.from_numpy(np.asarray(
+        [[getattr(list(Policy)[p], f) for p in row] for row in pick],
+        bool).reshape(v, c)).to(dev)
+        for f in ("allocates_reads", "write_invalidates", "holds_dirty",
+                  "write_through")]
+
+
+def check_classified(dev, rng, blocks, geo, ways, label, step_ns,
+                     single=False, mode="full", time_plain=False):
+    """A ``classified`` route (``two_level`` or, with ``single``,
+    ``single_level``) against its plain version over chained blocks,
+    with random class ids of :func:`kernel_classes` (and, at one level,
+    the five policies mixed across (VM, class)); times the fullest block
+    beside the unclassified route at the same shape; its bound, chain
+    bound, plan and device events a call (one, asserted)."""
+    import torch
+    from repro_torch.core.policies import T_SSD
+    from repro_torch.core.simulator import make_cache_batch
+    from repro_torch.kernels.datapath import ops
+    clf = kernel_classes()
+    c = clf.num_classes
+    (sd, wmd), (ss, wms) = geo if not single else (geo[0], geo[0])
+    v = blocks[0][0].shape[0]
+    put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    w_np = [np.asarray(x, np.int32) for x in ways]
+    bounds = [put(x) for w in (w_np if not single else w_np[:1])
+              for x in clf.way_bounds(w)]
+    wd, ws = put(w_np[0]), put(w_np[1])
+    byp = put(clf.bypass)
+    npe = mode == "npe"
+    if single:
+        flags = random_policy_flags(rng, v, c, dev)
+        kstate = rstate = tuple(make_cache_batch(v, sd, wmd, dev))
+        run = lambda a, w, cl, st, t: ops.single_level_classified(
+            a, w, cl, *st, wd, *flags, t, byp, *bounds, t_cache=T_SSD)
+        plain = lambda a, w, cl, st, t: ops.single_level_classified_plain(
+            a, w, cl, *st, wd, *flags, t, byp, *bounds, t_cache=T_SSD)
+        base = lambda a, w, st, t: ops.single_level(
+            a, w, *st, wd, *(f[:, 0].contiguous() for f in flags), t,
+            t_cache=T_SSD)
+        nst, it = 3, 5
+        name = f"single_level_classified {label}"
+    else:
+        kstate = rstate = (*make_cache_batch(v, sd, wmd, dev),
+                           *make_cache_batch(v, ss, wms, dev))
+        run = lambda a, w, cl, st, t: ops.two_level_classified(
+            a, w, cl, *st, wd, ws, t, byp, *bounds, npe=npe)
+        plain = lambda a, w, cl, st, t: ops.two_level_classified_plain(
+            a, w, cl, *st, wd, ws, t, byp, *bounds, npe=npe)
+        base = lambda a, w, st, t: ops.two_level(a, w, *st, wd, ws, t,
+                                                 npe=npe)
+        nst, it = 6, 8
+        name = f"two_level_classified {label} {mode}"
+    kt = rt = torch.zeros(v, dtype=torch.int32, device=dev)
+    err, timed = 0.0, None
+    for a_np, w_np_ in blocks:
+        a, w = put(a_np), put(w_np_)
+        cl = put(rng.integers(0, c, a_np.shape).astype(np.int32))
+        if timed is None or (a >= 0).sum() > (timed[0] >= 0).sum():
+            timed = (a, w, cl, kstate, kt)
+        kout = run(a, w, cl, kstate, kt)
+        rout = plain(a, w, cl, rstate, rt)
+        err = max(err, max_abs_err(kout, rout))
+        kstate, kt = kout[:nst], kout[it]
+        rstate, rt = rout[:nst], rout[it]
+    a, w, cl, st, t = timed
+    call = lambda: run(a, w, cl, st, t)
+    ms, dev_ms = cuda_ms(call, 20), graph_ms(call, 10)
+    u_ms = cuda_ms(lambda: base(a, w, st, t), 20)
+    u_dev = graph_ms(lambda: base(a, w, st, t), 10)
+    plain_ms = (cuda_ms(lambda: plain(a, w, cl, st, t), 1, warmup=0)
+                if time_plain else None)
+    events = kernel_events(call, ("single_level" if single else "two_level")
+                           + "_classified_kernel")
+    n = a.shape[1]
+    sets = sorted({sd, ss})
+    chain = sum(longest_set_chain(a, s) for s in sets)
+    chain_b = chain * step_ns * 1e-6
+    state_bytes = 2 * 9.0 * v * (sd * wmd + (0 if single else ss * wms))
+    nbytes = 9.0 * v * n + state_bytes + 16.0 * v * c + (40.0 + 8 * c) * v
+    ops_count = float((a >= 0).sum()) * 2 * (wmd + (0 if single else wms))
+    b, by = bound_ms(nbytes, ops_count)
+    parts = walk_parts(dev, v, sd, ss)
+    log(f"{name} [{v},{n}] {sd}x{wmd}" + ("" if single else f" / {ss}x{wms}")
+        + f", C {c}: exact over {len(blocks)} blocks; kernel {ms:.4f} ms "
+        f"(device {dev_ms:.4f} ms, {events:.0f} device event a call), "
+        f"unclassified route {u_ms:.4f} ms (device {u_dev:.4f} ms), plain "
+        f"{fmt_ms(plain_ms)}, bound {b:.5f} ms ({by}), longest same-set "
+        f"chain {chain} x {step_ns:.2f} ns = chain bound {chain_b:.5f} ms, "
+        f"plan {parts} CTA(s) a VM")
+    return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=b, bound_by=by, library_ms=None, chain=chain,
+                chain_bound_ms=chain_b, unclassified_ms=u_ms,
+                unclassified_device_ms=u_dev, parts=parts, events=events)
+
+
+def check_match_all_routes(dev, blocks, ways):
+    """Match-all tables (one class, no bypass, the whole active range)
+    through the classified routes at the 12-VM shape: states, the eight
+    counts, the ``latency_sum`` bits and clocks equal the unclassified
+    routes', ``bypassed`` 0 and every non-padding request counted once in
+    its class."""
+    import torch
+    from repro_torch.core.policies import T_SSD
+    from repro_torch.core.simulator import make_cache_batch, policy_flags
+    from repro_torch.core.policies import Policy
+    from repro_torch.kernels.datapath import ops
+    v = blocks[0][0].shape[0]
+    wd, ws = (torch.as_tensor(x, dtype=torch.int32, device=dev)
+              for x in ways)
+    zero = torch.zeros((v, 1), dtype=torch.int32, device=dev)
+    byp = torch.zeros(1, dtype=torch.bool, device=dev)
+    flags = policy_flags([list(Policy)[k % 5] for k in range(v)], dev)
+    st2 = (*make_cache_batch(v, 64, 64, dev), *make_cache_batch(v, 64, 64,
+                                                                 dev))
+    st1 = tuple(make_cache_batch(v, 64, 64, dev))
+    t2 = t1 = torch.zeros(v, dtype=torch.int32, device=dev)
+
+    def same(label, got, want, nst):
+        max_abs_err(list(got[:nst]) + [got[nst][:, :8]] + list(
+            got[nst + 1:nst + 3]), want)
+        if got[nst][:, 8].any() or not torch.equal(
+                (got[-2] + got[-1])[:, 0], got[nst][:, :2].sum(1)):
+            raise AssertionError(f"{label}: match-all class counts")
+    for a_np, w_np in blocks:
+        a, w = (torch.from_numpy(x).to(dev) for x in (a_np, w_np))
+        cl = torch.zeros(a.shape, dtype=torch.int32, device=dev)
+        for npe in (False, True):
+            got = ops.two_level_classified(a, w, cl, *st2, wd, ws, t2, byp,
+                                           zero, wd[:, None].contiguous(),
+                                           zero, ws[:, None].contiguous(),
+                                           npe=npe)
+            want = ops.two_level(a, w, *st2, wd, ws, t2, npe=npe)
+            same(f"two_level match-all npe={npe}", got, want, 6)
+        st2, t2 = want[:6], want[8]
+        got = ops.single_level_classified(
+            a, w, cl, *st1, wd, *(f[:, None].contiguous() for f in flags),
+            t1, byp, zero, wd[:, None].contiguous(), t_cache=T_SSD)
+        want = ops.single_level(a, w, *st1, wd, *flags, t1, t_cache=T_SSD)
+        same("single_level match-all", got, want, 3)
+        st1, t1 = want[:3], want[5]
+    log(f"match-all tables through both classified routes over "
+        f"{len(blocks)} 12-VM blocks (two_level full and npe, single_level "
+        f"under the five policies): equal to the unclassified routes "
+        f"(states, counts, latency_sum bits, clocks), bypassed 0")
+
+
+def check_classified_routes(dev, rng, paper, blocks12, blocks1024, ways12,
+                            step_ns) -> dict:
+    """Phase 2's classified routes: each at the paper's [12, 1000] blocks
+    (64 x 64), the 1024-VM blocks (16 x 32), V = 1 (64 x 64), rows of
+    9,000 (two tiles), rows of 128 ways and one set taking every
+    request; match-all tables equal the unclassified routes. Returns the
+    kernels line's two rows."""
+    g64, g16 = ((64, 64), (64, 64)), ((16, 32), (16, 32))
+    vm0 = [(a[:1], w[:1]) for a, w in blocks12[:1]]
+    w0 = (ways12[0][:1], ways12[1][:1])
+    two = stream_blocks(paper, 9_000, 1)
+    w1024 = (rng.integers(0, 33, 1024), rng.integers(0, 33, 1024))
+    rows = {}
+    for single, key in ((False, "two_level_classified"),
+                        (True, "single_level_classified")):
+        chk = lambda *args, **kw: check_classified(dev, rng, *args,
+                                                   step_ns=step_ns,
+                                                   single=single, **kw)
+        row = chk(blocks12, g64, ways12, "12-VM", time_plain=True)
+        row["shapes"] = {
+            "1024-VM": chk(blocks1024, g16, w1024, "1024-VM"),
+            "V=1": chk(vm0, g64, w0, "V=1"),
+            "two tiles": chk(two, g64, ([64], [64]), "rows of 9,000"),
+            "wide rows": chk(blocks12[:1], ((32, 128), (32, 128)),
+                             (rng.integers(8, 129, 12),
+                              rng.integers(8, 129, 12)), "128 ways"),
+            "one set": chk(one_set(blocks12[:1], 64), g64, ways12,
+                           "one set", mode="npe")}
+        if not single:
+            row["shapes"]["12-VM npe"] = chk(blocks12, g64, ways12, "12-VM",
+                                             mode="npe")
+        row["max_abs_err"] = max([row["max_abs_err"]] + [
+            r.pop("max_abs_err") for r in row["shapes"].values()])
+        src = "single_level.cu" if single else "datapath.cu"
+        row["ptxas"] = ptxas_by_kernel(src)
+        for k, info in row["ptxas"].items():
+            log(f"ptxas {src} {k}: {info}")
+        rows[key] = row
+    check_match_all_routes(dev, blocks12, ways12)
+    return rows
 
 
 def random_state(rng, v, s, w, fill=0.75):
@@ -2058,8 +2326,8 @@ def drive_card(build, trace, label, expect):
 
 def same_run(label, want, got, ignore=()):
     """Two controllers' results, interval logs and final states, exactly
-    (``want``/``got`` are ``(cache, results)``), but for the stats keys
-    in ``ignore``."""
+    (``want``/``got`` are ``(cache, results)``, on the card or the CPU),
+    but for the stats keys in ``ignore``."""
     import torch
     (wc, wres), (gc, gres) = want, got
 
@@ -2081,7 +2349,7 @@ def same_run(label, want, got, ignore=()):
     for view in views:
         for v in range(len(wres)):
             for a, b in zip(getattr(wc, view)(v), getattr(gc, view)(v)):
-                if not torch.equal(a, b):
+                if not torch.equal(a.cpu(), b.cpu()):
                     raise AssertionError(f"{label}: VM {v} {view} differs")
 
 
@@ -3595,11 +3863,303 @@ def check_streamed_figures(launches, dev="cuda"):
         "equal the JAX package's CPU values")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: IO classification on the card
+# ---------------------------------------------------------------------------
+
+CLASS_CUTOFF = 48             # benchmarks/classification_bench.py CUTOFF
+CLASS_BENCH_REQS = 8_000      # its REQS, a VM
+# benchmarks/classification_bench.py's runs on the JAX package, CPU
+# (Centaur capacity 800, sim_chunk 500; ETICA DRAM 400 / SSD 800, resize
+# 2,000, promotion 500; 16 x 32; SCAN_HEAVY_MIX, 4 VMs x 8,000, scale
+# 0.25): per-VM stats in CLASS_STATS_KEYS order and the seq-cutoff runs'
+# per-class counts, printed by
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_classified_controller.py
+CLASS_STATS_KEYS = ("disk_writes", "evict_flushes", "reads", "writes",
+                    "read_hits_l1", "read_hits_l2", "write_hits_l2",
+                    "cache_writes_l2", "disk_reads", "latency_sum",
+                    "bypassed", "pop_drops", "flushes", "dirty_resident")
+CLASS_BENCH_JAX_CPU = {
+    "chassis/none": {"stats": [
+        (791.0, 54.0, 6764.0, 1236.0, 0.0, 2304.0, 395.0, 5696.0, 4460.0,
+         22.33540273059043, 0.0, 0.0, 0.0, 0.0),
+        (81.0, 21.0, 7587.0, 413.0, 0.0, 6608.0, 364.0, 1392.0, 979.0,
+         4.965219077275833, 0.0, 0.0, 0.0, 0.0),
+        (5199.0, 471.0, 889.0, 7111.0, 0.0, 294.0, 1616.0, 7706.0, 595.0,
+         3.0490585152474523, 0.0, 0.0, 0.0, 0.0),
+        (307.0, 121.0, 3224.0, 4776.0, 0.0, 3168.0, 4435.0, 4832.0, 56.0,
+         0.3594400858382869, 0.0, 0.0, 0.0, 0.0)]},
+    "chassis/seq_cutoff": {"stats": [
+        (809.0, 13.0, 6764.0, 1236.0, 0.0, 2384.0, 412.0, 3166.0, 4380.0,
+         22.128283932543127, 2450.0, 0.0, 0.0, 0.0),
+        (34.0, 11.0, 7587.0, 413.0, 0.0, 6919.0, 385.0, 1081.0, 668.0,
+         3.413314672972774, 0.0, 0.0, 0.0, 0.0),
+        (5221.0, 177.0, 889.0, 7111.0, 0.0, 311.0, 1690.0, 4206.0, 578.0,
+         4.512137866437115, 3483.0, 0.0, 0.0, 0.0),
+        (28.0, 15.0, 3224.0, 4776.0, 0.0, 3200.0, 4622.0, 4800.0, 24.0,
+         0.19975925505787018, 0.0, 0.0, 0.0, 0.0)],
+        "cls_hits": [[2796, 0], [7304, 0], [2001, 0], [7822, 0]],
+        "cls_miss": [[2754, 0], [696, 0], [2516, 0], [178, 0]]},
+    "etica/none": {"stats": [
+        (846.0, 0.0, 6764.0, 1236.0, 1933.0, 493.0, 390.0, 449.0, 4397.0,
+         22.122772101094597, 0.0, 0.0, 0.0, 0.0),
+        (71.0, 2.0, 7587.0, 413.0, 6275.0, 519.0, 344.0, 474.0, 923.0,
+         4.01128523100715, 0.0, 0.0, 0.0, 0.0),
+        (5434.0, 0.0, 889.0, 7111.0, 35.0, 262.0, 1677.0, 1740.0, 655.0,
+         5.696409459967981, 0.0, 0.0, 0.0, 0.0),
+        (523.0, 9.0, 3224.0, 4776.0, 1111.0, 1865.0, 4262.0, 4404.0, 390.0,
+         1.5588243119855179, 0.0, 0.0, 0.0, 0.0)]},
+    "etica/seq_cutoff": {"stats": [
+        (846.0, 0.0, 6764.0, 1236.0, 1992.0, 443.0, 390.0, 449.0, 4388.0,
+         22.077301274250203, 2450.0, 0.0, 0.0, 0.0),
+        (67.0, 0.0, 7587.0, 413.0, 6418.0, 442.0, 346.0, 458.0, 839.0,
+         3.67960400788661, 0.0, 0.0, 0.0, 0.0),
+        (5434.0, 0.0, 889.0, 7111.0, 35.0, 264.0, 1677.0, 1740.0, 653.0,
+         5.686429526467691, 3483.0, 0.0, 0.0, 0.0),
+        (505.0, 0.0, 3224.0, 4776.0, 1132.0, 1854.0, 4271.0, 4388.0, 355.0,
+         1.504315271085943, 0.0, 0.0, 0.0, 0.0)],
+        "cls_hits": [[2825, 0], [7206, 0], [1976, 0], [7257, 0]],
+        "cls_miss": [[2725, 0], [794, 0], [2541, 0], [743, 0]]},
+}
+# benchmarks/BENCH_classification.json: (read-hit unclassified,
+# classified, SSD writes unclassified, classified, bypassed) and ETICA's
+# pop_drops
+BENCH_CLASSIFICATION = {"chassis": ("0.6702", "0.6940", 19626, 13253, 5933),
+                        "etica": ("0.6766", "0.6813", 7067, 7035, 5933)}
+BENCH_CLASSIFICATION_ETICA_POP_DROPS = 0
+
+
+def four_class():
+    """Phase 14 (b)'s four-class classifier: the default class; writes of
+    under 2 blocks in an exclusive quarter of the ways, write-through;
+    VM 0's address range at half weight; a sequential bypass from a run
+    of 48 blocks."""
+    from repro_torch.classify import ClassRule, Classifier, IOClass
+    from repro_torch.core.policies import Policy
+    return Classifier([
+        IOClass("default"),
+        IOClass("small_writes", rules=(ClassRule(size=(None, 2),
+                                                 direction="write"),),
+                ways_frac=0.25, policy=Policy.WT),
+        IOClass("vm0_range", rules=(ClassRule(lba=(0, 10_000_000)),),
+                weight=0.5),
+        IOClass("seq_bypass", rules=(ClassRule(run_len=(CLASS_CUTOFF,
+                                                        None)),),
+                bypass=True)])
+
+
+def expect_route(label, n, kernel, route) -> None:
+    """Only ``route`` of ``kernel`` launched in the run counted in ``n``."""
+    got = n["routes"].get(kernel, {})
+    if set(got) != {route}:
+        raise AssertionError(f"{label}: {kernel} routes {got}, expected "
+                             f"only {route}")
+
+
+def same_classes(label, want, got) -> None:
+    """Two classified runs' per-class counts and the journal's per-class
+    columns, exactly."""
+    for k in ("cls_hits", "cls_miss"):
+        if not np.array_equal(getattr(want, k), getattr(got, k)):
+            raise AssertionError(f"{label}: {k} differ")
+        if not np.array_equal(want.telemetry.journal.column(k),
+                              got.telemetry.journal.column(k)):
+            raise AssertionError(f"{label}: journal {k} differ")
+
+
+def read_hit(res) -> float:
+    agg = {k: sum(r.stats.get(k, 0.0) for r in res)
+           for k in ("read_hits_l1", "read_hits_l2", "reads")}
+    return (agg["read_hits_l1"] + agg["read_hits_l2"]) / max(agg["reads"], 1)
+
+
+def check_class_bench(launches) -> None:
+    """Phase 14 (a): ``benchmarks/classification_bench.py``'s protocol on
+    the card. Centaur and ETICA unclassified, with ``match_all()`` and
+    with ``seq_cutoff(48)`` (Centaur batched and sequential; ETICA
+    fused, staged and sequential), each launching exactly its path's
+    kernels on its own datapath route; match-all == unclassified; the
+    modes equal each other (ETICA's but ``pop_drops``, which only the
+    fused table counts); every per-VM stats dict and per-class count
+    equal to the JAX package's CPU values; the six numbers of
+    ``BENCH_classification.json``."""
+    from repro_torch.classify import match_all, seq_cutoff
+    from repro_torch.core.baselines import make_centaur
+    from repro_torch.core.controller import EticaConfig, Geometry
+    from repro_torch.traces.generators import SCAN_HEAVY_MIX
+    trace = trace_mix(SCAN_HEAVY_MIX, CLASS_BENCH_REQS, 0.25)
+    geo = Geometry(16, 32)
+    ecfg = EticaConfig(dram_capacity=400, ssd_capacity=800,
+                       geometry_dram=geo, geometry_ssd=geo,
+                       resize_interval=2000, promo_interval=500)
+    v = len(SCAN_HEAVY_MIX)
+
+    def centaur(clf, batched=True):
+        def build(device, telemetry=None):
+            return make_centaur(800, v, geometry=geo, resize_interval=2000,
+                                sim_chunk=500, batched=batched,
+                                classifier=clf, device=device,
+                                telemetry=telemetry)
+        return build
+
+    def eti(clf, **kw):
+        return etica(dataclasses.replace(ecfg, classifier=clf, **kw), v)
+
+    cut = lambda: seq_cutoff(CLASS_CUTOFF)
+    runs, plan = {}, (
+        ("chassis/none", centaur(None), ECI_KERNELS, "single_level"),
+        ("chassis/match_all", centaur(match_all()), ECI_KERNELS, None),
+        ("chassis/seq_cutoff", centaur(cut()), ECI_KERNELS, None),
+        ("chassis/seq_cutoff-seq", centaur(cut(), False), ECI_KERNELS, None),
+        ("etica/none", eti(None), ETICA_KERNELS, "two_level"),
+        ("etica/match_all", eti(match_all()), ETICA_KERNELS, None),
+        ("etica/seq_cutoff", eti(cut()), ETICA_KERNELS, None),
+        ("etica/seq_cutoff-staged", eti(cut(), fused_maintenance=False),
+         None, None),
+        ("etica/seq_cutoff-seq", eti(cut(), batched=False), SEQ_KERNELS,
+         None))
+    for key, build, expect, _ in plan:
+        kernel = "single_level" if key.startswith("chassis") else "two_level"
+        if expect is None:             # staged: evict_scatter where a
+            expect = STAGED_KERNELS + (   # queue formed in the fused run
+                ("evict_scatter",) if np.sum(runs["etica/seq_cutoff"][
+                    0].telemetry.journal.column("evict_queue")) else ())
+        label = f"class-bench-{key.replace('/', '-')}"
+        launches[label], cache, res, rate = drive_card(build, trace, label,
+                                                       expect)
+        expect_route(label, launches[label], kernel,
+                     "unclassified" if key.endswith("/none")
+                     else "classified")
+        runs[key] = (cache, res)
+    for name in ("chassis", "etica"):
+        assert_same(runs[f"{name}/match_all"][1], runs[f"{name}/none"][1],
+                    f"class-bench {name} match_all vs none")
+    same_run("class-bench chassis seq_cutoff batched vs sequential",
+             runs["chassis/seq_cutoff"], runs["chassis/seq_cutoff-seq"])
+    same_classes("class-bench chassis", runs["chassis/seq_cutoff"][0],
+                 runs["chassis/seq_cutoff-seq"][0])
+    for mode in ("staged", "seq"):
+        same_run(f"class-bench etica seq_cutoff fused vs {mode}",
+                 runs["etica/seq_cutoff"], runs[f"etica/seq_cutoff-{mode}"],
+                 ignore=("pop_drops",))
+        same_classes(f"class-bench etica {mode}", runs["etica/seq_cutoff"][0],
+                     runs[f"etica/seq_cutoff-{mode}"][0])
+    for key, (cache, res) in runs.items():
+        want = CLASS_BENCH_JAX_CPU[key.split("-")[0].replace(
+            "match_all", "none")]
+        got = [tuple(r.stats[k] for k in CLASS_STATS_KEYS) for r in res]
+        expect_equal(f"class-bench {key}", got, want["stats"])
+        if "cls_hits" in want:
+            expect_equal(f"class-bench {key} per-class counts",
+                         (cache.cls_hits.tolist(), cache.cls_miss.tolist()),
+                         (want["cls_hits"], want["cls_miss"]))
+    for name, (h0, h1, w0, w1, byp) in BENCH_CLASSIFICATION.items():
+        base, cls = runs[f"{name}/none"][1], runs[f"{name}/seq_cutoff"][1]
+        got = (f"{read_hit(base):.4f}", f"{read_hit(cls):.4f}",
+               sum(r.ssd_writes for r in base), sum(r.ssd_writes
+                                                     for r in cls),
+               sum(r.stats["bypassed"] for r in cls))
+        expect_equal(f"class-bench {name} BENCH_classification.json", got,
+                     (h0, h1, w0, w1, byp))
+        log(f"class-bench {name}: read-hit {got[0]} -> {got[1]}, SSD writes "
+            f"{got[2]:.0f} -> {got[3]:.0f}, bypassed {got[4]:.0f}: "
+            f"BENCH_classification.json's numbers")
+    drops = sum(r.stats["pop_drops"] for r in runs["etica/seq_cutoff"][1])
+    expect_equal("class-bench etica pop_drops", drops,
+                 BENCH_CLASSIFICATION_ETICA_POP_DROPS)
+    log("phase 14 (a): match_all == unclassified on both controllers; the "
+        "classified chassis batched == sequential; ETICA fused == staged == "
+        "sequential (but pop_drops); every stats dict and per-class count "
+        "equal to the JAX package's CPU values")
+
+
+def check_paper_classified(launches, paper, cfg, eci_for, rate_unclassified):
+    """Phase 14 (b): the §5.1 deployment with ``seq_cutoff(48)`` and with
+    :func:`four_class`, ETICA and ECI-Cache: each card run launches
+    exactly its path's kernels, only on the ``classified`` datapath
+    route, and equals the CPU plain path (stats, histories, logs, final
+    states, per-class counts and journal columns). Then three more card
+    runs of unclassified ETICA and of each classified one, interleaved,
+    for requests/s on the same host clock, and the span breakdown of
+    the seq-cutoff run. Returns the seq-cutoff card run ``(cache,
+    results)``."""
+    from repro_torch.classify import seq_cutoff
+    clfs = {"seq_cutoff": seq_cutoff(CLASS_CUTOFF), "four_class": four_class()}
+    builds = {}
+    out = None
+    for name, clf in clfs.items():
+        for kind, build, expect, kernel in (
+                ("", etica(dataclasses.replace(cfg, classifier=clf), 12),
+                 ETICA_KERNELS, "two_level"),
+                ("-eci", eci_for(clf), ECI_KERNELS, "single_level")):
+            label = f"paper-12vm-{name}{kind}"
+            builds[label] = build
+            launches[label], cache, res, rate = drive_card(build, paper,
+                                                           label, expect)
+            expect_route(label, launches[label], kernel, "classified")
+            cpu, cres, wall_cpu = run_controller(build, paper, "cpu")
+            same_run(label, (cpu, cres), (cache, res))
+            same_classes(label, cpu, cache)
+            byp = sum(r.stats["bypassed"] for r in res)
+            log(f"{label}: card == CPU (CPU plain path {wall_cpu:.1f} s): "
+                f"stats, alloc_history, logs, final states, per-class "
+                f"counts; bypassed {byp:.0f}, avg_hit "
+                f"{np.mean([r.hit_ratio for r in res]):.4f}, ssd_writes "
+                f"{sum(r.ssd_writes for r in res):.0f}; launches "
+                f"{launch_summary(launches[label])}, routes "
+                f"{launches[label]['routes']}")
+            if label == "paper-12vm-seq_cutoff":
+                out = (cache, res)
+    rates = {"paper-12vm": [], "paper-12vm-seq_cutoff": [],
+             "paper-12vm-four_class": []}
+    for _ in range(3):
+        for label in rates:
+            build = builds.get(label) or etica(cfg, 12)
+            _, _, wall = run_controller(build, paper, "cuda")
+            rates[label].append(len(paper) / wall)
+    log(f"paper-12vm requests/s, three runs each, interleaved (phase 3's "
+        f"run: {rate_unclassified:.0f}): " + "; ".join(
+            f"{k} " + ", ".join(f"{r:.0f}" for r in v)
+            for k, v in rates.items()))
+    span_breakdown(builds["paper-12vm-seq_cutoff"], paper,
+                   "paper-12vm-seq_cutoff")
+    span_breakdown(builds["paper-12vm-four_class"], paper,
+                   "paper-12vm-four_class")
+    return out
+
+
+def check_streamed_classified(launches, paper, cfg, want) -> None:
+    """Phase 14 (c): the seq-cutoff ETICA run from a store of shards of
+    4,096 (the run carry crosses window and shard edges) == (b)'s
+    in-memory card run."""
+    import tempfile
+    from repro_torch.classify import seq_cutoff
+    from repro_torch.traces import TraceStore
+    label = "paper-12vm-seq_cutoff-streamed"
+    build = etica(dataclasses.replace(cfg, classifier=seq_cutoff(
+        CLASS_CUTOFF)), 12)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_class_") as tmp:
+        path = Path(tmp) / "paper"
+        TraceStore.from_trace(path, paper, shard_size=STORE_SHARD)
+        launches[label], cache, res, rate = drive_stream(
+            build, TraceStore.open(path), len(paper), label, ETICA_KERNELS)
+    expect_route(label, launches[label], "two_level", "classified")
+    same_run(label, want, (cache, res))
+    same_classes(label, want[0], cache)
+    log(f"{label}: {rate:.0f} requests/s from the store; equal to the "
+        f"in-memory card run (stats, logs, states, per-class counts); "
+        f"launches {launch_summary(launches[label])}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}:"
+              " run it from the repository's root", file=sys.stderr)
+        return 1
     from repro_torch import kernels
     from repro_torch.core.controller import EticaConfig, Geometry
 
@@ -3684,6 +4244,9 @@ def main() -> int:
     rows["flash_attention"] = dict(max_abs_err=check_flash_shapes(dev, rng),
                                    **flash_build_report())
     check_serving_sync(dev, rng)
+    rows.update(check_classified_routes(
+        dev, np.random.default_rng(14), paper, blocks12 + blocks12b,
+        blocks1024 + blocks1024b, ways12, step_ns))
 
     # phases 3 and 4: the paper's §5.1 deployment, then fig15
     # consolidation at 128 and 1024 VMs; card == CPU in each
@@ -3777,6 +4340,18 @@ def main() -> int:
     check_streamed_figures(launches)
     log(f"phase 13: {time.perf_counter() - t13:.1f} s")
 
+    # phase 14: IO classification: the classification benchmark, the
+    # §5.1 deployment with two classifiers (card == CPU), streamed
+    t14 = time.perf_counter()
+    check_class_bench(launches)
+    seq_cut = check_paper_classified(
+        launches, paper, cfg,
+        lambda clf: eci(dram + ssd, 12, geometry=geo64,
+                        resize_interval=pcfg.resize_interval,
+                        classifier=clf), fused_rate)
+    check_streamed_classified(launches, paper, cfg, seq_cut)
+    log(f"phase 14: {time.perf_counter() - t14:.1f} s")
+
     sources = {"count_between": "src/repro_torch/csrc/count_between.cu",
                "evict_scatter": "src/repro_torch/csrc/evict_scatter.cu",
                "promote_scatter": "src/repro_torch/csrc/promote_scatter.cu",
@@ -3821,13 +4396,31 @@ def main() -> int:
                    if k in n.get("routes", {})}
         return dict(routes=by_path.get(own_path[k], {}),
                     routes_by_path=by_path)
+    line = [dict(name=k, route="cuda", source=sources[k],
+                 replaces=replaces[k], launches=launches[own_path[k]][k],
+                 path=own_path[k], **{**rows[k], **routes(k)},
+                 launches_by_path={p: n[k] for p, n in launches.items()})
+            for k in kernels.KERNELS]
+    # the classified routes: their launches are their route's counts
+    for k, kernel, src, ref, path in (
+            ("two_level_classified", "two_level",
+             "src/repro_torch/csrc/datapath.cu",
+             "src/repro/core/simulator.py:514 (lax.scan step of "
+             "_simulate_two_level_classified; no Pallas kernel)",
+             "paper-12vm-seq_cutoff"),
+            ("single_level_classified", "single_level",
+             "src/repro_torch/csrc/single_level.cu",
+             "src/repro/core/simulator.py:377 (lax.scan step of "
+             "_simulate_single_level_classified; no Pallas kernel)",
+             "paper-12vm-seq_cutoff-eci")):
+        by_path = {p: n["routes"].get(kernel, {}).get("classified", 0)
+                   for p, n in launches.items()}
+        line.append(dict(name=k, route="cuda", source=src, replaces=ref,
+                         launches=by_path[path], path=path, **rows[k],
+                         launches_by_path={p: c for p, c in by_path.items()
+                                           if c}))
     log(smi)
-    print(json.dumps({"kernels": [
-        dict(name=k, route="cuda", source=sources[k], replaces=replaces[k],
-             launches=launches[own_path[k]][k], path=own_path[k],
-             **{**rows[k], **routes(k)},
-             launches_by_path={p: n[k] for p, n in launches.items()})
-        for k in kernels.KERNELS]}))
+    print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0

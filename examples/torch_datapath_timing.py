@@ -28,7 +28,11 @@ Device time: ``chip_smoke.graph_ms``, 10 calls captured in a CUDA graph
 and replayed between CUDA events; what a wrapper puts on the device
 (state copies, outputs) stays in. At V = 1 also a call's time back to
 back (host included) and the plain version's. Prints one JSON line per
-shape, with the card's name and power limit.
+shape, with the card's name and power limit. Where the tree has the
+IO classifier's ``classified`` routes, each shape also times them
+(``"route": "classified"``), with ``chip_smoke.kernel_classes``' four
+classes drawn at random for each request and, at one level, the five
+policies mixed across (VM, class).
 """
 from __future__ import annotations
 
@@ -112,6 +116,21 @@ def main() -> int:
                                   lambda: ops.two_level_plain(*args,
                                                               npe=npe)))),
               flush=True)
+        classified = hasattr(ops, "two_level_classified")
+        if classified:
+            clf = cs.kernel_classes()
+            cl = torch.from_numpy(rng.integers(
+                0, clf.num_classes, a1.shape).astype(np.int32)).to(dev)
+            byp = torch.from_numpy(clf.bypass).to(dev)
+            bounds = [torch.from_numpy(x).to(dev) for w in ways
+                      for x in clf.way_bounds(np.asarray(w, np.int32))]
+            cargs = (a1, w1, cl, *out[:6], wd, ws, out[8], byp, *bounds)
+            call = lambda: ops.two_level_classified(*cargs, npe=npe)
+            print(json.dumps(dict(
+                row, kernel="two_level", route="classified", mode=mode,
+                device_ms=cs.graph_ms(call, 10), **v1_times(
+                    v, call, lambda: ops.two_level_classified_plain(
+                        *cargs, npe=npe)))), flush=True)
         if name == "V=1 stream":
             continue
         flags = policy_flags([list(Policy)[k % 5] for k in range(v)], dev)
@@ -127,6 +146,18 @@ def main() -> int:
                                   lambda: ops.single_level_plain(
                                       *sargs, t_cache=T_SSD)))),
               flush=True)
+        if classified:
+            fl = cs.random_policy_flags(rng, v, clf.num_classes, dev)
+            cargs = (a1, w1, cl, *out[:3], wd, *fl, out[5], byp,
+                     *bounds[:2])
+            call = lambda: ops.single_level_classified(*cargs,
+                                                       t_cache=T_SSD)
+            print(json.dumps(dict(
+                row, kernel="single_level", route="classified",
+                mode="mixed policies", device_ms=cs.graph_ms(call, 10),
+                **v1_times(v, call,
+                           lambda: ops.single_level_classified_plain(
+                               *cargs, t_cache=T_SSD)))), flush=True)
     return 0
 
 

@@ -30,8 +30,9 @@ _EXPORTS = {
                  "T_SSD"),
     "trace": ("Trace", "interleave", "pad_batch", "split_by_vm"),
     "reuse": ("DistResult", "SizingMetric", "demand_blocks",
-              "hit_counts_at_sizes", "mrc", "pod", "pod_distances", "trd",
-              "trd_distances", "urd", "urd_distances"),
+              "hit_counts_at_sizes", "hit_counts_at_sizes_weighted", "mrc",
+              "pod", "pod_distances", "trd", "trd_distances", "urd",
+              "urd_distances"),
     "popularity": ("PopularityTable", "PopularityTracker", "block_scores",
                    "contributions", "table_init", "table_least_popular",
                    "table_scores", "table_top_known", "table_update"),
@@ -40,8 +41,12 @@ _EXPORTS = {
                   "evict_blocks", "make_cache", "make_cache_batch",
                   "policy_flags", "promote_blocks", "resize", "resize_batch",
                   "resize_levels", "simulate_single_level",
-                  "simulate_single_level_batch", "simulate_two_level",
-                  "simulate_two_level_batch", "stack_states",
+                  "simulate_single_level_batch",
+                  "simulate_single_level_classified",
+                  "simulate_single_level_classified_batch",
+                  "simulate_two_level", "simulate_two_level_batch",
+                  "simulate_two_level_classified",
+                  "simulate_two_level_classified_batch", "stack_states",
                   "unstack_states"),
     "controller": ("EticaCache", "EticaConfig", "Geometry", "IntervalLog",
                    "PartitionedSingleLevelCache", "PolicyChooser",

@@ -2,7 +2,7 @@
 of the one-level baselines.
 
 The PyTorch counterpart of :class:`repro.core.controller.EticaCache`
-(no classifier, no mesh; over an in-memory
+(no mesh; over an in-memory
 :class:`~repro_torch.core.trace.Trace`, an on-disk
 :class:`~repro_torch.traces.store.TraceStore` or a
 :class:`~repro_torch.traces.stream.StreamingTraceSource`) in its three
@@ -36,7 +36,16 @@ partitioning, the trackers and the per-VM stats dicts stay on the host,
 as in the reference. Results (per-VM stats and allocation histories) are
 identical to the JAX controller's.
 
-The mesh and the IO classifier raise ``NotImplementedError``.
+With an IO classifier (``classifier=`` a
+:class:`repro_torch.classify.Classifier`) both controllers classify each
+resize window once on the device, size on the sub-traces without the
+weight-0 (bypass) requests with per-class weighted curves, set each
+class's insertion way range after every resize, run every block through
+the ``classified`` datapath routes, leave bypassed requests out of the
+maintenance (compacted out of the device block), and keep per-(VM,
+class) served hit and miss counts (``cls_hits`` / ``cls_miss``), which
+ride the block's one copy of its counts to the host. The mesh raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -46,16 +55,17 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.classify import Classifier
 from repro_torch.core import popularity as pop
 from repro_torch.core import reuse, simulator
 from repro_torch.core.partition import partition as _partition
 from repro_torch.core.policies import T_SSD, Policy
-from repro_torch.core.simulator import (CacheState, Stats, capacity_to_ways,
-                                        make_cache, make_cache_batch,
-                                        policy_flags, resize_batch,
-                                        resize_levels)
+from repro_torch.core.simulator import (CacheState, PolicyFlags, Stats,
+                                        capacity_to_ways, make_cache,
+                                        make_cache_batch, policy_flags,
+                                        resize_batch, resize_levels)
 from repro_torch.core.trace import Trace
-from repro_torch.kernels import resolve_device
+from repro_torch.kernels import resolve_device, upload
 from repro_torch.kernels.maintenance import ops as maint_ops
 from repro_torch.kernels.popularity import ops as pop_ops
 from repro_torch.runtime.telemetry import TelemetryRecorder
@@ -124,10 +134,15 @@ def _add(d: dict[str, float], key: str, value) -> None:
     d[key] = d.get(key, 0.0) + value
 
 
-def _acc_block(stats: list[dict], st: Stats, chunks) -> None:
+def _acc_block(stats: list[dict], st: Stats, chunks, classes=None):
     """Add one block's ``[V]`` Stats (one host copy) into the per-VM
-    dicts of the VMs that had a chunk in it."""
-    ints = torch.stack([getattr(st, k) for k in _INT_FIELDS]).cpu().numpy()
+    dicts of the VMs that had a chunk in it. ``classes``, a classified
+    block's ``(cls_hits, cls_miss)`` ``[V, C]``, rides the same copy;
+    returns them on the host (int64), else ``None``."""
+    ints = torch.stack([getattr(st, k) for k in _INT_FIELDS])
+    if classes is not None:
+        ints = torch.cat([ints, classes[0].T, classes[1].T])
+    ints = ints.cpu().numpy()
     lat = st.latency_sum.cpu().numpy()
     for v, chunk in enumerate(chunks):
         if chunk is None:
@@ -136,11 +151,19 @@ def _acc_block(stats: list[dict], st: Stats, chunks) -> None:
         for k, row in zip(_INT_FIELDS, ints):
             _add(d, k, float(row[v]))
         _add(d, "latency_sum", float(lat[v]))
+    if classes is None:
+        return None
+    ch, cm = np.split(ints[len(_INT_FIELDS):].T.astype(np.int64), 2, axis=1)
+    return ch, cm
 
 
-def _acc_one(d: dict[str, float], st: Stats) -> None:
-    """Add one VM's 0-d Stats (a per-state dispatch) into its dict."""
-    _acc_block([d], Stats(*(x[None] for x in st)), [True])
+def _acc_one(d: dict[str, float], st: Stats, classes=None):
+    """Add one VM's 0-d Stats (a per-state dispatch) into its dict; its
+    ``[C]`` class counts, if any, come back as in :func:`_acc_block`."""
+    if classes is not None:
+        classes = tuple(x[None] for x in classes)
+    out = _acc_block([d], Stats(*(x[None] for x in st)), [True], classes)
+    return None if out is None else (out[0][0], out[1][0])
 
 
 def _pad(addr: np.ndarray, is_write: np.ndarray, n: int):
@@ -172,6 +195,95 @@ def _trd_rows(a, w, lens, longest: int):
     dist, served, _ = reuse.decompose(amat, wmat, Policy.WB,
                                       sizing_reads_only=False)
     return amat, dist, served
+
+
+def _cls_chunk(cls_subs: list[np.ndarray], k: int, chunk: int) -> np.ndarray:
+    """The ``[V, chunk]`` class-id block of datapath block ``k`` (padding
+    positions are class 0 — no-ops either way)."""
+    out = np.zeros((len(cls_subs), chunk), np.int32)
+    for v, cs in enumerate(cls_subs):
+        seg = cs[k * chunk:(k + 1) * chunk]
+        out[v, :len(seg)] = seg
+    return out
+
+
+def _class_policy_flags(pol_vc: list[list[Policy]]) -> PolicyFlags:
+    """``[V, C]`` :class:`PolicyFlags` (numpy) from per-(VM, class)
+    policies (the classifier's override or the VM's own policy)."""
+    f = lambda attr: np.asarray(
+        [[getattr(p, attr) for p in row] for row in pol_vc], bool)
+    return PolicyFlags(f("allocates_reads"), f("write_invalidates"),
+                       f("holds_dirty"), f("write_through"))
+
+
+def _strip_bypass(chunks: list[Trace | None], cls_subs: list[np.ndarray],
+                  k: int, chunk: int, byp: np.ndarray) -> list[Trace | None]:
+    """Drop bypass-class requests from a maintenance chunk list: bypassed
+    requests never touch the cache, so they must not feed popularity
+    either. Chunks without bypassed requests pass through unchanged."""
+    out = []
+    for v, c in enumerate(chunks):
+        if c is None or len(c) == 0:
+            out.append(c)
+            continue
+        m = ~byp[cls_subs[v][k * chunk:(k + 1) * chunk]]
+        out.append(c if m.all() else c[m])
+    return out
+
+
+def _strip_block(a, w, cmat, byp):
+    """:func:`_strip_bypass` on a device block: each row's requests that
+    do not bypass, stably compacted to the front (a prefix sum of the
+    keep mask and a scatter), ``-1`` after them, and their count
+    ``[V]`` — no host sync."""
+    v, n = a.shape
+    keep = (a >= 0) & ~byp[cmat.long()]
+    pos = torch.cumsum(keep, dim=1, dtype=torch.int32) - 1
+    idx = torch.where(keep, pos, n).long()      # dropped: a spare column
+    a2 = a.new_full((v, n + 1), -1).scatter_(1, idx, a)[:, :n]
+    w2 = torch.zeros((v, n + 1), dtype=torch.uint8, device=a.device) \
+        .scatter_(1, idx, w.to(torch.uint8))[:, :n].bool()
+    return a2, w2, keep.sum(dim=1, dtype=torch.int32)
+
+
+def _classifier(cfg):
+    """The configuration's classifier: ``None`` or a port
+    :class:`~repro_torch.classify.Classifier` (anything else, the JAX
+    package's included, raises ``TypeError``)."""
+    c = cfg.classifier
+    if c is not None and not isinstance(c, Classifier):
+        raise TypeError(f"classifier must be a repro_torch.classify."
+                        f"Classifier, got {type(c).__module__}."
+                        f"{type(c).__name__}")
+    return c
+
+
+def _weighted_subs(weights: np.ndarray, addrs: list, writes: list,
+                   cls_subs: list[np.ndarray]):
+    """The sizing sub-traces of a classified window: each VM's requests
+    of positive class weight, and their weights (``float64``)."""
+    addrs, writes, wts = list(addrs), list(writes), []
+    for v, cs in enumerate(cls_subs):
+        w_req = weights[cs]
+        keep = w_req > 0
+        if not keep.all():
+            addrs[v] = addrs[v][keep]
+            writes[v] = writes[v][keep]
+            w_req = w_req[keep]
+        wts.append(w_req)
+    return addrs, writes, wts
+
+
+def _load_classes(cache, carry, hits, miss) -> None:
+    """The classifier's run carry and per-class counts of a continued
+    run (each left as it is when ``None``)."""
+    if carry is not None:
+        cache._cls_end, cache._cls_len = (np.asarray(x, np.int32).copy()
+                                          for x in carry)
+    if hits is not None:
+        cache.cls_hits = np.asarray(hits, np.int64).copy()
+    if miss is not None:
+        cache.cls_miss = np.asarray(miss, np.int64).copy()
 
 
 def _mrc_grid(geom: Geometry, points: int = 17) -> np.ndarray:
@@ -212,7 +324,7 @@ class EticaConfig:
     fused_maintenance: bool = True   # one device interval; False: the
     #                                  staged tracker-based path
     pop_capacity: int = 8192         # per-VM device popularity-table slots
-    classifier: object | None = None  # not ported
+    classifier: object | None = None  # repro_torch.classify.Classifier
     clean_quota: int = 0             # background cleaner: max dirty-block
     #                                  flushes per VM per maintenance
     #                                  interval (0 disables the stage)
@@ -221,11 +333,7 @@ class EticaConfig:
 
 def _check_supported(cfg, *more: tuple[str, bool]) -> None:
     """Raise ``NotImplementedError`` for options outside the port."""
-    unsupported = [
-        ("mesh", cfg.mesh is not None),
-        ("classifier", cfg.classifier is not None),
-        *more,
-    ]
+    unsupported = [("mesh", cfg.mesh is not None), *more]
     for name, bad in unsupported:
         if bad:
             raise NotImplementedError(
@@ -282,6 +390,20 @@ class EticaCache:
         self._m_cleaned = np.zeros(num_vms, np.int64)
         self._m_dirty = np.zeros(num_vms, np.int64)
         self._m_clean_ran = False
+        # IO classification: the per-VM sequential-run carry, the class
+        # tables of the classified datapath and the per-(VM, class)
+        # served hit / miss counts
+        self.classifier = _classifier(cfg)
+        if self.classifier is not None:
+            self._cls_end, self._cls_len = self.classifier.init_carry(num_vms)
+            self._byp = np.asarray(self.classifier.bypass, bool)
+            self._byp_dev = torch.from_numpy(self._byp).to(self.device)
+            c = self.classifier.num_classes
+            self._lo_d = self._hi_d = np.zeros((num_vms, c), np.int32)
+            self._lo_s = self._hi_s = np.zeros((num_vms, c), np.int32)
+            self._bounds = None         # the window's bounds on the device
+            self.cls_hits = np.zeros((num_vms, c), np.int64)
+            self.cls_miss = np.zeros((num_vms, c), np.int64)
 
     def vm_dram(self, v: int) -> CacheState:
         return (CacheState(*(x[v] for x in self.dram)) if self.cfg.batched
@@ -292,12 +414,15 @@ class EticaCache:
                 else self.ssd[v])
 
     def load_state(self, dram, ssd, pop_table, ways_dram, ways_ssd, t,
-                   stats) -> None:
+                   stats, cls_carry=None, cls_hits=None,
+                   cls_miss=None) -> None:
         """Continue a batched, fused controller from another's state,
         given as numpy arrays: ``dram``/``ssd`` as ``(tags, lru, dirty)``
         ``[V, S, W]``,
         ``pop_table`` as ``(addr, val)`` ``[V, K]``, ``ways_*``/``t`` as
-        ``[V]``, ``stats`` as the per-VM dicts."""
+        ``[V]``, ``stats`` as the per-VM dicts; with a classifier, its
+        run carry ``(prev_end, run_len)`` ``[V]`` and the per-class
+        counts ``[V, C]``."""
         if self.pop_table is None:
             raise ValueError("load_state continues a batched controller "
                              "with fused maintenance")
@@ -311,6 +436,8 @@ class EticaCache:
         self.ways_ssd = np.asarray(ways_ssd, np.int32).copy()
         self.t = _device_tensor(t, torch.int32, dev)
         self.stats = [dict(s) for s in stats]
+        if self.classifier is not None:
+            _load_classes(self, cls_carry, cls_hits, cls_miss)
 
     # -- telemetry ----------------------------------------------------------
     @property
@@ -325,13 +452,16 @@ class EticaCache:
 
     def _sample_interval(self) -> None:
         gd, gs = self.cfg.geometry_dram, self.cfg.geometry_ssd
+        cls = self.classifier is not None
         self.telemetry.sample_cache(
             self.stats,
             alloc_l1=self.ways_dram.astype(np.int64) * gd.num_sets,
             alloc_l2=self.ways_ssd.astype(np.int64) * gs.num_sets,
             promoted=self._m_promoted, evict_queue=self._m_evicted,
             cleaned=self._m_cleaned, dirty=self._m_dirty,
-            clean_ran=self._m_clean_ran)
+            clean_ran=self._m_clean_ran,
+            cls_hits=self.cls_hits if cls else None,
+            cls_miss=self.cls_miss if cls else None)
         self._m_promoted = np.zeros(self.num_vms, np.int64)
         self._m_evicted = np.zeros(self.num_vms, np.int64)
         self._m_cleaned = np.zeros(self.num_vms, np.int64)
@@ -339,12 +469,18 @@ class EticaCache:
 
     # -- sizing -----------------------------------------------------------
     def _size_level(self, subs: list[Trace], policy: Policy, geom: Geometry,
-                    capacity: int):
+                    capacity: int, cls_subs: list[np.ndarray] | None = None):
         grid = _mrc_grid(geom, self.cfg.mrc_points)
         demands = np.zeros(self.num_vms, np.int64)
         curves = np.zeros((self.num_vms, grid.size))
         addrs = [np.asarray(s.addr) for s in subs]
         writes = [np.asarray(s.is_write) for s in subs]
+        wts = None
+        if cls_subs is not None:
+            # weight-0 (bypass) requests never reach the cache: cut from
+            # the sizing sub-traces; the rest weight the hit curves
+            addrs, writes, wts = _weighted_subs(
+                self.classifier.weights, addrs, writes, cls_subs)
         with self.telemetry.span("sizing"):
             if self.cfg.batched:
                 dists = reuse.pod_distances_batch(addrs, writes, policy,
@@ -357,10 +493,19 @@ class EticaCache:
             if r is None:
                 continue
             demands[v] = min(reuse.demand_blocks(r.max), geom.capacity)
-            hits = reuse.hit_counts_at_sizes(r.dist, r.served, grid)
-            curves[v] = np.asarray(hits, np.float64) / max(len(subs[v]), 1)
+            if wts is None:
+                hits = reuse.hit_counts_at_sizes(r.dist, r.served, grid)
+                curves[v] = np.asarray(hits, np.float64) / max(len(subs[v]),
+                                                               1)
+            else:
+                hits = reuse.hit_counts_at_sizes_weighted(
+                    r.dist, r.served, grid, wts[v])
+                curves[v] = hits / max(wts[v].sum(), 1)
         res = _partition(demands, curves, grid, capacity)
-        counts = np.array([len(s) for s in subs], np.float64)
+        if wts is None:
+            counts = np.array([len(s) for s in subs], np.float64)
+        else:
+            counts = np.array([w.sum() for w in wts], np.float64)
         alloc = _expand_to_capacity(res.alloc, counts, capacity, geom)
         return alloc, demands, dists
 
@@ -546,18 +691,34 @@ class EticaCache:
             self._m_clean_ran = True
 
     # -- datapath ----------------------------------------------------------
-    def _run_chunk(self, a, w, chunks: list[Trace | None]) -> None:
-        """One ``[V, chunk]`` block through the datapath for every VM."""
+    def _run_chunk(self, a, w, chunks: list[Trace | None],
+                   cmat=None) -> None:
+        """One ``[V, chunk]`` block through the datapath for every VM;
+        ``cmat`` is its ``[V, chunk]`` class-id block on the device when
+        a classifier is configured."""
         cfg = self.cfg
         with self.telemetry.span("datapath") as sp:
-            self.dram, self.ssd, st, self.t = \
-                simulator.simulate_two_level_batch(
-                    a, w, self.dram, self.ssd, self.ways_dram,
-                    self.ways_ssd, mode=cfg.mode, t0=self.t)
+            if cmat is None:
+                self.dram, self.ssd, st, self.t = \
+                    simulator.simulate_two_level_batch(
+                        a, w, self.dram, self.ssd, self.ways_dram,
+                        self.ways_ssd, mode=cfg.mode, t0=self.t)
+                classes = None
+            else:
+                self.dram, self.ssd, st, self.t, *classes = \
+                    simulator.simulate_two_level_classified_batch(
+                        a, w, cmat, self.dram, self.ssd, self.ways_dram,
+                        self.ways_ssd, self._byp_dev, *self._bounds,
+                        mode=cfg.mode, t0=self.t)
             sp.ready(self.t)
-        _acc_block(self.stats, st, chunks)
+        classes = _acc_block(self.stats, st, chunks, classes)
+        if classes is not None:
+            self.cls_hits += classes[0]
+            self.cls_miss += classes[1]
 
-    def _run_chunk_sequential(self, chunks: list[Trace | None]) -> None:
+    def _run_chunk_sequential(self, chunks: list[Trace | None],
+                              cls_subs: list[np.ndarray] | None = None,
+                              k: int = 0) -> None:
         """The reference oracle: one datapath launch per VM."""
         cfg = self.cfg
         for v, chunk in enumerate(chunks):
@@ -565,12 +726,27 @@ class EticaCache:
                 continue
             a, w = _pad(np.asarray(chunk.addr, np.int32),
                         np.asarray(chunk.is_write), cfg.promo_interval)
-            self.dram[v], self.ssd[v], st, t_end = \
-                simulator.simulate_two_level(
-                    a, w, self.dram[v], self.ssd[v], int(self.ways_dram[v]),
-                    int(self.ways_ssd[v]), mode=cfg.mode, t0=int(self.t[v]))
+            if cls_subs is None:
+                self.dram[v], self.ssd[v], st, t_end = \
+                    simulator.simulate_two_level(
+                        a, w, self.dram[v], self.ssd[v],
+                        int(self.ways_dram[v]), int(self.ways_ssd[v]),
+                        mode=cfg.mode, t0=int(self.t[v]))
+                classes = None
+            else:
+                cpad = _cls_chunk([cls_subs[v]], k, cfg.promo_interval)[0]
+                self.dram[v], self.ssd[v], st, t_end, *classes = \
+                    simulator.simulate_two_level_classified(
+                        a, w, cpad, self.dram[v], self.ssd[v],
+                        int(self.ways_dram[v]), int(self.ways_ssd[v]),
+                        self._byp, self._lo_d[v], self._hi_d[v],
+                        self._lo_s[v], self._hi_s[v], mode=cfg.mode,
+                        t0=int(self.t[v]))
             self.t[v] = int(t_end)
-            _acc_one(self.stats[v], st)
+            classes = _acc_one(self.stats[v], st, classes)
+            if classes is not None:
+                self.cls_hits[v] += classes[0]
+                self.cls_miss[v] += classes[1]
 
     def _resize(self, wd: np.ndarray, ws: np.ndarray) -> None:
         """Resize both levels of every VM (shrinking flushes dirty
@@ -608,13 +784,21 @@ class EticaCache:
         source = window_source(trace, self.num_vms, cfg.resize_interval,
                                cfg.promo_interval, cfg.prefetch,
                                cfg.prefetch_depth, self.device)
+        chunk = cfg.promo_interval
         for win in source.windows():
             subs = win.subs
+            # 0) IO classification: one classify_block a window on the
+            # device, the sequential-run carry threaded across windows
+            cls_subs = None
+            if self.classifier is not None:
+                cls_subs, self._cls_end, self._cls_len = \
+                    self.classifier.classify_subs(subs, self._cls_end,
+                                                  self._cls_len, self.device)
             # 1) POD sizing + PPC partitioning at both levels (§4.3)
             alloc_d, dem_d, _ = self._size_level(
-                subs, Policy.RO, gd, cfg.dram_capacity)
+                subs, Policy.RO, gd, cfg.dram_capacity, cls_subs)
             alloc_s, dem_s, _ = self._size_level(
-                subs, Policy.WBWO, gs, cfg.ssd_capacity)
+                subs, Policy.WBWO, gs, cfg.ssd_capacity, cls_subs)
             self.logs_dram.append(IntervalLog(dem_d, alloc_d))
             self.logs_ssd.append(IntervalLog(dem_s, alloc_s))
             # 2) resize both levels (shrinking flushes dirty blocks)
@@ -622,10 +806,26 @@ class EticaCache:
                          capacity_to_ways(alloc_s, gs.num_sets, gs.max_ways))
             for v in range(self.num_vms):
                 alloc_hist[v].append(int(alloc_d[v] + alloc_s[v]))
+            # class -> sub-partition way ranges for the new allocations
+            if cls_subs is not None:
+                self._lo_d, self._hi_d = self.classifier.way_bounds(
+                    self.ways_dram)
+                self._lo_s, self._hi_s = self.classifier.way_bounds(
+                    self.ways_ssd)
+                self._bounds = [upload(x, self.device) for x in (
+                    self._lo_d, self._hi_d, self._lo_s, self._hi_s)]
+            strip = cls_subs is not None and bool(self._byp.any())
             # 3) datapath in promo-interval blocks + maintenance
             if cfg.batched:
-                for a, w, lens, kth in win.blocks():
-                    self._run_chunk(a, w, kth)
+                for k, (a, w, lens, kth) in enumerate(win.blocks()):
+                    cmat = (None if cls_subs is None else upload(
+                        _cls_chunk(cls_subs, k, chunk), self.device))
+                    self._run_chunk(a, w, kth, cmat)
+                    if cfg.mode == "full" and strip:
+                        # bypassed requests never feed the maintenance
+                        kth = _strip_bypass(kth, cls_subs, k, chunk,
+                                            self._byp)
+                        a, w, lens = _strip_block(a, w, cmat, self._byp_dev)
                     if cfg.mode == "full" and cfg.fused_maintenance:
                         self._maintain_fused(a, w, lens, kth)
                     elif cfg.mode == "full":
@@ -637,12 +837,15 @@ class EticaCache:
             for k in range(max(map(len, chunk_lists), default=0)):
                 kth = [c[k] if k < len(c) else None for c in chunk_lists]
                 with self.telemetry.span("datapath"):
-                    self._run_chunk_sequential(kth)
+                    self._run_chunk_sequential(kth, cls_subs, k)
                 if cfg.mode == "full":
+                    if strip:
+                        kth = _strip_bypass(kth, cls_subs, k, chunk,
+                                            self._byp)
                     with self.telemetry.span("maintenance"):
-                        for v, chunk in enumerate(kth):
-                            if chunk is not None:
-                                self._maintain_seq(v, chunk)
+                        for v, c in enumerate(kth):
+                            if c is not None:
+                                self._maintain_seq(v, c)
                 self._sample_interval()
         return [VMResult(dict(self.stats[v]),
                          np.asarray(alloc_hist[v], np.int64))
@@ -665,7 +868,7 @@ class SingleLevelConfig:
     prefetch: bool = True            # pipeline host->device blocks
     prefetch_depth: int = 2          # blocks in flight beyond the consumed
     mesh: object | None = None       # not ported
-    classifier: object | None = None  # not ported
+    classifier: object | None = None  # repro_torch.classify.Classifier
     telemetry: object | None = None  # TelemetryRecorder | None
 
 
@@ -737,25 +940,40 @@ class PartitionedSingleLevelCache:
         self.logs: list[IntervalLog] = []
         self.telemetry = (cfg.telemetry if cfg.telemetry is not None
                           else TelemetryRecorder())
+        self.classifier = _classifier(cfg)
+        if self.classifier is not None:
+            self._cls_end, self._cls_len = self.classifier.init_carry(num_vms)
+            self._byp = np.asarray(self.classifier.bypass, bool)
+            c = self.classifier.num_classes
+            self.cls_hits = np.zeros((num_vms, c), np.int64)
+            self.cls_miss = np.zeros((num_vms, c), np.int64)
 
     def vm_cache(self, v: int) -> CacheState:
         return (CacheState(*(x[v] for x in self.caches)) if self.cfg.batched
                 else self.caches[v])
 
-    def load_state(self, caches, ways, t, stats) -> None:
+    def load_state(self, caches, ways, t, stats, cls_carry=None,
+                   cls_hits=None, cls_miss=None) -> None:
         """Continue a batched chassis from another's state, given as numpy
         arrays:
         ``caches`` as ``(tags, lru, dirty)`` ``[V, S, W]``, ``ways``/``t``
-        as ``[V]``, ``stats`` as the per-VM dicts."""
+        as ``[V]``, ``stats`` as the per-VM dicts; with a classifier, its
+        run carry ``(prev_end, run_len)`` ``[V]`` and the per-class
+        counts ``[V, C]``."""
         self.caches = _load_state(caches, self.device)
         self.ways = np.asarray(ways, np.int32).copy()
         self.t = _device_tensor(t, torch.int32, self.device)
         self.stats = [dict(s) for s in stats]
+        if self.classifier is not None:
+            _load_classes(self, cls_carry, cls_hits, cls_miss)
 
     def _sample_interval(self) -> None:
+        cls = self.classifier is not None
         self.telemetry.sample_cache(
             self.stats, alloc_l2=self.ways.astype(np.int64)
-            * self.cfg.geometry.num_sets)
+            * self.cfg.geometry.num_sets,
+            cls_hits=self.cls_hits if cls else None,
+            cls_miss=self.cls_miss if cls else None)
 
     def _size(self, subs: list[Trace], grid: np.ndarray):
         """``(demands, curves, policies)`` of one window at the sizes
@@ -811,8 +1029,11 @@ class PartitionedSingleLevelCache:
             _add(self.stats[v], "evict_flushes", int(flushed[v]))
         self.ways = w_new
 
-    def _run_sequential(self, win, policies: list[Policy]) -> None:
-        """The window's blocks one VM at a time (the reference oracle)."""
+    def _run_sequential(self, win, policies: list[Policy],
+                        cls_subs=None, tables=None) -> None:
+        """The window's blocks one VM at a time (the reference oracle);
+        with a classifier, ``tables`` is the window's ``(flags [V, C],
+        lo, hi)``."""
         cfg = self.cfg
         chunk_lists = win.chunk_lists()
         for k in range(max(map(len, chunk_lists), default=0)):
@@ -823,12 +1044,26 @@ class PartitionedSingleLevelCache:
                         continue
                     a, w = _pad(np.asarray(chunk.addr, np.int32),
                                 np.asarray(chunk.is_write), cfg.sim_chunk)
-                    self.caches[v], st, t_end = \
-                        simulator.simulate_single_level(
-                            a, w, self.caches[v], int(self.ways[v]),
-                            policies[v], t0=int(self.t[v]))
+                    if cls_subs is None:
+                        self.caches[v], st, t_end = \
+                            simulator.simulate_single_level(
+                                a, w, self.caches[v], int(self.ways[v]),
+                                policies[v], t0=int(self.t[v]))
+                        classes = None
+                    else:
+                        flags, lo, hi = tables
+                        cpad = _cls_chunk([cls_subs[v]], k, cfg.sim_chunk)[0]
+                        self.caches[v], st, t_end, *classes = \
+                            simulator.simulate_single_level_classified(
+                                a, w, cpad, self.caches[v],
+                                int(self.ways[v]),
+                                PolicyFlags(*(f[v] for f in flags)), lo[v],
+                                hi[v], self._byp, t0=int(self.t[v]))
                     self.t[v] = int(t_end)
-                    _acc_one(self.stats[v], st)
+                    classes = _acc_one(self.stats[v], st, classes)
+                    if classes is not None:
+                        self.cls_hits[v] += classes[0]
+                        self.cls_miss[v] += classes[1]
             self._sample_interval()
 
     def run(self, trace) -> list[VMResult]:
@@ -846,27 +1081,66 @@ class PartitionedSingleLevelCache:
                                cfg.prefetch_depth, self.device)
         for win in source.windows():
             subs = win.subs
-            demands, curves, policies = self._size(subs, grid)
+            # IO classification: bypass-class requests never reach the
+            # cache, so they are cut from the sizing and policy sub-traces
+            cls_subs, subs_sz = None, subs
+            if self.classifier is not None:
+                cls_subs, self._cls_end, self._cls_len = \
+                    self.classifier.classify_subs(subs, self._cls_end,
+                                                  self._cls_len, self.device)
+                wts = self.classifier.weights
+                keep = [wts[c] > 0 for c in cls_subs]
+                subs_sz = [s if m.all() else s[m]
+                           for s, m in zip(subs, keep)]
+            demands, curves, policies = self._size(subs_sz, grid)
             res = _partition(demands, curves, grid, cfg.capacity)
-            counts = np.array([len(s) for s in subs], np.float64)
+            if cls_subs is None:
+                counts = np.array([len(s) for s in subs], np.float64)
+            else:
+                counts = np.array([wts[c].sum() for c in cls_subs],
+                                  np.float64)
             alloc = _expand_to_capacity(res.alloc, counts, cfg.capacity, g)
             self.logs.append(IntervalLog(demands, alloc,
                                          [p.value for p in policies]))
             self._resize(capacity_to_ways(alloc, g.num_sets, g.max_ways))
             for v in range(self.num_vms):
                 alloc_hist[v].append(int(alloc[v]))
+            tables = None
+            if cls_subs is not None:
+                # per-(VM, class) policy flags and insertion way ranges
+                tables = (_class_policy_flags(
+                    self.classifier.vm_policies(policies)),
+                    *self.classifier.way_bounds(self.ways))
             if not cfg.batched:
-                self._run_sequential(win, policies)
+                self._run_sequential(win, policies, cls_subs, tables)
                 continue
             ways = torch.from_numpy(self.ways).to(self.device)
-            flags = policy_flags(policies, self.device)
-            for a, w, _, kth in win.blocks():
+            if tables is None:
+                flags = policy_flags(policies, self.device)
+            else:
+                flags_vc = PolicyFlags(*(upload(f, self.device)
+                                         for f in tables[0]))
+                lo, hi = (upload(x, self.device) for x in tables[1:])
+                byp = upload(self._byp, self.device)
+            for k, (a, w, _, kth) in enumerate(win.blocks()):
                 with self.telemetry.span("datapath") as sp:
-                    self.caches, st, self.t = \
-                        simulator.simulate_single_level_batch(
-                            a, w, self.caches, ways, flags, t0=self.t)
+                    if tables is None:
+                        self.caches, st, self.t = \
+                            simulator.simulate_single_level_batch(
+                                a, w, self.caches, ways, flags, t0=self.t)
+                        classes = None
+                    else:
+                        cmat = upload(_cls_chunk(cls_subs, k, cfg.sim_chunk),
+                                      self.device)
+                        self.caches, st, self.t, *classes = \
+                            simulator.simulate_single_level_classified_batch(
+                                a, w, cmat, self.caches, ways, flags_vc, lo,
+                                hi, byp, t0=self.t)
                     sp.ready(self.t)
-                _acc_block(self.stats, st, kth)
+                classes = _acc_block(self.stats, st, kth, classes)
+                if classes is not None:
+                    self.cls_hits += classes[0]
+                    self.cls_miss += classes[1]
                 self._sample_interval()
         return [VMResult(dict(self.stats[v]),
                          np.asarray(alloc_hist[v], np.int64))

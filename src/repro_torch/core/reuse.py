@@ -257,6 +257,17 @@ def hit_counts_at_sizes(dist, served, sizes) -> np.ndarray:
                   dtype=np.int64)
 
 
+def hit_counts_at_sizes_weighted(dist, served, sizes, weights) -> np.ndarray:
+    """:func:`hit_counts_at_sizes` with per-request sizing weights (the
+    classified controllers: each request adds its IO class's weight, not
+    1). Host float64 in the reference's order of operations, so curves
+    with non-dyadic weights equal the reference's to the last bit; with
+    all-one weights the sums are the unweighted counts."""
+    d = np.where(np.asarray(served), np.asarray(dist), np.int32(2**30))
+    w = np.asarray(weights, np.float64)
+    return ((d[None, :] < np.asarray(sizes)[:, None]) * w[None, :]).sum(axis=1)
+
+
 def mrc(trace, policy: Policy, sizes, device="cuda") -> np.ndarray:
     """Hit-ratio curve H(c) of one trace under ``policy`` at ``sizes``
     (blocks): by LRU stack inclusion a served access hits iff its

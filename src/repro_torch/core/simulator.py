@@ -1,7 +1,8 @@
 """Set-associative datapaths, their between-interval resize and the
 maintenance ops of the staged and sequential modes.
 
-The PyTorch counterpart of :mod:`repro.core.simulator`. Per-VM caches
+The PyTorch counterpart of :mod:`repro.core.simulator`, the IO
+classifier's datapaths (``simulate_*_classified``) included. Per-VM caches
 are stacked: every :class:`CacheState` tensor is ``[V, S, W]``
 (``tags``/``lru`` int32, ``-1`` = empty/never; ``dirty`` bool), and
 per-VM way counts and clocks are ``[V]`` int32. The per-state entry
@@ -233,6 +234,122 @@ def simulate_single_level_batch(addr, is_write, state: CacheState,
         _vec(t0, v, dev), t_cache=t_cache)
     tags, lru, dirty, counts, latency, t_end = out
     return CacheState(tags, lru, dirty), _stats(counts, latency), t_end
+
+
+# ---------------------------------------------------------------------------
+# classified datapaths (IO-class sub-partitions — repro_torch.classify)
+# ---------------------------------------------------------------------------
+#
+# The classified datapaths take a per-request class id ``cls`` beside
+# ``addr``/``is_write`` and per-class tables: insertion way bounds (per
+# level for the two-level path), per-class policy flags (one level only;
+# the two-level hierarchy keeps DRAM-RO / SSD-WBWO) and a ``[C]`` bypass
+# mask. A bypassed read goes to disk touching nothing; a bypassed write
+# goes to disk and drops any cached copy unflushed. Both count in
+# ``Stats.bypassed``. Lookups stay over the VM's active ways: classes
+# partition insertion, not residency. With one match-all class the
+# results equal the unclassified datapaths'. They also return the
+# per-class served hits and misses of the non-bypassed requests.
+
+def _table(x, dtype, device) -> torch.Tensor:
+    """A per-class table (numpy or tensor) as a contiguous tensor."""
+    if not isinstance(x, torch.Tensor):
+        x = np.ascontiguousarray(x, np.int32 if dtype == torch.int32
+                                 else bool)
+    return torch.as_tensor(x, device=device).to(dtype).contiguous()
+
+
+def _row(x):
+    """One VM's operand (numpy or tensor) with a leading ``[1]`` axis."""
+    return x[None] if isinstance(x, torch.Tensor) else np.asarray(x)[None]
+
+
+def _class_stats(counts, latency) -> Stats:
+    """:class:`Stats` from a classified kernel's ``[V, 9]`` counts."""
+    zero = torch.zeros_like(counts[:, 0])
+    return Stats(*counts[:, :8].unbind(1), latency, counts[:, 8], zero,
+                 zero, zero)
+
+
+def simulate_two_level_classified_batch(addr, is_write, cls,
+                                        dram: CacheState, ssd: CacheState,
+                                        ways_dram, ways_ssd, bypass, lo_d,
+                                        hi_d, lo_s, hi_s,
+                                        mode: str = "full", t0=0):
+    """Classified :func:`simulate_two_level_batch`: ``cls`` is ``[V,
+    N]``, the way bounds ``[V, C]``, ``bypass`` a shared ``[C]`` mask.
+    Returns ``(dram, ssd, Stats, t_end, cls_hits [V, C], cls_miss [V,
+    C])``, the last two the served hits (a read's hit at either level, a
+    write's SSD hit) and misses of each class's non-bypassed requests."""
+    if mode not in ("full", "npe"):
+        raise ValueError(f"mode must be 'full' or 'npe', got {mode!r}")
+    dev = dram.tags.device
+    addr, is_write = _block(addr, is_write, dev)
+    v = addr.shape[0]
+    out = datapath_ops.two_level_classified(
+        addr, is_write, _table(cls, torch.int32, dev), *dram, *ssd,
+        _vec(ways_dram, v, dev), _vec(ways_ssd, v, dev), _vec(t0, v, dev),
+        _table(bypass, torch.bool, dev),
+        *(_table(x, torch.int32, dev) for x in (lo_d, hi_d, lo_s, hi_s)),
+        npe=mode == "npe")
+    (td, ld, dd, ts, ls, ds, counts, latency, t_end, hits, miss) = out
+    return (CacheState(td, ld, dd), CacheState(ts, ls, ds),
+            _class_stats(counts, latency), t_end, hits, miss)
+
+
+def simulate_single_level_classified_batch(addr, is_write, cls,
+                                           state: CacheState, ways_active,
+                                           flags: PolicyFlags, way_lo,
+                                           way_hi, bypass,
+                                           t_cache: float = T_SSD, t0=0):
+    """Classified :func:`simulate_single_level_batch`: ``cls`` is ``[V,
+    N]``, each :class:`PolicyFlags` field and the way bounds ``[V, C]``,
+    ``bypass`` a shared ``[C]`` mask. Returns ``(state, Stats, t_end,
+    cls_hits [V, C], cls_miss [V, C])``."""
+    dev = state.tags.device
+    addr, is_write = _block(addr, is_write, dev)
+    v = addr.shape[0]
+    out = datapath_ops.single_level_classified(
+        addr, is_write, _table(cls, torch.int32, dev), *state,
+        _vec(ways_active, v, dev),
+        *(_table(f, torch.bool, dev) for f in flags), _vec(t0, v, dev),
+        _table(bypass, torch.bool, dev), _table(way_lo, torch.int32, dev),
+        _table(way_hi, torch.int32, dev), t_cache=t_cache)
+    tags, lru, dirty, counts, latency, t_end, hits, miss = out
+    return (CacheState(tags, lru, dirty), _class_stats(counts, latency),
+            t_end, hits, miss)
+
+
+def simulate_two_level_classified(addr, is_write, cls, dram: CacheState,
+                                  ssd: CacheState, ways_dram: int,
+                                  ways_ssd: int, bypass, lo_d, hi_d, lo_s,
+                                  hi_s, mode: str = "full", t0: int = 0):
+    """:func:`simulate_two_level_classified_batch` for one VM: ``[N]``
+    requests and class ids, ``[C]`` way bounds per level. Returns
+    ``(dram, ssd, Stats, t_end, cls_hits [C], cls_miss [C])`` with 0-d
+    counts."""
+    dram, ssd, st, t_end, hits, miss = simulate_two_level_classified_batch(
+        _row(addr), _row(is_write), _row(cls), _one(dram), _one(ssd),
+        ways_dram, ways_ssd, bypass, _row(lo_d), _row(hi_d), _row(lo_s),
+        _row(hi_s), mode, t0)
+    return (CacheState(*_first(*dram)), CacheState(*_first(*ssd)),
+            _stats_one(st), t_end[0], hits[0], miss[0])
+
+
+def simulate_single_level_classified(addr, is_write, cls, state: CacheState,
+                                     ways_active: int, flags: PolicyFlags,
+                                     way_lo, way_hi, bypass,
+                                     t_cache: float = T_SSD, t0: int = 0):
+    """:func:`simulate_single_level_classified_batch` for one VM: ``[N]``
+    requests and class ids, ``[C]`` flags and way bounds. Returns
+    ``(state, Stats, t_end, cls_hits [C], cls_miss [C])`` with 0-d
+    counts."""
+    state, st, t_end, hits, miss = simulate_single_level_classified_batch(
+        _row(addr), _row(is_write), _row(cls), _one(state), ways_active,
+        PolicyFlags(*(_row(f) for f in flags)), _row(way_lo), _row(way_hi),
+        bypass, t_cache, t0)
+    return (CacheState(*_first(*state)), _stats_one(st), t_end[0], hits[0],
+            miss[0])
 
 
 def _one(state: CacheState) -> CacheState:

@@ -31,6 +31,19 @@
 // equal set counts and fewer VMs than SMs, a VM's sets are split across
 // several CTAs (set_walk.cuh, Split).
 //
+// two_level_classified (etica_two_level_classified) replaces the
+// `lax.scan` of `_simulate_two_level_classified` (src/repro/core/
+// simulator.py:514-621), vmapped by `simulate_two_level_classified_batch`
+// (:642-662): the same walk with each request's IO class (cls [V, N],
+// clipped to [0, C)). A class that bypasses sends a read to disk touching
+// nothing, and a write to disk dropping both levels' copies unflushed;
+// both count `bypassed` and advance the clock. Any other request runs as
+// above, with its insertion victims taken from its class's way range,
+// [min(lo, hi'), hi') with hi' = min(hi, ways) at each level; lookups
+// stay over all active ways. Each non-bypassed request adds one to its
+// class's served hits (a read's DRAM or SSD hit, a write's SSD hit) or
+// misses (cls_hits / cls_miss [V, C]). Counts are [V, 9] (bypassed last).
+//
 // What bounds it on the H100: the longest same-set chain (about 420 of
 // the paper's 1,000-request blocks at 64 sets), each request a few
 // hundred cycles of one warp's dependent steps (lookups and at most one
@@ -103,6 +116,83 @@ __device__ __forceinline__ int ssd_step(Row& row, int ways, int a, bool wr,
   }
   ++c[7];
   return 3;
+}
+
+// dram_step for a classified request that does not bypass: a read miss
+// inserts into [lo, hi) when that range is not empty.
+template <class Row>
+__device__ __forceinline__ bool dram_step_in(Row& row, int lo, int hi, int a,
+                                             bool wr, int t, int lane,
+                                             int (&c)[8], int way) {
+  const bool hit = way >= 0;
+  if (!wr) {
+    ++c[0];
+    if (hit) {
+      ++c[2];
+      row.touch(way, lane, t, false);
+    } else if (hi > lo) {
+      row.put(row.victim_in(lo, hi, lane), lane, a, t, false);
+    }
+  } else {
+    ++c[1];
+    if (hit) row.put(way, lane, -1, -1, false);
+  }
+  return hit;
+}
+
+// ssd_step for a classified request that does not bypass: an "npe" write
+// miss inserts into [lo, hi) when that range is not empty.
+template <class Row>
+__device__ __forceinline__ int ssd_step_in(Row& row, int lo, int hi, int a,
+                                           bool wr, int t, bool d_hit,
+                                           bool npe, int lane, int (&c)[8],
+                                           int way) {
+  if (!wr) {
+    if (d_hit) return 0;
+    if (way >= 0) {
+      ++c[3];
+      row.touch(way, lane, t, false);
+      return 1;
+    }
+    ++c[6];
+    return 2;
+  }
+  if (way >= 0) {
+    ++c[4];
+    ++c[5];
+    row.touch(way, lane, t, true);
+    return 1;
+  }
+  if (npe && hi > lo) {
+    const int w = row.victim_in(lo, hi, lane);
+    ++c[5];
+    c[7] += row.dirty_valid(w) ? 1 : 0;
+    row.put(w, lane, a, t, true);
+    return 1;
+  }
+  ++c[7];
+  return 3;
+}
+
+// Drops a bypassed write's cached copy (way >= 0) without flushing it.
+template <class Row>
+__device__ __forceinline__ void drop(Row& row, int way, int lane) {
+  if (way >= 0) row.put(way, lane, -1, -1, false);
+}
+
+// The counts of a bypassed request (its disk access, and `bypassed` in
+// xc[0]); returns its latency code: 2 disk read, 3 disk write.
+__device__ __forceinline__ int bypass_counts(bool wr, int lane, int (&c)[8],
+                                             int* xc) {
+  if (lane == 0) atomicAdd(&xc[0], 1);
+  if (wr) {
+    ++c[1];
+    ++c[7];
+    return 3;
+  }
+  ++c[0];
+  ++c[6];
+  return 2;
 }
 
 template <class Row>
@@ -196,6 +286,153 @@ __global__ void __launch_bounds__(kWalkThreads, 2) two_level_kernel(
          tv + valid);
 }
 
+// The classified walk: a per-VM class table after the ClsTile (rng: the
+// DRAM then the SSD insertion range, each clamped to the active ways; x
+// -1 for a class that bypasses), then the ClassCounts.
+template <class Row>
+__global__ void __launch_bounds__(kWalkThreads, 2)
+    two_level_classified_kernel(
+        const int* __restrict__ addr,
+        const unsigned char* __restrict__ is_write,
+        const int* __restrict__ cls, const int* tags_d_in,
+        const int* lru_d_in, const unsigned char* dirty_d_in,
+        const int* tags_s_in, const int* lru_s_in,
+        const unsigned char* dirty_s_in, int* tags_d, int* lru_d,
+        unsigned char* dirty_d, int* tags_s, int* lru_s,
+        unsigned char* dirty_s, const int* __restrict__ ways_d_v,
+        const int* __restrict__ ways_s_v, const int* __restrict__ t0,
+        const unsigned char* __restrict__ bypass,
+        const int* __restrict__ lo_d, const int* __restrict__ hi_d,
+        const int* __restrict__ lo_s, const int* __restrict__ hi_s,
+        int* __restrict__ counts, float* __restrict__ latency,
+        int* __restrict__ t_end, int* __restrict__ cls_hits,
+        int* __restrict__ cls_miss, float* lat_g, int* part_counts,
+        int* tickets, int n, int sets_d, int ways_max_d, int sets_s,
+        int ways_max_s, int classes, int npe, int parts, float4 lat) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  ClsTile& ct = *reinterpret_cast<ClsTile*>(smem);
+  Tile& tile = ct.t;
+  int4* rng = reinterpret_cast<int4*>(smem + sizeof(ClsTile));
+  int* xc = reinterpret_cast<int*>(rng + classes);
+  __shared__ RowScan<kLoadTiles> scan;
+  __shared__ int total[8];
+  const Split sp(parts, lat_g, part_counts, tickets, n);
+  const int v = sp.v;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const Level D(tags_d_in, lru_d_in, dirty_d_in, tags_d, lru_d, dirty_d,
+                (long long)v * sets_d * ways_max_d, ways_max_d, ways_d_v[v]);
+  const Level S(tags_s_in, lru_s_in, dirty_s_in, tags_s, lru_s, dirty_s,
+                (long long)v * sets_s * ways_max_s, ways_max_s, ways_s_v[v]);
+  const int tv = t0[v];
+  if (threadIdx.x < 8) total[threadIdx.x] = 0;
+  for (int j = threadIdx.x; j < classes; j += kWalkThreads) {
+    const long long o = (long long)v * classes + j;
+    const int hd = max(min(hi_d[o], D.ways), 0);
+    const int hs = max(min(hi_s[o], S.ways), 0);
+    rng[j] = bypass[j] ? make_int4(-1, 0, 0, 0)
+                       : make_int4(max(min(lo_d[o], hd), 0), hd,
+                                   max(min(lo_s[o], hs), 0), hs);
+  }
+  for (int j = threadIdx.x; j < 1 + 2 * classes; j += kWalkThreads)
+    xc[j] = 0;
+  int c[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  float lat_sum = 0.0f;
+  const long long row0 = (long long)v * n;
+  // one request's class outcome: served hit or miss of class k
+  auto served = [&](int k, bool hit) {
+    if (lane == 0) atomicAdd(&xc[hit ? 1 + k : 1 + classes + k], 1);
+  };
+  const int valid = stream_row(
+      addr + row0, is_write + row0, n, sets_d, tile, scan,
+      [&](int fill, int base, bool first) {
+        __syncthreads();
+        const int tb = tv + base;
+        float* lat_out = sp.lat_out(tile, base);
+        if (sets_d == sets_s) {
+          for (int s = sp.first_set(warp); s < sets_d;
+               s += sp.set_step()) {
+            Row rd, rs;
+            rd.load(D, s, first, lane);
+            rs.load(S, s, first, lane);
+            for_each_classified(tile, ct.cls, rng, fill, s, lane,
+                                [&](int i, int a, int f, int k, int4 r) {
+              const bool wr = (f & kWrite) != 0;
+              int code;
+              if (r.x < 0) {
+                if (wr) {
+                  drop(rd, rd.find(a, D.ways, lane), lane);
+                  drop(rs, rs.find(a, S.ways, lane), lane);
+                }
+                code = bypass_counts(wr, lane, c, xc);
+              } else {
+                const int dw = rd.find(a, D.ways, lane);
+                const int sw = rs.find(a, S.ways, lane);
+                const bool dh = dram_step_in(rd, r.x, r.y, a, wr, tb + i,
+                                             lane, c, dw);
+                code = ssd_step_in(rs, r.z, r.w, a, wr, tb + i, dh,
+                                   npe != 0, lane, c, sw);
+                served(k, wr ? sw >= 0 : dh || sw >= 0);
+              }
+              if (lane == 0) lat_out[i] = latency_of(code, lat);
+            });
+            rd.store(D, s, lane);
+            rs.store(S, s, lane);
+          }
+        } else {
+          for (int s = sp.first_set(warp); s < sets_d;
+               s += sp.set_step()) {
+            Row rd;
+            rd.load(D, s, first, lane);
+            for_each_classified(tile, ct.cls, rng, fill, s, lane,
+                                [&](int i, int a, int f, int, int4 r) {
+              const bool wr = (f & kWrite) != 0;
+              bool dh = false;
+              if (r.x >= 0) {
+                dh = dram_step_in(rd, r.x, r.y, a, wr, tb + i, lane, c,
+                                  rd.find(a, D.ways, lane));
+              } else if (wr) {
+                drop(rd, rd.find(a, D.ways, lane), lane);
+              }
+              if (lane == 0) tile.lat[i] = dh ? 1.0f : 0.0f;
+            });
+            rd.store(D, s, lane);
+          }
+          __syncthreads();
+          rekey(tile, fill, sets_s);
+          __syncthreads();
+          for (int s = sp.first_set(warp); s < sets_s;
+               s += sp.set_step()) {
+            Row rs;
+            rs.load(S, s, first, lane);
+            for_each_classified(tile, ct.cls, rng, fill, s, lane,
+                                [&](int i, int a, int f, int k, int4 r) {
+              const bool wr = (f & kWrite) != 0;
+              int code;
+              if (r.x < 0) {
+                if (wr) drop(rs, rs.find(a, S.ways, lane), lane);
+                code = bypass_counts(wr, lane, c, xc);
+              } else {
+                const bool dh = (f & kDHit) != 0;
+                const int sw = rs.find(a, S.ways, lane);
+                code = ssd_step_in(rs, r.z, r.w, a, wr, tb + i, dh,
+                                   npe != 0, lane, c, sw);
+                served(k, wr ? sw >= 0 : dh || sw >= 0);
+              }
+              if (lane == 0) lat_out[i] = latency_of(code, lat);
+            });
+            rs.store(S, s, lane);
+          }
+        }
+        __syncthreads();
+        if (parts == 1 && warp == 0)
+          lat_sum = ordered_sum(tile.lat, fill, lat_sum);
+      },
+      ClassSide{cls + row0, ct.cls, classes - 1});
+  finish(c, total, sp, tile, counts, latency, t_end, lat_sum, valid,
+         tv + valid,
+         ClassCounts{xc, classes, counts, cls_hits, cls_miss});
+}
+
 template <class Row>
 int launch(const int* addr, const unsigned char* is_write, const int* td_in,
            const int* ld_in, const unsigned char* dd_in, const int* ts_in,
@@ -248,6 +485,78 @@ extern "C" int etica_two_level(
         ways_s, t0, counts, latency, t_end, lat_g, part_counts, tickets,
         num_vms, n, sets_d, ways_max_d, sets_s, ways_max_s, npe, parts, lat,
         (cudaStream_t)stream);
+  };
+  if (w <= 32) return go(RegRow<1>{});
+  if (w <= 64) return go(RegRow<2>{});
+  return go(MemRow{});
+}
+
+namespace {
+
+template <class Row>
+int launch_classified(const int* addr, const unsigned char* is_write,
+                      const int* cls, const int* const* in, int* const* out,
+                      const unsigned char* const* din, unsigned char* const* dout,
+                      const int* ways_d, const int* ways_s, const int* t0,
+                      const unsigned char* bypass, const int* lo_d,
+                      const int* hi_d, const int* lo_s, const int* hi_s,
+                      int* counts, float* latency, int* t_end, int* cls_hits,
+                      int* cls_miss, float* lat_g, int* part_counts,
+                      int* tickets, int num_vms, int n, int sets_d,
+                      int ways_max_d, int sets_s, int ways_max_s, int classes,
+                      int npe, int parts, float4 lat, cudaStream_t stream) {
+  static bool configured = false;
+  const cudaError_t err =
+      walk_kernel_setup(two_level_classified_kernel<Row>, configured,
+                        cls_smem_bytes(kMaxClasses));
+  if (err != cudaSuccess) return (int)err;
+  two_level_classified_kernel<Row>
+      <<<num_vms * parts, kWalkThreads, cls_smem_bytes(classes),
+         stream>>>(addr, is_write, cls, in[0], in[1], din[0], in[2], in[3],
+                   din[1], out[0], out[1], dout[0], out[2], out[3], dout[1],
+                   ways_d, ways_s, t0, bypass, lo_d, hi_d, lo_s, hi_s,
+                   counts, latency, t_end, cls_hits, cls_miss, lat_g,
+                   part_counts, tickets, n, sets_d, ways_max_d, sets_s,
+                   ways_max_s, classes, npe, parts, lat);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// etica_two_level with IO classes: cls [V, n] int32 (clipped to [0, C)),
+// bypass [C] bytes, insertion bounds lo_*/hi_* [V, C] int32 (>= 0);
+// counts [V, 9] (bypassed last), cls_hits / cls_miss [V, C]. With
+// parts > 1, part_counts holds [V, parts, 9 + 2C] ints.
+extern "C" int etica_two_level_classified(
+    const int* addr, const unsigned char* is_write, const int* cls,
+    const int* tags_d_in, const int* lru_d_in,
+    const unsigned char* dirty_d_in, const int* tags_s_in,
+    const int* lru_s_in, const unsigned char* dirty_s_in, int* tags_d,
+    int* lru_d, unsigned char* dirty_d, int* tags_s, int* lru_s,
+    unsigned char* dirty_s, const int* ways_d, const int* ways_s,
+    const int* t0, const unsigned char* bypass, const int* lo_d,
+    const int* hi_d, const int* lo_s, const int* hi_s, int* counts,
+    float* latency, int* t_end, int* cls_hits, int* cls_miss, float* lat_g,
+    int* part_counts, int* tickets, int num_vms, int n, int sets_d,
+    int ways_max_d, int sets_s, int ways_max_s, int classes, int npe,
+    int parts, float t_dram, float t_ssd, float t_hdd, float t_hdd_write,
+    void* stream) {
+  if (num_vms <= 0) return 0;
+  if (parts < 1 || (parts > 1 && sets_d != sets_s) || classes < 1 ||
+      classes > kMaxClasses)
+    return (int)cudaErrorInvalidValue;
+  const int w = max(ways_max_d, ways_max_s);
+  const float4 lat = make_float4(t_dram, t_ssd, t_hdd, t_hdd_write);
+  const int* in[4] = {tags_d_in, lru_d_in, tags_s_in, lru_s_in};
+  int* out[4] = {tags_d, lru_d, tags_s, lru_s};
+  const unsigned char* din[2] = {dirty_d_in, dirty_s_in};
+  unsigned char* dout[2] = {dirty_d, dirty_s};
+  auto go = [&](auto row) {
+    return launch_classified<decltype(row)>(
+        addr, is_write, cls, in, out, din, dout, ways_d, ways_s, t0, bypass,
+        lo_d, hi_d, lo_s, hi_s, counts, latency, t_end, cls_hits, cls_miss,
+        lat_g, part_counts, tickets, num_vms, n, sets_d, ways_max_d, sets_s,
+        ways_max_s, classes, npe, parts, lat, (cudaStream_t)stream);
   };
   if (w <= 32) return go(RegRow<1>{});
   if (w <= 64) return go(RegRow<2>{});

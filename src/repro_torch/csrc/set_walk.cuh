@@ -44,6 +44,15 @@
 // set) and the ordered sum (one dependent add a request); at many VMs,
 // reading the padded block.
 //
+// The classified walks (datapath.cu, single_level.cu, the IO classifier's
+// routes) carry each request's class id beside it: stream_row stores it
+// by rank in a byte array after the tile (ClsTile, ClassSide), and the
+// walk (for_each_classified) fetches the class's entry of a per-VM table
+// in shared memory (its insertion ranges, and its bypass bit or flags)
+// a request ahead, so the victim search takes its range per request
+// (victim_in). Their extra counts (bypassed, per-class served hits and
+// misses) go through finish with the eight (ClassCounts).
+//
 // Tried on the H100 and dropped, each slower at the paper's [12, 1000]
 // block: lookups by __ballot_sync (a reduction's result lands in a
 // uniform register and the branches on it stay uniform; a ballot's does
@@ -74,6 +83,13 @@ struct Tile {
   int key[kTileCap];                // set << 2 | flags
   float lat[kTileCap + kSumStep];   // latency by rank; +0.0f past the fill
 };
+// The tile of a classified walk: each request's class id by rank.
+struct ClsTile {
+  Tile t;
+  unsigned char cls[kTileCap];
+};
+constexpr int kMaxClasses = 256;   // class ids live in one byte
+
 // the flags of a key: the request writes; its DRAM lookup hit (set by
 // rekey for the two-level walk's second level)
 constexpr int kWrite = 1;
@@ -173,6 +189,22 @@ struct RegRow {
     return __reduce_min_sync(kFull, bs == m ? bw : INT_MAX);
   }
 
+  // victim over the ways [lo, hi) (a class's insertion range, lo < hi)
+  __device__ __forceinline__ int victim_in(int lo, int hi, int lane) const {
+    int bs = INT_MAX, bw = INT_MAX;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int w = lane + 32 * k;
+      const int sc = tag[k] < 0 ? -1 : lru[k];
+      if (w >= lo && w < hi && (bw == INT_MAX || sc < bs)) {
+        bs = sc;
+        bw = w;
+      }
+    }
+    const int m = __reduce_min_sync(kFull, bs);
+    return __reduce_min_sync(kFull, bs == m ? bw : INT_MAX);
+  }
+
   // (tag >= 0 and dirty) of way w
   __device__ __forceinline__ bool dirty_valid(int w) const {
     const int k = w >> 5;
@@ -253,6 +285,19 @@ struct MemRow {
     return __reduce_min_sync(kFull, bs == m ? bw : INT_MAX);
   }
 
+  __device__ __forceinline__ int victim_in(int lo, int hi, int lane) const {
+    int bs = INT_MAX, bw = INT_MAX;
+    for (int w = lo + lane; w < hi; w += 32) {
+      const int sc = tag[w] < 0 ? -1 : lru[w];
+      if (bw == INT_MAX || sc < bs) {
+        bs = sc;
+        bw = w;
+      }
+    }
+    const int m = __reduce_min_sync(kFull, bs);
+    return __reduce_min_sync(kFull, bs == m ? bw : INT_MAX);
+  }
+
   __device__ __forceinline__ bool dirty_valid(int w) const {
     return tag[w] >= 0 && dirty[w] != 0;
   }
@@ -300,6 +345,43 @@ __device__ __forceinline__ void for_each_request(const Tile& tile, int fill,
       j = jn;
       a = an;
       k = kn;
+    }
+  }
+}
+
+// for_each_request for a classified walk: f(i, addr, flags, class, entry)
+// also gets the request's class id (each lane reads its key's class with
+// the key) and its class's table entry, both fetched a request ahead
+// like the address, so the class costs the set's chain no load.
+template <class F>
+__device__ __forceinline__ void for_each_classified(const Tile& tile,
+                                                    const unsigned char* cls,
+                                                    const int4* table,
+                                                    int fill, int s, int lane,
+                                                    F&& f) {
+  for (int b = 0; b < fill; b += 32) {
+    const int i = b + lane;
+    const int key = i < fill ? tile.key[i] : -1;
+    unsigned m = __ballot_sync(kFull, key >= 0 && (key >> 2) == s);
+    if (!m) continue;
+    const int mine = i < fill ? cls[i] : 0;
+    int j = __ffs(m) - 1;
+    int a = tile.addr[b + j], k = __shfl_sync(kFull, key, j);
+    int c = __shfl_sync(kFull, mine, j);
+    int4 e = table[c];
+    for (;;) {
+      m &= m - 1;
+      const int jn = m ? __ffs(m) - 1 : j;
+      const int an = tile.addr[b + jn], kn = __shfl_sync(kFull, key, jn);
+      const int cn = __shfl_sync(kFull, mine, jn);
+      const int4 en = table[cn];
+      f(b + j, a, k & 3, c, e);
+      if (!m) break;
+      j = jn;
+      a = an;
+      k = kn;
+      c = cn;
+      e = en;
     }
   }
 }
@@ -372,6 +454,25 @@ struct Split {
   }
 };
 
+// What stream_row carries beside each request: nothing (NoSide), or its
+// class id (ClassSide), clipped to [0, C) and stored by rank in the
+// ClsTile's byte array. The class is read when the request is kept, not
+// a step ahead like the address: four more registers live across the
+// walk cost more at 1,024 VMs than the load's latency here.
+struct NoSide {
+  __device__ __forceinline__ void keep(int, int) {}
+};
+
+struct ClassSide {
+  const int* cls;        // the VM's row of class ids
+  unsigned char* out;    // ClsTile::cls
+  int top;               // C - 1
+
+  __device__ __forceinline__ void keep(int i, int col) {
+    out[i] = (unsigned char)min(max(__ldg(cls + col), 0), top);
+  }
+};
+
 // The VM's row of requests streamed through the tile (step 1 above).
 // walk(fill, base, first) runs with the tile's fill requests (latency
 // slots +0.0f from fill to the next kSumStep), base valid requests before
@@ -379,12 +480,12 @@ struct Split {
 // step would overflow the tile and once at the end, and must begin with
 // __syncthreads() and end with one after its last read of the tile's
 // addresses and keys. Returns the valid requests.
-template <class Walk>
+template <class Walk, class Side = NoSide>
 __device__ __forceinline__ int stream_row(const int* __restrict__ addr,
                                           const unsigned char* __restrict__ wr,
                                           int n, int sets, Tile& tile,
                                           RowScan<kLoadTiles>& scan,
-                                          Walk&& walk) {
+                                          Walk&& walk, Side side = Side{}) {
   int a_nxt[kLoadTiles];
   bool w_nxt[kLoadTiles];
   auto load = [&](int c0) {
@@ -428,6 +529,7 @@ __device__ __forceinline__ int stream_row(const int* __restrict__ addr,
       if (a[r] >= 0) {
         tile.addr[i] = a[r];
         tile.key[i] = (a[r] % sets) << 2 | (w[r] ? kWrite : 0);
+        side.keep(i, c0 + r * kWalkThreads + threadIdx.x);
       }
     }
     fill += cnt;
@@ -435,15 +537,51 @@ __device__ __forceinline__ int stream_row(const int* __restrict__ addr,
   return base;
 }
 
+// The counts a walk keeps beyond the eight: none (NoCounts), or the
+// classified walks' bypassed requests and per-class served hits and
+// misses (ClassCounts), n() ints in shared memory, added there by lane 0
+// of the walking warp. Their code in finish is compiled only for the
+// classified walks (if constexpr), so the unclassified walks' code is as
+// it was.
+struct NoCounts {
+  static constexpr int kCounts = 8;   // ints a VM's row of `counts`
+  static constexpr bool kClassified = false;
+};
+
+struct ClassCounts {
+  static constexpr int kCounts = 9;   // the eight, then bypassed
+  // also: the last CTA puts its VM's ticket back to 0, so the tickets
+  // are zeroed once (datapath ops, _tickets), not before every launch
+  static constexpr bool kClassified = true;
+  const int* x;      // shared: [0] bypassed, [1, 1 + C) hits, then misses
+  int classes;
+  int* counts;       // [V, 9]
+  int* hits;         // [V, C]
+  int* miss;         // [V, C]
+
+  __device__ __forceinline__ int n() const { return 1 + 2 * classes; }
+  __device__ __forceinline__ int value(int j) const { return x[j]; }
+  __device__ __forceinline__ void out(long long v, int j, int val) const {
+    if (j == 0)
+      counts[v * kCounts + 8] = val;
+    else if (j <= classes)
+      hits[v * classes + j - 1] = val;
+    else
+      miss[v * classes + j - 1 - classes] = val;
+  }
+};
+
 // The VM's results: its counts (each warp's, equal in every lane, added
-// into `total`), latency sum and clock. With parts > 1 each CTA leaves
-// its counts in part_counts, and the VM's last CTA adds all of them and
-// the latencies of its scratch row, in request order, through the tile.
+// into `total`, and the extra counts `xc`), latency sum and clock. With
+// parts > 1 each CTA leaves its counts in part_counts (8 + xc.n() ints a
+// part), and the VM's last CTA adds all of them and the latencies of its
+// scratch row, in request order, through the tile.
+template <class X = NoCounts>
 __device__ __forceinline__ void finish(const int (&c)[8], int* total,
                                        const Split& sp, Tile& tile,
                                        int* counts, float* latency,
                                        int* t_end, float lat_sum, int valid,
-                                       int t_last) {
+                                       int t_last, const X& xc = X{}) {
   __shared__ bool last;
   if ((threadIdx.x & 31) == 0)
 #pragma unroll
@@ -451,28 +589,48 @@ __device__ __forceinline__ void finish(const int (&c)[8], int* total,
   __syncthreads();
   const long long v = sp.v;
   if (sp.parts == 1) {
-    if (threadIdx.x < 8) counts[v * 8 + threadIdx.x] = total[threadIdx.x];
+    if (threadIdx.x < 8)
+      counts[v * X::kCounts + threadIdx.x] = total[threadIdx.x];
+    if constexpr (X::kClassified)
+      for (int j = threadIdx.x; j < xc.n(); j += kWalkThreads)
+        xc.out(v, j, xc.value(j));
     if (threadIdx.x == 0) {
       latency[v] = lat_sum;
       t_end[v] = t_last;
     }
     return;
   }
+  int stride = 8;
+  if constexpr (X::kClassified) stride += xc.n();
   if (threadIdx.x < 8)
-    sp.part_counts[(v * sp.parts + sp.part) * 8 + threadIdx.x] =
+    sp.part_counts[(v * sp.parts + sp.part) * stride + threadIdx.x] =
         total[threadIdx.x];
+  if constexpr (X::kClassified)
+    for (int j = threadIdx.x; j < xc.n(); j += kWalkThreads)
+      sp.part_counts[(v * sp.parts + sp.part) * stride + 8 + j] =
+          xc.value(j);
   __threadfence();   // this CTA's latencies and counts before its ticket
   __syncthreads();
   if (threadIdx.x == 0) last = atomicAdd(&sp.tickets[v], 1) == sp.parts - 1;
   __syncthreads();
   if (!last) return;
+  if constexpr (X::kClassified)
+    if (threadIdx.x == 0) sp.tickets[v] = 0;
   __threadfence();
   if (threadIdx.x < 8) {
     int sum = 0;
     for (int p = 0; p < sp.parts; ++p)
-      sum += __ldcg(&sp.part_counts[(v * sp.parts + p) * 8 + threadIdx.x]);
-    counts[v * 8 + threadIdx.x] = sum;
+      sum += __ldcg(&sp.part_counts[(v * sp.parts + p) * stride +
+                                    threadIdx.x]);
+    counts[v * X::kCounts + threadIdx.x] = sum;
   }
+  if constexpr (X::kClassified)
+    for (int j = threadIdx.x; j < xc.n(); j += kWalkThreads) {
+      int sum = 0;
+      for (int p = 0; p < sp.parts; ++p)
+        sum += __ldcg(&sp.part_counts[(v * sp.parts + p) * stride + 8 + j]);
+      xc.out(v, j, sum);
+    }
   float acc = 0.0f;
   for (int c0 = 0; c0 < valid; c0 += kTileCap) {
     const int m = min(kTileCap, valid - c0);
@@ -488,13 +646,20 @@ __device__ __forceinline__ void finish(const int (&c)[8], int* total,
   }
 }
 
+// Dynamic shared memory of a classified walk with C classes: the ClsTile,
+// then its table (an int4 a class), then the ClassCounts.
+__host__ __device__ constexpr int cls_smem_bytes(int classes) {
+  return (int)sizeof(ClsTile) + 16 * classes + (1 + 2 * classes) * 4;
+}
+
 // Opts `kernel` into a tile of dynamic shared memory, once (before any
 // graph capture: the first launch of each instantiation does it).
 template <typename Kernel>
-inline cudaError_t walk_kernel_setup(Kernel kernel, bool& configured) {
+inline cudaError_t walk_kernel_setup(Kernel kernel, bool& configured,
+                                     int bytes = (int)sizeof(Tile)) {
   if (configured) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Tile));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess) configured = true;
   return err;
 }

@@ -32,6 +32,19 @@
 // level, every set is independent outright: one walk per tile, the row in
 // registers up to 64 ways (RegRow), wider in the output arrays (MemRow).
 //
+// single_level_classified (etica_single_level_classified) replaces the
+// `lax.scan` of `_simulate_single_level_classified` (src/repro/core/
+// simulator.py:377-472), vmapped by
+// `simulate_single_level_classified_batch` (:494-511): the same walk with
+// each request's IO class (cls [V, N], clipped to [0, C)) choosing its
+// policy flags (ar, inv, hd, wt as [V, C] bytes) and its insertion range
+// [min(lo, hi'), hi') with hi' = min(hi, ways); lookups stay over all
+// active ways. A class that bypasses sends a read to disk touching
+// nothing and a write to disk dropping the cached copy unflushed; both
+// count `bypassed` and advance the clock. Each non-bypassed request adds
+// one to its class's served hits (a hit, unless a write under inv) or
+// misses (cls_hits / cls_miss [V, C]). Counts are [V, 9] (bypassed last).
+//
 // What bounds it on the H100: as for two_level (datapath.cu), the longest
 // same-set chain (one lookup and at most one victim search a request),
 // the scan of the tile and the ordered sum; at 1,024 VMs, reading the
@@ -95,6 +108,54 @@ __device__ __forceinline__ int step(Row& row, int ways, const Policy& p,
   return 2;
 }
 
+// step for a classified request that does not bypass, under policy p: as
+// step, with insertions into [lo, hi) when that range is not empty.
+template <class Row>
+__device__ __forceinline__ int step_in(Row& row, int ways, int lo, int hi,
+                                       const Policy& p, int a, bool wr, int t,
+                                       int lane, int (&c)[8], bool& served) {
+  const int way = row.find(a, ways, lane);
+  const bool hit = way >= 0;
+  served = hit && !(wr && p.inv);
+  if (!wr) {
+    ++c[0];
+    if (hit) {
+      ++c[3];
+      row.touch(way, lane, t, false);
+      return 0;
+    }
+    ++c[6];
+    if (p.ar && hi > lo) {
+      const int w = row.victim_in(lo, hi, lane);
+      ++c[5];
+      c[7] += row.dirty_valid(w) ? 1 : 0;
+      row.put(w, lane, a, t, false);
+    }
+    return 1;
+  }
+  ++c[1];
+  if (p.inv) {
+    ++c[7];
+    if (hit) row.put(way, lane, -1, -1, false);
+    return 2;
+  }
+  if (hit || hi > lo) {
+    ++c[5];
+    c[7] += p.wt ? 1 : 0;
+    if (hit) {
+      ++c[4];
+      row.touch(way, lane, t, p.hd);
+    } else {
+      const int w = row.victim_in(lo, hi, lane);
+      c[7] += row.dirty_valid(w) ? 1 : 0;
+      row.put(w, lane, a, t, p.hd);
+    }
+    return p.wt ? 2 : 0;
+  }
+  c[7] += p.wt ? 2 : 1;  // nothing committed to the cache
+  return 2;
+}
+
 template <class Row>
 __global__ void __launch_bounds__(kWalkThreads, 2) single_level_kernel(
     const int* __restrict__ addr, const unsigned char* __restrict__ is_write,
@@ -147,6 +208,107 @@ __global__ void __launch_bounds__(kWalkThreads, 2) single_level_kernel(
          tv + valid);
 }
 
+// a class's policy flags and bypass bit, packed in its table entry
+constexpr int kAr = 1, kInv = 2, kHd = 4, kWt = 8, kByp = 16;
+
+// The classified walk: per-VM class tables (x, y: the insertion range
+// clamped to the active ways; z: the flags) after the ClsTile, then the
+// ClassCounts.
+template <class Row>
+__global__ void __launch_bounds__(kWalkThreads, 2)
+    single_level_classified_kernel(
+        const int* __restrict__ addr,
+        const unsigned char* __restrict__ is_write,
+        const int* __restrict__ cls, const int* tags_in, const int* lru_in,
+        const unsigned char* dirty_in, int* tags, int* lru,
+        unsigned char* dirty, const int* __restrict__ ways_v,
+        const unsigned char* __restrict__ ar_vc,
+        const unsigned char* __restrict__ inv_vc,
+        const unsigned char* __restrict__ hd_vc,
+        const unsigned char* __restrict__ wt_vc,
+        const unsigned char* __restrict__ bypass,
+        const int* __restrict__ lo_vc, const int* __restrict__ hi_vc,
+        const int* __restrict__ t0, int* __restrict__ counts,
+        float* __restrict__ latency, int* __restrict__ t_end,
+        int* __restrict__ cls_hits, int* __restrict__ cls_miss,
+        float* lat_g, int* part_counts, int* tickets, int n, int sets,
+        int ways_max, int classes, int parts, float4 lat) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  ClsTile& ct = *reinterpret_cast<ClsTile*>(smem);
+  Tile& tile = ct.t;
+  int4* tab = reinterpret_cast<int4*>(smem + sizeof(ClsTile));
+  int* xc = reinterpret_cast<int*>(tab + classes);
+  __shared__ RowScan<kLoadTiles> scan;
+  __shared__ int total[8];
+  const Split sp(parts, lat_g, part_counts, tickets, n);
+  const int v = sp.v;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const Level L(tags_in, lru_in, dirty_in, tags, lru, dirty,
+                (long long)v * sets * ways_max, ways_max, ways_v[v]);
+  const int tv = t0[v];
+  if (threadIdx.x < 8) total[threadIdx.x] = 0;
+  for (int j = threadIdx.x; j < classes; j += kWalkThreads) {
+    const long long o = (long long)v * classes + j;
+    const int hi = max(min(hi_vc[o], L.ways), 0);
+    const int fl = (ar_vc[o] ? kAr : 0) | (inv_vc[o] ? kInv : 0) |
+                   (hd_vc[o] ? kHd : 0) | (wt_vc[o] ? kWt : 0) |
+                   (bypass[j] ? kByp : 0);
+    tab[j] = make_int4(max(min(lo_vc[o], hi), 0), hi, fl, 0);
+  }
+  for (int j = threadIdx.x; j < 1 + 2 * classes; j += kWalkThreads)
+    xc[j] = 0;
+  int c[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  float lat_sum = 0.0f;
+  const long long row0 = (long long)v * n;
+  const int valid = stream_row(
+      addr + row0, is_write + row0, n, sets, tile, scan,
+      [&](int fill, int base, bool first) {
+        __syncthreads();
+        const int tb = tv + base;
+        float* lat_out = sp.lat_out(tile, base);
+        for (int s = sp.first_set(warp); s < sets; s += sp.set_step()) {
+          Row r;
+          r.load(L, s, first, lane);
+          for_each_classified(tile, ct.cls, tab, fill, s, lane,
+                              [&](int i, int a, int f, int k, int4 e) {
+            const bool wr = (f & kWrite) != 0;
+            int code;
+            if (e.z & kByp) {
+              if (lane == 0) atomicAdd(&xc[0], 1);
+              if (wr) {
+                const int way = r.find(a, L.ways, lane);
+                if (way >= 0) r.put(way, lane, -1, -1, false);
+                ++c[1];
+                ++c[7];
+                code = 2;
+              } else {
+                ++c[0];
+                ++c[6];
+                code = 1;
+              }
+            } else {
+              const Policy p{(e.z & kAr) != 0, (e.z & kInv) != 0,
+                             (e.z & kHd) != 0, (e.z & kWt) != 0};
+              bool hit;
+              code = step_in(r, L.ways, e.x, e.y, p, a, wr, tb + i, lane, c,
+                             hit);
+              if (lane == 0)
+                atomicAdd(&xc[hit ? 1 + k : 1 + classes + k], 1);
+            }
+            if (lane == 0) lat_out[i] = latency_of(code, lat);
+          });
+          r.store(L, s, lane);
+        }
+        __syncthreads();
+        if (parts == 1 && warp == 0)
+          lat_sum = ordered_sum(tile.lat, fill, lat_sum);
+      },
+      ClassSide{cls + row0, ct.cls, classes - 1});
+  finish(c, total, sp, tile, counts, latency, t_end, lat_sum, valid,
+         tv + valid,
+         ClassCounts{xc, classes, counts, cls_hits, cls_miss});
+}
+
 template <class Row>
 int launch(const int* addr, const unsigned char* is_write, const int* tg_in,
            const int* lr_in, const unsigned char* dt_in, int* tg, int* lr,
@@ -191,6 +353,71 @@ extern "C" int etica_single_level(
         addr, is_write, tags_in, lru_in, dirty_in, tags, lru, dirty, ways, ar,
         inv, hd, wt, t0, counts, latency, t_end, lat_g, part_counts, tickets,
         num_vms, n, sets, ways_max, parts, lat, (cudaStream_t)stream);
+  };
+  if (ways_max <= 32) return go(RegRow<1>{});
+  if (ways_max <= 64) return go(RegRow<2>{});
+  return go(MemRow{});
+}
+
+namespace {
+
+template <class Row>
+int launch_classified(const int* addr, const unsigned char* is_write,
+                      const int* cls, const int* tg_in, const int* lr_in,
+                      const unsigned char* dt_in, int* tg, int* lr,
+                      unsigned char* dt, const int* ways,
+                      const unsigned char* const* flags,
+                      const unsigned char* bypass, const int* lo,
+                      const int* hi, const int* t0, int* counts,
+                      float* latency, int* t_end, int* cls_hits,
+                      int* cls_miss, float* lat_g, int* part_counts,
+                      int* tickets, int num_vms, int n, int sets,
+                      int ways_max, int classes, int parts, float4 lat,
+                      cudaStream_t stream) {
+  static bool configured = false;
+  const cudaError_t err =
+      walk_kernel_setup(single_level_classified_kernel<Row>, configured,
+                        cls_smem_bytes(kMaxClasses));
+  if (err != cudaSuccess) return (int)err;
+  single_level_classified_kernel<Row>
+      <<<num_vms * parts, kWalkThreads, cls_smem_bytes(classes),
+         stream>>>(addr, is_write, cls, tg_in, lr_in, dt_in, tg, lr, dt,
+                   ways, flags[0], flags[1], flags[2], flags[3], bypass, lo,
+                   hi, t0, counts, latency, t_end, cls_hits, cls_miss,
+                   lat_g, part_counts, tickets, n, sets, ways_max, classes,
+                   parts, lat);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// etica_single_level with IO classes: cls [V, n] int32 (clipped to
+// [0, C)), the four policy flags as [V, C] bytes, bypass [C] bytes,
+// insertion bounds lo / hi [V, C] int32 (>= 0); counts [V, 9] (bypassed
+// last), cls_hits / cls_miss [V, C]. With parts > 1, part_counts holds
+// [V, parts, 9 + 2C] ints.
+extern "C" int etica_single_level_classified(
+    const int* addr, const unsigned char* is_write, const int* cls,
+    const int* tags_in, const int* lru_in, const unsigned char* dirty_in,
+    int* tags, int* lru, unsigned char* dirty, const int* ways,
+    const unsigned char* ar, const unsigned char* inv,
+    const unsigned char* hd, const unsigned char* wt,
+    const unsigned char* bypass, const int* lo, const int* hi,
+    const int* t0, int* counts, float* latency, int* t_end, int* cls_hits,
+    int* cls_miss, float* lat_g, int* part_counts, int* tickets,
+    int num_vms, int n, int sets, int ways_max, int classes, int parts,
+    float t_cache, float t_hdd, float t_hdd_write, void* stream) {
+  if (num_vms <= 0) return 0;
+  if (parts < 1 || classes < 1 || classes > kMaxClasses)
+    return (int)cudaErrorInvalidValue;
+  const float4 lat = make_float4(t_cache, t_hdd, t_hdd_write, 0.0f);
+  const unsigned char* flags[4] = {ar, inv, hd, wt};
+  auto go = [&](auto row) {
+    return launch_classified<decltype(row)>(
+        addr, is_write, cls, tags_in, lru_in, dirty_in, tags, lru, dirty,
+        ways, flags, bypass, lo, hi, t0, counts, latency, t_end, cls_hits,
+        cls_miss, lat_g, part_counts, tickets, num_vms, n, sets, ways_max,
+        classes, parts, lat, (cudaStream_t)stream);
   };
   if (ways_max <= 32) return go(RegRow<1>{});
   if (ways_max <= 64) return go(RegRow<2>{});

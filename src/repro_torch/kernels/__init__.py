@@ -18,7 +18,10 @@ launch counter (:func:`launch_counts`), and nothing else does.
   * ``datapath``       — ``two_level``, the DRAM(RO) + SSD(WBWO) request
     loop, and ``single_level``, the one-level baselines' request loop
     under per-VM write policies, both of which the JAX package runs as
-    a ``lax.scan``
+    a ``lax.scan``; each has two routes (:func:`route_counts`):
+    ``unclassified`` and ``classified`` (the IO classifier's: a class id
+    per request choosing its insertion way range, its bypass and, at
+    one level, its policy)
   * ``maintenance``    — ``evict_scatter`` / ``promote_scatter`` /
     ``clean_scatter`` and the fused per-interval maintenance;
     ``run_sums`` compacts a maintenance window into each distinct
@@ -85,6 +88,10 @@ KERNELS = ("count_between", "evict_scatter", "promote_scatter",
 # kernels with more than one CUDA entry point: route -> C symbol
 ROUTES = {"flash_attention": {"wgmma": "etica_flash_attention_sm90",
                               "cuda_cores": "etica_flash_attention"},
+          "two_level": {"unclassified": "etica_two_level",
+                        "classified": "etica_two_level_classified"},
+          "single_level": {"unclassified": "etica_single_level",
+                           "classified": "etica_single_level_classified"},
           "popularity": {"row": "etica_popularity",
                          "tiled": "etica_popularity_tiled"},
           "run_sums": {"row": "etica_run_sums",
@@ -102,6 +109,10 @@ _SIGNATURES = {
     "etica_clean_scatter": (*(_P,) * 11, *(_I,) * 5, _P),
     "etica_two_level": (*(_P,) * 23, *(_I,) * 8, _F, _F, _F, _F, _P),
     "etica_single_level": (*(_P,) * 20, *(_I,) * 5, _F, _F, _F, _P),
+    "etica_two_level_classified": (*(_P,) * 31, *(_I,) * 9, _F, _F, _F, _F,
+                                   _P),
+    "etica_single_level_classified": (*(_P,) * 26, *(_I,) * 6, _F, _F, _F,
+                                      _P),
     "etica_run_sums": (_P, _P, _P, _P, _P, _I, _I, _P),
     "etica_run_sums_tiled": (*(_P,) * 10, _I, _I, _P),
     "etica_paged_decode_attention": (*(_P,) * 6, *(_I,) * 7, _F,

@@ -1,8 +1,7 @@
 """Prometheus text-format telemetry export for the cache controllers.
 
 The PyTorch port's own copy of :mod:`repro.runtime.metrics` for the
-block-cache controllers and the two-tier KV serving manager (the
-per-class family comes with the IO classifier):
+block-cache controllers and the two-tier KV serving manager:
 
 * :class:`Metric` + :func:`render` — a dependency-free renderer of the
   Prometheus text exposition format v0.0.4 (``# HELP`` / ``# TYPE``
@@ -14,7 +13,8 @@ per-class family comes with the IO classifier):
   :class:`~repro_torch.core.controller.EticaCache` or
   ``PartitionedSingleLevelCache`` as metric families, including the
   background cleaner's channels (``flushes``, ``evict_flushes``,
-  ``dirty_resident``) and the popularity-table overflow counter;
+  ``dirty_resident``), the popularity-table overflow counter and, with
+  an IO classifier, the per-(VM, class) served hit/miss family;
   :func:`collect_serving` — a serving manager's ``Stats`` as the
   ``etica_serving_*`` families.
 * :func:`collect_telemetry` — the ``{prefix}_dispatch_seconds`` span
@@ -332,8 +332,21 @@ def collect_cache(cache) -> list:
         byp.add({"vm": v}, _stat(d, "bypassed"))
         drops.add({"vm": v}, _stat(d, "pop_drops"))
         lat.add({"vm": v}, _stat(d, "latency_sum"))
-    return [req, hits, ssd_w, disk_r, disk_w, flushes, ev_fl, dirty, byp,
-            drops, lat]
+    out = [req, hits, ssd_w, disk_r, disk_w, flushes, ev_fl, dirty, byp,
+           drops, lat]
+    if getattr(cache, "classifier", None) is not None:
+        names = [c.name for c in cache.classifier.classes]
+        cls = Metric("etica_class_requests_total", "counter",
+                     "Served requests by VM, IO class, and hit/miss "
+                     "outcome (bypassed requests excluded).")
+        for v in range(len(stats)):
+            for ci, cname in enumerate(names):
+                cls.add({"vm": str(v), "io_class": cname, "result": "hit"},
+                        int(cache.cls_hits[v, ci]))
+                cls.add({"vm": str(v), "io_class": cname, "result": "miss"},
+                        int(cache.cls_miss[v, ci]))
+        out.append(cls)
+    return out
 
 
 def collect_serving(mgr) -> list:

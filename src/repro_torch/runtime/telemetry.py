@@ -372,10 +372,13 @@ class TelemetryRecorder:
 
     def sample_cache(self, stats: list[dict], *, alloc_l1=None, alloc_l2=None,
                      promoted=None, evict_queue=None, cleaned=None,
-                     dirty=None, clean_ran: bool = False) -> dict:
+                     dirty=None, clean_ran: bool = False,
+                     cls_hits=None, cls_miss=None) -> dict:
         """One interval sample from the controller's per-VM stats dicts
         (cumulative, host-side) plus the maintenance counts the interval
-        already fetched."""
+        already fetched; with a classifier, the cumulative ``[V, C]``
+        per-class served hits and misses, journaled as this interval's
+        deltas."""
         num_vms = len(stats)
         cur = {k: np.asarray([float(d.get(k, 0.0)) for d in stats])
                for k in CACHE_DELTA_KEYS}
@@ -413,6 +416,15 @@ class TelemetryRecorder:
             "clean_ran": bool(clean_ran),
             "overloaded": self._flag(hits, reqs, pressure),
         }
+        if cls_hits is not None:
+            ch = np.asarray(cls_hits, np.int64)
+            cm = np.asarray(cls_miss, np.int64)
+            prev_ch = self._prev.get("_cls_hits", np.zeros_like(ch))
+            prev_cm = self._prev.get("_cls_miss", np.zeros_like(cm))
+            row["cls_hits"] = ch - prev_ch
+            row["cls_miss"] = cm - prev_cm
+            self._prev["_cls_hits"] = ch.copy()
+            self._prev["_cls_miss"] = cm.copy()
         self.journal.append(row)
         return row
 

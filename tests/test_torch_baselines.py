@@ -195,8 +195,11 @@ def test_load_state_carries_a_jax_chassis():
                                     dict(mesh=object()),
                                     dict(classifier=object())])
 def test_chassis_options_outside_the_port_raise(option):
+    """The mesh is outside the port; a classifier that is not a
+    ``repro_torch.classify.Classifier`` is the wrong type."""
     cfg = SingleLevelConfig(capacity=100, **option)
-    with pytest.raises(NotImplementedError):
+    err = TypeError if "classifier" in option else NotImplementedError
+    with pytest.raises(err):
         PartitionedSingleLevelCache(cfg, 2, tbase.urd_metric(Geometry()),
                                     tbase.eci_policy(), device="cpu")
 

@@ -4,13 +4,15 @@ A fig15-style MSR mix (``benchmarks/common.py`` geometry, resize 2000,
 promo 500) through both controllers — per-VM stats dicts and allocation
 histories must be equal, in modes full and npe, at prefetch depths 0
 and 2. Also: a state carried over from a JAX run with ``load_state``,
-the options outside the port (the mesh and the classifier, in every
-maintenance mode) raising ``NotImplementedError``, inputs other than a
+the option outside the port (the mesh, in every maintenance mode)
+raising ``NotImplementedError`` and a classifier that is not the port's
+raising ``TypeError``, inputs other than a
 port ``Trace``, ``TraceStore`` or ``StreamingTraceSource`` raising
 ``TypeError``, and a subprocess port job (every maintenance mode, the
 baselines, serving, the ``core`` and ``traces`` exports, the trace store
-and streamed ingestion, the §5.1 config and
-``examples/torch_paper_figures.py``) that loads neither ``jax`` nor any
+and streamed ingestion, the §5.1 config,
+``examples/torch_paper_figures.py`` and a classified cache in every
+mode and ECI-Cache with a classifier) that loads neither ``jax`` nor any
 ``repro`` module.
 """
 import os
@@ -121,8 +123,11 @@ def test_load_state_carries_a_jax_run():
     dict(fused_maintenance=False, classifier=object()), dict(mesh=object()),
     dict(classifier=object())])
 def test_options_outside_the_port_raise(option):
+    """The mesh is outside the port; a classifier that is not a
+    ``repro_torch.classify.Classifier`` is the wrong type."""
     _, tcfg = _configs(**option)
-    with pytest.raises(NotImplementedError):
+    err = TypeError if "classifier" in option else NotImplementedError
+    with pytest.raises(err):
         EticaCache(tcfg, 2, device="cpu")
 
 
@@ -248,6 +253,27 @@ def test_port_job_loads_no_jax_and_no_repro():
             assert store_cli(["import", str(csv), str(Path(tmp) / "m")]) == 0
             assert TraceStore.open(Path(tmp) / "m").num_vms == 2
             del store, src
+        import repro_torch.classify
+        from repro_torch.classify import seq_cutoff
+        trace = interleave([make(n, 400, seed=i, addr_offset=i * 10_000_000,
+                                 scale=0.25) for i, n in
+                            enumerate(["scan_mix", "hm_1", "backup_scan"])],
+                           seed=0)
+        for mode in (dict(batched=False), dict(fused_maintenance=False), {}):
+            ccfg = EticaConfig(dram_capacity=60, ssd_capacity=120,
+                               geometry_dram=geo, geometry_ssd=geo,
+                               resize_interval=600, promo_interval=200,
+                               classifier=seq_cutoff(4), **mode)
+            classified = EticaCache(ccfg, 3, device="cpu")
+            cres = [r.stats for r in classified.run(trace)]
+            assert sum(s["reads"] + s["writes"] for s in cres) == 1200
+        assert sum(s["bypassed"] for s in cres) > 0
+        assert classified.cls_hits.sum() + classified.cls_miss.sum() == \
+            1200 - sum(s["bypassed"] for s in cres)
+        eci = make_eci_cache(180, 3, geometry=geo, resize_interval=600,
+                             sim_chunk=200, classifier=seq_cutoff(4),
+                             device="cpu")
+        assert sum(r.stats["bypassed"] for r in eci.run(trace)) > 0
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "repro" or m.startswith("repro."))

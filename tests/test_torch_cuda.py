@@ -963,3 +963,132 @@ def test_fig10_card_equals_cpu(dev):
     f = figures()
     assert strip_seconds(f.fig10("cuda", **f.SMOKE["fig10"])) == \
         strip_seconds(f.fig10("cpu", **f.SMOKE["fig10"]))
+
+
+# (V, N, sets_d, ways_d, sets_s, ways_s, classes, bypass share, empty
+# ranges): the classified routes' cases (csrc/datapath.cu,
+# csrc/single_level.cu, the IO classifier)
+CLASSIFIED_CASES = {
+    "v0": (0, 300, 16, 32, 16, 32, 4, 0.25, False),
+    "n0": (3, 0, 16, 32, 16, 32, 4, 0.25, False),
+    "c1": (4, 700, 16, 32, 16, 32, 1, 0.0, False),
+    "c16": (5, 900, 16, 32, 16, 32, 16, 0.25, False),
+    "all_bypassed": (3, 600, 16, 32, 16, 32, 3, 1.0, False),
+    "ranges_empty": (3, 600, 16, 32, 16, 32, 4, 0.0, True),
+    "split_12x64x64": (12, 1000, 64, 64, 64, 64, 4, 0.25, False),
+    "split_v1": (1, 1000, 64, 64, 64, 64, 4, 0.25, False),
+    "two_tiles": (3, 9000, 8, 64, 8, 64, 4, 0.25, False),
+    "wide_rows": (3, 600, 8, 128, 8, 128, 4, 0.25, False),
+    "sets_differ": (5, 700, 32, 16, 12, 32, 4, 0.25, False),
+}
+
+
+def _classified_case(dev, rng, case):
+    """A block, states, ways, clocks and class tables for one case: class
+    ids outside [0, C) included, one exclusive slice per level."""
+    v, n, sd, wd, ss, ws, c, byp_share, empty = CLASSIFIED_CASES[case]
+    a = rng.integers(0, 3 * sd * max(wd, ws), (v, n)).astype(np.int32)
+    a[rng.random((v, n)) < 0.1] = -1
+    w = rng.random((v, n)) < 0.35
+    cls = rng.integers(-1, c + 1, (v, n)).astype(np.int32)
+    state = [torch.from_numpy(x).to(dev) for x in (*_state(rng, v, sd, wd),
+                                                     *_state(rng, v, ss, ws))]
+    ways = [rng.integers(0, x + 1, v).astype(np.int32) for x in (wd, ws)]
+    bounds = []
+    for x, wmax in zip(ways, (wd, ws)):
+        lo = rng.integers(0, wmax + 1, (v, c)).astype(np.int32)
+        hi = (lo + rng.integers(0, wmax // 2 + 1, (v, c))).astype(np.int32)
+        if empty:
+            hi = lo.copy()
+        bounds += [lo, hi]
+    bypass = rng.random(c) < byp_share
+    if byp_share == 1.0:
+        bypass[:] = True
+    t0 = rng.integers(0, 100, v).astype(np.int32)
+    put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    return (put(a), put(w), put(cls), state, [put(x) for x in ways], put(t0),
+            put(bypass), [put(x) for x in bounds])
+
+
+@pytest.mark.parametrize("case", list(CLASSIFIED_CASES))
+@pytest.mark.parametrize("npe", [False, True])
+def test_two_level_classified_kernel(dev, npe, case):
+    from repro_torch import kernels
+    from repro_torch.kernels.datapath import ops
+    a, w, cls, state, (wd, ws), t0, byp, bounds = _classified_case(
+        dev, np.random.default_rng(7), case)
+    kernels.reset_launch_counts()
+    got = ops.two_level_classified(a, w, cls, *state, wd, ws, t0, byp,
+                                   *bounds, npe=npe)
+    assert kernels.route_counts("two_level") == {
+        "unclassified": 0, "classified": int(a.shape[0] > 0)}
+    cpu = lambda xs: [x.cpu() for x in xs]
+    want = ops.two_level_classified_plain(
+        *cpu((a, w, cls, *state, wd, ws, t0, byp, *bounds)), npe=npe)
+    _same(cpu(got), want)
+    # a second launch: the split route's kept tickets are back at 0
+    _same(cpu(ops.two_level_classified(a, w, cls, *state, wd, ws, t0, byp,
+                                       *bounds, npe=npe)), want)
+
+
+@pytest.mark.parametrize("case", list(CLASSIFIED_CASES))
+def test_single_level_classified_kernel(dev, case):
+    from repro_torch import kernels
+    from repro_torch.core.policies import Policy
+    from repro_torch.kernels.datapath import ops
+    rng = np.random.default_rng(8)
+    a, w, cls, state, (ways, _), t0, byp, bounds = _classified_case(
+        dev, rng, case)
+    v, c = bounds[0].shape
+    pols = rng.integers(0, 5, (v, c))
+    flags = [torch.from_numpy(np.asarray(
+        [[getattr(list(Policy)[p], f) for p in row] for row in pols],
+        bool).reshape(v, c)).to(dev)
+        for f in ("allocates_reads", "write_invalidates", "holds_dirty",
+                  "write_through")]
+    kernels.reset_launch_counts()
+    got = ops.single_level_classified(a, w, cls, *state[:3], ways, *flags,
+                                      t0, byp, *bounds[:2], t_cache=2e-5)
+    assert kernels.route_counts("single_level") == {
+        "unclassified": 0, "classified": int(v > 0)}
+    cpu = lambda xs: [x.cpu() for x in xs]
+    want = ops.single_level_classified_plain(
+        *cpu((a, w, cls, *state[:3], ways, *flags, t0, byp, *bounds[:2])),
+        t_cache=2e-5)
+    _same(cpu(got), want)
+    _same(cpu(ops.single_level_classified(a, w, cls, *state[:3], ways,
+                                          *flags, t0, byp, *bounds[:2],
+                                          t_cache=2e-5)), want)
+
+
+def test_classify_block_card_equals_cpu(dev):
+    """``classify_block`` on the card == on the CPU, carries included,
+    for the four-class classifier and a seq cutoff."""
+    from repro_torch.classify import (ClassRule, IOClass, classify_block,
+                                      seq_cutoff)
+    from repro_torch.core.policies import Policy
+    rng = np.random.default_rng(9)
+    four = [IOClass("default"),
+            IOClass("small_writes", rules=(ClassRule(size=(None, 2),
+                                                     direction="write"),),
+                    ways_frac=0.25, policy=Policy.WT),
+            IOClass("vm0_range", rules=(ClassRule(lba=(0, 10_000_000)),),
+                    weight=0.5),
+            IOClass("seq_bypass", rules=(ClassRule(run_len=(48, None)),),
+                    bypass=True)]
+    from repro_torch.classify import Classifier
+    for clf in (Classifier(four), seq_cutoff(16)):
+        v, n = 7, 3000
+        a = rng.integers(0, 20_000_000, (v, n)).astype(np.int32)
+        a[:, 100:700] = np.arange(600) * 2 + 5_000
+        size = rng.integers(1, 4, (v, n)).astype(np.int32)
+        size[:, 100:700] = 2
+        wr = rng.random((v, n)) < 0.4
+        nv = rng.integers(0, n + 1, v).astype(np.int32)
+        ce = rng.integers(-1, 6000, v).astype(np.int32)
+        cl = rng.integers(0, 60, v).astype(np.int32)
+        args = (a, wr, size, nv, ce, cl, clf.plan)
+        got = classify_block(*args, device=dev)
+        want = classify_block(*args, device="cpu")
+        for x, y in zip(got, want):
+            assert torch.equal(x.cpu(), y)
