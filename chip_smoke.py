@@ -180,12 +180,31 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    ECI-Cache, card == CPU (stats, histories, logs, final states,
    per-class counts), requests/s beside unclassified ETICA's (three
    interleaved runs each), span breakdowns; (c) the seq-cutoff ETICA run
-   from a store of shards of 4,096 == (b)'s in-memory card run.
+   from a store of shards of 4,096 == (b)'s in-memory card run;
+15. VM-axis sharding over a mesh that repeats ``cuda:0``
+   (``VMMesh((cuda:0,) * d)``): (a) each sharded dispatch (both
+   datapaths, both resizes, the stats aggregation, the fused interval
+   with the cleaner, POD / TRD distances, the URD sizing metric) at the
+   1024-VM shapes over 1, 2, 4 and 8 shards == the unsharded card
+   dispatch bit for bit, each kernel launched exactly d times as often
+   (the aggregation == its plain version on the CPU); (b), run in phase
+   2, every kernel of the sharded path against its plain version on one
+   8-way shard of the 1024-VM run, ``[128, 16, 32]``, whose last 4 rows
+   are dead VMs (zero ways, ``addr = -1``, zero-length windows), the
+   dead rows untouched; (c) fig15's 1024-VM consolidation split 8 ways:
+   ETICA, ETICA with the cleaner and ECI-Cache, each == its unsharded
+   card run (phase 4's, one made here, phase 7's: stats, histories,
+   logs, final states; launches 8x), avg_hit ==
+   ``FIG15_JAX_CPU_AVG_HIT_1024``; (d) 1,020 VMs over 8 shards (4 dead
+   rows) == the unsharded 1,020-VM card run; (e) (c)'s ETICA run from a
+   trace store == (c); (f) ``examples/torch_vm_sharding.py``'s 1, 2, 4
+   and 8 shards of 128 VMs beside the unsharded run, three interleaved
+   rounds, requests/s with ``nvidia-smi``'s name and power limit.
 
 The §5.1 deployment (VMs, requests, intervals, the DRAM share of the
 capacity) comes from ``src/repro_torch/configs/etica_paper.py``.
 
-Each card run of phases 3 to 14 sets the launch counts to 0 just before
+Each card run of phases 3 to 15 sets the launch counts to 0 just before
 and reads them just after; exactly the kernels of that path's own set
 must have launched (``popularity`` only on the staged paths), and in
 phase 14 only the datapath route of its run (``classified`` with a
@@ -2336,6 +2355,18 @@ def same_run(label, want, got, ignore=()):
                                               if k not in ignore})
                 for r in res]
     assert_same(cut(gres), cut(wres), label)
+    same_logs(label, wc, gc)
+    views = ("vm_cache",) if hasattr(wc, "vm_cache") else ("vm_dram",
+                                                            "vm_ssd")
+    for view in views:
+        for v in range(len(wres)):
+            for a, b in zip(getattr(wc, view)(v), getattr(gc, view)(v)):
+                if not torch.equal(a.cpu(), b.cpu()):
+                    raise AssertionError(f"{label}: VM {v} {view} differs")
+
+
+def same_logs(label, wc, gc) -> None:
+    """Two controllers' interval logs (demands, allocations, policies)."""
     names = ("logs",) if hasattr(wc, "logs") else ("logs_dram", "logs_ssd")
     for name in names:
         wl, gl = getattr(wc, name), getattr(gc, name)
@@ -2344,13 +2375,6 @@ def same_run(label, want, got, ignore=()):
                 or not np.array_equal(a.alloc, b.alloc)
                 or a.policies != b.policies for a, b in zip(wl, gl)):
             raise AssertionError(f"{label}: {name} differ")
-    views = ("vm_cache",) if hasattr(wc, "vm_cache") else ("vm_dram",
-                                                            "vm_ssd")
-    for view in views:
-        for v in range(len(wres)):
-            for a, b in zip(getattr(wc, view)(v), getattr(gc, view)(v)):
-                if not torch.equal(a.cpu(), b.cpu()):
-                    raise AssertionError(f"{label}: VM {v} {view} differs")
 
 
 def check_oracle_ladder(launches, paper, fused, clean, eci_run):
@@ -4151,6 +4175,363 @@ def check_streamed_classified(launches, paper, cfg, want) -> None:
         f"launches {launch_summary(launches[label])}")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: VM-axis sharding (a mesh that repeats cuda:0)
+# ---------------------------------------------------------------------------
+
+SHARD_COUNTS = (1, 2, 4, 8)
+DEAD_ROWS = 4                  # 1,020 VMs in 8 shards of 128 rows
+
+
+def card_mesh(d: int):
+    import torch
+    from repro_torch.launch.mesh import VMMesh
+    return VMMesh((torch.device("cuda", 0),) * d)
+
+
+def tree_leaves(x) -> list:
+    """The tensors of an output tree (NamedTuples, tuples, sharded
+    lists gathered to one whole tensor)."""
+    from repro_torch.core.simulator import gather_rows
+    if isinstance(x, list):
+        x = gather_rows(x)
+    if isinstance(x, tuple):
+        return [leaf for f in x for leaf in tree_leaves(f)]
+    return [x]
+
+
+def counted_call(call):
+    """``(output, launches)`` of one call, the counts set to 0 just
+    before and read after a sync."""
+    import torch
+    from repro_torch import kernels
+    kernels.reset_launch_counts()
+    out = call()
+    torch.cuda.synchronize()
+    return out, {k: n for k, n in kernels.launch_counts().items() if n}
+
+
+def times_launches(label, d, want, got) -> None:
+    if got != {k: d * n for k, n in want.items()}:
+        raise AssertionError(f"{label}: {d} shards launched {got}, not "
+                             f"{d} x {want}")
+
+
+def dead_row_state(rng, v, s, w, dead):
+    """``random_state`` with the last ``dead`` rows as a controller's
+    dead VMs hold them: empty, never touched."""
+    tags, lru, dirty = random_state(rng, v, s, w, fill=0.9)
+    tags[v - dead:], lru[v - dead:], dirty[v - dead:] = -1, -1, False
+    return tags, lru, dirty
+
+
+def check_dead_rows(dev, rng, v=128, s=16, w=32, dead=4):
+    """Phase 15 (b), with phase 2's shapes: one shard of the 1024-VM run
+    split 8 ways (``[128, 16, 32]``) whose last ``dead`` rows are dead
+    VMs (zero ways, ``addr = -1`` blocks, zero-length windows, pure-pad
+    POD rows), through every kernel of the sharded path against its
+    plain version; the dead rows come out untouched and count nothing,
+    at the plans the kernels take at ``V / d`` rows."""
+    import torch
+    from repro_torch.core import popularity as pop
+    from repro_torch.core import reuse, simulator
+    from repro_torch.core.policies import Policy
+    from repro_torch.kernels.maintenance import ops
+    from repro_torch.kernels.reuse_distance import ops as rops
+    cpu = torch.device("cpu")
+    live = v - dead
+    tags, lru, dirty = dead_row_state(rng, v, s, w, dead)
+    ways = rng.integers(1, w + 1, v).astype(np.int32)
+    ways[live:] = 0
+    ways[0] = 0                            # a live VM sized to nothing
+    t = np.full(v, 30_000, np.int32)
+    a = rng.integers(0, 4 * s * w, (v, 600)).astype(np.int32)
+    a[rng.random(a.shape) < 0.1] = -1
+    a[live:] = -1
+    wr = rng.random(a.shape) < 0.4
+    lens = rng.integers(20, 60, v).astype(np.int32)
+    lens[live:] = 0
+    addrs = [a[i][:lens[i]].clip(min=0) for i in range(v)]
+    writes = [wr[i][:lens[i]] for i in range(v)]
+    amat, wmat = reuse._pad_rows(addrs, writes, list(range(v)),
+                                 [int(k) for k in lens])
+    names = list(Policy.__members__)
+    pols = [Policy[names[i % len(names)]] for i in range(v)]
+    outs = []
+    for d in (dev, cpu):
+        st = simulator.CacheState(*[torch.from_numpy(x).to(d)
+                                    for x in (tags, lru, dirty)])
+        up = [torch.from_numpy(x).to(d) for x in (ways, t, lens)]
+        two = simulator.simulate_two_level_batch(a, wr, st, st, up[0],
+                                                 up[0], t0=up[1])
+        one = simulator.simulate_single_level_batch(
+            a, wr, st, up[0], simulator.policy_flags(pols, d), t0=up[1])
+        am = torch.from_numpy(amat).to(d)
+        dist, served, touch = reuse.decompose(
+            am, torch.from_numpy(wmat).to(d), Policy.WBWO)
+        tdist, tserved, _ = reuse.decompose(
+            am, torch.from_numpy(wmat).to(d), Policy.WB,
+            sizing_reads_only=False)
+        maint = ops.maintenance_interval(
+            st, pop.table_init(v, 8192, d), tdist, tserved, am, up[2],
+            up[0], up[1], evict_frac=0.05, decay=0.5,
+            clean_quota=CLEAN_QUOTA)
+        outs.append([x.cpu() for x in tree_leaves(
+            (two, one, dist, served, touch, maint))])
+    max_abs_err(*outs)
+    # the dead rows come out as they went in: empty, counting nothing
+    (dram2, ssd2, st2, _), (one_st, st1, _) = two, one
+    dead_rows = [x[live:] for x in (
+        *ssd2, *dram2, *one_st, *st2, *st1, dist, *maint[0], maint[1].addr,
+        *maint[2:])]
+    if not all(bool((x == -1).all() or (x == 0).all()
+                    or (x == pop.TABLE_EMPTY).all()) for x in dead_rows):
+        raise AssertionError("a dead row was touched")
+    sms = sm_count(dev)
+    per = (v, s * w, sms)
+    log(f"phase 15 (b) dead rows [{v},{s},{w}] ({dead} dead, ways 0 on "
+        f"{dead + 1} rows): two_level, single_level, count_between "
+        f"(pure-pad rows), the fused interval with the cleaner (run_sums, "
+        f"evict_scatter, promote_scatter, clean_scatter) == plain; plans "
+        f"at V/d: evict {ops.evict_plan(*per)}, promote "
+        f"{ops.promote_plan(v, s, sms)}, clean {ops.clean_plan(*per)}, "
+        f"count {rops.count_plan(v, amat.shape[1], sms)}")
+
+
+def check_sharded_dispatches(dev, rng, subs, blocks, blocks_b):
+    """Phase 15 (a): every sharded dispatch at the 1024-VM shapes over
+    1, 2, 4 and 8 shards of ``cuda:0`` == the unsharded card dispatch
+    bit for bit, each kernel launched exactly ``d`` times as often:
+    both datapaths, both resizes, the stats aggregation (== its plain
+    version on the CPU, ints == the unsharded sums), the fused interval
+    with the cleaner, POD(RO / WBWO) and TRD distances and the URD
+    sizing metric."""
+    import torch
+    from repro_torch.core import popularity as pop
+    from repro_torch.core import reuse, simulator as sim
+    from repro_torch.core.controller import Geometry, _mrc_grid
+    from repro_torch.core.policies import Policy
+    from repro_torch.kernels.maintenance import ops
+    from repro_torch.launch.mesh import VMMesh
+    v = 1024
+    g = Geometry(num_sets=16, max_ways=32)
+    empty = sim.make_cache_batch(v, g.num_sets, g.max_ways, dev)
+    w0 = [torch.from_numpy(rng.integers(0, 33, v).astype(np.int32)).to(dev)
+          for _ in range(4)]
+    dram, ssd, _, t0 = sim.simulate_two_level_batch(
+        *blocks[0], empty, empty, w0[0], w0[1], mode="npe")
+    a, w = blocks_b[0]
+    names = list(Policy.__members__)
+    flags = sim.policy_flags([Policy[names[int(i)]] for i in
+                              rng.integers(0, len(names), v)], dev)
+    tags, lru, dirty = random_state(rng, v, g.num_sets, g.max_ways, 0.9)
+    lens = rng.integers(20, 60, v).astype(np.int32)
+    lens[5] = 0
+    maddrs = [rng.choice(tags[i][tags[i] >= 0], lens[i]).astype(np.int32)
+              for i in range(v)]
+    mwrites = [rng.random(k) < 0.4 for k in lens]
+    amat, wmat = reuse._pad_rows(maddrs, mwrites, list(range(v)),
+                                 [int(k) for k in lens])
+    am = torch.from_numpy(amat).to(dev)
+    tdist, tserved, _ = reuse.decompose(am, torch.from_numpy(wmat).to(dev),
+                                        Policy.WB, sizing_reads_only=False)
+    mstate = sim.CacheState(*[torch.from_numpy(x).to(dev)
+                              for x in (tags, lru, dirty)])
+    mvec = [torch.from_numpy(x).to(dev) for x in (
+        lens, np.full(v, g.max_ways, np.int32), np.full(v, 30_000, np.int32))]
+    addrs = [np.asarray(s.addr) for s in subs]
+    writes = [np.asarray(s.is_write) for s in subs]
+    grid = _mrc_grid(g)
+
+    def maint(mesh=None):
+        return ops.maintenance_interval(
+            mstate, pop.table_init(v, 8192, dev), tdist, tserved, am,
+            *mvec, evict_frac=0.05, decay=0.5, clean_quota=CLEAN_QUOTA,
+            mesh=mesh)
+
+    def dists(mesh=None):
+        kw = dict(mesh=mesh) if mesh else {}
+        out = [reuse.pod_distances_batch(addrs, writes, p, dev, **kw)
+               for p in (Policy.RO, Policy.WBWO)]
+        out.append(reuse.trd_distances_batch(addrs, writes, dev, **kw))
+        return tuple(torch.from_numpy(np.concatenate(
+            [getattr(r, f) for r in rs if r is not None]))
+            for rs in out for f in ("dist", "served", "touch"))
+
+    cases = {
+        "simulate_two_level_sharded": (
+            lambda: sim.simulate_two_level_batch(a, w, dram, ssd, w0[2],
+                                                 w0[3], t0=t0),
+            lambda m: sim.simulate_two_level_sharded(a, w, dram, ssd, w0[2],
+                                                     w0[3], m, t0=t0)),
+        "simulate_single_level_sharded": (
+            lambda: sim.simulate_single_level_batch(a, w, ssd, w0[3], flags,
+                                                    t0=t0),
+            lambda m: sim.simulate_single_level_sharded(a, w, ssd, w0[3],
+                                                        flags, m, t0=t0)),
+        "resize_levels_sharded": (
+            lambda: sim.resize_levels(dram, ssd, w0[0], w0[2], w0[1], w0[3]),
+            lambda m: sim.resize_levels_sharded(dram, ssd, w0[0], w0[2],
+                                                w0[1], w0[3], m)),
+        "resize_batch_sharded": (
+            lambda: sim.resize_batch(ssd, w0[1], w0[3]),
+            lambda m: sim.resize_batch_sharded(ssd, w0[1], w0[3], m)),
+        "maintenance_interval(mesh=)": (maint, maint),
+        "POD(RO), POD(WBWO), TRD distances": (dists, dists),
+        "sizing_metrics_batch urd": (
+            lambda: reuse.sizing_metrics_batch(addrs, writes, "urd", grid,
+                                               dev),
+            lambda m: reuse.sizing_metrics_batch(addrs, writes, "urd", grid,
+                                                 mesh=m)),
+    }
+    per_d = {}
+    for name, (whole, sharded) in cases.items():
+        want, n0 = counted_call(whole)
+        want = [torch.as_tensor(x).cpu() for x in tree_leaves(tuple(want))]
+        for d in SHARD_COUNTS:
+            got, nd = counted_call(lambda: sharded(card_mesh(d)))
+            max_abs_err([torch.as_tensor(x).cpu()
+                         for x in tree_leaves(tuple(got))], want)
+            times_launches(name, d, n0, nd)
+            per_d.setdefault(d, {}).update(nd)
+        log(f"phase 15 (a) {name}: 1/2/4/8 shards == unsharded, launches "
+            f"{n0} x d")
+    st = sim.simulate_two_level_batch(a, w, dram, ssd, w0[2], w0[3],
+                                      t0=t0)[2]
+    for d in SHARD_COUNTS:
+        got, nd = counted_call(lambda: sim.aggregate_stats_sharded(
+            st, card_mesh(d)))
+        plain = sim.aggregate_stats_sharded(
+            sim.Stats(*(x.cpu() for x in st)),
+            VMMesh((torch.device("cpu"),) * d))
+        max_abs_err([x.cpu() for x in got], list(plain))
+        ints = [int(x.sum()) for k, x in zip(st._fields, st)
+                if k != "latency_sum"]
+        if [int(x) for k, x in zip(st._fields, got)
+                if k != "latency_sum"] != ints or nd:
+            raise AssertionError("aggregate_stats_sharded differs")
+    log(f"phase 15 (a) aggregate_stats_sharded: 1/2/4/8 shards == its "
+        f"plain version on the CPU (latency_sum in XLA:CPU's order), "
+        f"integer fields == the unsharded sums; no launch")
+
+
+def sharded_state(cache, name):
+    """A controller's whole ``[V, ...]`` state ``name`` (gathered over
+    shards), real rows only; the dead rows checked empty."""
+    import torch
+    from repro_torch.core.simulator import gather_rows
+    x = getattr(cache, name)
+    if isinstance(x, list):
+        x = gather_rows(x)
+        if not (x.tags[cache.num_vms:] == -1).all():
+            raise AssertionError(f"a dead row of {name} holds a block")
+    return [torch.as_tensor(f)[:cache.num_vms].cpu() for f in x]
+
+
+def same_sharded(label, want, got) -> None:
+    """An unsharded and a sharded run's results, interval logs and
+    final states (gathered), exactly; ``want``/``got`` are ``(cache,
+    results)``."""
+    (wc, wres), (gc, gres) = want, got
+    assert_same(gres, wres, label)
+    same_logs(label, wc, gc)
+    names = ("caches",) if hasattr(wc, "caches") else ("dram", "ssd")
+    for name in names:
+        max_abs_err(sharded_state(gc, name), sharded_state(wc, name))
+
+
+def check_sharded_fig15(launches, fig1024, fig_run, eci_run):
+    """Phase 15 (c) to (e): fig15's consolidation configuration at 1024
+    VMs split 8 ways on ``cuda:0`` — ETICA, ETICA with the cleaner
+    (against an unsharded card run made here) and ECI-Cache — each ==
+    its unsharded card run (ETICA phase 4's, ECI-Cache phase 7's):
+    stats, allocation histories, interval logs, final states, and every
+    kernel launched 8 times as often; ETICA's avg_hit ==
+    ``FIG15_JAX_CPU_AVG_HIT_1024``. (d) 1,020 VMs over 8 shards (4 dead
+    rows) == the unsharded 1,020-VM card run. (e) the 8-shard ETICA run
+    fed from a trace store == (c)."""
+    import tempfile
+    from repro_torch.core.controller import Geometry
+    from repro_torch.traces import TraceStore
+    mesh, total, v = card_mesh(8), len(fig1024), fig_run[0].num_vms
+    cfg = fig15_config(v, total)
+    eci_kw = dict(geometry=Geometry(num_sets=16, max_ways=32),
+                  resize_interval=total // 3, sim_chunk=total // 12)
+    clean_build = etica(dataclasses.replace(cfg, clean_quota=CLEAN_QUOTA),
+                        v)
+    launches["fig15-1024vm-clean"], *clean_run, _ = drive_card(
+        clean_build, fig1024, "fig15-1024vm-clean", CLEAN_KERNELS)
+    cases = (
+        ("fig15-1024vm", etica(dataclasses.replace(cfg, mesh=mesh), v),
+         fig_run, ETICA_KERNELS),
+        ("fig15-1024vm-clean", etica(dataclasses.replace(
+            cfg, clean_quota=CLEAN_QUOTA, mesh=mesh), v), clean_run,
+         CLEAN_KERNELS),
+        ("fig15-1024vm-eci", eci(37 * v, v, mesh=mesh, **eci_kw),
+         eci_run, ECI_KERNELS))
+    runs = {}
+    for base, build, want, expect in cases:
+        label = base + "-8shards"
+        n, *got, rate = drive_card(build, fig1024, label, expect)
+        same_sharded(label, want, got)
+        times_launches(label, 8, launch_summary(launches[base]),
+                       launch_summary(n))
+        launches[label] = n
+        runs[label] = got
+        log(f"{label}: == the unsharded card run (stats, histories, logs, "
+            f"final states); launches 8 x {base}'s")
+    hit = float(np.mean([r.hit_ratio for r in runs[
+        "fig15-1024vm-8shards"][1]]))
+    if f"{hit:.3f}" != f"{FIG15_JAX_CPU_AVG_HIT_1024:.3f}":
+        raise AssertionError(f"fig15 1024 VMs, 8 shards: avg_hit {hit} vs "
+                             f"{FIG15_JAX_CPU_AVG_HIT_1024}")
+    log(f"phase 15 (c): avg_hit {hit:.4f} == {FIG15_JAX_CPU_AVG_HIT_1024} "
+        f"(benchmarks/BENCH_sharding.json, the JAX package's 8 shards)")
+
+    rv = v - DEAD_ROWS
+    ragged = trace_mix((FIG15_WORKLOADS * 64)[:rv], 150, 0.25)
+    rcfg = fig15_config(rv, len(ragged))
+    label = f"fig15-{rv}vm"
+    launches[label], *want, _ = drive_card(etica(rcfg, rv), ragged, label,
+                                           ETICA_KERNELS)
+    n, *got, _ = drive_card(etica(dataclasses.replace(rcfg, mesh=mesh), rv),
+                            ragged, label + "-8shards", ETICA_KERNELS)
+    if got[0]._rows != v:
+        raise AssertionError(f"{label}: {got[0]._rows} rows, not {v}")
+    same_sharded(label + "-8shards", want, got)
+    times_launches(label, 8, launch_summary(launches[label]),
+                   launch_summary(n))
+    launches[label + "-8shards"] = n
+    log(f"phase 15 (d) {rv} VMs over 8 shards ({v} rows, {DEAD_ROWS} "
+        f"dead): == the unsharded card run")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shard_") as tmp:
+        path = Path(tmp) / "fig1024"
+        TraceStore.from_trace(path, fig1024, shard_size=STORE_SHARD)
+        label = "fig15-1024vm-8shards-streamed"
+        launches[label], *got, rate = drive_stream(
+            etica(dataclasses.replace(cfg, mesh=mesh), v),
+            TraceStore.open(path), total, label, ETICA_KERNELS)
+    same_sharded(label, runs["fig15-1024vm-8shards"], got)
+    log(f"phase 15 (e) {label}: {rate:.0f} requests/s from a store of "
+        f"shards of {STORE_SHARD}; == (c)'s in-memory 8-shard run")
+
+
+def check_sharding_speed(smi, dev="cuda", smoke=False) -> None:
+    """Phase 15 (f): ``examples/torch_vm_sharding.py`` on the card, 1, 2,
+    4 and 8 shards of 128 VMs beside the unsharded run at each scale,
+    three interleaved rounds (a finding: nothing is asserted but the
+    results' equality)."""
+    out = example("torch_vm_sharding").sharded_consolidation(
+        dev, smoke=smoke, repeats=3)
+    for n, r in out.items():
+        rate = lambda ts: ", ".join(f"{r['requests'] / t:.0f}" for t in ts)
+        log(f"phase 15 (f) {n} shards, {r['vms']} VMs, {r['requests']} "
+            f"requests: sharded {rate(r['sharded_s'])} requests/s, "
+            f"unsharded {rate(r['unsharded_s'])} requests/s (three rounds "
+            f"in turns; {smi})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4232,6 +4613,7 @@ def main() -> int:
     rows["run_sums"]["max_abs_err"] = max(rows["run_sums"]["max_abs_err"],
                                           maint_err)
     check_window_runs(dev, rng, blocks1024, "1024-VM", fadd_ns)
+    check_dead_rows(dev, rng)
     rows["popularity"] = check_popularity(dev, rng, blocks12, "12-VM staged",
                                           fadd_ns)
     check_popularity(dev, rng, blocks1024, "1024-VM staged", fadd_ns)
@@ -4262,8 +4644,8 @@ def main() -> int:
         etica(fig15_config(128, len(fig128)), 128), fig128, "fig15 128-VM",
         ETICA_KERNELS)
     build1024 = etica(fig15_config(1024, len(fig1024)), 1024)
-    launches["fig15-1024vm"], *_ = drive(build1024, fig1024,
-                                           "fig15 1024-VM", ETICA_KERNELS)
+    launches["fig15-1024vm"], *fig_run, _ = drive(
+        build1024, fig1024, "fig15 1024-VM", ETICA_KERNELS)
     span_breakdown(build1024, fig1024, "fig15 1024-VM")
     log(f"fig15 1024-VM avg_hit beside the JAX package's CPU value "
         f"{FIG15_JAX_CPU_AVG_HIT_1024} (benchmarks/BENCH_sharding.json)")
@@ -4287,7 +4669,7 @@ def main() -> int:
 
     # phase 7: ECI-Cache at the fig15 1024-VM configuration
     total = len(fig1024)
-    launches["fig15-1024vm-eci"], *_ = drive(
+    launches["fig15-1024vm-eci"], *eci1024_run, _ = drive(
         eci(37 * 1024, 1024, geometry=Geometry(num_sets=16, max_ways=32),
             resize_interval=total // 3, sim_chunk=total // 12),
         fig1024, "fig15 1024-VM ECI-Cache", ECI_KERNELS)
@@ -4351,6 +4733,15 @@ def main() -> int:
                         classifier=clf), fused_rate)
     check_streamed_classified(launches, paper, cfg, seq_cut)
     log(f"phase 14: {time.perf_counter() - t14:.1f} s")
+
+    # phase 15: VM-axis sharding over a mesh that repeats cuda:0: the
+    # sharded dispatches, fig15's 1024-VM consolidation split 8 ways (and
+    # 1,020 VMs, and from a store) == the unsharded card runs; speed
+    t15 = time.perf_counter()
+    check_sharded_dispatches(dev, rng, subs1024, blocks1024, blocks1024b)
+    check_sharded_fig15(launches, fig1024, fig_run, eci1024_run)
+    check_sharding_speed(smi)
+    log(f"phase 15: {time.perf_counter() - t15:.1f} s")
 
     sources = {"count_between": "src/repro_torch/csrc/count_between.cu",
                "evict_scatter": "src/repro_torch/csrc/evict_scatter.cu",

@@ -15,9 +15,13 @@ CUDA:
   them. :func:`ftz` flushes explicitly. A thread-wide
   ``torch.set_flush_denormal`` would leak into unrelated numpy code and
   does nothing on CUDA.
+* sums: XLA:CPU rewrites a float32 reduction over more than 32 elements
+  into windows of 32 (the input zero-padded, the lower half of the pad
+  in front), each summed in order, then reduces the window sums the
+  same way. :func:`sum_f32` follows that tree; ``torch.sum`` does not.
 
-Both functions are plain tensor code and give the same bits on the CPU
-and on CUDA.
+All are plain tensor code and give the same bits on the CPU and on
+CUDA.
 """
 from __future__ import annotations
 
@@ -63,3 +67,27 @@ def exp_xla_f32(x: torch.Tensor) -> torch.Tensor:
     z = _fma(z, a * a, a) + 1.0
     pow2 = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
     return ftz(z * pow2)
+
+
+_WINDOW = 32     # XLA:CPU's reduction window (tree reduction rewriter)
+
+
+def sum_f32(x: torch.Tensor) -> torch.Tensor:
+    """The 0-d float32 sum of a 1-D tensor, bit-identical to XLA:CPU's
+    ``jnp.sum``: in order up to 32 elements; above that, windows of 32
+    over the input padded by ``p = -n % 32`` zeros (``p // 2`` in
+    front), each window in order, and the window sums reduced again."""
+    x = x.float().reshape(-1)
+    while x.numel() > _WINDOW:
+        p = -x.numel() % _WINDOW
+        x = torch.nn.functional.pad(x, (p // 2, p - p // 2))
+        x = _in_order(x.view(-1, _WINDOW))
+    return _in_order(x.view(1, -1))[0]
+
+
+def _in_order(rows: torch.Tensor) -> torch.Tensor:
+    """Each row of a 2-D float32 tensor summed left to right from 0."""
+    acc = torch.zeros(rows.shape[0], dtype=torch.float32, device=rows.device)
+    for j in range(rows.shape[1]):
+        acc = acc + rows[:, j]
+    return acc

@@ -37,16 +37,20 @@ _EXPORTS = {
                    "contributions", "table_init", "table_least_popular",
                    "table_scores", "table_top_known", "table_update"),
     "partition": ("PartitionResult", "partition"),
-    "simulator": ("CacheState", "PolicyFlags", "Stats", "capacity_to_ways",
-                  "evict_blocks", "make_cache", "make_cache_batch",
-                  "policy_flags", "promote_blocks", "resize", "resize_batch",
-                  "resize_levels", "simulate_single_level",
-                  "simulate_single_level_batch",
+    "simulator": ("CacheState", "PolicyFlags", "Stats",
+                  "aggregate_stats_sharded", "capacity_to_ways",
+                  "evict_blocks", "gather_rows", "make_cache",
+                  "make_cache_batch", "policy_flags", "promote_blocks",
+                  "resize", "resize_batch", "resize_batch_sharded",
+                  "resize_levels", "resize_levels_sharded", "shard_rows",
+                  "simulate_single_level", "simulate_single_level_batch",
                   "simulate_single_level_classified",
                   "simulate_single_level_classified_batch",
+                  "simulate_single_level_sharded",
                   "simulate_two_level", "simulate_two_level_batch",
                   "simulate_two_level_classified",
-                  "simulate_two_level_classified_batch", "stack_states",
+                  "simulate_two_level_classified_batch",
+                  "simulate_two_level_sharded", "stack_states",
                   "unstack_states"),
     "controller": ("EticaCache", "EticaConfig", "Geometry", "IntervalLog",
                    "PartitionedSingleLevelCache", "PolicyChooser",

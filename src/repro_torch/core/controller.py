@@ -2,7 +2,7 @@
 of the one-level baselines.
 
 The PyTorch counterpart of :class:`repro.core.controller.EticaCache`
-(no mesh; over an in-memory
+(over an in-memory
 :class:`~repro_torch.core.trace.Trace`, an on-disk
 :class:`~repro_torch.traces.store.TraceStore` or a
 :class:`~repro_torch.traces.stream.StreamingTraceSource`) in its three
@@ -44,8 +44,18 @@ class's insertion way range after every resize, run every block through
 the ``classified`` datapath routes, leave bypassed requests out of the
 maintenance (compacted out of the device block), and keep per-(VM,
 class) served hit and miss counts (``cls_hits`` / ``cls_miss``), which
-ride the block's one copy of its counts to the host. The mesh raises
-``NotImplementedError``.
+ride the block's one copy of its counts to the host.
+
+With a VM mesh (``mesh=`` a :class:`repro_torch.launch.mesh.VMMesh`;
+batched, fused maintenance and no classifier) both controllers pad the
+VM count with dead VMs (zero ways, ``addr = -1`` blocks, empty windows:
+exact no-ops) to ``-(-V // d) * d`` rows and hold the device state in
+``d`` row blocks, each in tensors of its own on its shard's device
+(lists, one entry a shard; :func:`repro_torch.core.simulator
+.gather_rows` joins them). Sizing, the datapath, the resize and the
+maintenance run once a shard a step (the ``*_sharded`` dispatches);
+stats, logs and trackers stay at the real VM count, and every result is
+bit-identical to the unsharded run.
 """
 from __future__ import annotations
 
@@ -68,6 +78,7 @@ from repro_torch.core.trace import Trace
 from repro_torch.kernels import resolve_device, upload
 from repro_torch.kernels.maintenance import ops as maint_ops
 from repro_torch.kernels.popularity import ops as pop_ops
+from repro_torch.launch.mesh import VMMesh
 from repro_torch.runtime.telemetry import TelemetryRecorder
 from repro_torch.traces.stream import window_source
 
@@ -286,6 +297,68 @@ def _load_classes(cache, carry, hits, miss) -> None:
         cache.cls_miss = np.asarray(miss, np.int64).copy()
 
 
+def _mesh_setup(mesh, num_vms: int, batched: bool, classifier,
+                device: torch.device) -> int:
+    """Validate a controller's mesh; returns the dead-VM-padded row count
+    its device state carries (``num_vms`` without a mesh)."""
+    if mesh is None:
+        return num_vms
+    if not isinstance(mesh, VMMesh):
+        raise TypeError(f"mesh must be a repro_torch.launch.mesh.VMMesh, "
+                        f"got {type(mesh).__module__}.{type(mesh).__name__}")
+    if not batched:
+        raise ValueError(
+            "mesh sharding requires batched=True — the sequential "
+            "per-VM oracle has no [V] axis to shard")
+    if classifier is not None:
+        raise ValueError(
+            "mesh sharding does not support an IO classifier yet — the "
+            "classified datapath dispatches have no sharded variants")
+    if mesh.device_type != device.type:
+        raise ValueError(f"the mesh's devices are {mesh.device_type}, the "
+                         f"controller's device is {device}")
+    d = mesh.size
+    return -(-num_vms // d) * d
+
+
+def _per_shard(make, rows: int, device, mesh):
+    """``make(rows, device)``; with a mesh, one ``make(rows / d, dev)`` a
+    shard on its own device."""
+    if mesh is None:
+        return make(rows, device)
+    return [make(rows // mesh.size, dev) for dev in mesh.devices]
+
+
+def _zeros_t(rows: int, device) -> torch.Tensor:
+    return torch.zeros(rows, dtype=torch.int32, device=device)
+
+
+def _vm_view(state, v: int, rows: int, mesh) -> CacheState:
+    """VM ``v``'s ``[S, W]`` view of a stacked state, sharded or whole."""
+    if mesh is not None:
+        per = rows // mesh.size
+        state, v = state[v // per], v % per
+    return CacheState(*(x[v] for x in state))
+
+
+def _pad_loaded(x, blank, mesh):
+    """A loaded whole ``[V, ...]`` tensor or NamedTuple as a controller
+    holds it: with a mesh, the dead rows ``blank`` appended and the rows
+    sharded."""
+    if mesh is None:
+        return x
+    if isinstance(x, tuple):
+        x = type(x)(*(torch.cat(ab) for ab in zip(x, blank)))
+    else:
+        x = torch.cat([x, blank])
+    return simulator.shard_rows(x, mesh)
+
+
+def _last(x):
+    """A tensor to time a span by: the last shard's, if sharded."""
+    return x[-1] if isinstance(x, list) else x
+
+
 def _mrc_grid(geom: Geometry, points: int = 17) -> np.ndarray:
     ways = np.unique(np.round(np.linspace(0, geom.max_ways, points)).astype(int))
     return (ways * geom.num_sets).astype(np.int64)
@@ -320,7 +393,10 @@ class EticaConfig:
     prefetch: bool = True            # pipeline host->device blocks
     prefetch_depth: int = 2          # blocks in flight beyond the consumed
     #                                  (0: copy each block when consumed)
-    mesh: object | None = None       # not ported
+    mesh: VMMesh | None = None       # shard the VM axis over a mesh's
+    #                                  devices (batched + fused maintenance,
+    #                                  no classifier; VM count padded with
+    #                                  dead VMs to a multiple of its size)
     fused_maintenance: bool = True   # one device interval; False: the
     #                                  staged tracker-based path
     pop_capacity: int = 8192         # per-VM device popularity-table slots
@@ -331,53 +407,54 @@ class EticaConfig:
     telemetry: object | None = None  # TelemetryRecorder | None
 
 
-def _check_supported(cfg, *more: tuple[str, bool]) -> None:
-    """Raise ``NotImplementedError`` for options outside the port."""
-    unsupported = [("mesh", cfg.mesh is not None), *more]
-    for name, bad in unsupported:
-        if bad:
-            raise NotImplementedError(
-                f"{type(cfg).__name__} {name} is not ported to repro_torch "
-                "yet")
-
-
 class EticaCache:
     """The proposed system: DRAM(RO) + SSD(WBWO), POD sizing, PPC
     partitioning, popularity-driven promotion/eviction. With
     ``cfg.batched``, ``self.dram`` / ``self.ssd`` are stacked ``[V, S,
-    W]`` states on ``device``; without it, lists of per-VM ``[S, W]``
-    states. :meth:`vm_dram` / :meth:`vm_ssd` give one VM's view in either
+    W]`` states on ``device`` (with a mesh, lists of ``[V / d, S, W]``
+    row blocks, one a shard); without it, lists of per-VM ``[S, W]``
+    states. :meth:`vm_dram` / :meth:`vm_ssd` give one VM's view in every
     layout."""
 
     def __init__(self, cfg: EticaConfig, num_vms: int, device="cuda"):
-        _check_supported(cfg)
         if cfg.mode not in ("full", "npe"):
             raise ValueError(f"mode must be 'full' or 'npe', got "
                              f"{cfg.mode!r}")
+        if cfg.mesh is not None and not cfg.fused_maintenance:
+            raise ValueError(
+                "EticaCache mesh sharding requires fused_maintenance=True "
+                "— the staged maintenance path round-trips through host "
+                "trackers and cannot stay shard-local")
         self.cfg = cfg
         self.num_vms = num_vms
         self.device = resolve_device(device)
+        # with a mesh the device state carries dead-VM rows up to a
+        # multiple of the mesh size; host structures (stats, logs,
+        # trackers) stay at the real VM count
+        self.mesh = cfg.mesh
+        self._rows = rows = _mesh_setup(cfg.mesh, num_vms, cfg.batched,
+                                        cfg.classifier, self.device)
         gd, gs = cfg.geometry_dram, cfg.geometry_ssd
         if cfg.batched:
-            self.dram = make_cache_batch(num_vms, gd.num_sets, gd.max_ways,
-                                         self.device)
-            self.ssd = make_cache_batch(num_vms, gs.num_sets, gs.max_ways,
-                                        self.device)
-            self.t = torch.zeros(num_vms, dtype=torch.int32,
-                                 device=self.device)
+            self.dram, self.ssd = (_per_shard(
+                lambda n, dev: make_cache_batch(n, g.num_sets, g.max_ways,
+                                                dev),
+                rows, self.device, self.mesh) for g in (gd, gs))
+            self.t = _per_shard(_zeros_t, rows, self.device, self.mesh)
         else:
             self.dram = [make_cache(gd.num_sets, gd.max_ways, self.device)
                          for _ in range(num_vms)]
             self.ssd = [make_cache(gs.num_sets, gs.max_ways, self.device)
                         for _ in range(num_vms)]
             self.t = np.zeros(num_vms, np.int32)
-        self.ways_dram = np.zeros(num_vms, np.int32)
-        self.ways_ssd = np.zeros(num_vms, np.int32)
+        self.ways_dram = np.zeros(rows, np.int32)
+        self.ways_ssd = np.zeros(rows, np.int32)
         # the fused path keeps one [V, K] device table; the staged and
         # sequential paths keep host trackers (its bit-exact oracle)
         fused = cfg.batched and cfg.fused_maintenance
-        self.pop_table = (pop.table_init(num_vms, cfg.pop_capacity,
-                                         self.device) if fused else None)
+        self.pop_table = (_per_shard(
+            lambda n, dev: pop.table_init(n, cfg.pop_capacity, dev), rows,
+            self.device, self.mesh) if fused else None)
         self.trackers = [pop.PopularityTracker(cfg.popularity_decay)
                          for _ in range(num_vms)]
         self.stats = [dict() for _ in range(num_vms)]
@@ -406,12 +483,12 @@ class EticaCache:
             self.cls_miss = np.zeros((num_vms, c), np.int64)
 
     def vm_dram(self, v: int) -> CacheState:
-        return (CacheState(*(x[v] for x in self.dram)) if self.cfg.batched
-                else self.dram[v])
+        return (_vm_view(self.dram, v, self._rows, self.mesh)
+                if self.cfg.batched else self.dram[v])
 
     def vm_ssd(self, v: int) -> CacheState:
-        return (CacheState(*(x[v] for x in self.ssd)) if self.cfg.batched
-                else self.ssd[v])
+        return (_vm_view(self.ssd, v, self._rows, self.mesh)
+                if self.cfg.batched else self.ssd[v])
 
     def load_state(self, dram, ssd, pop_table, ways_dram, ways_ssd, t,
                    stats, cls_carry=None, cls_hits=None,
@@ -422,19 +499,25 @@ class EticaCache:
         ``pop_table`` as ``(addr, val)`` ``[V, K]``, ``ways_*``/``t`` as
         ``[V]``, ``stats`` as the per-VM dicts; with a classifier, its
         run carry ``(prev_end, run_len)`` ``[V]`` and the per-class
-        counts ``[V, C]``."""
+        counts ``[V, C]``. With a mesh the arrays hold the real VMs; the
+        dead rows are added and the rows sharded here."""
         if self.pop_table is None:
             raise ValueError("load_state continues a batched controller "
                              "with fused maintenance")
-        dev = self.device
-        self.dram = _load_state(dram, dev)
-        self.ssd = _load_state(ssd, dev)
-        self.pop_table = pop.PopularityTable(
+        dev, pad = self.device, self._rows - self.num_vms
+        gd, gs = self.cfg.geometry_dram, self.cfg.geometry_ssd
+        self.dram = _pad_loaded(_load_state(dram, dev), make_cache_batch(
+            pad, gd.num_sets, gd.max_ways, dev), self.mesh)
+        self.ssd = _pad_loaded(_load_state(ssd, dev), make_cache_batch(
+            pad, gs.num_sets, gs.max_ways, dev), self.mesh)
+        self.pop_table = _pad_loaded(pop.PopularityTable(
             _device_tensor(pop_table[0], torch.int32, dev),
-            _device_tensor(pop_table[1], torch.float32, dev))
-        self.ways_dram = np.asarray(ways_dram, np.int32).copy()
-        self.ways_ssd = np.asarray(ways_ssd, np.int32).copy()
-        self.t = _device_tensor(t, torch.int32, dev)
+            _device_tensor(pop_table[1], torch.float32, dev)),
+            pop.table_init(pad, self.cfg.pop_capacity, dev), self.mesh)
+        self.ways_dram = np.pad(np.asarray(ways_dram, np.int32), (0, pad))
+        self.ways_ssd = np.pad(np.asarray(ways_ssd, np.int32), (0, pad))
+        self.t = _pad_loaded(_device_tensor(t, torch.int32, dev),
+                             _zeros_t(pad, dev), self.mesh)
         self.stats = [dict(s) for s in stats]
         if self.classifier is not None:
             _load_classes(self, cls_carry, cls_hits, cls_miss)
@@ -453,10 +536,11 @@ class EticaCache:
     def _sample_interval(self) -> None:
         gd, gs = self.cfg.geometry_dram, self.cfg.geometry_ssd
         cls = self.classifier is not None
+        n = self.num_vms
         self.telemetry.sample_cache(
             self.stats,
-            alloc_l1=self.ways_dram.astype(np.int64) * gd.num_sets,
-            alloc_l2=self.ways_ssd.astype(np.int64) * gs.num_sets,
+            alloc_l1=self.ways_dram[:n].astype(np.int64) * gd.num_sets,
+            alloc_l2=self.ways_ssd[:n].astype(np.int64) * gs.num_sets,
             promoted=self._m_promoted, evict_queue=self._m_evicted,
             cleaned=self._m_cleaned, dirty=self._m_dirty,
             clean_ran=self._m_clean_ran,
@@ -482,7 +566,14 @@ class EticaCache:
             addrs, writes, wts = _weighted_subs(
                 self.classifier.weights, addrs, writes, cls_subs)
         with self.telemetry.span("sizing"):
-            if self.cfg.batched:
+            if self.mesh is not None:
+                # dead-VM rows pad to the sharded row count
+                pad = self._rows - self.num_vms
+                dists = reuse.pod_distances_batch(
+                    addrs + [np.empty(0, np.int32)] * pad,
+                    writes + [np.empty(0, bool)] * pad, policy,
+                    mesh=self.mesh)[:self.num_vms]
+            elif self.cfg.batched:
                 dists = reuse.pod_distances_batch(addrs, writes, policy,
                                                   self.device)
             else:
@@ -651,24 +742,32 @@ class EticaCache:
     def _maintain_fused(self, a, w, lens, chunks: list[Trace | None]
                         ) -> None:
         """One fused maintenance interval for all VMs over the block
-        ``a``/``w`` (``lens`` requests per VM, on the device); one host
+        ``a``/``w`` (``lens`` requests per VM, on the device; with a
+        mesh, one of each a shard, and one interval a shard); one host
         transfer of the per-VM counts at the end."""
         cfg = self.cfg
         n = [0 if c is None else len(c) for c in chunks]
         live = [v for v, k in enumerate(n) if k > 0]
         if not live:
             return
-        amat, dist, served = _trd_rows(a, w, lens, max(n))
+        if self.mesh is None:
+            amat, dist, served = _trd_rows(a, w, lens, max(n))
+        else:
+            amat, dist, served = simulator.map_shards(
+                lambda *blk: _trd_rows(*blk, max(n)), self.mesh, a, w, lens)
         with self.telemetry.span("maintenance") as sp:
             (self.ssd, self.pop_table, *counts) = \
                 maint_ops.maintenance_interval(
                     self.ssd, self.pop_table, dist, served, amat, lens,
                     torch.from_numpy(self.ways_ssd).to(self.device), self.t,
-                    evict_frac=cfg.evict_frac, decay=cfg.popularity_decay,
-                    clean_quota=cfg.clean_quota)
-            sp.ready(self.ssd.tags)
+                    evict_frac=cfg.evict_frac,
+                    decay=cfg.popularity_decay, clean_quota=cfg.clean_quota,
+                    mesh=self.mesh)
+            sp.ready(_last(self.ssd).tags)
+        if self.mesh is not None:
+            counts = [simulator.gather_rows(c) for c in counts]
         flushed, promoted, eqlen, pqlen, pdrops, cleaned, dirty_left = \
-            torch.stack(counts).cpu().numpy()
+            torch.stack(counts).cpu().numpy()[:, :self.num_vms]
         for v in live:
             if pdrops[v]:
                 _add(self.stats[v], "pop_drops", int(pdrops[v]))
@@ -698,7 +797,13 @@ class EticaCache:
         a classifier is configured."""
         cfg = self.cfg
         with self.telemetry.span("datapath") as sp:
-            if cmat is None:
+            if self.mesh is not None:
+                self.dram, self.ssd, st, self.t = \
+                    simulator.simulate_two_level_sharded(
+                        a, w, self.dram, self.ssd, self.ways_dram,
+                        self.ways_ssd, self.mesh, mode=cfg.mode, t0=self.t)
+                st, classes = simulator.gather_rows(st), None
+            elif cmat is None:
                 self.dram, self.ssd, st, self.t = \
                     simulator.simulate_two_level_batch(
                         a, w, self.dram, self.ssd, self.ways_dram,
@@ -710,7 +815,7 @@ class EticaCache:
                         a, w, cmat, self.dram, self.ssd, self.ways_dram,
                         self.ways_ssd, self._byp_dev, *self._bounds,
                         mode=cfg.mode, t0=self.t)
-            sp.ready(self.t)
+            sp.ready(_last(self.t))
         classes = _acc_block(self.stats, st, chunks, classes)
         if classes is not None:
             self.cls_hits += classes[0]
@@ -750,9 +855,18 @@ class EticaCache:
 
     def _resize(self, wd: np.ndarray, ws: np.ndarray) -> None:
         """Resize both levels of every VM (shrinking flushes dirty
-        blocks): one pass over the stacked states, or per VM with the
-        numpy oracle."""
-        if self.cfg.batched:
+        blocks): one pass over the stacked states (one a shard with a
+        mesh, the dead rows at zero ways), or per VM with the numpy
+        oracle."""
+        pad = self._rows - self.num_vms
+        wd, ws = np.pad(wd, (0, pad)), np.pad(ws, (0, pad))
+        if self.mesh is not None:
+            self.dram, self.ssd, _, flushed = \
+                simulator.resize_levels_sharded(
+                    self.dram, self.ssd, self.ways_dram, wd, self.ways_ssd,
+                    ws, self.mesh)
+            flushed = simulator.gather_rows(flushed).cpu().numpy()
+        elif self.cfg.batched:
             self.dram, self.ssd, _, flushed = resize_levels(
                 self.dram, self.ssd, self.ways_dram, wd, self.ways_ssd, ws)
             flushed = flushed.cpu().numpy()
@@ -783,7 +897,8 @@ class EticaCache:
         alloc_hist = [[] for _ in range(self.num_vms)]
         source = window_source(trace, self.num_vms, cfg.resize_interval,
                                cfg.promo_interval, cfg.prefetch,
-                               cfg.prefetch_depth, self.device)
+                               cfg.prefetch_depth, self.device,
+                               self._rows - self.num_vms, self.mesh)
         chunk = cfg.promo_interval
         for win in source.windows():
             subs = win.subs
@@ -867,7 +982,9 @@ class SingleLevelConfig:
     #                                  sequential oracle
     prefetch: bool = True            # pipeline host->device blocks
     prefetch_depth: int = 2          # blocks in flight beyond the consumed
-    mesh: object | None = None       # not ported
+    mesh: VMMesh | None = None       # shard the VM axis over a mesh's
+    #                                  devices (batched, no classifier;
+    #                                  VM count padded with dead VMs)
     classifier: object | None = None  # repro_torch.classify.Classifier
     telemetry: object | None = None  # TelemetryRecorder | None
 
@@ -916,7 +1033,6 @@ class PartitionedSingleLevelCache:
 
     def __init__(self, cfg: SingleLevelConfig, num_vms: int, metric,
                  policy_fn, device="cuda"):
-        _check_supported(cfg)
         if not (isinstance(metric, reuse.SizingMetric) or callable(metric)):
             raise TypeError("metric must be a SizingMetric or a per-VM "
                             "closure sub -> (demand, grid, curve)")
@@ -925,17 +1041,22 @@ class PartitionedSingleLevelCache:
         self.metric = metric
         self.policy_fn = policy_fn
         self.device = resolve_device(device)
+        # dead-VM rows with a mesh, as in EticaCache
+        self.mesh = cfg.mesh
+        self._rows = rows = _mesh_setup(cfg.mesh, num_vms, cfg.batched,
+                                        cfg.classifier, self.device)
         g = cfg.geometry
         if cfg.batched:
-            self.caches = make_cache_batch(num_vms, g.num_sets, g.max_ways,
-                                           self.device)
-            self.t = torch.zeros(num_vms, dtype=torch.int32,
-                                 device=self.device)
+            self.caches = _per_shard(
+                lambda n, dev: make_cache_batch(n, g.num_sets, g.max_ways,
+                                                dev),
+                rows, self.device, self.mesh)
+            self.t = _per_shard(_zeros_t, rows, self.device, self.mesh)
         else:
             self.caches = [make_cache(g.num_sets, g.max_ways, self.device)
                            for _ in range(num_vms)]
             self.t = np.zeros(num_vms, np.int32)
-        self.ways = np.zeros(num_vms, np.int32)
+        self.ways = np.zeros(rows, np.int32)
         self.stats = [dict() for _ in range(num_vms)]
         self.logs: list[IntervalLog] = []
         self.telemetry = (cfg.telemetry if cfg.telemetry is not None
@@ -949,8 +1070,8 @@ class PartitionedSingleLevelCache:
             self.cls_miss = np.zeros((num_vms, c), np.int64)
 
     def vm_cache(self, v: int) -> CacheState:
-        return (CacheState(*(x[v] for x in self.caches)) if self.cfg.batched
-                else self.caches[v])
+        return (_vm_view(self.caches, v, self._rows, self.mesh)
+                if self.cfg.batched else self.caches[v])
 
     def load_state(self, caches, ways, t, stats, cls_carry=None,
                    cls_hits=None, cls_miss=None) -> None:
@@ -959,10 +1080,14 @@ class PartitionedSingleLevelCache:
         ``caches`` as ``(tags, lru, dirty)`` ``[V, S, W]``, ``ways``/``t``
         as ``[V]``, ``stats`` as the per-VM dicts; with a classifier, its
         run carry ``(prev_end, run_len)`` ``[V]`` and the per-class
-        counts ``[V, C]``."""
-        self.caches = _load_state(caches, self.device)
-        self.ways = np.asarray(ways, np.int32).copy()
-        self.t = _device_tensor(t, torch.int32, self.device)
+        counts ``[V, C]``. With a mesh the arrays hold the real VMs, as
+        in :meth:`EticaCache.load_state`."""
+        dev, pad, g = self.device, self._rows - self.num_vms, self.cfg.geometry
+        self.caches = _pad_loaded(_load_state(caches, dev), make_cache_batch(
+            pad, g.num_sets, g.max_ways, dev), self.mesh)
+        self.ways = np.pad(np.asarray(ways, np.int32), (0, pad))
+        self.t = _pad_loaded(_device_tensor(t, torch.int32, dev),
+                             _zeros_t(pad, dev), self.mesh)
         self.stats = [dict(s) for s in stats]
         if self.classifier is not None:
             _load_classes(self, cls_carry, cls_hits, cls_miss)
@@ -970,7 +1095,7 @@ class PartitionedSingleLevelCache:
     def _sample_interval(self) -> None:
         cls = self.classifier is not None
         self.telemetry.sample_cache(
-            self.stats, alloc_l2=self.ways.astype(np.int64)
+            self.stats, alloc_l2=self.ways[:self.num_vms].astype(np.int64)
             * self.cfg.geometry.num_sets,
             cls_hits=self.cls_hits if cls else None,
             cls_miss=self.cls_miss if cls else None)
@@ -985,10 +1110,14 @@ class PartitionedSingleLevelCache:
         batched_metric = cfg.batched and hasattr(self.metric, "batch")
         with self.telemetry.span("sizing"):
             if batched_metric:
+                # with a mesh: dead-VM rows pad to the sharded row count
+                pad = self._rows - self.num_vms
+                kw = {} if self.mesh is None else dict(mesh=self.mesh)
                 dem, g_, cur, reads = self.metric.batch(
-                    [np.asarray(s.addr) for s in subs],
-                    [np.asarray(s.is_write) for s in subs],
-                    device=self.device)
+                    [np.asarray(s.addr) for s in subs]
+                    + [np.empty(0, np.int32)] * pad,
+                    [np.asarray(s.is_write) for s in subs]
+                    + [np.empty(0, bool)] * pad, device=self.device, **kw)
                 same_grid = np.array_equal(g_, grid)
                 for v, sub in enumerate(subs):
                     if len(sub) == 0:
@@ -1013,9 +1142,14 @@ class PartitionedSingleLevelCache:
 
     def _resize(self, w_new: np.ndarray) -> None:
         """Resize every VM's partition (shrinking flushes dirty blocks):
-        one pass over the stacked state, or per VM with the numpy
-        oracle."""
-        if self.cfg.batched:
+        one pass over the stacked state (one a shard with a mesh, the
+        dead rows at zero ways), or per VM with the numpy oracle."""
+        w_new = np.pad(w_new, (0, self._rows - self.num_vms))
+        if self.mesh is not None:
+            self.caches, flushed = simulator.resize_batch_sharded(
+                self.caches, self.ways, w_new, self.mesh)
+            flushed = simulator.gather_rows(flushed).cpu().numpy()
+        elif self.cfg.batched:
             self.caches, flushed = resize_batch(self.caches, self.ways,
                                                 w_new)
             flushed = flushed.cpu().numpy()
@@ -1078,7 +1212,8 @@ class PartitionedSingleLevelCache:
         alloc_hist = [[] for _ in range(self.num_vms)]
         source = window_source(trace, self.num_vms, cfg.resize_interval,
                                cfg.sim_chunk, cfg.prefetch,
-                               cfg.prefetch_depth, self.device)
+                               cfg.prefetch_depth, self.device,
+                               self._rows - self.num_vms, self.mesh)
         for win in source.windows():
             subs = win.subs
             # IO classification: bypass-class requests never reach the
@@ -1114,17 +1249,31 @@ class PartitionedSingleLevelCache:
             if not cfg.batched:
                 self._run_sequential(win, policies, cls_subs, tables)
                 continue
-            ways = torch.from_numpy(self.ways).to(self.device)
-            if tables is None:
-                flags = policy_flags(policies, self.device)
+            if self.mesh is not None:
+                # dead rows take the WB default: with zero ways and
+                # addr -1 blocks they never touch their cache
+                pols = policies + [Policy.WB] * (self._rows - self.num_vms)
+                ways = simulator.shard_rows(self.ways, self.mesh)
+                flags = simulator.shard_rows(policy_flags(pols, "cpu"),
+                                             self.mesh)
             else:
-                flags_vc = PolicyFlags(*(upload(f, self.device)
-                                         for f in tables[0]))
-                lo, hi = (upload(x, self.device) for x in tables[1:])
-                byp = upload(self._byp, self.device)
+                ways = torch.from_numpy(self.ways).to(self.device)
+                if tables is None:
+                    flags = policy_flags(policies, self.device)
+                else:
+                    flags_vc = PolicyFlags(*(upload(f, self.device)
+                                             for f in tables[0]))
+                    lo, hi = (upload(x, self.device) for x in tables[1:])
+                    byp = upload(self._byp, self.device)
             for k, (a, w, _, kth) in enumerate(win.blocks()):
                 with self.telemetry.span("datapath") as sp:
-                    if tables is None:
+                    if self.mesh is not None:
+                        self.caches, st, self.t = \
+                            simulator.simulate_single_level_sharded(
+                                a, w, self.caches, ways, flags, self.mesh,
+                                t0=self.t)
+                        st, classes = simulator.gather_rows(st), None
+                    elif tables is None:
                         self.caches, st, self.t = \
                             simulator.simulate_single_level_batch(
                                 a, w, self.caches, ways, flags, t0=self.t)
@@ -1136,7 +1285,7 @@ class PartitionedSingleLevelCache:
                             simulator.simulate_single_level_classified_batch(
                                 a, w, cmat, self.caches, ways, flags_vc, lo,
                                 hi, byp, t0=self.t)
-                    sp.ready(self.t)
+                    sp.ready(_last(self.t))
                 classes = _acc_block(self.stats, st, kth, classes)
                 if classes is not None:
                     self.cls_hits += classes[0]

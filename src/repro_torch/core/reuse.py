@@ -42,6 +42,7 @@ import torch
 from repro_torch.core.policies import Policy
 from repro_torch.kernels import resolve_device, upload
 from repro_torch.kernels.reuse_distance.ops import count_between
+from repro_torch.launch.mesh import device_row_blocks, on_device
 
 COLD = -1   # distance of a cold / not-served access
 
@@ -162,27 +163,59 @@ def _block_rows(addr: torch.Tensor, is_write: torch.Tensor,
 
 
 def _distances_batch(addrs, writes, policy: Policy, sizing_reads_only: bool,
-                     device, host: bool = True) -> list[DistResult | None]:
+                     device, host: bool = True,
+                     mesh=None) -> list[DistResult | None]:
     """Decompose ragged per-VM traces in one batched pass; per-VM results
     (numpy, or tensors on the device with ``host=False``), ``None`` for
-    empty traces."""
+    empty traces. With ``mesh`` every row, empty ones included (as
+    pure-pad rows), is decomposed on its shard's device, one pass a
+    shard, and the results come to the host."""
     lens = [int(np.shape(a)[0]) for a in addrs]
     live = [v for v, n in enumerate(lens) if n > 0]
     if not live:
         return [None] * len(lens)
-    dev = resolve_device(device)
-    amat, wmat = _pad_rows(addrs, writes, live, lens)
-    dist, served, touch = decompose(upload(amat, dev), upload(wmat, dev),
-                                    policy,
-                                    sizing_reads_only=sizing_reads_only)
-    if host:
-        dist, served, touch = (x.cpu().numpy() for x in (dist, served,
-                                                         touch))
+    if mesh is not None:
+        idx = list(range(len(lens)))
+        amat, wmat = _pad_rows(addrs, writes, idx, lens)
+        dist, served, touch = _decompose_sharded(mesh, amat, wmat, policy,
+                                                 sizing_reads_only)
+    else:
+        idx = live
+        dev = resolve_device(device)
+        amat, wmat = _pad_rows(addrs, writes, live, lens)
+        dist, served, touch = decompose(upload(amat, dev), upload(wmat, dev),
+                                        policy,
+                                        sizing_reads_only=sizing_reads_only)
+        if host:
+            dist, served, touch = (x.cpu().numpy() for x in (dist, served,
+                                                             touch))
     out: list[DistResult | None] = [None] * len(lens)
-    for i, v in enumerate(live):
-        out[v] = DistResult(dist[i, :lens[v]], served[i, :lens[v]],
-                            touch[i, :lens[v]])
+    for i, v in enumerate(idx):
+        if lens[v]:
+            out[v] = DistResult(dist[i, :lens[v]], served[i, :lens[v]],
+                                touch[i, :lens[v]])
     return out
+
+
+def _decompose_sharded(mesh, amat, wmat, policy: Policy,
+                       sizing_reads_only: bool):
+    """:func:`decompose` of ``[V, b]`` host rows split over ``mesh``: one
+    pass (one ``count_between`` launch) a shard on its own rows, then
+    one copy of all shards' channels to the host (numpy)."""
+    parts = []
+    for dev, rows in device_row_blocks(amat.shape[0], mesh):
+        with on_device(dev):
+            parts.append(decompose(upload(amat[rows], dev),
+                                   upload(wmat[rows], dev), policy,
+                                   sizing_reads_only=sizing_reads_only))
+    return tuple(_host_cat(p[k] for p in parts) for k in range(3))
+
+
+def _host_cat(xs) -> np.ndarray:
+    """Shards' tensors concatenated on the first one's device, then one
+    copy to the host."""
+    xs = list(xs)
+    return torch.cat([x.to(xs[0].device) for x in xs]).cpu().numpy()
 
 
 def pod_distances(addr, is_write, policy: Policy, device="cuda",
@@ -217,16 +250,21 @@ def trd_distances(addr, is_write, device="cuda") -> DistResult:
     return r
 
 
-def pod_distances_batch(addrs, writes, policy: Policy,
-                        device="cuda") -> list[DistResult | None]:
-    """Per-VM POD decompositions in one batched pass (ragged input)."""
-    return _distances_batch(addrs, writes, policy, True, device)
+def pod_distances_batch(addrs, writes, policy: Policy, device="cuda",
+                        mesh=None) -> list[DistResult | None]:
+    """Per-VM POD decompositions in one batched pass (ragged input).
+    ``mesh`` (a :class:`repro_torch.launch.mesh.VMMesh`, the VM count a
+    multiple of its size) splits the rows over its devices, one pass a
+    shard; ``device`` is then unused."""
+    return _distances_batch(addrs, writes, policy, True, device, mesh=mesh)
 
 
-def trd_distances_batch(addrs, writes,
-                        device="cuda") -> list[DistResult | None]:
-    """Per-VM TRD decompositions (every re-access is served)."""
-    return _distances_batch(addrs, writes, Policy.WB, False, device)
+def trd_distances_batch(addrs, writes, device="cuda",
+                        mesh=None) -> list[DistResult | None]:
+    """Per-VM TRD decompositions (every re-access is served); ``mesh``
+    as in :func:`pod_distances_batch`."""
+    return _distances_batch(addrs, writes, Policy.WB, False, device,
+                            mesh=mesh)
 
 
 def pod(trace, policy: Policy, device="cuda") -> int:
@@ -339,7 +377,21 @@ def sizing_from_dists(addr, is_write, dist, served, n_valid, grid, kind: str):
     return demand, hits
 
 
-def sizing_metrics_batch(addrs, writes, kind: str, grid, device="cuda"
+def _to(x: np.ndarray, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+
+def _sizing_reduce(a, w, nvec, grid, kind: str) -> torch.Tensor:
+    """``[L, 2 + G]`` int32 rows ``(demand, reads, hits...)`` of the
+    :func:`sizing_policy` decomposition of ``[L, b]`` padded rows."""
+    policy, reads_only = sizing_policy(kind)
+    dist, served, _ = decompose(a, w, policy, sizing_reads_only=reads_only)
+    d, h = sizing_from_dists(a, w, dist, served, nvec, grid, kind)
+    return torch.cat([d[:, None], read_count(w, nvec)[:, None], h], dim=1)
+
+
+def sizing_metrics_batch(addrs, writes, kind: str, grid, device="cuda",
+                         mesh=None
                          ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """One sizing metric for every VM sub-trace in one batched pass.
 
@@ -347,7 +399,12 @@ def sizing_metrics_batch(addrs, writes, kind: str, grid, device="cuda"
     allowed); ``grid`` the ascending candidate sizes (blocks). Returns
     int64 ``(demands[V], hit_counts[V, G], read_counts[V])``, zero rows
     for empty traces — the live rows are decomposed and reduced on
-    ``device`` and copied to the host once."""
+    ``device`` and copied to the host once. The decomposition runs
+    ``count_between`` on the card, so this is also the port of the JAX
+    package's kernel-backed twin
+    (``repro.kernels.reuse_distance.ops.sizing_metrics_batch``). With
+    ``mesh`` every row (empty ones as pure-pad rows, which reduce to
+    zeros) is reduced on its shard's device, one pass a shard."""
     if kind not in SIZING_KINDS:
         raise ValueError(f"kind must be one of {SIZING_KINDS}, got {kind!r}")
     lens = [int(np.shape(a)[0]) for a in addrs]
@@ -358,18 +415,24 @@ def sizing_metrics_batch(addrs, writes, kind: str, grid, device="cuda"
     live = [v for v, n in enumerate(lens) if n > 0]
     if not live:
         return demands, hits, reads
-    dev = resolve_device(device)
-    amat, wmat = _pad_rows(addrs, writes, live, lens)
-    a = torch.from_numpy(amat).to(dev)
-    w = torch.from_numpy(wmat).to(dev)
-    nvec = torch.tensor([lens[v] for v in live], dtype=torch.int32,
-                        device=dev)
-    policy, reads_only = sizing_policy(kind)
-    dist, served, _ = decompose(a, w, policy, sizing_reads_only=reads_only)
-    d, h = sizing_from_dists(a, w, dist, served, nvec,
-                             torch.from_numpy(grid).to(dev), kind)
-    out = torch.cat([d[:, None], read_count(w, nvec)[:, None], h],
-                    dim=1).cpu().numpy().astype(np.int64)
+    if mesh is not None:
+        live = list(range(len(lens)))
+        amat, wmat = _pad_rows(addrs, writes, live, lens)
+        nvec = np.asarray(lens, np.int32)
+        parts = []
+        for dev, rows in device_row_blocks(len(lens), mesh):
+            with on_device(dev):
+                parts.append(_sizing_reduce(*(
+                    _to(x, dev) for x in (amat[rows], wmat[rows],
+                                          nvec[rows], grid)), kind))
+        out = _host_cat(parts).astype(np.int64)
+    else:
+        dev = resolve_device(device)
+        amat, wmat = _pad_rows(addrs, writes, live, lens)
+        nvec = np.asarray([lens[v] for v in live], np.int32)
+        out = _sizing_reduce(*(_to(x, dev) for x in (amat, wmat, nvec,
+                                                     grid)),
+                             kind).cpu().numpy().astype(np.int64)
     demands[live], reads[live], hits[live] = out[:, 0], out[:, 1], out[:, 2:]
     return demands, hits, reads
 
@@ -386,13 +449,13 @@ class SizingMetric:
     ref: Callable = dataclasses.field(compare=False)
 
     def batch(self, addrs: list[np.ndarray], writes: list[np.ndarray],
-              device="cuda"):
+              device="cuda", mesh=None):
         """``(demands[V], grid[G], curves[V, G], reads[V])`` for all VMs:
         curves are hit counts over each VM's request count, ``reads``
         the per-VM read counts the policy choosers take; empty VMs give
-        zero rows."""
+        zero rows. ``mesh`` splits the rows over its devices."""
         demands, hits, reads = sizing_metrics_batch(
-            addrs, writes, self.kind, self.grid, device)
+            addrs, writes, self.kind, self.grid, device, mesh)
         ns = np.array([max(np.shape(a)[0], 1) for a in addrs], np.float64)
         return demands, self.grid, hits.astype(np.float64) / ns[:, None], \
             reads

@@ -24,6 +24,12 @@ rectangle. Integer state and counts are bit-identical to the JAX
 reference, and ``latency_sum`` is bit-identical because both add each
 request's float32 latency in request order.
 
+The ``*_sharded`` dispatches run the batched functions with the VM rows
+split over a :class:`repro_torch.launch.mesh.VMMesh`, one call a shard
+(:func:`shard_rows` / :func:`gather_rows` move between a whole operand
+and its shards); :func:`aggregate_stats_sharded` is the one sum across
+shards.
+
 The staged mode's maintenance dispatches (:func:`evict_blocks_batch`,
 :func:`promote_blocks_batch`, :func:`clean_batch`) take ragged per-VM
 queues, ``-1``-padded to a power-of-two width, through the scatter
@@ -40,8 +46,10 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from repro_torch._xla_math import sum_f32
 from repro_torch.core.policies import T_SSD, Policy
 from repro_torch.kernels.datapath import ops as datapath_ops
+from repro_torch.launch.mesh import device_row_blocks, on_device
 
 
 class CacheState(NamedTuple):
@@ -153,7 +161,10 @@ def capacity_to_ways(capacity_blocks, num_sets: int,
 def _vec(x, num_vms: int, device) -> torch.Tensor:
     """A ``[V]`` int32 operand on ``device`` (scalars broadcast)."""
     if not isinstance(x, torch.Tensor):
-        x = np.ascontiguousarray(x, np.int32)
+        # np.ascontiguousarray would make a scalar a [1] array, which the
+        # kernels' shape checks refuse
+        x = np.ascontiguousarray(x, np.int32) if np.ndim(x) else \
+            np.asarray(x, np.int32)
     t = torch.as_tensor(x, device=device).to(torch.int32)
     return t.expand(num_vms).contiguous() if t.dim() == 0 else t
 
@@ -234,6 +245,126 @@ def simulate_single_level_batch(addr, is_write, state: CacheState,
         _vec(t0, v, dev), t_cache=t_cache)
     tags, lru, dirty, counts, latency, t_end = out
     return CacheState(tags, lru, dirty), _stats(counts, latency), t_end
+
+
+# ---------------------------------------------------------------------------
+# sharded dispatches (the VM axis split over a launch.mesh.VMMesh)
+# ---------------------------------------------------------------------------
+#
+# The counterparts of the JAX package's shard_map dispatches. Each runs
+# the single-device batched function once a shard, on the shard's V / d
+# rows, inside its device's context: kernels launch on the current
+# device's stream, so a shard on another card must be current while its
+# kernels launch. A sharded operand is a list, one entry a shard, each
+# entry's tensors on its shard's device; any other operand is whole and
+# is split by rows (a scalar goes to every shard). Outputs come back
+# sharded. Every per-VM result is bit-identical to the unsharded batched
+# dispatch, since each row's work is the same; the one reduction across
+# shards is aggregate_stats_sharded.
+
+def _parts(x, mesh, copy: bool = False) -> list:
+    """``x`` as one entry a shard (see above): a list as it is, a
+    NamedTuple field by field, a scalar repeated, rows of a tensor or
+    numpy array moved to each shard's device (copied with ``copy``)."""
+    if isinstance(x, list):
+        if len(x) != mesh.size:
+            raise ValueError(f"a sharded operand has {len(x)} entries for "
+                             f"a mesh of {mesh.size} shards")
+        return x
+    if isinstance(x, tuple):
+        return [type(x)(*fs) for fs in zip(*(_parts(f, mesh, copy)
+                                            for f in x))]
+    if not isinstance(x, torch.Tensor):
+        if np.ndim(x) == 0:
+            return [x] * mesh.size
+        x = torch.from_numpy(np.array(x))
+    if x.dim() == 0:
+        return [x] * mesh.size
+    return [x[rows].to(dev, copy=copy).contiguous()
+            for dev, rows in device_row_blocks(x.shape[0], mesh)]
+
+
+def shard_rows(x, mesh) -> list:
+    """A whole ``[V, ...]`` operand (a tensor, numpy array, or a
+    NamedTuple of them such as :class:`CacheState`) as one entry a
+    shard: the rows ``device_row_blocks`` gives each device, in tensors
+    of their own on that device."""
+    return _parts(x, mesh, copy=True)
+
+
+def gather_rows(shards: list):
+    """Sharded entries as one whole operand on the first shard's device,
+    rows in shard order."""
+    first = shards[0]
+    if isinstance(first, tuple):
+        return type(first)(*(gather_rows(list(f)) for f in zip(*shards)))
+    return torch.cat([s.to(first.device) for s in shards])
+
+
+def map_shards(fn, mesh, *args) -> tuple[list, ...]:
+    """``fn`` once a shard, on each shard's entries, inside its device's
+    context; its output tuples transposed into one list an output."""
+    parts = [_parts(a, mesh) for a in args]
+    outs = []
+    for i, dev in enumerate(mesh.devices):
+        with on_device(dev):
+            outs.append(fn(*(p[i] for p in parts)))
+    return tuple(list(o) for o in zip(*outs))
+
+
+def simulate_two_level_sharded(addr, is_write, dram, ssd, ways_dram,
+                               ways_ssd, mesh, mode: str = "full", t0=0):
+    """:func:`simulate_two_level_batch` with the VM rows split over
+    ``mesh``. Returns ``(dram, ssd, Stats, t_end)``, each sharded."""
+    return map_shards(
+        lambda a, w, dr, ss, wd, ws, t: simulate_two_level_batch(
+            a, w, dr, ss, wd, ws, mode, t),
+        mesh, addr, is_write, dram, ssd, ways_dram, ways_ssd, t0)
+
+
+def simulate_single_level_sharded(addr, is_write, state, ways_active, flags,
+                                  mesh, t_cache: float = T_SSD, t0=0):
+    """:func:`simulate_single_level_batch` with the VM rows split over
+    ``mesh``. Returns ``(state, Stats, t_end)``, each sharded."""
+    return map_shards(
+        lambda a, w, st, wa, fl, t: simulate_single_level_batch(
+            a, w, st, wa, fl, t_cache, t),
+        mesh, addr, is_write, state, ways_active, flags, t0)
+
+
+def resize_levels_sharded(dram, ssd, old_dram, new_dram, old_ssd, new_ssd,
+                          mesh):
+    """:func:`resize_levels` with the VM rows split over ``mesh``.
+    Returns ``(dram, ssd, dram_flushed, ssd_flushed)``, each sharded."""
+    return map_shards(resize_levels, mesh, dram, ssd, old_dram, new_dram,
+                      old_ssd, new_ssd)
+
+
+def resize_batch_sharded(state, old_ways, new_ways, mesh):
+    """:func:`resize_batch` with the VM rows split over ``mesh``. Returns
+    ``(state, flushed)``, each sharded."""
+    return map_shards(resize_batch, mesh, state, old_ways, new_ways)
+
+
+def aggregate_stats_sharded(stats, mesh) -> Stats:
+    """Total :class:`Stats` over sharded ``[V]`` per-VM stats, as 0-d
+    tensors on the first shard's device: each field summed within each
+    shard, then the shard sums added in shard order, the JAX package's
+    ``psum(jnp.sum(x, 0))`` (``latency_sum`` in XLA:CPU's float32 order,
+    :func:`repro_torch._xla_math.sum_f32`). The only reduction across
+    shards of a sharded run."""
+    home = mesh.devices[0]
+    parts = _parts(stats, mesh)
+    out = []
+    for k in range(len(Stats._fields)):
+        total = None
+        for st in parts:
+            x = st[k]
+            s = (sum_f32(x) if x.dtype == torch.float32
+                 else x.sum(dtype=x.dtype)).to(home)
+            total = s if total is None else total + s
+        out.append(total)
+    return Stats(*out)
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.core import popularity as pop
+from repro_torch.core import simulator
 from repro_torch.core.simulator import CacheState
 
 
@@ -365,7 +366,7 @@ def promote(state: CacheState, queue, ways, t, assume_unique: bool = False):
 def maintenance_interval(ssd: CacheState, table: pop.PopularityTable,
                          dist, served, waddr, wlen, ways, t, *,
                          evict_frac: float, decay: float,
-                         clean_quota: int = 0):
+                         clean_quota: int = 0, mesh=None):
     """One interval of ETICA maintenance for all VMs.
 
     ``dist``/``served``/``waddr`` are the ``[V, N]`` TRD channels and
@@ -378,7 +379,19 @@ def maintenance_interval(ssd: CacheState, table: pop.PopularityTable,
     of each live VM (``cleaned``) and ``dirty_left`` is the dirty
     candidates it left; otherwise ``cleaned`` is zero and ``dirty_left``
     counts the dirty blocks in active ways.
+
+    With ``mesh`` (a :class:`repro_torch.launch.mesh.VMMesh`) the VM rows
+    are split over its devices: one whole interval a shard on its own
+    rows, every operand whole or sharded as the sharded dispatches of
+    :mod:`repro_torch.core.simulator` take them, and every output
+    sharded (one entry a shard).
     """
+    if mesh is not None:
+        return simulator.map_shards(
+            lambda *a: maintenance_interval(
+                *a, evict_frac=evict_frac, decay=decay,
+                clean_quota=clean_quota),
+            mesh, ssd, table, dist, served, waddr, wlen, ways, t)
     v, s, w = ssd.tags.shape
     live = wlen > 0
     alloc = ways * s

@@ -27,13 +27,20 @@ its windows from either kind of source:
   Depth 0 (or ``prefetch=False`` on the source) copies each block when
   it is consumed. Results are identical at every depth.
 
+* **Sharded feeding** — with ``sharding`` (a
+  :class:`~repro_torch.launch.mesh.VMMesh`) each block is split into its
+  per-shard ``[V / d, chunk]`` row blocks, each copied straight to its
+  shard's device (pinned and ``non_blocking`` on the card when
+  prefetching), and ``pad_vms`` appends that many dead VM rows (all
+  ``addr = -1``, ``lens`` 0: exact no-ops) so that the row count
+  divides the mesh size. The per-VM chunk lists the maintenance takes
+  hold the real VMs only.
+
 Both controllers accept a ``Trace``, a ``TraceStore`` or a pre-built
 ``StreamingTraceSource`` in ``run`` and produce bit-identical results for
 all three: the demux equals :func:`~repro_torch.core.trace.split_by_vm`
 on the materialised window and padding and chunking are shared with the
-in-memory path (:func:`~repro_torch.core.trace.pad_batch`). The
-reference's ``pad_vms`` and ``sharding`` belong to the VM mesh, which
-the port does not have yet.
+in-memory path (:func:`~repro_torch.core.trace.pad_batch`).
 """
 from __future__ import annotations
 
@@ -45,6 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.trace import Trace, pad_batch, split_by_vm
+from repro_torch.launch.mesh import VMMesh, device_row_blocks, on_device
 
 from .store import TraceStore
 
@@ -58,6 +66,8 @@ class StreamWindow:
     chunk: int                  # datapath block width
     prefetch_depth: int = 2     # blocks in flight beyond the consumed one
     device: torch.device | None = None  # where blocks go (None: the CPU)
+    pad_vms: int = 0            # dead VM rows appended to each block
+    sharding: VMMesh | None = None  # split each block's rows over a mesh
 
     def chunk_lists(self) -> list[list[Trace]]:
         return [list(sub.intervals(self.chunk)) for sub in self.subs]
@@ -65,15 +75,19 @@ class StreamWindow:
     def blocks(self) -> Iterator[tuple]:
         """Yield ``(addr [V, chunk], is_write [V, chunk], lens [V], kth)``
         with the tensors on the device; ``lens[v]`` is VM v's request
-        count in the block and ``kth`` the ragged per-VM chunk list
-        (``None`` where a VM has no k-th chunk)."""
+        count in the block and ``kth`` the ragged per-VM chunk list of
+        the real VMs (``None`` where a VM has no k-th chunk). ``V``
+        counts the ``pad_vms`` dead rows; with ``sharding`` each of the
+        three tensors is a list, one ``[V / d, ...]`` row block a shard
+        on its shard's device."""
         lists = self.chunk_lists()
         n_chunks = max(map(len, lists), default=0)
+        pad = [None] * self.pad_vms
 
         def block(k: int):
             kth = [c[k] if k < len(c) else None for c in lists]
-            a, w = pad_batch(kth, self.chunk)
-            lens = np.array([0 if c is None else len(c) for c in kth],
+            a, w = pad_batch(kth + pad, self.chunk)
+            lens = np.array([0 if c is None else len(c) for c in kth + pad],
                             np.int32)
             return self._put(a, w, lens), kth
 
@@ -94,11 +108,18 @@ class StreamWindow:
             yield (*tensors, kth)
 
     def _put(self, *arrays: np.ndarray) -> tuple:
+        if self.sharding is not None:
+            blocks = device_row_blocks(arrays[0].shape[0], self.sharding)
+            return tuple([self._copy(x[rows], dev) for dev, rows in blocks]
+                         for x in arrays)
         dev = torch.device("cpu" if self.device is None else self.device)
+        return tuple(self._copy(x, dev) for x in arrays)
+
+    def _copy(self, x: np.ndarray, dev: torch.device) -> torch.Tensor:
         if dev.type != "cuda" or self.prefetch_depth <= 0:
-            return tuple(torch.from_numpy(x).to(dev) for x in arrays)
-        return tuple(torch.from_numpy(x).pin_memory().to(
-            dev, non_blocking=True) for x in arrays)
+            return torch.from_numpy(x).to(dev)
+        with on_device(dev):
+            return torch.from_numpy(x).pin_memory().to(dev, non_blocking=True)
 
 
 @dataclasses.dataclass
@@ -156,13 +177,16 @@ class StreamingTraceSource:
     prefetch: bool = True       # master switch (False: copy when consumed)
     prefetch_depth: int = 2     # pipeline depth when prefetch is on
     device: torch.device | None = None
+    pad_vms: int = 0            # dead VM rows appended to datapath blocks
+    sharding: VMMesh | None = None  # per-shard block placement
 
     @property
     def depth(self) -> int:
         return self.prefetch_depth if self.prefetch else 0
 
     def _window(self, i: int, subs: list[Trace]) -> StreamWindow:
-        return StreamWindow(i, subs, self.chunk, self.depth, self.device)
+        return StreamWindow(i, subs, self.chunk, self.depth, self.device,
+                            self.pad_vms, self.sharding)
 
     def windows(self) -> Iterator[StreamWindow]:
         if isinstance(self.source, Trace):
@@ -221,22 +245,23 @@ class StreamingTraceSource:
 
 def window_source(trace, num_vms: int, window: int, chunk: int,
                   prefetch: bool = True, prefetch_depth: int = 2,
-                  device: torch.device | None = None
-                  ) -> StreamingTraceSource:
+                  device: torch.device | None = None, pad_vms: int = 0,
+                  sharding: VMMesh | None = None) -> StreamingTraceSource:
     """Normalise any accepted trace input into a StreamingTraceSource.
 
     ``trace`` may be an in-memory :class:`Trace`, an on-disk
     :class:`TraceStore`, or an existing :class:`StreamingTraceSource`
-    (re-parameterised to the controller's intervals, prefetch and
-    device). Anything else raises ``TypeError``, the JAX package's
+    (re-parameterised to the controller's intervals, prefetch, device
+    and mesh). Anything else raises ``TypeError``, the JAX package's
     ``Trace`` and ``TraceStore`` included."""
     if isinstance(trace, StreamingTraceSource):
         return dataclasses.replace(trace, num_vms=num_vms, window=window,
                                    chunk=chunk, prefetch=prefetch,
                                    prefetch_depth=prefetch_depth,
-                                   device=device)
+                                   device=device, pad_vms=pad_vms,
+                                   sharding=sharding)
     if not isinstance(trace, (Trace, TraceStore)):
         raise TypeError(f"expected Trace, TraceStore or "
                         f"StreamingTraceSource, got {type(trace).__name__}")
     return StreamingTraceSource(trace, num_vms, window, chunk, prefetch,
-                                prefetch_depth, device)
+                                prefetch_depth, device, pad_vms, sharding)

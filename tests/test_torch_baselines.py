@@ -27,6 +27,7 @@ from repro_torch.core.controller import (Geometry, PartitionedSingleLevelCache,
                                          SingleLevelConfig)
 from repro_torch.core.policies import Policy
 from repro_torch.core.trace import interleave
+from repro_torch.launch.mesh import VMMesh
 from repro_torch.traces.generators import make
 
 POLICIES = ["WB", "WT", "RO", "WO", "WBWO", "RO"]
@@ -191,17 +192,27 @@ def test_load_state_carries_a_jax_chassis():
     assert np.array_equal(np.asarray(jc.t), tc.t.numpy())
 
 
-@pytest.mark.parametrize("option", [dict(batched=False, mesh=object()),
-                                    dict(mesh=object()),
+CPU_MESH = VMMesh((torch.device("cpu"),) * 2)
+
+
+@pytest.mark.parametrize("option", [dict(batched=False, mesh=CPU_MESH),
+                                    dict(mesh=CPU_MESH),
                                     dict(classifier=object())])
 def test_chassis_options_outside_the_port_raise(option):
-    """The mesh is outside the port; a classifier that is not a
+    """A mesh needs the batched chassis (the reference's ``ValueError``),
+    and a plain mesh runs; a classifier that is not a
     ``repro_torch.classify.Classifier`` is the wrong type."""
     cfg = SingleLevelConfig(capacity=100, **option)
-    err = TypeError if "classifier" in option else NotImplementedError
-    with pytest.raises(err):
-        PartitionedSingleLevelCache(cfg, 2, tbase.urd_metric(Geometry()),
-                                    tbase.eci_policy(), device="cpu")
+
+    def build():
+        return PartitionedSingleLevelCache(
+            cfg, 3, tbase.urd_metric(Geometry()), tbase.eci_policy(),
+            device="cpu")
+    if option == dict(mesh=CPU_MESH):
+        assert build()._rows == 4
+        return
+    with pytest.raises(TypeError if "classifier" in option else ValueError):
+        build()
 
 
 def test_chassis_metric_closure_raises():

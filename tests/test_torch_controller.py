@@ -4,13 +4,14 @@ A fig15-style MSR mix (``benchmarks/common.py`` geometry, resize 2000,
 promo 500) through both controllers — per-VM stats dicts and allocation
 histories must be equal, in modes full and npe, at prefetch depths 0
 and 2. Also: a state carried over from a JAX run with ``load_state``,
-the option outside the port (the mesh, in every maintenance mode)
-raising ``NotImplementedError`` and a classifier that is not the port's
+a mesh with ``batched=False`` raising the reference's ``ValueError``
+(a plain mesh runs) and a classifier that is not the port's
 raising ``TypeError``, inputs other than a
 port ``Trace``, ``TraceStore`` or ``StreamingTraceSource`` raising
 ``TypeError``, and a subprocess port job (every maintenance mode, the
-baselines, serving, the ``core`` and ``traces`` exports, the trace store
-and streamed ingestion, the §5.1 config,
+baselines, serving, the ``core``, ``traces`` and ``launch`` exports, the
+trace store and streamed ingestion, a sharded run of both controllers on
+a CPU mesh, the §5.1 config,
 ``examples/torch_paper_figures.py`` and a classified cache in every
 mode and ECI-Cache with a classifier) that loads neither ``jax`` nor any
 ``repro`` module.
@@ -32,6 +33,7 @@ from repro.traces import make as jmake
 
 from repro_torch.core.controller import EticaCache, EticaConfig, Geometry
 from repro_torch.core.trace import Trace, interleave
+from repro_torch.launch.mesh import VMMesh
 from repro_torch.traces.generators import make
 
 NAMES = ["hm_1", "proj_0", "stg_1", "usr_0", "ts_0"]
@@ -118,15 +120,22 @@ def test_load_state_carries_a_jax_run():
                           tc.pop_table.val.numpy().view(np.int32))
 
 
+CPU_MESH = VMMesh((torch.device("cpu"),) * 2)
+
+
 @pytest.mark.parametrize("option", [
-    dict(batched=False, mesh=object()),
-    dict(fused_maintenance=False, classifier=object()), dict(mesh=object()),
+    dict(batched=False, mesh=CPU_MESH),
+    dict(fused_maintenance=False, classifier=object()), dict(mesh=CPU_MESH),
     dict(classifier=object())])
 def test_options_outside_the_port_raise(option):
-    """The mesh is outside the port; a classifier that is not a
+    """A mesh needs the batched controller (the reference's
+    ``ValueError``), and a plain mesh runs; a classifier that is not a
     ``repro_torch.classify.Classifier`` is the wrong type."""
     _, tcfg = _configs(**option)
-    err = TypeError if "classifier" in option else NotImplementedError
+    if option == dict(mesh=CPU_MESH):
+        assert EticaCache(tcfg, 3, device="cpu")._rows == 4
+        return
+    err = TypeError if "classifier" in option else ValueError
     with pytest.raises(err):
         EticaCache(tcfg, 2, device="cpu")
 
@@ -212,9 +221,10 @@ def test_port_job_loads_no_jax_and_no_repro():
             == (cfg.num_layers, 2, 26, cfg.num_kv_heads, cfg.head_dim)
         import importlib.util
         import repro_torch.core
+        import repro_torch.launch
         import repro_torch.traces
         from repro_torch.configs.etica_paper import CONFIG
-        for pkg in (repro_torch.core, repro_torch.traces):
+        for pkg in (repro_torch.core, repro_torch.traces, repro_torch.launch):
             for name in pkg.__all__:
                 getattr(pkg, name)
         assert len(CONFIG.vms) == 12
@@ -228,6 +238,7 @@ def test_port_job_loads_no_jax_and_no_repro():
         out = figs.fig17("cpu", vms=("hm_1", "usr_0"), reqs=300,
                          intervals=(100,))
         assert out["runs"][100]["report"][-1].startswith("summary:")
+        import dataclasses
         import tempfile
         from pathlib import Path
         import repro_torch.traces.store
@@ -247,6 +258,14 @@ def test_port_job_loads_no_jax_and_no_repro():
             eci = make_eci_cache(180, 3, geometry=geo, resize_interval=600,
                                  sim_chunk=200, device="cpu")
             assert [r.stats for r in eci.run(src)] == \
+                [r.stats for r in res]
+            mesh = repro_torch.launch.VMMesh((torch.device("cpu"),) * 2)
+            sharded = EticaCache(dataclasses.replace(ecfg, mesh=mesh), 3,
+                                 device="cpu")
+            assert [r.stats for r in sharded.run(store)] == runs[2]
+            eci = make_eci_cache(180, 3, geometry=geo, resize_interval=600,
+                                 sim_chunk=200, device="cpu", mesh=mesh)
+            assert [r.stats for r in eci.run(trace)] == \
                 [r.stats for r in res]
             csv = Path(tmp) / "t.csv"
             csv.write_text("0,h,0,Read,8192,8192,1\\n1,h,1,Write,0,4096,1\\n")

@@ -245,6 +245,39 @@ ETICA_KERNELS = ("count_between", "evict_scatter", "promote_scatter",
                  "two_level", "run_sums")
 
 
+def test_sharded_controller_card_equals_unsharded(dev):
+    """A 4-shard mesh on cuda:0 (a ragged 5 VMs: 3 dead rows) == the
+    unsharded card run: stats, histories, final states; every kernel
+    launches exactly 4x the unsharded count."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.core.controller import EticaCache, EticaConfig, Geometry
+    from repro_torch.core.trace import interleave
+    from repro_torch.launch.mesh import VMMesh
+    from repro_torch.traces.generators import make
+    trace = interleave([make(n, 1200, seed=i, addr_offset=i * 10_000_000,
+                             scale=0.25) for i, n in
+                        enumerate(["hm_1", "usr_0", "web_3", "ts_0",
+                                   "proj_0"])], seed=0)
+    geo = Geometry(8, 16)
+    cfg = EticaConfig(dram_capacity=60, ssd_capacity=120, geometry_dram=geo,
+                      geometry_ssd=geo, resize_interval=1500,
+                      promo_interval=500, clean_quota=2)
+    runs = []
+    for mesh in (None, VMMesh((torch.device("cuda", 0),) * 4)):
+        kernels.reset_launch_counts()
+        cache = EticaCache(dataclasses.replace(cfg, mesh=mesh), 5,
+                           device="cuda")
+        runs.append((cache, cache.run(trace), kernels.launch_counts()))
+    (ref, rres, rn), (got, gres, gn) = runs
+    _same_results(gres, rres)
+    assert all(gn[k] == 4 * rn[k] for k in rn) and rn["two_level"] > 0, \
+        (rn, gn)
+    for v in range(5):
+        _same(got.vm_ssd(v), ref.vm_ssd(v))
+        _same(got.vm_dram(v), ref.vm_dram(v))
+
+
 def _same_results(card, cpu):
     for a, b in zip(card, cpu):
         assert a.stats == b.stats
