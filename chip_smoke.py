@@ -60,7 +60,9 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    registers and spills (and those of the decode kernel's routes, of
    ``promote_scatter``, ``evict_scatter`` and ``count_between``); holds ``flash_attention`` to its plain version (the same
    tolerance as decode) at tests/test_kernels.py's shapes in float32 (the
-   ``cuda_cores`` route) and bf16 (the ``wgmma`` route) and at the
+   ``cuda_cores`` route) and bf16 (the ``wgmma`` route), at the encoder
+   and cross paths' non-causal shapes (Sq 64 against Skv 256 and 16,
+   Hkv == H at D 64, GQA at D 128) and at the
    prefill shape (B 4, H 32, Hkv 8, S 4096, D 128); prints what ptxas
    said of ``flash_attention_sm90.cu`` (registers, spills), its shared
    memory and the SASS count of ``HGMMA`` instructions; holds the IO
@@ -199,12 +201,49 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    rows) == the unsharded 1,020-VM card run; (e) (c)'s ETICA run from a
    trace store == (c); (f) ``examples/torch_vm_sharding.py``'s 1, 2, 4
    and 8 shards of 128 VMs beside the unsharded run, three interleaved
-   rounds, requests/s with ``nvidia-smi``'s name and power limit.
+   rounds, requests/s with ``nvidia-smi``'s name and power limit;
+16. serves the other model families at full width, weights from a
+   seeded generator on the card: deepseek-moe-16b cut to 8 layers (the
+   dense prefix and 7 MoE layers of 64 experts, top-6 plus 2 shared;
+   4.62 B float32 parameters), mamba2-370m (48 SSM layers) and
+   seamless-m4t-large-v2 (24 encoder and 24 decoder layers, frames from
+   the generator through the stub frontend): decode equal to a fresh
+   prefill of the longer prompt at B 1 within 2e-2 of the logit scale
+   (deepseek's prompt under 256 tokens, so capacity drops nothing; the
+   prefill takes the decode's expert choices for the new token, and the
+   MoE layers that chose other experts are counted and printed beside
+   the unheld gap: a top-k margin under the two paths' rounding
+   differences flips a choice, a discontinuity no tolerance bounds;
+   mamba2's 48 SSM layers are chaotic in the reference itself, so each
+   layer's decode step is held to the chunked prefill's row within one
+   bf16 ulp and the whole model to twice its own one-ulp move, measured
+   here, or 2e-2 where that is wider); one
+   timed ``make_prefill_step`` (deepseek B 2 x 1024, mamba2 B 4 x 1024,
+   seamless B 2 x 256 with 1,024 frames) with exactly its attention
+   layers' ``flash_attention`` launches, all on the ``wgmma`` route
+   (deepseek 8; mamba2 none; seamless 72, 48 of them non-causal: the
+   encoder and the cross attention), and 8 timed greedy decode steps
+   with none; tokens/s on the host clock, peak device memory, a decode
+   step's device time (profiler trace); deepseek's dropped (token,
+   expert) pairs at B 2 x 1024, a second prefill with bit-identical
+   logits and the device time of one MoE layer's dispatch, experts,
+   combine and shared experts; mamba2's SSD chunk loop's device time;
+   the kernel on seamless's layer-0 encoder activations (non-causal,
+   D 64) against its plain version, timed beside
+   ``scaled_dot_product_attention`` and the bound; then the six new
+   families' reduced configs card == CPU (as phase 10's; with MoE
+   layers the card replays the CPU run's expert choices, its own run's
+   flips and errors are printed beside, and its router must pick the
+   CPU's experts on the CPU's inputs past a 1e-6 margin), reduced
+   deepseek prefilled twice with bit-identical logits, and ``serve.main
+   --arch`` for deepseek and jamba (page bank by prefill), internvl2
+   (gaussian pages) and mamba2 (``AssertionError: no attention cache``,
+   as the reference's serve).
 
 The §5.1 deployment (VMs, requests, intervals, the DRAM share of the
 capacity) comes from ``src/repro_torch/configs/etica_paper.py``.
 
-Each card run of phases 3 to 15 sets the launch counts to 0 just before
+Each card run of phases 3 to 16 sets the launch counts to 0 just before
 and reads them just after; exactly the kernels of that path's own set
 must have launched (``popularity`` only on the staged paths), and in
 phase 14 only the datapath route of its run (``classified`` with a
@@ -2593,16 +2632,16 @@ def check_seq_count_between(paper, dev="cuda"):
 # phase 10: dense-model serving at qwen3-4b full width
 # ---------------------------------------------------------------------------
 
-def flash_bound(q, k) -> tuple[float, str, float]:
-    """Least time for one causal bf16 flash call with Sq = Skv: q, k, v
-    read once and the output written once over the HBM rate, against
-    the products' FLOPs (2 B H S² D: both products, halved by the causal
-    mask) at the bf16 tensor-core rate; also the float32 CUDA-core time
-    of those FLOPs (/ 67 T/s), the rate the first version (the
-    ``cuda_cores`` route) runs at."""
-    b, h, s, d = q.shape
+def flash_bound(q, k, causal=True) -> tuple[float, str, float]:
+    """Least time for one bf16 flash call: q, k, v read once and the
+    output written once over the HBM rate, against the products' FLOPs
+    (4 B H Sq Skv D: both products, halved by the causal mask, which
+    here has Sq = Skv) at the bf16 tensor-core rate; also the float32
+    CUDA-core time of those FLOPs (/ 67 T/s), the rate the first version
+    (the ``cuda_cores`` route) runs at."""
+    b, h, sq, d = q.shape
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    flops = 2.0 * b * h * s * s * d
+    flops = 4.0 * b * h * sq * k.shape[2] * d / (2 if causal else 1)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_TENSOR_FLOPS * 1e3
     bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -2629,26 +2668,40 @@ def flash_check(label, args, **kw):
     return err, over_ulp
 
 
+# the non-causal shapes of the encoder and cross paths (phase 16): B, H,
+# Hkv, Sq, Skv, D
+FLASH_MODEL_PATHS = {
+    "cross, Sq 64 Skv 256": (2, 16, 16, 64, 256, 64),
+    "cross, Skv 16 < one tile": (2, 4, 4, 64, 16, 64),
+    "encoder, Hkv == H": (2, 16, 16, 512, 512, 64),
+    "cross, GQA, Sq 100 Skv 384": (1, 8, 2, 100, 384, 128)}
+
+
 def check_flash_shapes(dev, rng, prefill=QWEN3_PREFILL):
     """``flash_attention`` against its plain version at the shapes of
     tests/test_kernels.py (float32 and bf16), its window and non-causal
-    GQA cases, and random bf16 tensors at the prefill shape (B 4, H 32,
-    Hkv 8, S 4096, D 128, causal)."""
+    GQA cases, the encoder and cross paths' non-causal shapes (Sq and
+    Skv apart, Skv under one 128-key tile, Hkv == H, bf16 D 64 on the
+    ``wgmma`` route; ``FLASH_MODEL_PATHS``), and random bf16 tensors at
+    the prefill shape (B 4, H 32, Hkv 8, S 4096, D 128, causal)."""
     import torch
     worst = 0.0
-    cases = [((1, 2, 1, 128, 32), dict(causal=True)),
-             ((2, 4, 2, 256, 64), dict(causal=True)),
-             ((1, 8, 8, 128, 128), dict(causal=True)),
-             ((1, 2, 2, 256, 64), dict(causal=True, window=64)),
-             ((1, 2, 1, 128, 64), dict(causal=False))]
-    for (b, h, hkv, s, d), kw in cases:
+    cases = [((1, 2, 1, 128, 128, 32), dict(causal=True)),
+             ((2, 4, 2, 256, 256, 64), dict(causal=True)),
+             ((1, 8, 8, 128, 128, 128), dict(causal=True)),
+             ((1, 2, 2, 256, 256, 64), dict(causal=True, window=64)),
+             ((1, 2, 1, 128, 128, 64), dict(causal=False))]
+    cases += [(shape, dict(causal=False))
+              for shape in FLASH_MODEL_PATHS.values()]
+    for (b, h, hkv, sq, skv, d), kw in cases:
         for dt in (torch.float32, torch.bfloat16):
-            q = torch.from_numpy(rng.normal(size=(b, h, s, d)).astype(
+            q = torch.from_numpy(rng.normal(size=(b, h, sq, d)).astype(
                 np.float32)).to(dev, dt)
-            k, v = (torch.from_numpy(rng.normal(size=(b, hkv, s, d)).astype(
-                np.float32)).to(dev, dt) for _ in range(2))
-            err, _ = flash_check(f"{(b, h, hkv, s, d)} {kw}", (q, k, v),
-                                 tq=64, tk=64, **kw)
+            k, v = (torch.from_numpy(rng.normal(size=(b, hkv, skv, d))
+                                     .astype(np.float32)).to(dev, dt)
+                    for _ in range(2))
+            err, _ = flash_check(f"{(b, h, hkv, sq, skv, d)} {kw}",
+                                 (q, k, v), tq=sq, tk=min(64, skv), **kw)
             worst = max(worst, err)
     b, h, hkv, s, d = prefill
     q = torch.randn(b, h, s, d, device=dev, dtype=torch.bfloat16)
@@ -2658,9 +2711,11 @@ def check_flash_shapes(dev, rng, prefill=QWEN3_PREFILL):
                             tq=s, tk=1024)
     log(f"flash_attention == plain at the tests/test_kernels.py shapes "
         f"(float32 on the cuda_cores route, bf16 on the wgmma route, "
-        f"window 64, non-causal GQA; max err {worst:.3e}) and at the "
-        f"prefill shape {prefill} bf16 causal on random tensors (max err "
-        f"{err:.3e}; {over} of {q.numel()} outputs one bf16 ulp off)")
+        f"window 64, non-causal GQA), at the encoder and cross paths' "
+        f"non-causal shapes {FLASH_MODEL_PATHS} (max err {worst:.3e}) and "
+        f"at the prefill shape {prefill} bf16 causal on random tensors "
+        f"(max err {err:.3e}; {over} of {q.numel()} outputs one bf16 ulp "
+        f"off)")
     return max(worst, err)
 
 
@@ -3079,41 +3134,146 @@ def decode_breakdown(model, cfg, cache, tok, pos, step_ms):
                 **parts)
 
 
-def check_reduced_card_cpu(dev="cuda"):
-    """Reduced qwen3-4b, one weight set on both devices: prefill (B 4, S
-    96) and 4 decode steps fed the CPU's greedy tokens; logits within
-    1e-2 of their scale, greedy tokens equal wherever the CPU's top-2
-    margin exceeds 1e-2 of it."""
+def family_batch(cfg, tokens, frames=None, patches=None):
+    """The prefill batch of ``cfg``'s family for the (decoder) tokens:
+    enc-dec takes ``frames``, vision its ``patches`` when given."""
+    if cfg.is_encdec:
+        return {"frames": frames, "dec_tokens": tokens}
+    if patches is not None:
+        return {"tokens": tokens, "patches": patches}
+    return {"tokens": tokens}
+
+
+@contextlib.contextmanager
+def routing_replayed(records, last_only=False):
+    """Inside the block the k-th call of ``moe.route`` computes its own
+    routing, then returns ``records[k]``'s expert ids and gate values
+    (moved to its device) in their place: for every token, or with
+    ``last_only`` for the last token only. Holds one run's expert
+    choices to another's, so that a comparison of two runs shows what
+    differs apart from routing flips (a token whose k-th and (k+1)-th
+    probabilities lie closer than the runs' rounding differences)."""
+    from repro_torch.models import moe
+    route, calls = moe.route, iter(records)
+
+    def replay(p, cfg, xf):
+        probs, gate, idx = route(p, cfg, xf)
+        _, g, i = next(calls)
+        g, i = g.to(gate.device), i.to(idx.device)
+        if last_only:
+            gate, idx = gate.clone(), idx.clone()
+            gate[-1], idx[-1] = g[-1], i[-1]
+        else:
+            gate, idx = g, i
+        return probs, gate, idx
+    with swapped(moe, "route", replay):
+        yield
+
+
+def expert_flips(a, b, rows=slice(None)) -> int:
+    """Tokens (in ``rows`` of each call) whose expert sets differ between
+    two runs' ``moe.route`` records."""
+    import torch
+    return sum(int((torch.sort(x[2][rows].cpu(), -1).values
+                    != torch.sort(y[2][rows].cpu(), -1).values).any(-1).sum())
+               for x, y in zip(a, b))
+
+
+def reduced_steps(model, cfg, batch, off, feed=None, n=4):
+    """Prefill (cache ``off + 100``) and ``n`` decode steps of a reduced
+    model; the decode inputs are ``feed`` or, without it, its own greedy
+    tokens. Returns (the logits of each step on the CPU, the fed
+    tokens)."""
+    from repro_torch.models import model as M
+    dev = next(model.parameters()).device
+    logits, cache = M.prefill(model, cfg, batch, cache_len=off + 100)
+    out, fed = [logits.cpu()], []
+    for i in range(n):
+        nxt = feed[i] if feed else out[-1][:, -1].argmax(-1)[:, None]
+        fed.append(nxt)
+        logits, cache = M.decode_step(model, cfg, nxt.to(dev), cache,
+                                      off + 96 + i)
+        out.append(logits.cpu())
+    return out, fed
+
+
+def check_reduced_card_cpu(dev="cuda", arch="qwen3-4b"):
+    """A reduced config, one weight set on both devices: prefill (B 4, S
+    96; enc-dec with 64 frames, vision with its patches first) and 4
+    decode steps fed the CPU's greedy tokens; logits within 1e-2 of
+    their scale, greedy tokens equal wherever the CPU's top-2 margin
+    exceeds 1e-2 of it. With MoE layers the card also runs with the
+    CPU's expert choices replayed (:func:`routing_replayed`), and that
+    run is held to the bar: the card's own run is reported beside it
+    with its routing flips, and the card's router on the CPU run's
+    inputs must pick the CPU's experts wherever the k-th / (k+1)-th
+    probability margin exceeds 1e-6."""
     import torch
     from repro_torch import configs
     from repro_torch.models import model as M
-    cfg = configs.get_reduced("qwen3-4b")
+    from repro_torch.models import moe
+    cfg = configs.get_reduced(arch)
     cpu = M.init_params(cfg, torch.Generator().manual_seed(2), device="cpu")
     card = M.init_params(cfg, torch.Generator().manual_seed(2),
                          device="cpu").to(dev)
-    toks = torch.randint(0, cfg.vocab_size, (4, 96),
-                         generator=torch.Generator().manual_seed(3))
-    lc, cc = M.prefill(card, cfg, {"tokens": toks.to(dev)}, cache_len=100)
-    lp, cp = M.prefill(cpu, cfg, {"tokens": toks}, cache_len=100)
+    gen = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (4, 96), generator=gen)
+    frames = torch.randn(4, 64, cfg.d_model, generator=gen) \
+        if cfg.is_encdec else None
+    patches, off = None, 0
+    if cfg.frontend == "vision":
+        patches = torch.randn(4, cfg.frontend_tokens, cfg.d_model,
+                              generator=gen)
+        off = cfg.frontend_tokens
+    on = (lambda t: None if t is None else t.to(dev))
+    card_batch = family_batch(cfg, toks.to(dev), on(frames), on(patches))
+    cpu_routes, cpu_in, card_routes = [], [], []
+    with captured(moe, "route", cpu_routes, first_only=False, result=True), \
+            captured(moe, "route", cpu_in, first_only=False):
+        lps, fed = reduced_steps(cpu, cfg, family_batch(cfg, toks, frames,
+                                                        patches), off)
+    with captured(moe, "route", card_routes, first_only=False, result=True):
+        own, _ = reduced_steps(card, cfg, card_batch, off, fed)
+    lcs, note = own, ""
+    if cfg.moe_num_experts:
+        with routing_replayed(cpu_routes):
+            lcs, _ = reduced_steps(card, cfg, card_batch, off, fed)
+        # the card's router on the CPU run's own inputs
+        to_card = dict(zip(map(id, cpu.modules()), card.modules()))
+        differ = 0
+        for ((p, c, xf), _), (probs, _, idx) in zip(cpu_in, cpu_routes):
+            top = probs.sort(-1, descending=True).values
+            sure = top[:, c.moe_top_k - 1] - top[:, c.moe_top_k] > 1e-6
+            _, _, got = moe.route(to_card[id(p)], c, xf.to(dev))
+            differ += int((got.cpu()[sure] != idx[sure]).any(-1).sum())
+        if differ:
+            raise AssertionError(f"reduced {arch}: the card's router picks "
+                                 f"other experts than the CPU's on the same "
+                                 f"input for {differ} tokens past the margin")
+        own_errs = [logit_err(a, b) for a, b in zip(own, lps)]
+        note = (f" with the CPU's expert choices replayed; the card's own "
+                f"routing: {expert_flips(card_routes, cpu_routes)} of "
+                f"{sum(r[2].shape[0] for r in cpu_routes)} routed tokens "
+                f"chose other experts (rounding differences across a "
+                f"margin), logit errors "
+                + ", ".join(f"{e:.4e}" for e in own_errs)
+                + "; the card's router == the CPU's on the same inputs "
+                f"past a 1e-6 margin")
     errs, checked = [], 0
-    for i in range(5):
+    for i, (lc, lp) in enumerate(zip(lcs, lps)):
         errs.append(logit_err(lc, lp))
         top2 = lp[:, -1].topk(2, -1).values
         sure = (top2[:, 0] - top2[:, 1]) > 1e-2 * lp.abs().max()
-        if not torch.equal(lc[:, -1].argmax(-1).cpu()[sure],
+        if not torch.equal(lc[:, -1].argmax(-1)[sure],
                            lp[:, -1].argmax(-1)[sure]):
-            raise AssertionError(f"reduced step {i}: greedy tokens differ")
+            raise AssertionError(f"reduced {arch} step {i}: greedy tokens "
+                                 f"differ")
         checked += int(sure.sum())
-        if i == 4:
-            break
-        nxt = lp[:, -1].argmax(-1)[:, None]
-        lc, cc = M.decode_step(card, cfg, nxt.to(dev), cc, 96 + i)
-        lp, cp = M.decode_step(cpu, cfg, nxt, cp, 96 + i)
     if max(errs) >= 1e-2:
-        raise AssertionError(f"reduced card vs CPU: {errs}")
-    log(f"reduced qwen3-4b card == CPU: prefill + 4 decode steps, relative "
-        f"logit errors {', '.join(f'{e:.4e}' for e in errs)} (< 1e-2); "
-        f"{checked} of 20 greedy tokens past the margin, all equal")
+        raise AssertionError(f"reduced {arch} card vs CPU: {errs}")
+    log(f"reduced {arch} card == CPU: prefill + 4 decode steps, relative "
+        f"logit errors {', '.join(f'{e:.4e}' for e in errs)} (< 1e-2)"
+        f"{note}; {checked} of 20 greedy tokens past the margin, all equal")
     return max(errs)
 
 
@@ -4532,6 +4692,506 @@ def check_sharding_speed(smi, dev="cuda", smoke=False) -> None:
             f"in turns; {smi})")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the other model families (MoE, SSM, hybrid, VLM, enc-dec)
+# ---------------------------------------------------------------------------
+
+DEEPSEEK_LAYERS = 8          # deepseek-moe-16b cut to its prefix + 7 MoE layers
+FAMILY_ARCHS = ("deepseek-moe-16b", "mixtral-8x22b", "mamba2-370m",
+                "jamba-v0.1-52b", "internvl2-26b", "seamless-m4t-large-v2")
+# the full-width runs: prefill (B, S decoder tokens), encoder frames, the
+# decode check's prompt at B 1 (deepseek: <= 254 tokens, so that capacity
+# min(t, 256) = t admits every pair and nothing is dropped)
+FAMILY_SERVING = {
+    "deepseek-moe-16b": dict(prefill=(2, 1024), p=200),
+    "mamba2-370m": dict(prefill=(4, 1024), p=300),
+    "seamless-m4t-large-v2": dict(prefill=(2, 256), frames=1024, p=126)}
+FAMILY_DECODE_STEPS = 8
+
+
+def family_cfg(arch):
+    """Full width and depth; deepseek-moe-16b cut to 8 layers (28 would
+    hold 65.6 GB of float32 weights beside the per-call bf16 casts)."""
+    from repro_torch import configs
+    cfg = configs.get(arch)
+    if arch == "deepseek-moe-16b":
+        cfg = dataclasses.replace(cfg, num_layers=DEEPSEEK_LAYERS)
+    return cfg
+
+
+def flash_launches_of(cfg) -> tuple[int, int]:
+    """(causal, non-causal) ``flash_attention`` launches of one prefill:
+    one per causal attention layer of the decoder (deepseek's prefix
+    included); for enc-dec one per encoder layer and one per cross
+    attention, non-causal."""
+    causal = sum(b.kind == "attn" for b in cfg.layer_pattern()) \
+        * cfg.num_superlayers + (1 if cfg.first_dense_ff else 0)
+    nc = cfg.encoder_layers + cfg.num_layers if cfg.is_encdec else 0
+    return causal, nc
+
+
+@contextlib.contextmanager
+def captured(module, name, store, first_only=True, result=False):
+    """``module.name`` wrapped inside the block: each call's arguments
+    (``(args, kw)``), or with ``result`` its return value, appended to
+    ``store``; the first call's only, by default."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        out = fn(*args, **kw)
+        if not (first_only and store):
+            store.append(out if result else (args, kw))
+        return out
+    with swapped(module, name, wrapper):
+        yield
+
+
+def family_decode_vs_prefill(model, cfg, toks, p, frames=None) -> dict:
+    """B 1: relative logit errors of two decode steps after a prefill of
+    ``toks[:, :p]`` against fresh prefills of the longer prompts
+    (``errs``). With MoE layers, also the number of layers whose expert
+    set for the new token differs between decode and prefill
+    (``flips``: rounding differences across a top-k margin) and the
+    prompt's tokens whose experts differ between the two prefills
+    (``earlier_flips``), and the
+    errors against prefills that take the decode's expert choices for
+    the new token (``held_errs``, :func:`routing_replayed`), which the
+    bar holds when a flip happened."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    first_routes = []
+    with captured(moe, "route", first_routes, first_only=False, result=True):
+        lp, cache = M.prefill(model, cfg,
+                              family_batch(cfg, toks[:, :p], frames),
+                              cache_len=p + 2)
+    out = dict(errs=[], flips=[], earlier_flips=[], held_errs=[])
+    for i in range(2):
+        longer = family_batch(cfg, toks[:, :p + i + 1], frames)
+        dec_routes, pre_routes = [], []
+        with captured(moe, "route", dec_routes, first_only=False,
+                      result=True):
+            ld, cache = M.decode_step(model, cfg, toks[:, p + i:p + i + 1],
+                                      cache, p + i)
+        with captured(moe, "route", pre_routes, first_only=False,
+                      result=True):
+            lf, _ = M.prefill(model, cfg, longer)
+        for x in (lp, ld, lf):
+            if not bool(torch.isfinite(x).all()):
+                raise AssertionError(f"{cfg.name}: logits not finite")
+        out["errs"].append(logit_err(ld[:, -1], lf[:, -1]))
+        if cfg.moe_num_experts:
+            out["flips"].append(expert_flips(dec_routes, pre_routes,
+                                             slice(-1, None)))
+            out["earlier_flips"].append(expert_flips(
+                first_routes, pre_routes, slice(0, p)))
+            with routing_replayed(dec_routes, last_only=True):
+                lh, _ = M.prefill(model, cfg, longer)
+            out["held_errs"].append(logit_err(ld[:, -1], lh[:, -1]))
+    out["bar_errs"] = out["held_errs"] or out["errs"]
+    return out
+
+
+def ssm_layer_gap(model, cfg, toks, p) -> float:
+    """Decode against the chunked prefill one SSM layer at a time (B 1):
+    each layer's input on a prefill of ``toks[:, :p + 1]``, its state
+    after ``p`` tokens from ``ssm_train``, one ``ssm_decode`` step on
+    token ``p`` against the prefill's own output row for it. Returns the
+    largest difference over the layers in bf16 ulps of the row's scale
+    (one layer's two forms differ only in float32 order before the bf16
+    rounding)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm
+    ins, worst = [], 0.0
+    with captured(ssm, "ssm_train", ins, first_only=False):
+        M.prefill(model, cfg, {"tokens": toks[:, :p + 1]})
+    for (mixer, c, h), _ in ins:
+        _, state = ssm.ssm_train(mixer, c, h[:, :p], return_state=True)
+        y_dec, _ = ssm.ssm_decode(mixer, c, h[:, p:p + 1], state)
+        y_pre = ssm.ssm_train(mixer, c, h)[:, p:p + 1].float()
+        ulp = 2.0 ** (torch.floor(torch.log2(y_pre.abs().max())) - 7)
+        worst = max(worst, float((y_dec.float() - y_pre).abs().max() / ulp))
+    return worst
+
+
+def one_ulp_moves(model, cfg, batch) -> list[float]:
+    """The model's own noise floor: how far the last logits move when one
+    embedded element of the prompt gains one bf16 ulp (three
+    positions)."""
+    import torch
+    from repro_torch.models import model as M
+    embed = M.embed
+    base, _ = M.prefill(model, cfg, batch)
+    n, moves = batch["tokens"].shape[1], []
+    for i, j in ((0, 0), (n // 2, 5), (n - 1, 3)):
+        def bumped(table, ids, i=i, j=j):
+            x = embed(table, ids).clone()
+            x.view(torch.int16)[0, i, j] += 1       # one ulp away from zero
+            return x
+        with swapped(M, "embed", bumped):
+            moved, _ = M.prefill(model, cfg, batch)
+        moves.append(logit_err(moved, base))
+    return moves
+
+
+def moe_profile(p, cfg, x) -> dict:
+    """Time of one MoE layer's parts on its real input ``x``: dispatch
+    (router softmax, top-k, the stable expert sort, slots and the gather
+    into ``[E, C, D]``), the experts' batched products, the combine
+    (gather back, gate, the bf16 adds in sort order), the shared experts
+    and the whole ``moe_mlp``; each as device time from a profiler trace
+    and as CUDA-event time of calls back to back (host share
+    included)."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.layers import mlp
+    t = x.shape[0] * x.shape[1]
+    xf = x.reshape(t, -1)
+    cap = moe.capacity(cfg, t)
+
+    def dispatch():
+        _, gate, idx = moe.route(p, cfg, xf)
+        order, e_sorted, _, slot, keep, disp = moe.dispatch(cfg, idx, cap)
+        xe = torch.cat([xf, xf.new_zeros(1, xf.shape[1])])[disp]
+        return gate, order, e_sorted, slot, keep, xe
+    gate, order, e_sorted, slot, keep, xe = dispatch()
+    ye = moe._expert_ffn(p, xe, cfg.mlp_act)
+    parts = {"dispatch": dispatch,
+             "experts": lambda: moe._expert_ffn(p, xe, cfg.mlp_act),
+             "combine": lambda: moe.combine(cfg, ye, gate, order, e_sorted,
+                                            slot, keep),
+             "shared": lambda: mlp(p.shared, xf, cfg.mlp_act),
+             "moe_mlp": lambda: moe.moe_mlp(p, cfg, x)}
+    out = {}
+    for k, fn in parts.items():
+        ms, events = device_profile(fn, 2)
+        out[k] = dict(device_ms=ms, events=events, ms=cuda_ms(fn, 3))
+    log(f"{cfg.name} MoE layer (T {t}, E {cfg.moe_num_experts}, k "
+        f"{cfg.moe_top_k}, capacity {cap}) a call, device time (profiler) "
+        f"and CUDA events around calls back to back: " + ", ".join(
+            f"{k} {fmt_ms(v['device_ms'])} in {v['events']:.0f} events, "
+            f"{v['ms']:.4f} ms" for k, v in out.items()))
+    return out
+
+
+def time_flash_encoder(model, cfg, frames) -> dict:
+    """The kernel on the encoder's layer-0 q, k, v of the frames (the
+    non-causal ``wgmma`` route, Hkv == H, D 64), against its plain
+    version; its times (calls back to back and a CUDA graph), the plain
+    version's, ``scaled_dot_product_attention``'s (non-causal, never
+    called by the port) and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import attention as A
+    from repro_torch.models.layers import dense, rmsnorm
+    layer0 = model.encoder.layers[0]
+    x = dense(model.frontend, frames)
+    pos = torch.arange(x.shape[1], device=x.device)[None]
+    h = rmsnorm(layer0.norm1, x, cfg.norm_eps)
+    args = [t.transpose(1, 2) for t in (A._project_q(layer0.mixer, cfg, h, pos),
+                                        *A._project_kv(layer0.mixer, cfg, h,
+                                                       pos))]
+    s = args[0].shape[2]
+    kw = dict(causal=False, tq=s, tk=min(1024, s))
+    err, over = flash_check("seamless encoder layer-0 activations", args,
+                            **kw)
+
+    def kernel():
+        return ops.flash_attention(*args, **kw)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(*args)
+    b, by, _ = flash_bound(*args[:2], causal=False)
+    out = dict(shape=list(args[0].shape), max_abs_err=err, over_ulp=over,
+               ms=cuda_ms(kernel, 10), device_ms=graph_ms(kernel, reps=4),
+               plain_ms=cuda_ms(lambda: ops.flash_attention_plain(
+                   *args, causal=False, tk=kw["tk"]), 2),
+               library_ms=cuda_ms(sdpa, 10),
+               library_device_ms=graph_ms(sdpa, reps=4), bound_ms=b,
+               bound_by=by)
+    log(f"flash_attention seamless encoder shape {out['shape']} bf16 "
+        f"non-causal (wgmma route), layer-0 activations: == plain (max err "
+        f"{err:.3e}, {over} outputs one bf16 ulp off); kernel "
+        f"{out['ms']:.4f} ms (device {out['device_ms']:.4f} ms), plain "
+        f"{out['plain_ms']:.4f} ms, sdpa {out['library_ms']:.4f} ms (device "
+        f"{out['library_device_ms']:.4f} ms), bound {b:.4f} ms ({by})")
+    return out
+
+
+def serve_family(launches, arch, dev="cuda") -> dict:
+    """One model at full width (deepseek at 8 layers), weights from a
+    seeded generator on the card: decode == a fresh prefill of the
+    longer prompt at B 1 within 2e-2 of the logit scale; one timed
+    prefill through ``make_prefill_step`` (launch counts set to 0 just
+    before: exactly the decoder's causal attention layers in
+    ``flash_attention`` launches, and for enc-dec the encoder's and the
+    cross attention's non-causal ones, all on the ``wgmma`` route) and
+    timed greedy decode steps (no kernel of the list); tokens/s on the
+    host clock, peak device memory; then each family's profile."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.models import moe, ssm
+    dev = torch.device(dev)
+    cfg = family_cfg(arch)
+    spec = FAMILY_SERVING[arch]
+    (b, s), n_steps = spec["prefill"], FAMILY_DECODE_STEPS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{arch} ({cfg.num_layers} layers"
+        + (f" + {cfg.encoder_layers} encoder" if cfg.is_encdec else "")
+        + f", d_model {cfg.d_model}): {n_params:,} float32 parameters "
+        f"({n_params * 4 / 1e9:.2f} GB) drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                         generator=gen)
+    frames = torch.randn(b, spec["frames"], cfg.d_model, device=dev,
+                         generator=gen) if cfg.is_encdec else None
+    one = (lambda t: None if t is None else t[:1])
+    gap = family_decode_vs_prefill(model, cfg, toks[:1], spec["p"],
+                                   one(frames))
+    if cfg.family == "ssm":
+        # 48 SSM layers are chaotic in the reference itself: one bf16 ulp
+        # on one embedded element moves its logits by 2e-2 to 5e-2
+        # (examples/torch_ssm_depth_gap.py, width 128). So each layer's
+        # decode is held to the chunked prefill's row within one bf16
+        # ulp, and the whole model's gap to twice the largest one-ulp
+        # move measured here (or 2e-2 where that is wider)
+        gap["layer_ulps"] = ssm_layer_gap(model, cfg, toks[:1], spec["p"])
+        gap["one_ulp_moves"] = one_ulp_moves(
+            model, cfg, {"tokens": toks[:1, :spec["p"] + 1]})
+        bar = max(2e-2, 2 * max(gap["one_ulp_moves"]))
+        if gap["layer_ulps"] > 1 or max(gap["errs"]) >= bar:
+            raise AssertionError(f"{arch} decode vs prefill: {gap}, bar "
+                                 f"{bar}")
+        log(f"{arch} decode vs its chunked prefill, layer by layer (B 1, "
+            f"{spec['p']} tokens, {cfg.num_layers} layers): at most "
+            f"{gap['layer_ulps']:.2f} bf16 ulp of the row's scale (<= 1); "
+            f"one bf16 ulp on one embedded element moves the last logits "
+            + ", ".join(f"{e:.4e}" for e in gap["one_ulp_moves"])
+            + f"; the whole model's gap below must stay under {bar:.4e}")
+    elif max(gap["bar_errs"]) >= 2e-2:
+        raise AssertionError(f"{arch} decode vs prefill: {gap} >= 2e-2")
+    log(f"{arch} decode == prefill of the longer prompt (B 1, "
+        f"{spec['p']} + 2 tokens): relative logit error "
+        + ", ".join(f"{e:.4e}" for e in gap["errs"])
+        + (" (< 2e-2)" if cfg.family != "ssm" and not gap["held_errs"]
+           else "" if not gap["held_errs"] else
+           f"; MoE layers whose experts for the new token differ between "
+           f"decode and prefill: {gap['flips']} (prompt tokens routed "
+           f"apart by the two prefills: {gap['earlier_flips']}); with the "
+           f"decode's expert "
+           f"choices in the prefill: "
+           + ", ".join(f"{e:.4e}" for e in gap["held_errs"]) + " (< 2e-2)"))
+
+    batch = family_batch(cfg, toks, frames)
+    cache_len = s + n_steps
+    warm, _ = M.prefill(model, cfg, batch, cache_len=cache_len)
+    if not bool(torch.isfinite(warm).all()):
+        raise AssertionError(f"{arch} prefill logits not finite")
+    del _
+    prefill_step = steps.make_prefill_step(cfg, cache_len)
+    decode_step = steps.make_decode_step(cfg)
+    causal_flags = []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with captured(flash_ops, "flash_attention", causal_flags,
+                  first_only=False):
+        t0 = time.perf_counter()
+        nxt, cache = prefill_step(model, batch)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+    want_causal, want_nc = flash_launches_of(cfg)
+    label = f"{arch}-prefill"
+    launches[label] = serving_launches(
+        label, ("flash_attention",) if want_causal + want_nc else (),
+        only=True)
+    routes = flash_ops.route_counts()
+    nc = sum(not kw.get("causal", True) for _, kw in causal_flags)
+    got = launches[label]["flash_attention"]
+    if got != want_causal + want_nc or nc != want_nc or \
+            routes["cuda_cores"] or routes["wgmma"] != got:
+        raise AssertionError(f"{label}: {got} flash_attention launches ({nc} "
+                             f"non-causal), routes {routes}; expected "
+                             f"{want_causal} causal + {want_nc} non-causal, "
+                             f"all on the wgmma route")
+    kernels.reset_launch_counts()
+    tok = nxt[:, None]
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        tok, cache = decode_step(model, cache, tok, s + i)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    launches[f"{arch}-decode"] = serving_launches(f"{arch}-decode", (),
+                                                  only=True)
+    if not bool(((tok >= 0) & (tok < cfg.vocab_size)).all()):
+        raise AssertionError(f"{arch}: greedy tokens out of range")
+    peak = torch.cuda.max_memory_allocated()
+    out = dict(params=n_params, layers=cfg.num_layers,
+               decode_vs_prefill=gap, prefill_shape=[b, s],
+               prefill_s=t_prefill, prefill_tokens_per_s=b * s / t_prefill,
+               decode_step_ms=t_decode / n_steps * 1e3,
+               decode_tokens_per_s=b * n_steps / t_decode, peak_bytes=peak,
+               flash_launches=got, flash_noncausal=nc, flash_routes=routes)
+    log(f"{arch} serving ({b} x {s} prompt tokens"
+        + (f", {spec['frames']} frames" if cfg.is_encdec else "")
+        + f", {n_steps} greedy steps): prefill {t_prefill:.3f} s, "
+        f"{out['prefill_tokens_per_s']:.0f} tokens/s; decode "
+        f"{t_decode:.3f} s, {out['decode_tokens_per_s']:.1f} tokens/s "
+        f"({out['decode_step_ms']:.2f} ms a step); peak device memory "
+        f"{peak / 2**30:.2f} GiB; flash_attention launches: prefill {got} "
+        f"({nc} non-causal, routes {routes}), decode none")
+
+    top = []
+    dev_ms, events = device_profile(
+        lambda: decode_step(model, cache, tok, s + n_steps - 1), 2, top)
+    out["decode_step_device_ms"] = dev_ms
+    idle = "idle not measured" if dev_ms is None else \
+        f"{dev_ms:.2f} ms device time in {events:.0f} kernels and copies, " \
+        f"idle {1 - dev_ms / out['decode_step_ms']:.1%}"
+    log(f"{arch} decode step {out['decode_step_ms']:.2f} ms (host clock; "
+        f"{idle}); its largest device events: " + "; ".join(
+            f"{name} {ms:.2f} ms in {cnt:.0f}" for ms, cnt, name in top))
+    del cache
+
+    if cfg.moe_num_experts:
+        # the drops of the timed prefill's shape, and the same logits on a
+        # second run (the combine has no atomics)
+        dispatched, layer_in = [], []
+        with captured(moe, "dispatch", dispatched, first_only=False,
+                      result=True), captured(moe, "moe_mlp", layer_in):
+            again, _ = M.prefill(model, cfg, batch, cache_len=cache_len)
+        del _
+        keep = [d[4] for d in dispatched]
+        out["pairs_dropped"] = int(sum(int((~k).sum()) for k in keep))
+        out["pairs"] = sum(k.numel() for k in keep)
+        if not torch.equal(again, warm):
+            raise AssertionError(f"{arch}: two prefills of one batch differ")
+        log(f"{arch} prefill {b} x {s}: capacity {moe.capacity(cfg, b * s)} "
+            f"a expert, {out['pairs_dropped']} of {out['pairs']} (token, "
+            f"expert) pairs dropped over {len(keep)} MoE layers; a second "
+            f"prefill gives bit-identical logits")
+        out["moe_profile"] = moe_profile(*layer_in[0][0])
+    if cfg.family == "ssm":
+        layer_in, chunk_in = [], []
+        with captured(ssm, "ssm_train", layer_in), \
+                captured(ssm, "ssd_chunks", chunk_in):
+            M.prefill(model, cfg, batch, cache_len=cache_len)
+        (p0, c0, x0), _ = layer_in[0]
+        chunk_ms, chunk_events = device_profile(
+            lambda: ssm.ssd_chunks(*chunk_in[0][0]), 2)
+        layer_ms, layer_events = device_profile(
+            lambda: ssm.ssm_train(p0, c0, x0), 2)
+        out["ssd_chunk_loop"] = dict(device_ms=chunk_ms, events=chunk_events,
+                                     layer_device_ms=layer_ms,
+                                     layer_events=layer_events,
+                                     chunks=s // min(cfg.ssm_chunk, s))
+        log(f"{arch} SSD chunk loop of one layer ({b} x {s}, "
+            f"{out['ssd_chunk_loop']['chunks']} chunks of "
+            f"{min(cfg.ssm_chunk, s)}): device {fmt_ms(chunk_ms)} in "
+            f"{chunk_events:.0f} events; the whole ssm_train layer "
+            f"{fmt_ms(layer_ms)} in {layer_events:.0f} events")
+    if cfg.is_encdec:
+        out["encoder_flash"] = time_flash_encoder(model, cfg, frames)
+    del model, warm
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_moe_deterministic(dev="cuda") -> None:
+    """Reduced deepseek (E 8, k 2, B 4 x S 96) prefilled twice on the
+    card: bit-identical logits and caches (the combine adds each token's
+    pairs in one fixed order, with no atomics)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    cfg = configs.get_reduced("deepseek-moe-16b")
+    model = M.init_params(cfg, torch.Generator().manual_seed(5),
+                          device="cpu").to(dev)
+    toks = torch.randint(0, cfg.vocab_size, (4, 96),
+                         generator=torch.Generator().manual_seed(6)).to(dev)
+    runs = [M.prefill(model, cfg, {"tokens": toks}) for _ in range(2)]
+    (la, ca), (lb, cb) = runs
+    same = torch.equal(la, lb) and all(
+        torch.equal(ca["layers"]["block0"][n], cb["layers"]["block0"][n])
+        for n in ("k", "v"))
+    if not same:
+        raise AssertionError("reduced deepseek: two card prefills differ")
+    log("reduced deepseek-moe-16b: two card prefills give bit-identical "
+        "logits and caches")
+
+
+def check_serve_families(launches, dev="cuda") -> dict:
+    """``serve.main --arch X`` on the card for one config of each new
+    family: MoE and hybrid fill the page bank from a prefill of the
+    reduced model (one ``flash_attention`` launch per attention layer:
+    deepseek's prefix + 2, jamba's one), enc-dec and vision take
+    gaussian pages (no launch), and the attention-free mamba2 fails as
+    the reference's serve does (``AssertionError: no attention
+    cache``)."""
+    import torch
+    from repro_torch import configs, kernels
+    from repro_torch.launch import serve
+    out = {}
+    for arch in ("deepseek-moe-16b", "jamba-v0.1-52b", "mamba2-370m",
+                 "internvl2-26b"):
+        cfg = configs.get_reduced(arch)
+        argv = ["--arch", arch, "--events", "1000", "--live", "32",
+                "--decode-every", "8", "--seed", "4", "--device", dev]
+        kernels.reset_launch_counts()
+        if cfg.attention_free:
+            try:
+                serve.main(argv)
+            except AssertionError as e:
+                if "no attention cache" not in str(e):
+                    raise
+                out[arch] = "AssertionError: no attention cache"
+                log(f"serve --arch {arch}: {out[arch]} (as the reference)")
+                continue
+            raise AssertionError(f"serve --arch {arch} built a page bank")
+        stats = serve.main(argv)
+        torch.cuda.synchronize()
+        prefills = not (cfg.is_encdec or cfg.frontend == "vision")
+        want = sum(flash_launches_of(cfg)) if prefills else 0
+        label = f"serve-{arch}"
+        launches[label] = serving_launches(
+            label, SERVING_DECODE_KERNELS
+            + (("flash_attention",) if want else ()), only=True)
+        if launches[label]["flash_attention"] != want:
+            raise AssertionError(f"{label}: {launches[label]} launches, "
+                                 f"expected {want} flash_attention")
+        out[arch] = dict(bank="prefill" if prefills else "gaussian",
+                         flash_attention=want,
+                         activations=stats["activations"])
+        log(f"serve --arch {arch}: {out[arch]['bank']} page bank, {want} "
+            f"flash_attention launches, {stats['activations']} activations")
+    return out
+
+
+def check_families(launches) -> dict:
+    """Phase 16: deepseek-moe-16b (full width, 8 layers), mamba2-370m
+    and seamless-m4t-large-v2 (full width and depth) served on the card
+    (:func:`serve_family`); the six new families' reduced configs card
+    == CPU; the MoE combine's determinism; serve's page bank for each
+    family."""
+    out = {arch: serve_family(launches, arch) for arch in FAMILY_SERVING}
+    out["reduced_card_cpu_logit_err"] = {
+        arch: check_reduced_card_cpu(arch=arch) for arch in FAMILY_ARCHS}
+    check_moe_deterministic()
+    out["serve"] = check_serve_families(launches)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4742,6 +5402,13 @@ def main() -> int:
     check_sharded_fig15(launches, fig1024, fig_run, eci1024_run)
     check_sharding_speed(smi)
     log(f"phase 15: {time.perf_counter() - t15:.1f} s")
+
+    # phase 16: the other model families: deepseek-moe-16b (8 layers),
+    # mamba2-370m and seamless-m4t-large-v2 at full width on the card,
+    # the six families' reduced configs card == CPU, serve's page bank
+    t16 = time.perf_counter()
+    rows["flash_attention"]["families"] = check_families(launches)
+    log(f"phase 16: {time.perf_counter() - t16:.1f} s")
 
     sources = {"count_between": "src/repro_torch/csrc/count_between.cu",
                "evict_scatter": "src/repro_torch/csrc/evict_scatter.cu",

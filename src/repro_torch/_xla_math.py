@@ -18,7 +18,14 @@ CUDA:
 * sums: XLA:CPU rewrites a float32 reduction over more than 32 elements
   into windows of 32 (the input zero-padded, the lower half of the pad
   in front), each summed in order, then reduces the window sums the
-  same way. :func:`sum_f32` follows that tree; ``torch.sum`` does not.
+  same way. :func:`sum_f32` (and :func:`sum_rows_f32`, row by row)
+  follows that tree; ``torch.sum`` does not.
+* cumulative sums: XLA:CPU rewrites ``jnp.cumsum`` over more than 16
+  elements into a two-level scan (blocks of 16, each a running sum from
+  its start; the block totals scanned the same way, recursively; each
+  block's prefix then added). :func:`cumsum_f32` follows it;
+  ``torch.cumsum`` accumulates in float64 on the CPU and in a parallel
+  scan on CUDA.
 
 All are plain tensor code and give the same bits on the CPU and on
 CUDA.
@@ -83,6 +90,49 @@ def sum_f32(x: torch.Tensor) -> torch.Tensor:
         x = torch.nn.functional.pad(x, (p // 2, p - p // 2))
         x = _in_order(x.view(-1, _WINDOW))
     return _in_order(x.view(1, -1))[0]
+
+
+def sum_rows_f32(x: torch.Tensor) -> torch.Tensor:
+    """:func:`sum_f32` of each row of a 2-D float32 tensor (``jnp.sum(x,
+    axis=-1)`` on XLA:CPU): ``[T, N]`` -> ``[T]``."""
+    x = x.float()
+    while x.shape[1] > _WINDOW:
+        p = -x.shape[1] % _WINDOW
+        x = torch.nn.functional.pad(x, (p // 2, p - p // 2))
+        t = x.shape[0]
+        x = _in_order(x.reshape(-1, _WINDOW)).view(t, -1)
+    return _in_order(x)
+
+
+_SCAN_BASE = 16   # XLA's reduce-window rewriter's base length
+
+
+def cumsum_f32(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """float32 cumulative sum along ``dim``, bit-identical to XLA:CPU's
+    ``jnp.cumsum``."""
+    x = x.float().movedim(dim, -1)
+    return _block_scan(x).movedim(-1, dim)
+
+
+def _block_scan(x: torch.Tensor) -> torch.Tensor:
+    n = x.shape[-1]
+    if n <= _SCAN_BASE:
+        return _running(x)
+    p = -n % _SCAN_BASE
+    blocks = torch.nn.functional.pad(x, (0, p)).unflatten(
+        -1, (-1, _SCAN_BASE))
+    inner = _running(blocks)                          # [..., nb, 16]
+    totals = _block_scan(inner[..., -1])              # [..., nb]
+    before = torch.nn.functional.pad(totals[..., :-1], (1, 0))
+    return (inner + before[..., None]).flatten(-2)[..., :n]
+
+
+def _running(x: torch.Tensor) -> torch.Tensor:
+    """Running sums along the last dimension, one float32 add a step."""
+    out = [x[..., 0]]
+    for j in range(1, x.shape[-1]):
+        out.append(out[-1] + x[..., j])
+    return torch.stack(out, -1)
 
 
 def _in_order(rows: torch.Tensor) -> torch.Tensor:

@@ -21,13 +21,15 @@ row per maintenance interval; ``--spans`` times the maintenance and
 sizing dispatches (each span then waits for its work).
 
 The KV geometry of ``--arch`` is its reduced configuration's
-(:mod:`repro_torch.configs`). For the dense family the page bank holds
-real KV pages: one prefill of the reduced model (random weights from
-``--seed``) fills it from the first attention layer's cache, the flash
-attention kernel on the card. The other families fill it with gaussian
-pages until their models are ported; the manager only moves bytes, so
-the statistics do not depend on the contents. Runs on the card unless
-``--device cpu``.
+(:mod:`repro_torch.configs`). For the decoder-only families with
+attention (dense, MoE, hybrid) the page bank holds real KV pages: one
+prefill of the reduced model (random weights from ``--seed``) fills it
+from the first attention layer's cache, the flash attention kernel on
+the card. Enc-dec and vision take gaussian pages, as in the reference;
+the manager only moves bytes, so the statistics do not depend on the
+contents. An attention-free model (SSM) has no KV to page: its bank
+fails as the reference's does. Runs on the card unless ``--device
+cpu``.
 """
 from __future__ import annotations
 
@@ -69,19 +71,23 @@ def gaussian_pages(kv_cfg: TwoTierConfig, bank: int, seed: int,
 def kv_page_bank(cfg, kv_cfg: TwoTierConfig, bank: int, seed: int, *,
                  params=None, device=None, pin: bool = False):
     """A bank of real KV pages ``[bank, 1, PS, Hkv, D]`` float32 on the
-    host: prefill the dense model ``cfg`` once over ``bank`` pages' worth
-    of uniform token ids (from ``seed + 1``) and slice its first
-    attention layer's cache into pages. The model is ``params`` (a
-    :class:`repro_torch.models.model.Model`), which runs where its
-    weights lie, or else the one drawn from ``seed`` on the CPU and
-    moved to ``device`` (default ``"cuda"``); give one or the other.
-    Other families take :func:`gaussian_pages` (the reference does so
-    for enc-dec and vision; MoE, SSM and hybrid until their slices are
-    ported)."""
+    host: prefill the model ``cfg`` once over ``bank`` pages' worth of
+    uniform token ids (from ``seed + 1``) and slice its first attention
+    layer's cache into pages. The first attention layer is the
+    reference's: the first ``k`` / ``v`` entry of ``cache["layers"]`` in
+    its tree order (block names sorted), superlayer 0 (jamba's
+    ``block7``; for deepseek the first MoE layer, not the ``prefix``).
+    The model is ``params`` (a :class:`repro_torch.models.model.Model`),
+    which runs where its weights lie, or else the one drawn from
+    ``seed`` on the CPU and moved to ``device`` (default ``"cuda"``);
+    give one or the other. Enc-dec and vision configs take
+    :func:`gaussian_pages`, as the reference does; an attention-free
+    model raises the reference's ``AssertionError("no attention
+    cache")``."""
     if params is not None and device is not None:
         raise ValueError("give params or device, not both: the prefill "
                          "runs where the params lie")
-    if cfg.family != "dense":
+    if cfg.is_encdec or cfg.frontend == "vision":
         return gaussian_pages(kv_cfg, bank, seed, pin)
     ps = kv_cfg.page_size
     if params is None:
@@ -93,7 +99,10 @@ def kv_page_bank(cfg, kv_cfg: TwoTierConfig, bank: int, seed: int, *,
     _, cache = M.prefill(params, cfg,
                          {"tokens": tokens.to(params.embed.device)},
                          cache_len=bank * ps)
-    first = cache["layers"]["block0"]
+    first = next((cache["layers"][name] for name in sorted(cache["layers"])
+                  if "k" in cache["layers"][name]), None)
+    if first is None:
+        raise AssertionError("no attention cache")
     k, v = (first[n][0, 0].float().cpu() for n in ("k", "v"))  # [S, Hkv, D]
     if (k.shape[1], k.shape[2]) != (kv_cfg.num_kv_heads, kv_cfg.head_dim):
         raise ValueError("kv geometry mismatch between model and pool")

@@ -1,2 +1,2 @@
-"""Model zoo for serving: configs, layers, attention, blocks and the
-dense causal LM (the port of :mod:`repro.models`, dense family)."""
+"""Model zoo for serving: configs, layers, attention, MoE, SSM, blocks
+and the models of every family (the port of :mod:`repro.models`)."""

@@ -1,16 +1,19 @@
-"""GQA attention: the prefill (causal) and decode paths (the port of
-:mod:`repro.models.attention`).
+"""GQA attention: the prefill (causal), encoder (bidirectional), cross
+and decode paths (the port of :mod:`repro.models.attention`).
 
-Prefill runs :func:`blocked_attention`, an online softmax over KV
-chunks that never forms the ``[S, S]`` score matrix. The reference
-computes it as a ``lax.scan`` and names the Pallas ``flash_attention``
-kernel as its computation on the accelerator; here it is that kernel on
-the card (``kernels/flash_attention``, GQA-native, so KV is passed
-un-expanded) and its plain version, tiled by ``chunk``, on the CPU.
+Prefill, the encoder and cross attention run :func:`blocked_attention`,
+an online softmax over KV chunks that never forms the ``[S, S]`` score
+matrix. The reference computes it as a ``lax.scan`` and names the
+Pallas ``flash_attention`` kernel as its computation on the
+accelerator; here it is that kernel on the card
+(``kernels/flash_attention``; GQA-native, so the causal path passes KV
+un-expanded, while the encoder and cross paths pass it expanded, as the
+reference does) and its plain version, tiled by ``chunk``, on the CPU.
 
 Decode attends one query position against the KV cache in plain
 PyTorch (the reference has no kernel there); for sliding-window configs
-only the last ``window`` positions are attended.
+only the last ``window`` positions are attended. Cross decode attends
+the static encoder memory, also in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -41,7 +44,10 @@ class Attention(torch.nn.Module):
             self.k_norm = param((dh,), None, generator, device)
 
 
-def init_attention(cfg: ModelConfig, generator=None, device=None):
+def init_attention(cfg: ModelConfig, generator=None, device=None,
+                   cross: bool = False):
+    """Self or cross attention: the same parameters (``cross`` names the
+    use, as in the reference)."""
     return Attention(cfg, generator, device)
 
 
@@ -111,6 +117,31 @@ def attention_train(params: Attention, cfg: ModelConfig, x, positions,
     return out, k, v
 
 
+def attention_encoder(params: Attention, cfg: ModelConfig, x, positions):
+    """Bidirectional (encoder) self-attention."""
+    q = _project_q(params, cfg, x, positions)
+    k, v = _project_kv(params, cfg, x, positions)
+    groups = cfg.num_heads // cfg.num_kv_heads
+    out = blocked_attention(q, _expand_kv(k, groups), _expand_kv(v, groups),
+                            causal=False, chunk=min(1024, x.shape[1]))
+    b, s, _, _ = out.shape
+    return dense(params.wo, out.reshape(b, s, -1))
+
+
+def attention_cross(params: Attention, cfg: ModelConfig, x, memory_kv,
+                    positions):
+    """Cross-attention of the decoder's prompt against the precomputed
+    encoder memory ``(k, v)`` ``[B, S_enc, Hkv, Dh]`` (no RoPE on q;
+    Sq and S_enc differ)."""
+    k, v = memory_kv
+    q = _project_q(params, cfg, x, positions, rope=False)
+    groups = cfg.num_heads // cfg.num_kv_heads
+    out = blocked_attention(q, _expand_kv(k, groups), _expand_kv(v, groups),
+                            causal=False, chunk=min(1024, k.shape[1]))
+    b, s, _, _ = out.shape
+    return dense(params.wo, out.reshape(b, s, -1))
+
+
 # ---------------------------------------------------------------------------
 # decode (one token against a KV cache)
 # ---------------------------------------------------------------------------
@@ -156,3 +187,22 @@ def attention_decode(params: Attention, cfg: ModelConfig, x, cache_k,
                        cache_v.float())
     out = out.reshape(b, 1, cfg.num_heads * cfg.head_dim).to(x.dtype)
     return dense(params.wo, out), cache_k, cache_v
+
+
+def attention_cross_decode(params: Attention, cfg: ModelConfig, x,
+                           memory_kv, pos: int):
+    """Decode-time cross attention against the static encoder memory.
+    Unlike :func:`attention_decode`, q·scale and the softmax weights stay
+    float32 (the reference rounds neither to bf16 here)."""
+    k, v = memory_kv
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q = _project_q(params, cfg, x, positions, rope=False)
+    groups = cfg.num_heads // cfg.num_kv_heads
+    qh = q[:, 0].reshape(b, cfg.num_kv_heads, groups, cfg.head_dim)
+    s = torch.einsum("bhgd,bkhd->bhgk", qh.float() * cfg.head_dim ** -0.5,
+                     k.float())
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
+    out = out.reshape(b, 1, cfg.num_heads * cfg.head_dim).to(x.dtype)
+    return dense(params.wo, out)

@@ -70,17 +70,30 @@ def head_rmsnorm(scale, x, eps: float = 1e-5):
 
 # -- dense -------------------------------------------------------------------
 
-def dense(w, x):
-    """``x @ w`` for ``w`` ``[d_in, d_out]``: bfloat16 operands, float32
+def matmul_bf16(a, b):
+    """``a @ b`` (batched as ``torch.matmul``): bfloat16 operands, float32
     accumulation, a bfloat16 result. On the CPU a float32 product of the
     bfloat16-rounded operands (what XLA:CPU computes); on the card a
     bfloat16 cuBLAS product, whose reduction order (and, by PyTorch's
     default, reduced-precision split-K reductions) may differ from the
     CPU's by float32 rounding."""
-    xb, wb = x.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE)
-    if x.device.type == "cpu":
-        return (xb.float() @ wb.float()).to(COMPUTE_DTYPE)
-    return xb @ wb
+    ab, bb = a.to(COMPUTE_DTYPE), b.to(COMPUTE_DTYPE)
+    if a.device.type == "cpu":
+        return (ab.float() @ bb.float()).to(COMPUTE_DTYPE)
+    return ab @ bb
+
+
+def dense(w, x):
+    """``x @ w`` for ``w`` ``[d_in, d_out]`` (:func:`matmul_bf16`)."""
+    return matmul_bf16(x, w)
+
+
+def dense_f32(w, x):
+    """``x @ w`` with bfloat16 operands and the float32 accumulation kept
+    (the reference's einsum with ``preferred_element_type=float32`` and
+    no cast after it): a float32 product of the bfloat16-rounded
+    operands on both devices."""
+    return x.to(COMPUTE_DTYPE).float() @ w.to(COMPUTE_DTYPE).float()
 
 
 # -- embeddings --------------------------------------------------------------
@@ -121,6 +134,13 @@ def apply_rope(x, positions, theta: float = 10_000.0):
 
 
 # -- activations --------------------------------------------------------------
+
+def softplus(x):
+    """``jax.nn.softplus`` (``logaddexp(x, 0)``): ``max(x, 0) +
+    log1p(exp(-|x|))``, with no threshold (``F.softplus`` returns x
+    above 20)."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+
 
 def _silu(x):
     # jax.nn.silu: x * (1 / (1 + exp(-x))), each step in x's dtype

@@ -920,6 +920,120 @@ def test_model_card_equals_cpu(dev):
                            want[:, -1].argmax(-1)[sure])
 
 
+@pytest.mark.parametrize("b,h,hkv,sq,skv,d", [
+    (2, 16, 16, 64, 256, 64),        # cross attention: Sq 64, Skv 256
+    (2, 4, 4, 64, 16, 64),           # Skv 16 < one 128-key tile
+    (2, 16, 16, 512, 512, 64),       # seamless's encoder: Hkv == H, D 64
+    (1, 8, 2, 100, 384, 128)])       # cross with GQA, ragged Sq
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_model_paths(dev, b, h, hkv, sq, skv, d, dtype):
+    """The encoder's and the cross attention's non-causal shapes
+    (``chip_smoke.py`` phase 2), against the plain version: float32
+    within 2e-5, bf16 (the ``wgmma`` route) within one bf16 ulp or
+    2e-5."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import ops
+    rng = np.random.default_rng(sq + skv + d)
+    q = torch.from_numpy(rng.normal(size=(b, h, sq, d)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(size=(b, hkv, skv, d)).astype(
+        np.float32)) for _ in range(2))
+    args = [x.to(dev, dtype) for x in (q, k, v)]
+    kw = dict(causal=False, tk=min(64, skv))
+    kernels.reset_launch_counts()
+    got = ops.flash_attention(*args, tq=sq, **kw)
+    assert ops.route_counts()[ops.route(dtype, d)] == 1
+    assert _bf16_err_ok(got, ops.flash_attention_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mixtral-8x22b",
+                                  "mamba2-370m", "jamba-v0.1-52b",
+                                  "internvl2-26b", "seamless-m4t-large-v2"])
+def test_family_card_equals_cpu(dev, arch, monkeypatch):
+    """Each new family's reduced config, one weight set on both devices:
+    prefill (enc-dec with frames, vision with patches) and two decode
+    steps; logits within 1e-2 of their scale; one ``flash_attention``
+    launch per attention layer (and per encoder layer and cross
+    attention), none in decode. With MoE layers the card takes the CPU
+    run's expert choices (its router still runs): a token whose top-k
+    margin is below the two devices' rounding differences may route to
+    other experts, a discontinuity no tolerance bounds (reduced
+    deepseek has a margin of 8.7e-6 here); the card's router on the
+    CPU's inputs picks the CPU's experts past a 1e-6 margin."""
+    from repro_torch import configs, kernels
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    cfg = configs.get_reduced(arch)
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = M.init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu").to(dev)
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 66), generator=gen)
+    batch, off = {"tokens": toks[:, :64]}, 0
+    if cfg.is_encdec:
+        batch = {"dec_tokens": toks[:, :64],
+                 "frames": torch.randn(2, 48, cfg.d_model, generator=gen)}
+    if cfg.frontend == "vision":
+        off = cfg.frontend_tokens
+        batch["patches"] = torch.randn(2, off, cfg.d_model, generator=gen)
+    attn = sum(s.kind == "attn" for s in cfg.layer_pattern()) \
+        * cfg.num_superlayers + (1 if cfg.first_dense_ff else 0) \
+        + (cfg.encoder_layers + cfg.num_layers if cfg.is_encdec else 0)
+    route, calls = moe.route, []
+
+    def record(p, c, xf):
+        out = route(p, c, xf)
+        calls.append((p, xf, out))
+        return out
+
+    def run(model, b, d):
+        logits, cache = M.prefill(model, cfg, b, off + 66)
+        outs = [logits.cpu()]
+        for i in range(2):
+            logits, cache = M.decode_step(model, cfg,
+                                          toks[:, 64 + i:65 + i].to(d),
+                                          cache, off + 64 + i)
+            outs.append(logits.cpu())
+        return outs
+    monkeypatch.setattr(moe, "route", record)
+    want = run(cpu, batch, "cpu")
+    replay = iter(calls)
+
+    def held(p, c, xf):
+        probs, _, _ = route(p, c, xf)
+        _, _, (_, gate, idx) = next(replay)
+        return probs, gate.to(xf.device), idx.to(xf.device)
+    monkeypatch.setattr(moe, "route", held)
+    kernels.reset_launch_counts()
+    got = run(card, {k: v.to(dev) for k, v in batch.items()}, dev)
+    assert kernels.launch_counts()["flash_attention"] == attn
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        err = float((g - w).abs().max() / w.abs().max())
+        assert err < 1e-2, err
+    to_card = dict(zip(map(id, cpu.modules()), card.modules()))
+    for p, xf, (probs, _, idx) in calls:
+        top = probs.sort(-1, descending=True).values
+        sure = top[:, cfg.moe_top_k - 1] - top[:, cfg.moe_top_k] > 1e-6
+        _, _, mine = route(to_card[id(p)], cfg, xf.to(dev))
+        assert torch.equal(mine.cpu()[sure], idx[sure])
+
+
+def test_moe_prefill_is_deterministic(dev):
+    """Reduced deepseek prefilled twice on the card gives bit-identical
+    logits: the MoE combine adds each token's pairs in one fixed order,
+    with no atomics."""
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    cfg = configs.get_reduced("deepseek-moe-16b")
+    model = M.init_params(cfg, torch.Generator().manual_seed(0),
+                          device="cpu").to(dev)
+    toks = torch.randint(0, cfg.vocab_size, (4, 96),
+                         generator=torch.Generator().manual_seed(1)).to(dev)
+    a, _ = M.prefill(model, cfg, {"tokens": toks})
+    b, _ = M.prefill(model, cfg, {"tokens": toks})
+    assert torch.equal(a, b)
+
+
 # ---------------------------------------------------------------------------
 # the per-state maintenance ops, mrc and fig10 (the paper's figures' API)
 # ---------------------------------------------------------------------------

@@ -8,6 +8,7 @@ floor behind them.
 """
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -117,12 +118,28 @@ def test_configs_are_the_reference_configs():
                 [dataclasses.asdict(b) for b in j.layer_pattern()]
 
 
-def test_other_families_are_refused():
-    for arch in ("mixtral-8x22b", "mamba2-370m", "jamba-v0.1-52b",
-                 "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            M.init_params(configs.get_reduced(arch), torch.Generator(),
-                          device="cpu")
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_every_config_initialises(arch):
+    """Every config in ``configs/`` builds in the port: the reduced one
+    with weights drawn on the CPU (finite, float32, no gradient), the
+    full one on the meta device (shapes only). Each parameter count
+    equals the number of elements in the JAX package's tree
+    (``jax.eval_shape`` of its ``init_params``, nothing allocated)."""
+    for get, jget in ((configs.get_reduced, jconfigs.get_reduced),
+                      (configs.get, jconfigs.get)):
+        cfg, jcfg = get(arch), jget(arch)
+        want = sum(int(np.prod(a.shape)) for a in jax.tree_util.tree_leaves(
+            jax.eval_shape(lambda k: JM.init_params(jcfg, k),
+                           jax.random.PRNGKey(0))))
+        if get is configs.get_reduced:
+            model = M.init_params(cfg, torch.Generator().manual_seed(0),
+                                  device="cpu")
+            assert all(torch.isfinite(p).all() and not p.requires_grad
+                       and p.dtype == torch.float32
+                       for p in model.parameters())
+        else:
+            model = M.Model(cfg, None, torch.device("meta"))
+        assert sum(p.numel() for p in model.parameters()) == want, arch
 
 
 def test_init_params_shapes_and_count():
