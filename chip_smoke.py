@@ -238,12 +238,34 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    deepseek prefilled twice with bit-identical logits, and ``serve.main
    --arch`` for deepseek and jamba (page bank by prefill), internvl2
    (gaussian pages) and mamba2 (``AssertionError: no attention cache``,
-   as the reference's serve).
+   as the reference's serve);
+17. trains the dense model: (a) holds ``flash_attention_bwd`` (the
+   backward of ``flash_attention``, ``csrc/flash_attention_bwd.cu``) to
+   its plain version at the training shape (B 2, H 32, Hkv 8, S 2048, D
+   128, bf16, causal, the model's layout), a float32 causal shape, a
+   sliding window, non-causal shapes and the edges (``BWD_SHAPES``),
+   float32 within 1e-4 and bf16 within 2e-2 of each gradient's scale,
+   and times it (calls, and a CUDA graph) beside the plain version,
+   SDPA's backward (``is_causal``, ``enable_gqa``; never called by the
+   port) and its bound (5 products at the bf16 tensor-core rate), with
+   ptxas's registers and spills; (b) trains reduced qwen3 for 3 steps of
+   ``make_train_step`` on the card and on the CPU from one weight set
+   (losses and parameters within 2e-2); (c) trains qwen3-4b at full
+   width cut to 8 of 36 layers (``dataclasses.replace(CONFIG,
+   num_layers=8)``: 1.59 B float32 parameters; parameters, gradients
+   and AdamW's float32 moments take 25.4 GB) over ``TokenPipeline``
+   batches of B 2 x 2048 for 5 steps: exactly 16 ``flash_attention``
+   (forward and checkpoint recompute) and 8 ``flash_attention_bwd``
+   launches a step, finite losses, loss, ms and tokens/s a step, peak
+   device memory, a step's parts (CUDA events) and one profiled step's
+   device time by kernel group; (d) runs ``repro_torch.launch.train``'s
+   ``main`` on the card with and without ``--inject-failure-at 2
+   --ckpt-every 1``: the same losses, and whether to the bit.
 
 The §5.1 deployment (VMs, requests, intervals, the DRAM share of the
 capacity) comes from ``src/repro_torch/configs/etica_paper.py``.
 
-Each card run of phases 3 to 16 sets the launch counts to 0 just before
+Each card run of phases 3 to 17 sets the launch counts to 0 just before
 and reads them just after; exactly the kernels of that path's own set
 must have launched (``popularity`` only on the staged paths), and in
 phase 14 only the datapath route of its run (``classified`` with a
@@ -255,7 +277,8 @@ The line before the last is ``{"kernels": [...]}`` (one entry per
 kernel; ``routes`` and ``routes_by_path``, where a kernel has more than
 one route, count each route's launches; ``launches`` from its own path: the 12-VM paths, the full-width
 serving run for ``paged_decode_attention``, the staged 12-VM run for
-``popularity`` and the full-width prefill for ``flash_attention``; the
+``popularity``, the full-width prefill for ``flash_attention`` and the
+full-width training run's 5 steps for ``flash_attention_bwd``; the
 ``classified`` routes as entries of their own, ``two_level_classified``
 and ``single_level_classified``, with their route's launches on the
 seq-cutoff 12-VM runs); the
@@ -3067,7 +3090,7 @@ def decode_gap_causes(model, cfg, one, p) -> dict:
     positions = torch.arange(p + 1, device=x.device)[None]
 
     def logits(x):
-        x = M._scan_train(model, cfg, x, positions)
+        x, _ = M._scan_train(model, cfg, x, positions)
         return unembed(model.unembed, rmsnorm(model.final_norm, x[:, -1:],
                                               cfg.norm_eps))
     base = logits(x)
@@ -5192,6 +5215,442 @@ def check_families(launches) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: dense-model training (qwen3-4b at full width, 8 layers)
+# ---------------------------------------------------------------------------
+
+QWEN3_TRAIN_LAYERS = 8        # of 36: params, grads and m, v fit the card
+QWEN3_TRAIN = (2, 2048, 5)    # batch, sequence, AdamW steps
+TRAIN_BWD = (2, 32, 8, 2048, 128)   # B, H, Hkv, S, D of the layers' backward
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # of each output's scale
+# the backward's other shapes (B, H, Hkv, Sq, Skv, D) and masks: float32
+# causal, a sliding window, non-causal, and the edges (Sq and Skv apart, a
+# q offset, D 64 and 48, rows whose window keeps no key)
+BWD_SHAPES = [
+    ("float32 causal", (1, 8, 2, 1024, 1024, 128), dict(causal=True),
+     ("float32",)),
+    ("window 256", (1, 8, 2, 1024, 1024, 128), dict(causal=True, window=256),
+     ("float32", "bfloat16")),
+    ("non-causal", (2, 16, 16, 512, 512, 64), dict(causal=False),
+     ("float32", "bfloat16")),
+    ("non-causal GQA, Sq 100 Skv 384", (1, 8, 2, 100, 384, 128),
+     dict(causal=False), ("float32", "bfloat16")),
+    ("q offset 130, D 48", (1, 4, 2, 70, 200, 48),
+     dict(causal=True, q_offset=130), ("float32", "bfloat16")),
+    ("window past the keys", (1, 2, 1, 16, 48, 8),
+     dict(causal=True, window=4, q_offset=60), ("float32", "bfloat16")),
+]
+
+
+def bwd_inputs(dev, shape, dtype, seed, **kw):
+    """Model-layout q [B, Sq, H, D], k and v [B, Skv, Hkv, D] from a
+    seeded generator, passed as [B, H, S, D] views as the autograd
+    Function passes them; the forward's output and a random upstream
+    gradient in q's layout."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    b, h, hkv, sq, skv, d = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*s):
+        return torch.randn(*s, device=dev, generator=gen).to(dtype)
+    q = rnd(b, sq, h, d).transpose(1, 2)
+    k, v = (rnd(b, skv, hkv, d).transpose(1, 2) for _ in range(2))
+    out = ops.flash_attention(q, k, v, tq=sq, tk=skv, **kw)
+    do = rnd(b, sq, h, d).transpose(1, 2)
+    return q, k, v, out, do
+
+
+def bwd_check(label, args, **kw) -> tuple[float, float]:
+    """``flash_attention_bwd`` against its plain version on the same
+    tensors: one launch, dq, dk and dv each within the dtype's tolerance
+    of its scale (max |kernel - plain| / max |plain|), in q, k and v's
+    dtypes and layouts. Returns the largest relative and absolute
+    errors."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import ops
+    before = kernels.launch_counts()["flash_attention_bwd"]
+    got = ops.flash_attention_bwd(*args, **kw)
+    if kernels.launch_counts()["flash_attention_bwd"] != before + 1:
+        raise AssertionError(f"flash_attention_bwd {label}: not launched")
+    want = ops.flash_attention_bwd_plain(*args, **kw)
+    tol = BWD_TOL[str(args[0].dtype).removeprefix("torch.")]
+    errs, abs_errs = [], []
+    for name, g, w, x in zip(("dq", "dk", "dv"), got, want, args[:3]):
+        if g.dtype != x.dtype or g.stride() != x.stride():
+            raise AssertionError(f"flash_attention_bwd {label}: {name} "
+                                 f"{g.dtype} {g.stride()} against "
+                                 f"{x.dtype} {x.stride()}")
+        abs_errs.append(float((g.float() - w.float()).abs().max()))
+        errs.append(abs_errs[-1] / max(float(w.float().abs().max()), 1e-30))
+    if not max(errs) <= tol:
+        raise AssertionError(f"flash_attention_bwd {label}: relative errors "
+                             f"{errs} over {tol}")
+    return max(errs), max(abs_errs)
+
+
+def bwd_bound(q, k, causal=True) -> tuple[float, str]:
+    """Least time for one backward: q, k, v, out and dout read once and
+    dq, dk, dv written once over the HBM rate, against the operations
+    the function needs (5 products of Sq x Skv x D a head: s = q·kᵀ
+    recomputed, dP = dO·Vᵀ, dV, dK, dQ; halved by the causal mask at Sq
+    = Skv) at the dtype's peak: bf16 tensor cores, or the float32 CUDA
+    cores."""
+    import torch
+    b, h, sq, d = q.shape
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
+    flops = 10.0 * b * h * sq * k.shape[2] * d / (2 if causal else 1)
+    rate = BF16_TENSOR_FLOPS if q.dtype == torch.bfloat16 \
+        else SCALAR_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_flash_bwd(args) -> dict:
+    """At the training shape: the kernel (calls back to back, and a CUDA
+    graph of the calls), the plain version, and the backward of
+    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` on
+    the same views (autograd's backward alone, the forward's graph kept),
+    never called by the port."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    q, k, v, out, do = args
+
+    def kernel():
+        return ops.flash_attention_bwd(q, k, v, out, do, causal=True)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    ref = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                         enable_gqa=True)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(ref, leaves, do, retain_graph=True)
+    ms = cuda_ms(kernel, 5)
+    dev_ms = graph_ms(kernel, reps=3, replays=3)
+    plain_ms = cuda_ms(lambda: ops.flash_attention_bwd_plain(
+        q, k, v, out, do, causal=True), 2)
+    lib_ms = cuda_ms(sdpa_bwd, 10)
+    lib_dev_ms, lib_events = device_profile(sdpa_bwd, 3)
+    b, by = bwd_bound(q, k)
+    bq, h, sq, d = q.shape
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=lib_ms,
+                library_device_ms=lib_dev_ms, library_events=lib_events,
+                tflops=10.0 * bq * h * sq * sq * d / 2 / dev_ms / 1e9)
+
+
+def check_flash_bwd(dev, shape=TRAIN_BWD, cases=BWD_SHAPES) -> dict:
+    """Phase 17 (a): ``flash_attention_bwd`` against its plain version at
+    the training shape (bf16, causal, model layout), at
+    ``BWD_SHAPES``'s float32 causal, sliding-window, non-causal and edge
+    shapes; its times beside the plain version and SDPA's backward at
+    the training shape; ptxas's registers and spills."""
+    import torch
+    b, h, hkv, s, d = shape
+    args = bwd_inputs(dev, (b, h, hkv, s, s, d), torch.bfloat16, 17,
+                      causal=True)
+    worst = {"training": bwd_check("training shape", args, causal=True)}
+    for i, (label, shp, kw, dtypes) in enumerate(cases):
+        for dt in dtypes:
+            a = bwd_inputs(dev, shp, getattr(torch, dt), 100 + i, **kw)
+            worst[f"{label} {dt}"] = bwd_check(f"{label} {dt}", a, **kw)
+            del a
+    log(f"flash_attention_bwd == plain (float32 within {BWD_TOL['float32']}"
+        f", bf16 within {BWD_TOL['bfloat16']} of each output's scale; "
+        f"relative, absolute): " + ", ".join(
+            f"{k} {r:.2e}, {a:.2e}" for k, (r, a) in worst.items()))
+    row = time_flash_bwd(args)
+    row["max_abs_err"] = max(a for _, a in worst.values())
+    row["max_rel_err"] = max(r for r, _ in worst.values())
+    row["rel_err_by_shape"] = {k: r for k, (r, _) in worst.items()}
+    row["ptxas"] = ptxas_lines("flash_attention_bwd.cu")
+    for ln in row["ptxas"]:
+        log(f"ptxas flash_attention_bwd.cu: {ln}")
+    log(f"flash_attention_bwd {shape} bf16 causal, model layout: kernel "
+        f"{row['ms']:.4f} ms (device {row['device_ms']:.4f} ms, "
+        f"{row['tflops']:.1f} TFLOP/s of the 5 products), plain "
+        f"{row['plain_ms']:.4f} ms, SDPA backward {row['library_ms']:.4f} "
+        f"ms (device {fmt_ms(row['library_device_ms'])}), bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    del args
+    return row
+
+
+def train_run(model, cfg, opt_cfg, pipe, steps, dev, check_launches=True):
+    """``steps`` calls of ``make_train_step`` on the pipeline's batches,
+    each timed on the host clock to a synchronise; with
+    ``check_launches``, each step must launch exactly 2 ``flash_attention``
+    (forward and checkpoint recompute) and 1 ``flash_attention_bwd`` a
+    layer. Returns (losses, step seconds, per-step launches)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import init_opt_state
+    opt = init_opt_state(dict(model.named_parameters()), opt_cfg)
+    step_fn = make_train_step(cfg, opt_cfg)
+    losses, secs, per_step = [], [], []
+    for step in range(steps):
+        batch = pipe.batch_at(step)
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        model, opt, metrics = step_fn(model, opt, batch)
+        loss = float(metrics["loss"])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        after = kernels.launch_counts()
+        n = {k: after[k] - before[k] for k in ("flash_attention",
+                                               "flash_attention_bwd")}
+        per_step.append(n)
+        want = {"flash_attention": 2 * cfg.num_layers,
+                "flash_attention_bwd": cfg.num_layers}
+        if check_launches and n != want:
+            raise AssertionError(f"train step {step}: launches {n}, "
+                                 f"expected {want}")
+        if not np.isfinite(loss):
+            raise AssertionError(f"train step {step}: loss {loss}")
+        losses.append(loss)
+    return losses, secs, per_step, opt
+
+
+def check_reduced_train_card_cpu(steps=3) -> dict:
+    """Phase 17 (b): reduced qwen3 from one CPU-drawn weight set, 3
+    ``make_train_step`` steps on the card (the kernels) and on the CPU
+    (the plain versions): losses within 2e-2 of each other, and each
+    parameter within 2e-2 (relative L2) after the steps."""
+    import copy
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import model as M
+    from repro_torch.optim import OptConfig
+    cfg = configs.get_reduced("qwen3-4b")
+    opt_cfg = OptConfig(lr=1e-2, warmup_steps=1, total_steps=steps)
+    pipe = TokenPipeline(cfg, 4, 128, seed=3)
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    l_card, *_ = train_run(card, cfg, opt_cfg, pipe, steps,
+                           torch.device("cuda"))
+    l_cpu, *_ = train_run(cpu, cfg, opt_cfg, pipe, steps,
+                          torch.device("cpu"), check_launches=False)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu))
+    par_err = max(float((pc.detach().cpu() - pp.detach()).norm()
+                        / pp.detach().norm().clamp_min(1e-30))
+                  for pc, pp in zip(card.parameters(), cpu.parameters()))
+    if not (loss_err <= 2e-2 and par_err <= 2e-2):
+        raise AssertionError(f"reduced train card vs CPU: losses {l_card} "
+                             f"vs {l_cpu}, parameters {par_err:.3e}")
+    log(f"reduced qwen3 training, {steps} steps of B 4 x 128: card losses "
+        f"{[round(x, 6) for x in l_card]}, CPU {[round(x, 6) for x in l_cpu]}"
+        f" (largest relative gap {loss_err:.2e}); parameters after the "
+        f"steps within {par_err:.2e} (relative L2, worst tensor)")
+    return dict(loss_err=loss_err, param_err=par_err, card=l_card,
+                cpu=l_cpu)
+
+
+def kernel_group(name: str) -> str:
+    """The part of a training step a device event belongs to, by its
+    kernel's name."""
+    import re
+    if "flash_sm90" in name or "flash_kernel" in name:
+        return "flash_attention (forward and recompute)"
+    if any(s in name for s in ("row_stats", "kv_pass", "q_pass")):
+        return "flash_attention_bwd"
+    if re.search(r"gemm|nvjet|xmma|cutlass|cublas", name, re.I):
+        return "cuBLAS products"
+    return "elementwise, reductions, copies"
+
+
+def train_step_phases(model, cfg, opt_cfg, batch, reps=2) -> dict:
+    """CUDA-event milliseconds of a training step's parts (the step of
+    ``make_train_step`` cut at its seams): forward (loss), backward
+    (the checkpointed superlayers' recompute and every gradient), AdamW;
+    and the chunked cross-entropy's forward and backward alone on the
+    same hidden state. Means over ``reps`` steps after one untimed step
+    (the allocator's first requests for the step's buffers)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.optim import apply_updates, init_opt_state
+    named = dict(model.named_parameters())
+    opt = init_opt_state(named, opt_cfg)
+    batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    out = {"forward": 0.0, "backward": 0.0, "adamw": 0.0}
+    for rep in range(reps + 1):
+        for p in named.values():
+            p.grad = None
+        ev[0].record()
+        loss, _ = M.forward_train(model, cfg, batch)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        apply_updates(named, {n: p.grad for n, p in named.items()}, opt,
+                      opt_cfg)
+        ev[3].record()
+        ev[3].synchronize()
+        for i, k in enumerate(("forward", "backward", "adamw")):
+            out[k] += ev[i].elapsed_time(ev[i + 1]) / reps if rep else 0.0
+    for p in named.values():
+        p.grad = None
+    del opt
+    x, _ = M._embed_inputs(model, cfg, batch)
+    x = rmsnorm(model.final_norm, x, cfg.norm_eps).detach().requires_grad_()
+    mask, labels = M._loss_targets(cfg, batch, x.shape[1])
+
+    def ce():
+        M._chunked_ce(model, cfg, x, labels, mask).backward()
+    out["cross_entropy_fwd_bwd"] = cuda_ms(ce, reps)
+    model.unembed.grad = None
+    return out
+
+
+def grouped_profile(fn) -> tuple[float | None, float, dict]:
+    """``(device ms, device events, {kernel group: ms})`` of one call of
+    ``fn`` from a ``torch.profiler`` trace (after one call outside it);
+    ``None`` ms when the trace shows no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total, events, groups = 0.0, 0, {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and not getattr(
+                ev, "is_user_annotation", False):
+            ms = float(getattr(ev, "self_device_time_total",
+                               getattr(ev, "self_cuda_time_total",
+                                       0.0))) / 1e3
+            total += ms
+            events += ev.count
+            g = kernel_group(ev.key)
+            groups[g] = groups.get(g, 0.0) + ms
+    return (total if total > 0 else None), events, groups
+
+
+def check_full_width_training(launches, dev="cuda", layers=QWEN3_TRAIN_LAYERS,
+                              shape=QWEN3_TRAIN) -> dict:
+    """Phase 17 (c): qwen3-4b at full width cut to ``layers`` layers
+    (``dataclasses.replace(CONFIG, num_layers=8)``), weights from a
+    seeded generator on the card, ``make_train_step`` over
+    ``TokenPipeline`` batches of B 2 x 2048 for 5 AdamW steps (float32
+    moments): launch counts set to 0 before and read after the run, each
+    step exactly 16 ``flash_attention`` and 8 ``flash_attention_bwd``;
+    losses finite; per step loss, tokens/s and ms; peak device memory;
+    then a step's parts (CUDA events) and one profiled step's device
+    time by kernel group."""
+    import torch
+    from repro_torch import configs, kernels
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import OptConfig, init_opt_state
+    dev = torch.device(dev)
+    b, s, steps = shape
+    cfg = dataclasses.replace(configs.get("qwen3-4b"), num_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
+    model = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt_cfg = OptConfig(lr=3e-4, warmup_steps=1, total_steps=steps)
+    pipe = TokenPipeline(cfg, b, s, seed=0)
+    kernels.reset_launch_counts()
+    losses, secs, per_step, opt = train_run(model, cfg, opt_cfg, pipe, steps,
+                                            dev)
+    launches["qwen3-4b-train"] = serving_launches(
+        "qwen3-4b train", ("flash_attention", "flash_attention_bwd"),
+        only=True)
+    peak = torch.cuda.max_memory_allocated()
+    tok = [b * s / t for t in secs]
+    for i, (loss, t, n) in enumerate(zip(losses, secs, per_step)):
+        log(f"qwen3-4b train ({layers} layers, B {b} x {s}) step {i}: loss "
+            f"{loss:.6f}, {t * 1e3:.1f} ms, {tok[i]:.0f} tokens/s, "
+            f"launches {n}")
+    log(f"qwen3-4b train: {n_params:,} float32 parameters "
+        f"({n_params / 1e9:.3f} B), peak device memory {peak / 2**30:.2f} "
+        f"GiB ({peak / 1e9:.2f} GB), launches "
+        f"{launches['qwen3-4b-train']['flash_attention']} flash_attention "
+        f"and {launches['qwen3-4b-train']['flash_attention_bwd']} "
+        f"flash_attention_bwd in {steps} steps")
+    batch = pipe.batch_at(steps)
+    del opt
+    phases = train_step_phases(model, cfg, opt_cfg, batch)
+    log("qwen3-4b train step parts (CUDA events): " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in phases.items()))
+    step_fn = make_train_step(cfg, opt_cfg)
+    opt = init_opt_state(dict(model.named_parameters()), opt_cfg)
+    dev_ms, events, groups = grouped_profile(
+        lambda: step_fn(model, opt, batch))
+    log(f"qwen3-4b train step, profiled: device {fmt_ms(dev_ms)} in "
+        f"{events} events; by kernel group " + ", ".join(
+            f"{k} {v:.2f} ms" for k, v in sorted(groups.items(),
+                                                 key=lambda x: -x[1])))
+    del model, opt
+    torch.cuda.empty_cache()
+    return dict(layers=layers, batch=b, seq=s, params=n_params,
+                losses=losses, step_ms=[t * 1e3 for t in secs],
+                tokens_per_s=tok, peak_bytes=peak, per_step=per_step,
+                phases_ms=phases, step_device_ms=dev_ms,
+                step_events=events, device_ms_by_group=groups)
+
+
+def grads_twice(dev="cuda", seq=256) -> list[str]:
+    """Names of the reduced qwen3's parameters whose gradients differ
+    between two backward passes over the same weights and batch: the ops
+    that are not deterministic on this device."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import model as M
+    cfg = configs.get_reduced("qwen3-4b")
+    model = M.init_params(cfg, torch.Generator().manual_seed(0),
+                          "cpu").to(dev).requires_grad_(True)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in
+             TokenPipeline(cfg, 4, seq).batch_at(0).items()}
+    grads = []
+    for _ in range(2):
+        loss, _ = M.forward_train(model, cfg, batch)
+        grads.append(torch.autograd.grad(loss, list(model.parameters())))
+    return [n for (n, _), a, b in zip(model.named_parameters(), *grads)
+            if not torch.equal(a, b)]
+
+
+def check_train_recovery(dev="cuda", steps=4, seq=256) -> dict:
+    """Phase 17 (d): ``python -m repro_torch.launch.train``'s ``main`` on
+    the card (reduced qwen3, B 4 x 256), once without a failure and once
+    with ``--inject-failure-at 2 --ckpt-every 1`` (the committed host
+    copy restored into the live tensors, the step replayed): the same
+    losses within 2e-2, and whether equal to the bit; if not, the
+    parameters whose gradients differ between two identical backward
+    passes."""
+    import tempfile
+    from repro_torch.launch import train
+    argv = ["--device", dev, "--steps", str(steps), "--batch", "4",
+            "--seq", str(seq), "--log-every", "1"]
+    clean = train.main(argv)
+    with tempfile.TemporaryDirectory() as d:
+        failed = train.main(argv + ["--ckpt-dir", d, "--ckpt-every", "1",
+                                    "--inject-failure-at", "2"])
+    err = max(abs(a - b) / abs(b) for a, b in zip(failed, clean))
+    bits = failed == clean
+    differ = [] if bits else grads_twice(dev, seq)
+    if not err <= 2e-2:
+        raise AssertionError(f"recovery run {failed} vs {clean}")
+    log(f"train recovery (failure at step 2, a checkpoint every step): "
+        f"losses {failed} vs failure-free {clean}: "
+        + ("equal to the bit" if bits else
+           f"within {err:.2e}, not bit-equal; gradients that differ "
+           f"between two identical backward passes: {differ}"))
+    return dict(losses=failed, clean=clean, bit_equal=bits, rel_err=err,
+                nondeterministic_grads=differ)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5410,6 +5869,17 @@ def main() -> int:
     rows["flash_attention"]["families"] = check_families(launches)
     log(f"phase 16: {time.perf_counter() - t16:.1f} s")
 
+    # phase 17: dense-model training: flash_attention_bwd against its
+    # plain version; reduced qwen3 card == CPU; qwen3-4b at full width (8
+    # layers) for 5 AdamW steps; recovery replays a failed step
+    t17 = time.perf_counter()
+    rows["flash_attention_bwd"] = check_flash_bwd(dev)
+    rows["flash_attention_bwd"]["train"] = dict(
+        reduced_card_cpu=check_reduced_train_card_cpu(),
+        qwen3_4b=check_full_width_training(launches),
+        recovery=check_train_recovery())
+    log(f"phase 17: {time.perf_counter() - t17:.1f} s")
+
     sources = {"count_between": "src/repro_torch/csrc/count_between.cu",
                "evict_scatter": "src/repro_torch/csrc/evict_scatter.cu",
                "promote_scatter": "src/repro_torch/csrc/promote_scatter.cu",
@@ -5421,7 +5891,9 @@ def main() -> int:
                    "src/repro_torch/csrc/decode_attention.cu",
                "popularity": "src/repro_torch/csrc/popularity.cu",
                "flash_attention":
-                   "src/repro_torch/csrc/flash_attention_sm90.cu"}
+                   "src/repro_torch/csrc/flash_attention_sm90.cu",
+               "flash_attention_bwd":
+                   "src/repro_torch/csrc/flash_attention_bwd.cu"}
     replaces = {
         "count_between": "src/repro/kernels/reuse_distance/kernel.py:29",
         "evict_scatter": "src/repro/kernels/maintenance/kernel.py:51",
@@ -5437,14 +5909,18 @@ def main() -> int:
         "paged_decode_attention":
             "src/repro/kernels/decode_attention/kernel.py:28",
         "popularity": "src/repro/kernels/popularity/kernel.py:26",
-        "flash_attention": "src/repro/kernels/flash_attention/kernel.py:29"}
+        "flash_attention": "src/repro/kernels/flash_attention/kernel.py:29",
+        "flash_attention_bwd": "src/repro/models/attention.py:75 (jax.grad "
+                               "of blocked_attention's scan under "
+                               "jax.checkpoint; no Pallas kernel)"}
     # each kernel's own 12-VM path: the one whose launches it reports
     own_path = dict.fromkeys(kernels.KERNELS, "paper-12vm")
     own_path.update(clean_scatter="paper-12vm-clean",
                     single_level="paper-12vm-eci",
                     paged_decode_attention="serving-full-width",
                     popularity="paper-12vm-staged",
-                    flash_attention="qwen3-4b-prefill")
+                    flash_attention="qwen3-4b-prefill",
+                    flash_attention_bwd="qwen3-4b-train")
 
     def routes(k):
         """Launches of ``k``'s routes on its own path and on each path."""

@@ -39,6 +39,10 @@ launch counter (:func:`launch_counts`), and nothing else does.
     (``flash_attention_sm90.cu``, bf16 on the tensor cores, D a multiple
     of 16 up to 128) and ``cuda_cores`` (``flash_attention.cu``, float32
     and the other head dims)
+  * ``flash_attention_bwd`` — its backward (``flash_attention_bwd.cu``:
+    row statistics, then dK and dV a KV tile, then dQ a q tile; no
+    atomics), which the training path's autograd Function launches; it
+    has no Pallas original (the JAX package differentiates its jnp scan)
 
 ``popularity`` and ``run_sums`` have two routes each, chosen on the
 host from the padded row width (:func:`row_route`): ``row`` groups each
@@ -71,12 +75,14 @@ BUILD = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("count_between.cu", "evict_scatter.cu", "promote_scatter.cu",
            "clean_scatter.cu", "datapath.cu", "single_level.cu",
            "run_sums.cu", "decode_attention.cu", "popularity.cu",
-           "flash_attention.cu", "flash_attention_sm90.cu", "chain_probe.cu")
+           "flash_attention.cu", "flash_attention_sm90.cu",
+           "flash_attention_bwd.cu", "chain_probe.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 # ptxas reports registers, shared memory and spills of these sources into
 # the build's log (:func:`build_log`)
-VERBOSE_SOURCES = ("flash_attention_sm90.cu", "datapath.cu",
+VERBOSE_SOURCES = ("flash_attention_sm90.cu", "flash_attention_bwd.cu",
+                   "datapath.cu",
                    "single_level.cu", "decode_attention.cu",
                    "promote_scatter.cu", "count_between.cu",
                    "evict_scatter.cu", "clean_scatter.cu", "run_sums.cu",
@@ -84,7 +90,8 @@ VERBOSE_SOURCES = ("flash_attention_sm90.cu", "datapath.cu",
 
 KERNELS = ("count_between", "evict_scatter", "promote_scatter",
            "clean_scatter", "two_level", "single_level", "run_sums",
-           "paged_decode_attention", "popularity", "flash_attention")
+           "paged_decode_attention", "popularity", "flash_attention",
+           "flash_attention_bwd")
 # kernels with more than one CUDA entry point: route -> C symbol
 ROUTES = {"flash_attention": {"wgmma": "etica_flash_attention_sm90",
                               "cuda_cores": "etica_flash_attention"},
@@ -124,6 +131,8 @@ _SIGNATURES = {
     "etica_flash_attention_sm90": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    *(_L,) * 12, _I, _I, _I, _F, _P),
     "etica_flash_attention_sm90_smem": (_I,),
+    "etica_flash_attention_bwd": (*(_P,) * 11, *(_I,) * 6, _P, _I, _I, _I,
+                                  _F, _I, _P),
     "etica_chain_probe": (_P, _I, _P, _P),
     "etica_fadd_probe": (_F, _I, _P, _P),
 }

@@ -27,8 +27,20 @@ order only. The ``wgmma`` route reads q, k and v by TMA, which needs
 16-byte aligned pointers and strides: it raises on others. ``q_offset``
 is the absolute position of ``q[0]`` relative to ``k[0]`` (the
 reference's ``blocked_attention`` argument; 0 in the Pallas kernel).
+
+The backward: :func:`flash_attention_bwd` gives ``dq, dk, dv`` from q,
+k, v, the forward's output and its gradient, through the
+``flash_attention_bwd`` kernel (``csrc/flash_attention_bwd.cu``, one
+launch sequence of three kernels, counted once) for CUDA tensors and
+:func:`flash_attention_bwd_plain` for CPU tensors. :class:`FlashAttention`
+is the ``torch.autograd.Function`` that joins the two directions;
+:func:`attention`, which the model calls, goes through it on both
+devices. The JAX package has no backward kernel: it differentiates its
+jnp scan.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -116,6 +128,20 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return out
 
 
+def _mask(sq: int, skv: int, *, causal: bool, window: int, q_offset: int,
+          device=None):
+    """``[Sq, Skv]`` bool: the scores the forward keeps (absolute
+    positions ``q_offset + i`` against ``j``)."""
+    q_pos = q_offset + torch.arange(sq, device=device)[:, None]
+    k_pos = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones(sq, skv, dtype=torch.bool, device=device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window:
+        mask &= k_pos > q_pos - window
+    return mask
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
                           tk: int = DEFAULT_TK, q_offset: int = 0):
     """The Pallas body over all query rows at once (a row's result does
@@ -128,7 +154,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     tk = min(tk, skv)
     g = h // hkv
     qf = (q.float() * (d ** -0.5)).reshape(b, hkv, g, sq, d)
-    q_pos = q_offset + torch.arange(sq, device=q.device)[:, None]
+    mask = _mask(sq, skv, causal=causal, window=window, q_offset=q_offset,
+                 device=q.device)
     acc = torch.zeros(b, hkv, g, sq, d, dtype=torch.float32, device=q.device)
     m = torch.full((b, hkv, g, sq, 1), NEG_INF, dtype=torch.float32,
                    device=q.device)
@@ -137,13 +164,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
         kj = k[:, :, None, k0:k0 + tk].float()             # [B, Hkv, 1, tk, D]
         vj = v[:, :, None, k0:k0 + tk].float()
         s = qf @ kj.transpose(-1, -2)                      # [B, Hkv, G, Sq, tk]
-        k_pos = k0 + torch.arange(kj.shape[3], device=q.device)[None, :]
-        mask = torch.ones(sq, kj.shape[3], dtype=torch.bool, device=q.device)
-        if causal:
-            mask &= q_pos >= k_pos
-        if window:
-            mask &= k_pos > q_pos - window
-        s = torch.where(mask, s, NEG_INF)
+        s = torch.where(mask[:, k0:k0 + tk], s, NEG_INF)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         p = torch.exp(s - m_new)
         alpha = torch.exp(m - m_new)
@@ -154,12 +175,119 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     return out.reshape(b, h, sq, d).to(q.dtype)
 
 
+def _check_bwd(q, out, dout):
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} / dout "
+                         f"{tuple(dout.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise TypeError(f"out {out.dtype} / dout {dout.dtype}: expected "
+                        f"q's dtype {q.dtype}")
+
+
+def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
+                        window: int = 0, q_offset: int = 0):
+    """The gradients ``(dq, dk, dv)`` of :func:`flash_attention`'s output
+    ``out`` under the upstream gradient ``dout`` ([B, H, Sq, D], q's
+    dtype), in the layouts and dtypes of q, k and v; each KV head's dk
+    and dv sum over its query heads. CUDA tensors launch the kernel (no
+    fallback); CPU tensors take :func:`flash_attention_bwd_plain`."""
+    _check(q, k, v, q.shape[2], k.shape[2], window, q_offset)
+    _check_bwd(q, out, dout)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, dout, causal=causal,
+                                         window=window, q_offset=q_offset)
+    dev = q.device
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    for name, t in (("k", k), ("v", v), ("out", out), ("dout", dout)):
+        if t.device != dev:
+            raise ValueError(f"q on {dev}, {name} on {t.device}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} > {MAX_HEAD_DIM}")
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: the last dimension must be contiguous")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    m, l, delta = torch.empty((3, b, h, sq), dtype=torch.float32, device=dev)
+    strides = (ctypes.c_longlong * 24)(*(
+        s for t in (q, k, v, out, dout, dq, dk, dv) for s in t.stride()[:3]))
+    kernels.launch("flash_attention_bwd", q.data_ptr(), k.data_ptr(),
+                   v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                   dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), m.data_ptr(),
+                   l.data_ptr(), delta.data_ptr(), b, h, hkv, sq, skv, d,
+                   ctypes.addressof(strides), int(causal), int(window),
+                   int(q_offset), d ** -0.5, int(q.dtype == torch.bfloat16))
+    return dq, dk, dv
+
+
+def flash_attention_bwd_plain(q, k, v, out, dout, *, causal: bool = True,
+                              window: int = 0, q_offset: int = 0):
+    """The backward in plain PyTorch, float32 math, by the standard
+    recompute: ``P = softmax(mask(q·kᵀ·D^-½))`` (masked scores -1e30, as
+    the forward), ``dV = Pᵀ·dO``, ``dP = dO·Vᵀ``, ``dS = P∘(dP −
+    rowsum(dO∘O))`` where the mask keeps the score and 0 where it drops
+    it (a constant score has no gradient), ``dQ = dS·K·D^-½``, ``dK =
+    dSᵀ·q·D^-½``; GQA's dk and dv summed over each KV head's query
+    heads. Outputs in the dtypes and layouts of q, k and v."""
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = h // hkv
+    qf = (q.float() * (d ** -0.5)).reshape(b, hkv, g, sq, d)
+    kf = k.float()[:, :, None]                         # [B, Hkv, 1, Skv, D]
+    vf = v.float()[:, :, None]
+    do = dout.float().reshape(b, hkv, g, sq, d)
+    mask = _mask(sq, skv, causal=causal, window=window, q_offset=q_offset,
+                 device=q.device)
+    p = torch.softmax(torch.where(mask, qf @ kf.transpose(-1, -2), NEG_INF),
+                      dim=-1)                          # [B, Hkv, G, Sq, Skv]
+    delta = (do * out.float().reshape(b, hkv, g, sq, d)).sum(-1,
+                                                             keepdim=True)
+    ds = torch.where(mask, p * (do @ vf.transpose(-1, -2) - delta), 0.0)
+    dq = (ds @ kf) * (d ** -0.5)
+    dk = (ds.transpose(-1, -2) @ qf).sum(2)
+    dv = (p.transpose(-1, -2) @ do).sum(2)
+    grads = (dq.reshape(b, h, sq, d), dk, dv)
+    res = []
+    for t, grad in zip((q, k, v), grads):
+        o = torch.empty_like(t)
+        o.copy_(grad)
+        res.append(o)
+    return tuple(res)
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` with its backward: saves q, k, v and the
+    output; the backward is :func:`flash_attention_bwd` (the kernel for
+    CUDA tensors, the plain version for CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, tq, tk, q_offset):
+        out = flash_attention(q, k, v, causal=causal, window=window, tq=tq,
+                              tk=tk, q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.flags = (causal, window, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        causal, window, q_offset = ctx.flags
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, causal=causal,
+                                         window=window, q_offset=q_offset)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
               tq: int = DEFAULT_TQ, tk: int = DEFAULT_TK, q_offset: int = 0):
     """Model layout: q [B, Sq, H, D]; k, v [B, Skv, Hkv, D] (un-expanded
-    GQA) -> [B, Sq, H, D]. The transposes are views: the kernel reads
-    the strides, and its output comes back in q's layout."""
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=causal, window=window,
-                          tq=tq, tk=tk, q_offset=q_offset)
+    GQA) -> [B, Sq, H, D], through :class:`FlashAttention` (so a
+    backward runs ``flash_attention_bwd``). The transposes are views:
+    the kernels read the strides, and the output comes back in q's
+    layout."""
+    out = FlashAttention.apply(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal, window, tq, tk,
+                               q_offset)
     return out.transpose(1, 2)

@@ -11,8 +11,11 @@ devices (``--xla_force_host_platform_device_count``) for the same
 purpose. The JAX package's ``vm_spec`` has no counterpart here: its
 role, placing each row block on its device, is :func:`device_row_blocks`.
 
-The model meshes (``make_host_mesh``, ``make_production_mesh``,
-``dp_axes``, ``axis_size``) belong to training (ROADMAP Queue 1 item 9).
+The model mesh of training is :class:`ModelMesh` (``make_host_mesh``,
+``dp_axes``, ``axis_size``): the reference's ``('data', 'model')`` mesh
+as a grid of devices. The reference's ``make_production_mesh`` is
+dry-run machinery and waits with its ``dryrun.py`` (ROADMAP Queue 1
+item 9).
 """
 from __future__ import annotations
 
@@ -98,3 +101,51 @@ def on_device(dev: torch.device):
     CUDA device's context; nothing for the CPU)."""
     return (torch.cuda.device(dev) if dev.type == "cuda"
             else contextlib.nullcontext())
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelMesh:
+    """A device grid with named axes: ``devices[i][j]`` sits at index i
+    of the first axis and j of the second (``('data', 'model')`` for the
+    host mesh)."""
+
+    devices: tuple[tuple[torch.device, ...], ...]
+    axis_names: tuple[str, ...]
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {self.axis_names[0]: len(self.devices),
+                self.axis_names[1]: len(self.devices[0])}
+
+    @property
+    def size(self) -> int:
+        return len(self.devices) * len(self.devices[0])
+
+
+def make_host_mesh(model: int = 1, device="cuda") -> ModelMesh:
+    """Degenerate ``('data', 'model')`` mesh over the devices of
+    ``device``'s type: every card for CUDA, the one CPU device for the
+    CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        devs = [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    else:
+        devs = [torch.device("cpu")]
+    n = len(devs)
+    if n == 0 or n % model:
+        raise ValueError(
+            f"host mesh needs the device count ({n}) divisible by the "
+            f"requested model-axis size ({model}) for shape "
+            f"({n // model}, {model})")
+    return ModelMesh(tuple(tuple(devs[i * model:(i + 1) * model])
+                           for i in range(n // model)), ("data", "model"))
+
+
+def dp_axes(mesh) -> tuple[str, ...]:
+    """The batch-carrying axes of a mesh."""
+    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+def axis_size(mesh, name: str) -> int:
+    return mesh.shape[name] if name in mesh.axis_names else 1

@@ -1,14 +1,18 @@
-"""GQA attention: the prefill (causal), encoder (bidirectional), cross
-and decode paths (the port of :mod:`repro.models.attention`).
+"""GQA attention: the training and prefill (causal), encoder
+(bidirectional), cross and decode paths (the port of
+:mod:`repro.models.attention`).
 
-Prefill, the encoder and cross attention run :func:`blocked_attention`,
-an online softmax over KV chunks that never forms the ``[S, S]`` score
-matrix. The reference computes it as a ``lax.scan`` and names the
-Pallas ``flash_attention`` kernel as its computation on the
-accelerator; here it is that kernel on the card
+Training, prefill, the encoder and cross attention run
+:func:`blocked_attention`, an online softmax over KV chunks that never
+forms the ``[S, S]`` score matrix. The reference computes it as a
+``lax.scan`` and names the Pallas ``flash_attention`` kernel as its
+computation on the accelerator; here it is that kernel on the card
 (``kernels/flash_attention``; GQA-native, so the causal path passes KV
 un-expanded, while the encoder and cross paths pass it expanded, as the
-reference does) and its plain version, tiled by ``chunk``, on the CPU.
+reference does) and its plain version, tiled by ``chunk``, on the CPU,
+through the autograd Function ``FlashAttention``: a backward runs the
+``flash_attention_bwd`` kernel on the card and the plain backward on
+the CPU (the reference differentiates its scan).
 
 Decode attends one query position against the KV cache in plain
 PyTorch (the reference has no kernel there); for sliding-window configs

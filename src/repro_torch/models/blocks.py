@@ -1,5 +1,7 @@
-"""Pre-norm residual blocks and superlayers, prefill and decode (the
-port of :mod:`repro.models.blocks`).
+"""Pre-norm residual blocks and superlayers, over a whole sequence
+(training and prefill, under autograd when the parameters need
+gradients) and one token at a time (decode); the port of
+:mod:`repro.models.blocks`.
 
 A *superlayer* is one period of the config's layer pattern: a single
 attention block for the dense and MoE families, one SSM block for the

@@ -40,9 +40,11 @@ def truncated_normal(shape, scale: float, generator: torch.Generator,
 
 
 def param(shape, scale: float | None, generator, device) -> torch.nn.Parameter:
-    """A float32 inference parameter: truncated normal times ``scale``,
-    ones when ``scale`` is None (a norm's scale), uninitialised when
-    ``generator`` is None (weights loaded afterwards)."""
+    """A float32 parameter: truncated normal times ``scale``, ones when
+    ``scale`` is None (a norm's scale), uninitialised when ``generator``
+    is None (weights loaded afterwards). It needs no gradient, as for
+    serving; training switches the model with ``requires_grad_(True)``
+    (:func:`repro_torch.launch.steps.make_train_step`)."""
     if scale is None:
         t = torch.ones(shape, dtype=torch.float32, device=device)
     elif generator is None:

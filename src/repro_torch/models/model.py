@@ -1,12 +1,16 @@
-"""The models for serving: prefill, then one token at a time (the port
-of :mod:`repro.models.model`): the causal LM of every decoder family
-(dense, MoE, SSM, hybrid, VLM) and the encoder-decoder.
+"""The models (the port of :mod:`repro.models.model`): the causal LM of
+every decoder family (dense, MoE, SSM, hybrid, VLM) and the
+encoder-decoder, for serving (prefill, then one token at a time) and
+for training.
 
   * :func:`init_params`     — the model (an ``nn.Module``) with weights
     drawn from a ``torch.Generator`` on the given device.
   * :func:`params_from_jax` — the model from the JAX package's parameter
     pytree (as numpy arrays), so both packages compute from one weight
-    set.
+    set; :func:`params_to_numpy` is its inverse.
+  * :func:`forward_train`   — the loss over a batch (the superlayers
+    checkpointed, the cross-entropy in checkpointed token chunks), for
+    ``backward()``.
   * :func:`prefill`         — run the prompt; returns (last-position
     logits, cache).
   * :func:`decode_step`     — one token against the cache.
@@ -31,13 +35,17 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import resolve_device
 
 from . import blocks
+from . import moe as moe_lib
+from . import ssm as ssm_lib
 from .attention import _project_kv
 from .config import BlockSpec, ModelConfig
 from .layers import dense, embed, init_mlp, param, rmsnorm, unembed
+from .sharding_hooks import constrain
 
 _ATTN = BlockSpec(kind="attn")
 
@@ -60,7 +68,8 @@ class Model(torch.nn.Module):
     enc-dec); where the config has them, the dense first block
     ``prefix`` (deepseek), the ``encoder`` and the modality
     ``frontend`` ``[D, D]`` (vision and audio stubs). Parameters are
-    float32 and need no gradient (inference only)."""
+    float32 and need no gradient until the model is switched to training
+    (``requires_grad_(True)``)."""
 
     def __init__(self, cfg: ModelConfig, generator=None, device=None):
         super().__init__()
@@ -92,6 +101,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return Model(cfg, generator, resolve_device(device))
 
 
+@torch.no_grad()
 def params_from_jax(tree, cfg: ModelConfig, device="cuda") -> Model:
     """The model holding the JAX package's parameters. ``tree`` is its
     pytree (``repro.models.model.init_params``) with numpy leaves. A
@@ -117,13 +127,54 @@ def params_from_jax(tree, cfg: ModelConfig, device="cuda") -> Model:
     return model
 
 
+def params_to_numpy(model: Model, named=None) -> dict:
+    """The reference's parameter pytree (float32 numpy leaves) from the
+    model: the inverse of :func:`params_from_jax`. Each superlayer's
+    (and the encoder's) rows are stacked on a leading ``[R, ...]`` axis
+    and each leaf sits in its ``{"w"}``, ``{"scale"}`` or ``{"table"}``
+    dict, named by the module as the reference names it. ``named`` maps
+    parameter names to tensors in place of ``model``'s own (gradients,
+    optimizer moments), giving their tree."""
+    named = dict(model.named_parameters()) if named is None else named
+    stacks: dict = {}
+    for name, p in model.named_parameters():
+        keys = name.split(".")
+        path = tuple(k for k in keys if not k.isdigit())
+        rows = tuple(int(k) for k in keys if k.isdigit())
+        owner = model.get_submodule(".".join(keys[:-1]))
+        a = named[name].detach().float().cpu().numpy()
+        stacks.setdefault(path, (owner, {}))[1][rows] = a
+    tree: dict = {}
+    for path, (owner, by_rows) in stacks.items():
+        a = (by_rows[()] if by_rows.keys() == {()}
+             else np.stack([by_rows[r] for r in sorted(by_rows)]))
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = _leaf(owner, path[-1], a)
+    return tree
+
+
+def _leaf(owner: torch.nn.Module, attr: str, a: np.ndarray):
+    """A parameter as the reference holds it: the embedding tables under
+    ``"table"``, the MoE experts' and the SSM's own arrays bare, norms'
+    scales under ``"scale"``, dense weights under ``"w"``."""
+    if isinstance(owner, Model) and attr in ("embed", "unembed"):
+        return {"table": a}
+    if (isinstance(owner, moe_lib.MoE) and attr != "router") or (
+            isinstance(owner, ssm_lib.SSM)
+            and attr not in ("in_proj", "out_proj")):
+        return a
+    return {"scale": a} if "norm" in attr else {"w": a}
+
+
 # ---------------------------------------------------------------------------
 # inputs and the encoder
 # ---------------------------------------------------------------------------
 
 def _embed_inputs(params: Model, cfg: ModelConfig, batch):
     """Token (and modality) embedding and positions (the loss mask and
-    labels come with training)."""
+    labels: :func:`_loss_targets`)."""
     tokens = batch["dec_tokens"] if cfg.is_encdec else batch["tokens"]
     x = embed(params.embed, tokens)
     if cfg.frontend == "vision" and "patches" in batch:
@@ -131,6 +182,20 @@ def _embed_inputs(params: Model, cfg: ModelConfig, batch):
         x = torch.cat([pe.to(x.dtype), x], 1)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     return x, positions
+
+
+def _loss_targets(cfg: ModelConfig, batch, seq: int):
+    """``(mask, labels)`` ``[B, seq]`` of the reference's
+    ``_embed_inputs``: each position's next token, none after the last
+    position nor at the vision patches' positions."""
+    tokens = batch["dec_tokens"] if cfg.is_encdec else batch["tokens"]
+    b = tokens.shape[0]
+    full = torch.cat([tokens.new_zeros(b, seq - tokens.shape[1]), tokens], 1)
+    labels = torch.cat([full[:, 1:], full.new_zeros(b, 1)], 1)
+    mask = torch.ones(b, seq, dtype=torch.bool, device=tokens.device)
+    mask[:, :seq - tokens.shape[1]] = False
+    mask[:, -1] = False
+    return mask, labels
 
 
 def _encode(params: Model, cfg: ModelConfig, frames):
@@ -178,22 +243,106 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     return cache
 
 
+def _superlayer(layer, cfg: ModelConfig, x, positions, mem):
+    x, aux, _ = blocks.superlayer_train(layer, cfg, x, positions,
+                                        memory_kv=mem)
+    return x, aux
+
+
 def _scan_train(params: Model, cfg: ModelConfig, x, positions,
                 cache=None, cache_len: int = 0, memory_kv=None):
-    """The superlayers in order over the whole prompt; with ``cache``,
-    superlayer r's entries (K/V fitted to ``cache_len``) are written
-    into slot r as it goes (the stacked pytree the reference's scan
-    returns, without holding every layer's unpadded copy)."""
+    """The superlayers in order over the whole prompt; returns ``(x,
+    aux)``. With ``cache``, superlayer r's entries (K/V fitted to
+    ``cache_len``) are written into slot r as it goes (the stacked
+    pytree the reference's scan returns, without holding every layer's
+    unpadded copy). Under autograd without a cache, each superlayer is
+    checkpointed (the reference's ``jax.checkpoint`` of its scan body):
+    only its input is kept, and the backward runs its forward again."""
+    aux = 0.0
+    remat = cache is None and torch.is_grad_enabled()
     for r, layer in enumerate(params.layers):
         mem = None if memory_kv is None else (memory_kv[0][r],
                                               memory_kv[1][r])
-        x, _, caches = blocks.superlayer_train(
-            layer, cfg, x, positions, collect_cache=cache is not None,
-            memory_kv=mem)
-        for name, entry in caches.items():
-            for kv, a in _pad_kv(entry, cache_len).items():
-                cache["layers"][name][kv][r].copy_(a)
-    return x
+        if remat:
+            # nothing in a superlayer draws random numbers
+            x, a = checkpoint(_superlayer, layer, cfg, x, positions, mem,
+                              use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, a, caches = blocks.superlayer_train(
+                layer, cfg, x, positions, collect_cache=cache is not None,
+                memory_kv=mem)
+            for name, entry in caches.items():
+                for kv, e in _pad_kv(entry, cache_len).items():
+                    cache["layers"][name][kv][r].copy_(e)
+        aux = aux + a
+    return x, aux
+
+
+# ---------------------------------------------------------------------------
+# training forward
+# ---------------------------------------------------------------------------
+
+def _ce_chunk(table, xc, lc, mc):
+    """Summed float32 NLL of one token chunk: its logits live only here."""
+    logits = constrain(unembed(table, xc), "logits")
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, 1, lc[:, None])[:, 0]
+    return torch.sum((logz - gold) * mc)
+
+
+def _chunked_ce(params: Model, cfg: ModelConfig, x, labels, mask,
+                chunk_tokens: int = 16_384):
+    """Cross-entropy without materialising the full ``[T, V]`` logits:
+    the token chunks in order, each chunk's NLL summed in float32 and
+    added to the total in the reference scan's order. Under autograd
+    each chunk is checkpointed, so only one chunk's logits are live in
+    the backward too."""
+    b, s, d = x.shape
+    t = b * s
+    xf, lf, mf = x.reshape(t, d), labels.reshape(t), mask.reshape(t)
+    chunk = min(chunk_tokens, t)
+    pad = (-t) % chunk
+    if pad:
+        xf = torch.cat([xf, xf.new_zeros(pad, d)])
+        lf = torch.cat([lf, lf.new_zeros(pad)])
+        mf = torch.cat([mf, mf.new_zeros(pad)])
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = torch.is_grad_enabled()
+    for c0 in range(0, t + pad, chunk):
+        part = (xf[c0:c0 + chunk], lf[c0:c0 + chunk], mf[c0:c0 + chunk])
+        if remat:
+            total = total + checkpoint(_ce_chunk, params.unembed, *part,
+                                       use_reentrant=False,
+                                       preserve_rng_state=False)
+        else:
+            total = total + _ce_chunk(params.unembed, *part)
+    return total
+
+
+def forward_train(params: Model, cfg: ModelConfig, batch,
+                  aux_weight: float = 0.01, loss_chunk: int = 16_384):
+    """Returns ``(loss + aux_weight * aux, {"loss", "aux", "tokens"})``,
+    float32 scalars on the model's device; ``backward()`` on the first
+    gives every parameter's gradient. ``batch`` holds tensors on the
+    model's device."""
+    x, positions = _embed_inputs(params, cfg, batch)
+    mask, labels = _loss_targets(cfg, batch, x.shape[1])
+    memory_kv = None
+    if cfg.is_encdec:
+        memory = _encode(params, cfg, batch["frames"].to(x.dtype))
+        memory_kv = _prepare_memory(params, cfg, memory)
+    if cfg.first_dense_ff:
+        x, _, _ = blocks.block_train(params.prefix, cfg, _ATTN, x, positions,
+                                     collect_cache=False)
+    x, aux = _scan_train(params, cfg, x, positions, memory_kv=memory_kv)
+    x = rmsnorm(params.final_norm, x, cfg.norm_eps)
+    x = constrain(x, "pre_logits")
+    nll_sum = _chunked_ce(params, cfg, x, labels, mask, loss_chunk)
+    denom = torch.clamp(mask.sum(), min=1)
+    loss = nll_sum / denom
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+    return loss + aux_weight * aux, {"loss": loss, "aux": aux,
+                                     "tokens": denom.to(torch.float32)}
 
 
 def prefill(params: Model, cfg: ModelConfig, batch,
@@ -211,7 +360,8 @@ def prefill(params: Model, cfg: ModelConfig, batch,
         x, _, pcache = blocks.block_train(params.prefix, cfg, _ATTN, x,
                                           positions, collect_cache=True)
         cache["prefix"] = _pad_kv(pcache, cache_len)
-    x = _scan_train(params, cfg, x, positions, cache, cache_len, memory_kv)
+    x, _ = _scan_train(params, cfg, x, positions, cache, cache_len,
+                       memory_kv)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     return unembed(params.unembed, x[:, -1:]), cache
 

@@ -205,7 +205,12 @@ def test_port_job_loads_no_jax_and_no_repro():
                             "--device", "cpu"])
         assert stats["activations"] > 0
         import torch
+        import repro_torch.checkpoint.store
+        import repro_torch.data.pipeline
+        import repro_torch.launch.train
         import repro_torch.models
+        import repro_torch.optim
+        import repro_torch.runtime.fault
         from repro_torch import configs
         from repro_torch.launch import steps
         from repro_torch.models import model as M

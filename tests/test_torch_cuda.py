@@ -1239,3 +1239,73 @@ def test_classify_block_card_equals_cpu(dev):
         want = classify_block(*args, device="cpu")
         for x, y in zip(got, want):
             assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,skv,d,causal,window,q_offset", [
+    (2, 8, 2, 256, 256, 128, True, 0, 0),      # the model's case, G 4
+    (1, 4, 4, 100, 100, 64, True, 0, 0),       # ragged tiles, G 1
+    (1, 8, 2, 330, 330, 64, True, 100, 0),     # window across tiles
+    (1, 8, 2, 100, 384, 128, False, 0, 0),     # non-causal, Sq != Skv
+    (1, 4, 2, 70, 200, 48, True, 0, 130),      # q_offset, D 48
+    (1, 2, 1, 16, 48, 8, True, 4, 60)])        # rows that keep no key
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel(dev, b, h, hkv, sq, skv, d, causal,
+                                    window, q_offset, dtype):
+    """The backward kernel against its plain version (float32 within
+    1e-4 of each gradient's scale, bf16 within 2e-2) on the model's
+    layout: one launch, q, k and v's layouts and dtypes, and the same
+    bits twice (no atomics)."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import ops
+    rng = np.random.default_rng(sq * d + skv)
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(dev, dtype).transpose(1, 2)
+    q, k, v = rnd(b, sq, h, d), rnd(b, skv, hkv, d), rnd(b, skv, hkv, d)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out = ops.flash_attention(q, k, v, tq=sq, tk=skv, **kw)
+    do = rnd(b, sq, h, d)
+    kernels.reset_launch_counts()
+    got = ops.flash_attention_bwd(q, k, v, out, do, **kw)
+    assert kernels.launch_counts()["flash_attention_bwd"] == 1
+    want = ops.flash_attention_bwd_plain(q, k, v, out, do, **kw)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.dtype == x.dtype and g.stride() == x.stride()
+        assert float((g.float() - w.float()).abs().max()) <= \
+            tol * float(w.float().abs().max())
+    again = ops.flash_attention_bwd(q, k, v, out, do, **kw)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+def test_train_step_launches_and_matches_cpu(dev):
+    """Reduced qwen3: a train step launches 2 ``flash_attention`` and 1
+    ``flash_attention_bwd`` a layer, and 2 steps on the card give the
+    CPU's losses within 2e-2."""
+    import copy
+    from repro_torch import configs, kernels
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import OptConfig, init_opt_state
+    cfg = configs.get_reduced("qwen3-4b")
+    opt_cfg = OptConfig(warmup_steps=1, total_steps=2)
+    pipe = TokenPipeline(cfg, 2, 64, seed=1)
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    losses = {}
+    for model in (copy.deepcopy(cpu).to(dev), cpu):
+        opt = init_opt_state(dict(model.named_parameters()), opt_cfg)
+        step = make_train_step(cfg, opt_cfg)
+        out = []
+        for s in range(2):
+            kernels.reset_launch_counts()
+            model, opt, m = step(model, opt, pipe.batch_at(s))
+            out.append(float(m["loss"]))
+            n = kernels.launch_counts()
+            if model.embed.device.type == "cuda":
+                assert n["flash_attention"] == 2 * cfg.num_layers
+                assert n["flash_attention_bwd"] == cfg.num_layers
+        losses[model.embed.device.type] = out
+    for a, c in zip(losses["cuda"], losses["cpu"]):
+        assert abs(a - c) <= 2e-2 * abs(c)
