@@ -65,7 +65,8 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    Hkv == H at D 64, GQA at D 128) and at the
    prefill shape (B 4, H 32, Hkv 8, S 4096, D 128); prints what ptxas
    said of ``flash_attention_sm90.cu`` (registers, spills), its shared
-   memory and the SASS count of ``HGMMA`` instructions; holds the IO
+   memory and the SASS count of ``HGMMA`` instructions in its kernels;
+   holds the IO
    classifier's ``classified`` routes of ``two_level`` and
    ``single_level`` to their plain versions, exactly, at the paper's
    [12, 1000] blocks, the 1024-VM blocks, V = 1, rows of 9,000, rows of
@@ -240,15 +241,23 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    (gaussian pages) and mamba2 (``AssertionError: no attention cache``,
    as the reference's serve);
 17. trains the dense model: (a) holds ``flash_attention_bwd`` (the
-   backward of ``flash_attention``, ``csrc/flash_attention_bwd.cu``) to
-   its plain version at the training shape (B 2, H 32, Hkv 8, S 2048, D
-   128, bf16, causal, the model's layout), a float32 causal shape, a
-   sliding window, non-causal shapes and the edges (``BWD_SHAPES``),
-   float32 within 1e-4 and bf16 within 2e-2 of each gradient's scale,
-   and times it (calls, and a CUDA graph) beside the plain version,
-   SDPA's backward (``is_causal``, ``enable_gqa``; never called by the
-   port) and its bound (5 products at the bf16 tensor-core rate), with
-   ptxas's registers and spills; (b) trains reduced qwen3 for 3 steps of
+   backward of ``flash_attention``: route ``wgmma``,
+   ``csrc/flash_attention_bwd_sm90.cu``, for bf16 with D a multiple of
+   16; ``cuda_cores``, ``csrc/flash_attention_bwd.cu``, for the others)
+   to its plain version at the training shape (B 2, H 32, Hkv 8, S 2048,
+   D 128, bf16, causal, the model's layout), a float32 causal shape, a
+   sliding window, non-causal shapes and the edges, rows that keep no
+   key among them (``BWD_SHAPES``), float32 within 1e-4 and bf16 within
+   2e-2 of each gradient's scale, each cell's route logged and a second
+   call's bits equal to the first's; checks that
+   the forward's output is the same bits with its row statistics
+   written; times the ``wgmma`` route at the training shape and the
+   ``cuda_cores`` route at the float32 causal shape (calls, and a CUDA
+   graph) beside the plain version, SDPA's backward (``is_causal``,
+   ``enable_gqa``; never called by the port; device time from the
+   profiler) and the bound (5 products at the dtype's rate), with
+   ptxas's registers and spills of both sources and the new source's
+   ``HGMMA`` count; (b) trains reduced qwen3 for 3 steps of
    ``make_train_step`` on the card and on the CPU from one weight set
    (losses and parameters within 2e-2); (c) trains qwen3-4b at full
    width cut to 8 of 36 layers (``dataclasses.replace(CONFIG,
@@ -256,7 +265,7 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    and AdamW's float32 moments take 25.4 GB) over ``TokenPipeline``
    batches of B 2 x 2048 for 5 steps: exactly 16 ``flash_attention``
    (forward and checkpoint recompute) and 8 ``flash_attention_bwd``
-   launches a step, finite losses, loss, ms and tokens/s a step, peak
+   launches a step, all on the ``wgmma`` route, finite losses, loss, ms and tokens/s a step, peak
    device memory, a step's parts (CUDA events) and one profiled step's
    device time by kernel group; (d) runs ``repro_torch.launch.train``'s
    ``main`` on the card with and without ``--inject-failure-at 2
@@ -281,7 +290,9 @@ serving run for ``paged_decode_attention``, the staged 12-VM run for
 full-width training run's 5 steps for ``flash_attention_bwd``; the
 ``classified`` routes as entries of their own, ``two_level_classified``
 and ``single_level_classified``, with their route's launches on the
-seq-cutoff 12-VM runs); the
+seq-cutoff 12-VM runs; the backward's ``cuda_cores`` route as
+``flash_attention_bwd_cuda_cores``, its launches on the training run
+and its times at the float32 causal shape); the
 last is ``{"ok": true, "device": {...}}``. Any
 failed phase raises and the exit code is nonzero. Without a CUDA device
 it exits 2 and prints no result; run from a directory without the
@@ -1207,14 +1218,71 @@ def check_scatters(dev, rng, v, s, w):
     return out
 
 
+def graph_events(call) -> dict:
+    """The device work of one call, profiler-free: the call captured in a
+    CUDA graph (``keep_graph``), its nodes read with the driver API
+    (``cuGraphGetNodes``, ``cuGraphNodeGetType``; kernels named by
+    ``cuFuncGetName``). Returns ``{name: count}`` over kernel, memset and
+    memcpy nodes (``"memset"`` / ``"memcpy"`` for the latter)."""
+    import ctypes
+
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()                             # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        call()
+    torch.cuda.synchronize()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(handle, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n))
+
+    class KernelParams(ctypes.Structure):      # CUDA_KERNEL_NODE_PARAMS
+        _fields_ = [("func", ctypes.c_void_p)] + [
+            (f, ctypes.c_uint) for f in ("gx", "gy", "gz", "bx", "by", "bz",
+                                         "smem")] + [
+            ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p)]
+    out = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value == 0:                   # CU_GRAPH_NODE_TYPE_KERNEL
+            kp = KernelParams()
+            label = ctypes.c_char_p()
+            if cu.cuGraphKernelNodeGetParams(ctypes.c_void_p(node),
+                                             ctypes.byref(kp)) or \
+                    cu.cuFuncGetName(ctypes.byref(label),
+                                     ctypes.c_void_p(kp.func)):
+                raise RuntimeError("a kernel node's function is unreadable")
+            key = label.value.decode()
+        elif kind.value in (1, 2):            # memcpy, memset
+            key = ("memcpy", "memset")[kind.value - 1]
+        else:
+            continue
+        out[key] = out.get(key, 0) + 1
+    del graph
+    return out
+
+
 def kernel_events(call, name: str, want: int | None = 1) -> float | None:
     """Device events a launch of the kernel ``name`` (a substring of its
     CUDA function's name) puts on the card: the device events of a
     profiler trace of 20 calls over the kernel's (the ratio stands where
     the trace drops events). A trace that holds no such kernel is taken
-    again, up to three times; then the result is None, or, with ``want``
-    set, a failure. A kernel that writes its outputs itself must put
-    ``want`` (1): no copy or fill beside it."""
+    again, up to three times; when none of the three holds any device
+    event at all (the profiler has stopped recording in this process),
+    the kernel, memset and memcpy nodes of one call captured in a CUDA
+    graph count instead (``graph_events``). No such kernel either way:
+    the result is None, or, with ``want`` set, a failure. A kernel that
+    writes its outputs itself must put ``want`` (1): no copy or fill
+    beside it."""
     for _ in range(3):
         names = {}
         _, events = device_profile(call, 20, by_name=names)
@@ -1222,10 +1290,17 @@ def kernel_events(call, name: str, want: int | None = 1) -> float | None:
         if kernel:
             break
     else:
-        if want is None:
-            return None
-        raise AssertionError(f"{name}: no such kernel in three profiler "
-                             f"traces (device events: {names})")
+        if not names:
+            names = graph_events(call)
+            events = sum(names.values())
+            kernel = sum(n for k, n in names.items() if name in k)
+            log(f"{name}: three profiler traces held no device event; the "
+                f"call's CUDA graph holds {names}")
+        if not kernel:
+            if want is None:
+                return None
+            raise AssertionError(f"{name}: no such kernel in three profiler "
+                                 f"traces (device events: {names})")
     events /= kernel
     if want is not None and events != want:
         raise AssertionError(f"{name}: {events} device events a launch, "
@@ -2773,30 +2848,54 @@ def build_report(rows) -> None:
             log(f"ptxas {src}: {ln}")
 
 
+_SASS_HGMMA = {}
+
+
+def sass_hgmma(source: str) -> int | None:
+    """The SASS count of ``HGMMA`` instructions in the kernels of one
+    source of the kernel library (``cuobjdump -sass``; each source's
+    anonymous namespace puts its file name into its kernels' mangled
+    names); None where the toolkit has no ``cuobjdump``."""
+    import re
+    from repro_torch import kernels
+    cuobjdump = Path("/usr/local/cuda/bin/cuobjdump")
+    if not cuobjdump.exists():
+        return None
+    if not _SASS_HGMMA:
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               kernels.library()._name],
+                              capture_output=True, text=True).stdout
+        fn = None
+        for ln in sass.splitlines():
+            m = re.search(r"Function\s*:\s*(\S+)", ln)
+            if m:
+                fn = m.group(1)
+                _SASS_HGMMA.setdefault(fn, 0)
+            elif fn and re.search(r"\bHGMMA\.", ln):
+                _SASS_HGMMA[fn] += 1
+    tag = "_" + source.replace(".", "_") + "_"
+    n = sum(c for f, c in _SASS_HGMMA.items() if tag in f)
+    if not n:
+        raise AssertionError(f"no HGMMA in the SASS of {source}'s kernels")
+    return n
+
+
 def flash_build_report() -> dict:
     """What ptxas said of ``flash_attention_sm90.cu`` (registers and
     spills of each head-dim variant), its dynamic shared memory at D 64
-    and 128, and the SASS count of ``HGMMA`` instructions in the kernel
-    library (``cuobjdump -sass``, where the toolkit has it)."""
-    import re
+    and 128, and the SASS count of ``HGMMA`` instructions in its kernels
+    (``cuobjdump -sass``, where the toolkit has it)."""
     from repro_torch import kernels
     lines = ptxas_lines("flash_attention_sm90.cu")
     lib = kernels.library()
     smem = {d: lib.etica_flash_attention_sm90_smem(d) for d in (64, 128)}
-    cuobjdump = Path("/usr/local/cuda/bin/cuobjdump")
-    hgmma = None
-    if cuobjdump.exists():
-        sass = subprocess.run([str(cuobjdump), "-sass", lib._name],
-                              capture_output=True, text=True).stdout
-        hgmma = len(re.findall(r"\bHGMMA\.", sass))
-        if not hgmma:
-            raise AssertionError("no HGMMA in the kernel library's SASS")
+    hgmma = sass_hgmma("flash_attention_sm90.cu")
     for ln in lines:
         log(f"ptxas flash_attention_sm90.cu: {ln}")
     n_hgmma = "not measured (no cuobjdump)" if hgmma is None else hgmma
     log(f"flash_attention_sm90: dynamic shared memory {smem[64]} bytes "
         f"(D <= 64), {smem[128]} bytes (D <= 128); HGMMA instructions in "
-        f"the SASS: {n_hgmma}")
+        f"its kernels' SASS: {n_hgmma}")
     return dict(ptxas=lines, smem_bytes=smem, sass_hgmma=hgmma)
 
 
@@ -3074,10 +3173,12 @@ def decode_gap_causes(model, cfg, one, p) -> dict:
     from repro_torch.models import model as M
     from repro_torch.models.layers import embed, rmsnorm, unembed
 
-    def plain(q, k, v, *, causal, window, tq, tk, q_offset):
+    def plain(q, k, v, *, causal, window, tq, tk, q_offset,
+              return_stats=False):
         return ops.flash_attention_plain(q, k, v, causal=causal,
                                          window=window, tk=tk,
-                                         q_offset=q_offset)
+                                         q_offset=q_offset,
+                                         return_stats=return_stats)
     longer = {"tokens": one[:, :p + 1]}
     with swapped(ops, "flash_attention", plain):
         plain_errs = decode_vs_prefill(model, cfg, one, p)
@@ -5225,7 +5326,8 @@ TRAIN_BWD = (2, 32, 8, 2048, 128)   # B, H, Hkv, S, D of the layers' backward
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # of each output's scale
 # the backward's other shapes (B, H, Hkv, Sq, Skv, D) and masks: float32
 # causal, a sliding window, non-causal, and the edges (Sq and Skv apart, a
-# q offset, D 64 and 48, rows whose window keeps no key)
+# q offset, D 64, 48 and 8, rows whose window keeps no key); bf16 with D
+# a multiple of 16 takes the wgmma route, the others cuda_cores
 BWD_SHAPES = [
     ("float32 causal", (1, 8, 2, 1024, 1024, 128), dict(causal=True),
      ("float32",)),
@@ -5239,7 +5341,10 @@ BWD_SHAPES = [
      dict(causal=True, q_offset=130), ("float32", "bfloat16")),
     ("window past the keys", (1, 2, 1, 16, 48, 8),
      dict(causal=True, window=4, q_offset=60), ("float32", "bfloat16")),
+    ("D 64, rows 51.. keep no key", (1, 4, 2, 100, 96, 64),
+     dict(causal=True, window=16, q_offset=60), ("bfloat16",)),
 ]
+BWD_F32_CELL = 0     # BWD_SHAPES' float32 causal cell: the cuda_cores row
 
 
 def bwd_inputs(dev, shape, dtype, seed, **kw):
@@ -5261,18 +5366,25 @@ def bwd_inputs(dev, shape, dtype, seed, **kw):
     return q, k, v, out, do
 
 
-def bwd_check(label, args, **kw) -> tuple[float, float]:
+def bwd_check(label, args, **kw) -> tuple[float, float, str]:
     """``flash_attention_bwd`` against its plain version on the same
-    tensors: one launch, dq, dk and dv each within the dtype's tolerance
-    of its scale (max |kernel - plain| / max |plain|), in q, k and v's
-    dtypes and layouts. Returns the largest relative and absolute
-    errors."""
+    tensors: one launch on the route its dtype and head dim choose, dq,
+    dk and dv each within the dtype's tolerance of its scale (max |kernel
+    - plain| / max |plain|), in q, k and v's dtypes and layouts, and the
+    same bits from a second call. Returns the largest relative and
+    absolute errors and the route."""
+    import torch
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention import ops
+    route = ops.route(args[0].dtype, args[0].shape[-1])
     before = kernels.launch_counts()["flash_attention_bwd"]
+    before_route = kernels.route_counts("flash_attention_bwd")[route]
     got = ops.flash_attention_bwd(*args, **kw)
-    if kernels.launch_counts()["flash_attention_bwd"] != before + 1:
-        raise AssertionError(f"flash_attention_bwd {label}: not launched")
+    if kernels.launch_counts()["flash_attention_bwd"] != before + 1 or \
+            kernels.route_counts("flash_attention_bwd")[route] != \
+            before_route + 1:
+        raise AssertionError(f"flash_attention_bwd {label}: not launched "
+                             f"on the {route} route")
     want = ops.flash_attention_bwd_plain(*args, **kw)
     tol = BWD_TOL[str(args[0].dtype).removeprefix("torch.")]
     errs, abs_errs = [], []
@@ -5286,7 +5398,11 @@ def bwd_check(label, args, **kw) -> tuple[float, float]:
     if not max(errs) <= tol:
         raise AssertionError(f"flash_attention_bwd {label}: relative errors "
                              f"{errs} over {tol}")
-    return max(errs), max(abs_errs)
+    again = ops.flash_attention_bwd(*args, **kw)
+    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+        raise AssertionError(f"flash_attention_bwd {label}: a second call "
+                             f"gave other bits")
+    return max(errs), max(abs_errs), route
 
 
 def bwd_bound(q, k, causal=True) -> tuple[float, str]:
@@ -5307,74 +5423,199 @@ def bwd_bound(q, k, causal=True) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_flash_bwd(args) -> dict:
-    """At the training shape: the kernel (calls back to back, and a CUDA
-    graph of the calls), the plain version, and the backward of
-    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` on
-    the same views (autograd's backward alone, the forward's graph kept),
-    never called by the port."""
+def raw_device_ms(fn, reps: int) -> float | None:
+    """Device milliseconds per call summed over every device event of a
+    ``torch.profiler`` trace of ``reps`` calls, read from the raw kineto
+    events (not ``key_averages``); None when there are none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ns = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ns += (e.duration_ns() if hasattr(e, "duration_ns")
+                   else e.duration_us() * 1e3)
+    return ns / 1e6 / reps if ns > 0 else None
+
+
+def profiled_ms(fn, reps: int, top: list | None = None,
+                tries: int = 3) -> float | None:
+    """``device_profile``'s device ms, its trace taken again (up to
+    ``tries`` times) while the profiler's table comes back without device
+    events (late in a long run it has), then the raw events of one more
+    trace; ``top`` as ``device_profile``'s, from the trace that gave the
+    time."""
+    for _ in range(tries):
+        rows = []
+        ms, _ = device_profile(fn, reps, top=rows)
+        if ms is not None:
+            if top is not None:
+                top.extend(rows)
+            return ms
+    return raw_device_ms(fn, reps)
+
+
+def time_flash_bwd(args, causal=True) -> dict:
+    """On one cell: the kernel (calls back to back, and a CUDA graph of
+    the calls, given the forward's row statistics as training gives
+    them), the plain version, and the backward of
+    ``scaled_dot_product_attention(is_causal=causal, enable_gqa=True)``
+    on the same views (autograd's backward alone, the forward's graph
+    kept), never called by the port; device times and the kernel's parts
+    from the profiler (``profiled_ms``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
     q, k, v, out, do = args
+    sq = q.shape[2]
+    _, stats = ops.flash_attention(q, k, v, causal=causal, tq=sq,
+                                   tk=k.shape[2], return_stats=True)
 
     def kernel():
-        return ops.flash_attention_bwd(q, k, v, out, do, causal=True)
+        return ops.flash_attention_bwd(q, k, v, out, do, causal=causal,
+                                       stats=stats)
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-    ref = F.scaled_dot_product_attention(*leaves, is_causal=True,
+    ref = F.scaled_dot_product_attention(*leaves, is_causal=causal,
                                          enable_gqa=True)
 
     def sdpa_bwd():
         return torch.autograd.grad(ref, leaves, do, retain_graph=True)
     ms = cuda_ms(kernel, 5)
     dev_ms = graph_ms(kernel, reps=3, replays=3)
+    parts = []
+    profiled_ms(kernel, 3, top=parts)
     plain_ms = cuda_ms(lambda: ops.flash_attention_bwd_plain(
-        q, k, v, out, do, causal=True), 2)
+        q, k, v, out, do, causal=causal), 2)
     lib_ms = cuda_ms(sdpa_bwd, 10)
-    lib_dev_ms, lib_events = device_profile(sdpa_bwd, 3)
-    b, by = bwd_bound(q, k)
-    bq, h, sq, d = q.shape
+    lib_dev_ms = profiled_ms(sdpa_bwd, 3)
+    b, by = bwd_bound(q, k, causal)
+    bq, h, _, d = q.shape
+    flops5 = 10.0 * bq * h * sq * k.shape[2] * d / (2 if causal else 1)
     return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b,
                 bound_by=by, library_ms=lib_ms,
-                library_device_ms=lib_dev_ms, library_events=lib_events,
-                tflops=10.0 * bq * h * sq * sq * d / 2 / dev_ms / 1e9)
+                device_parts={name: t for t, _, name in parts},
+                library_device_ms=lib_dev_ms,
+                tflops=flops5 / dev_ms / 1e9,
+                tflops_run=flops5 * 7 / 5 / dev_ms / 1e9)
+
+
+def ptxas_by_function(source: str) -> dict:
+    """ptxas's registers and spills of each kernel of one source
+    (``kernels.build_log()``), keyed ``name<template arguments>`` from
+    the mangled name (``_cu_<8 hex><length><name>I<arguments>E``: ``f``
+    float, ``13__nv_bfloat16`` bf16, ``Li<n>E`` an int)."""
+    import re
+    from repro_torch import kernels
+    out, cur, key = {}, None, None
+    for ln in kernels.build_log().splitlines():
+        if ln.endswith(".cu:") and " " not in ln:
+            cur = ln[:-1]
+        elif cur != source:
+            continue
+        elif "Compiling entry function" in ln:
+            m = re.search(r"_cu_[0-9a-f]{8}(\d+)", ln)
+            if m:
+                name = ln[m.end():m.end() + int(m.group(1))]
+                t = re.match(r"I(.*?)E[Ev]", ln[m.end() + int(m.group(1)):])
+                args = [] if t is None else re.findall(
+                    r"Li(\d+)|(13__nv_bfloat16)|(f)", t.group(1) + "E")
+                key = name + ("<" + ", ".join(
+                    n or ("bf16" if bf else "float") for n, bf, _ in args)
+                    + ">" if args else "")
+        elif key and ("registers" in ln or "spill" in ln):
+            out[key] = (out.get(key, "") + " " + ln.split(":")[-1].strip()
+                        ).strip()
+    return out
+
+
+def bwd_build_report() -> dict:
+    """ptxas's registers and spills of both backward sources (each
+    kernel's), and the SASS ``HGMMA`` count of the ``wgmma`` route's
+    kernels."""
+    out = {}
+    for src in ("flash_attention_bwd_sm90.cu", "flash_attention_bwd.cu"):
+        out[src] = ptxas_by_function(src) or {"all": ptxas_lines(src)}
+        for fn, ln in out[src].items():
+            log(f"ptxas {src} {fn}: {ln}")
+    hgmma = sass_hgmma("flash_attention_bwd_sm90.cu")
+    log(f"flash_attention_bwd_sm90: HGMMA instructions in its kernels' "
+        f"SASS: {'not measured (no cuobjdump)' if hgmma is None else hgmma}")
+    return dict(ptxas=out["flash_attention_bwd_sm90.cu"],
+                ptxas_cuda_cores=out["flash_attention_bwd.cu"],
+                sass_hgmma=hgmma)
 
 
 def check_flash_bwd(dev, shape=TRAIN_BWD, cases=BWD_SHAPES) -> dict:
     """Phase 17 (a): ``flash_attention_bwd`` against its plain version at
     the training shape (bf16, causal, model layout), at
     ``BWD_SHAPES``'s float32 causal, sliding-window, non-causal and edge
-    shapes; its times beside the plain version and SDPA's backward at
-    the training shape; ptxas's registers and spills."""
+    shapes, each cell's route logged; the forward's output the same bits
+    with its row statistics written as without; the ``wgmma`` route's
+    times at the training shape and the ``cuda_cores`` route's at the
+    float32 causal cell, each beside the plain version and SDPA's
+    backward; ptxas's registers and spills and the HGMMA count. Returns
+    the ``wgmma`` route's row and the ``cuda_cores`` route's."""
     import torch
+    from repro_torch.kernels.flash_attention import ops
     b, h, hkv, s, d = shape
     args = bwd_inputs(dev, (b, h, hkv, s, s, d), torch.bfloat16, 17,
                       causal=True)
+    out, _ = ops.flash_attention(*args[:3], causal=True, tq=s, tk=s,
+                                 return_stats=True)
+    if not torch.equal(out, args[3]):
+        raise AssertionError("flash_attention: the output moved with its "
+                             "row statistics written")
     worst = {"training": bwd_check("training shape", args, causal=True)}
+    f32 = None
     for i, (label, shp, kw, dtypes) in enumerate(cases):
         for dt in dtypes:
             a = bwd_inputs(dev, shp, getattr(torch, dt), 100 + i, **kw)
             worst[f"{label} {dt}"] = bwd_check(f"{label} {dt}", a, **kw)
+            if i == BWD_F32_CELL and dt == "float32":
+                f32 = time_flash_bwd(a, **kw)
+                f32["shape"] = shp
             del a
     log(f"flash_attention_bwd == plain (float32 within {BWD_TOL['float32']}"
-        f", bf16 within {BWD_TOL['bfloat16']} of each output's scale; "
-        f"relative, absolute): " + ", ".join(
-            f"{k} {r:.2e}, {a:.2e}" for k, (r, a) in worst.items()))
+        f", bf16 within {BWD_TOL['bfloat16']} of each output's scale; the "
+        f"same bits from a second call; relative, absolute, route): "
+        + ", ".join(
+            f"{k} {r:.2e}, {a:.2e}, {rt}" for k, (r, a, rt) in worst.items()))
+    log("flash_attention: the wgmma forward's output is the same bits with "
+        "its row statistics written (training shape)")
     row = time_flash_bwd(args)
-    row["max_abs_err"] = max(a for _, a in worst.values())
-    row["max_rel_err"] = max(r for r, _ in worst.values())
-    row["rel_err_by_shape"] = {k: r for k, (r, _) in worst.items()}
-    row["ptxas"] = ptxas_lines("flash_attention_bwd.cu")
-    for ln in row["ptxas"]:
-        log(f"ptxas flash_attention_bwd.cu: {ln}")
-    log(f"flash_attention_bwd {shape} bf16 causal, model layout: kernel "
-        f"{row['ms']:.4f} ms (device {row['device_ms']:.4f} ms, "
-        f"{row['tflops']:.1f} TFLOP/s of the 5 products), plain "
+    row["max_abs_err"] = max(a for _, a, _ in worst.values())
+    row["max_rel_err"] = max(r for r, _, _ in worst.values())
+    row["rel_err_by_shape"] = {k: r for k, (r, _, _) in worst.items()}
+    row["route_by_shape"] = {k: rt for k, (_, _, rt) in worst.items()}
+    row.update(bwd_build_report())
+    log(f"flash_attention_bwd {shape} bf16 causal, model layout, wgmma "
+        f"route: kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f} "
+        f"ms, {row['tflops']:.1f} TFLOP/s of the 5 products, "
+        f"{row['tflops_run']:.1f} of the 7 it runs), plain "
         f"{row['plain_ms']:.4f} ms, SDPA backward {row['library_ms']:.4f} "
         f"ms (device {fmt_ms(row['library_device_ms'])}), bound "
-        f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        f"{row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}); its kernels (profiler, ms a call): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in row["device_parts"].items()))
+    f32_errs = [v for k, v in worst.items() if v[2] == "cuda_cores"]
+    f32["max_abs_err"] = max(a for _, a, _ in f32_errs)
+    f32["max_rel_err"] = max(r for r, _, _ in f32_errs)
+    f32["ptxas"] = row.pop("ptxas_cuda_cores")
+    log(f"flash_attention_bwd {f32['shape']} float32 causal, cuda_cores "
+        f"route: kernel {f32['ms']:.4f} ms (device {f32['device_ms']:.4f} "
+        f"ms), plain {f32['plain_ms']:.4f} ms, SDPA backward "
+        f"{f32['library_ms']:.4f} ms (device "
+        f"{fmt_ms(f32['library_device_ms'])}), bound {f32['bound_ms']:.4f} "
+        f"ms ({f32['bound_by']})")
     del args
-    return row
+    return row, f32
 
 
 def train_run(model, cfg, opt_cfg, pipe, steps, dev, check_launches=True):
@@ -5382,7 +5623,8 @@ def train_run(model, cfg, opt_cfg, pipe, steps, dev, check_launches=True):
     each timed on the host clock to a synchronise; with
     ``check_launches``, each step must launch exactly 2 ``flash_attention``
     (forward and checkpoint recompute) and 1 ``flash_attention_bwd`` a
-    layer. Returns (losses, step seconds, per-step launches)."""
+    layer, every one on the ``wgmma`` route (the model's bf16 q, k, v).
+    Returns (losses, step seconds, per-step launches)."""
     import torch
     from repro_torch import kernels
     from repro_torch.launch.steps import make_train_step
@@ -5393,6 +5635,8 @@ def train_run(model, cfg, opt_cfg, pipe, steps, dev, check_launches=True):
     for step in range(steps):
         batch = pipe.batch_at(step)
         before = kernels.launch_counts()
+        routes0 = {k: kernels.route_counts(k) for k in (
+            "flash_attention", "flash_attention_bwd")}
         t0 = time.perf_counter()
         model, opt, metrics = step_fn(model, opt, batch)
         loss = float(metrics["loss"])
@@ -5402,9 +5646,14 @@ def train_run(model, cfg, opt_cfg, pipe, steps, dev, check_launches=True):
         after = kernels.launch_counts()
         n = {k: after[k] - before[k] for k in ("flash_attention",
                                                "flash_attention_bwd")}
-        per_step.append(n)
+        wgmma = {k: kernels.route_counts(k)["wgmma"] - r["wgmma"]
+                 for k, r in routes0.items()}
+        per_step.append(dict(n, wgmma=wgmma))
         want = {"flash_attention": 2 * cfg.num_layers,
                 "flash_attention_bwd": cfg.num_layers}
+        if check_launches and wgmma != want:
+            raise AssertionError(f"train step {step}: wgmma launches "
+                                 f"{wgmma}, expected {want}")
         if check_launches and n != want:
             raise AssertionError(f"train step {step}: launches {n}, "
                                  f"expected {want}")
@@ -5456,7 +5705,8 @@ def kernel_group(name: str) -> str:
     import re
     if "flash_sm90" in name or "flash_kernel" in name:
         return "flash_attention (forward and recompute)"
-    if any(s in name for s in ("row_stats", "kv_pass", "q_pass")):
+    if any(s in name for s in ("row_stats", "kv_pass", "q_pass",
+                               "bwd_prep")):
         return "flash_attention_bwd"
     if re.search(r"gemm|nvjet|xmma|cutlass|cublas", name, re.I):
         return "cuBLAS products"
@@ -5541,7 +5791,8 @@ def check_full_width_training(launches, dev="cuda", layers=QWEN3_TRAIN_LAYERS,
     seeded generator on the card, ``make_train_step`` over
     ``TokenPipeline`` batches of B 2 x 2048 for 5 AdamW steps (float32
     moments): launch counts set to 0 before and read after the run, each
-    step exactly 16 ``flash_attention`` and 8 ``flash_attention_bwd``;
+    step exactly 16 ``flash_attention`` and 8 ``flash_attention_bwd``, all
+    on the ``wgmma`` route;
     losses finite; per step loss, tokens/s and ms; peak device memory;
     then a step's parts (CUDA events) and one profiled step's device
     time by kernel group."""
@@ -5873,7 +6124,8 @@ def main() -> int:
     # plain version; reduced qwen3 card == CPU; qwen3-4b at full width (8
     # layers) for 5 AdamW steps; recovery replays a failed step
     t17 = time.perf_counter()
-    rows["flash_attention_bwd"] = check_flash_bwd(dev)
+    rows["flash_attention_bwd"], rows["flash_attention_bwd_cuda_cores"] = \
+        check_flash_bwd(dev)
     rows["flash_attention_bwd"]["train"] = dict(
         reduced_card_cpu=check_reduced_train_card_cpu(),
         qwen3_4b=check_full_width_training(launches),
@@ -5893,7 +6145,7 @@ def main() -> int:
                "flash_attention":
                    "src/repro_torch/csrc/flash_attention_sm90.cu",
                "flash_attention_bwd":
-                   "src/repro_torch/csrc/flash_attention_bwd.cu"}
+                   "src/repro_torch/csrc/flash_attention_bwd_sm90.cu"}
     replaces = {
         "count_between": "src/repro/kernels/reuse_distance/kernel.py:29",
         "evict_scatter": "src/repro/kernels/maintenance/kernel.py:51",
@@ -5935,8 +6187,11 @@ def main() -> int:
                  path=own_path[k], **{**rows[k], **routes(k)},
                  launches_by_path={p: n[k] for p, n in launches.items()})
             for k in kernels.KERNELS]
-    # the classified routes: their launches are their route's counts
+    # the other routes: their launches are their route's counts
     for k, kernel, src, ref, path in (
+            ("flash_attention_bwd_cuda_cores", "flash_attention_bwd",
+             "src/repro_torch/csrc/flash_attention_bwd.cu",
+             replaces["flash_attention_bwd"], "qwen3-4b-train"),
             ("two_level_classified", "two_level",
              "src/repro_torch/csrc/datapath.cu",
              "src/repro/core/simulator.py:514 (lax.scan step of "
@@ -5947,7 +6202,9 @@ def main() -> int:
              "src/repro/core/simulator.py:377 (lax.scan step of "
              "_simulate_single_level_classified; no Pallas kernel)",
              "paper-12vm-seq_cutoff-eci")):
-        by_path = {p: n["routes"].get(kernel, {}).get("classified", 0)
+        other = "cuda_cores" if kernel == "flash_attention_bwd" \
+            else "classified"
+        by_path = {p: n["routes"].get(kernel, {}).get(other, 0)
                    for p, n in launches.items()}
         line.append(dict(name=k, route="cuda", source=src, replaces=ref,
                          launches=by_path[path], path=path, **rows[k],

@@ -48,8 +48,10 @@
 // 3): about 0.28 TFLOP against 0.13 GB of inputs and outputs. This
 // first version runs them as float32 FMAs on the CUDA cores (67
 // TFLOP/s peak), one block of 256 threads an SM (170 KB of shared
-// memory at D 128); wgmma and TMA (flash_attention_sm90.cu's design)
-// are later work.
+// memory at D 128). It is the `cuda_cores` route, for float32 and the
+// head dims the `wgmma` route does not take; bf16 with D a multiple of
+// 16 goes to flash_attention_bwd_sm90.cu, which runs on the forward's
+// saved row statistics and the tensor cores.
 //
 // Layout: thread (ty, tx) of a 16 x 16 grid owns tile rows ty + 16i (i <
 // 4) and, for a [64 x 64] score tile, keys tx + 16j (j < 4); for a [64 x

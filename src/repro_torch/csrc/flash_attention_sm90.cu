@@ -58,14 +58,13 @@
 // is 16 m64n128k16 (or m64n64k16) wgmmas with A (p_hi, p_lo) from
 // registers in the accumulator's own fragment layout and B = V read
 // transposed (MN-major). The output is stored from registers, rows past
-// Sq and columns past D skipped. A wait that exceeds 4 s traps instead
-// of hanging the card.
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
+// Sq and columns past D skipped; on request each row's final m and l
+// (base 2) are stored beside it for the backward
+// (flash_attention_bwd_sm90.cu), the output the same bits either way. A
+// wait that exceeds 4 s traps instead of hanging the card. The mbarrier,
+// TMA and wgmma helpers are in sm90.cuh, shared with the backward.
 #include "flash_tiles.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -79,181 +78,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr uint32_t kHalfQ = kBM * 128;    // bytes of a 64-column Q half
 constexpr uint32_t kHalfKV = kBN * 128;   // bytes of a 64-column K/V half
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarriers and TMA ------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// until the phase of `parity` completes; a lost transfer traps (4 s)
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const uint64_t t0 = global_ns();
-  while (!mbar_try_wait(bar, parity))
-    if (global_ns() - t0 > 4000000000ull) __trap();
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// ---- wgmma --------------------------------------------------------------
-
-// shared-memory matrix descriptor, 128-byte swizzle (byte offsets)
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep the compiler from moving accesses of x across the asm around it
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
-}
-
-// D[64 x N] (+)= A[64 x 16] · B[16 x N]; A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31 "
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
 // ---- the kernel -------------------------------------------------------
 
 template <int DP>   // head dim padded to 64 or 128
@@ -261,8 +85,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_sm90_kernel(
     const __grid_constant__ CUtensorMap tm_q,
     const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
-    int groups, int sq, int skv, int d, long long osb, long long osh,
-    long long oss, int causal, int window, int q_offset, float scale_log2) {
+    float* __restrict__ stats, int groups, int sq, int skv, int d,
+    long long osb, long long osh, long long oss, int causal, int window,
+    int q_offset, float scale_log2) {
   constexpr int NH = DP / 64;                  // 64-column halves
   constexpr uint32_t kQBytes = NH * kHalfQ;
   constexpr uint32_t kKVBytes = NH * kHalfKV;  // one K (or V) stage
@@ -466,63 +291,24 @@ __global__ void __launch_bounds__(kThreads, 1) flash_sm90_kernel(
                                     __fdiv_rn(acc[4 * j + 2 * r + 1], den[r]));
       }
     }
+
+    // the rows' m and l (base 2), when asked for: [2, B, H, Sq] float32;
+    // the four threads of a row's quad hold the same values
+    if (stats != nullptr && cq == 0) {
+      const long long plane = (long long)gridDim.z * gridDim.y * sq;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0 + 64 * wg + r0 + 8 * r;
+        if (row >= sq) continue;
+        const long long at = ((long long)b * gridDim.y + h) * sq + row;
+        stats[at] = m[r];
+        stats[plane + at] = l[r];
+      }
+    }
   }
 }
 
 // ---- host side ----------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime, so the library needs no -lcuda
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a 4-d map (D, rows, heads, batch) over element strides, boxes of 64
-// columns x box_rows rows, 128-byte swizzle, zeros out of bounds
-bool make_map(CUtensorMap* map, const void* ptr, int d, int rows, int heads,
-              int batch, long long sb, long long sh, long long ss,
-              int box_rows) {
-  EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)heads,
-                        (cuuint64_t)batch};
-  // bytes; a dimension of extent 1 is never stepped: it gets the stride
-  // of a dense layout, which TMA takes whatever the caller's was
-  const long long given[3] = {ss, sh, sb};
-  cuuint64_t strides[3];
-  for (int i = 0; i < 3; ++i)
-    strides[i] = dims[i + 1] > 1 ? (cuuint64_t)given[i] * 2
-                 : i == 0        ? (cuuint64_t)(d + 7) / 8 * 16
-                                 : strides[i - 1] * dims[i];
-  cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
-  cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 // dynamic shared memory: 1024-byte alignment slack, Q, the K and V
 // stages, the mbarriers
@@ -533,10 +319,10 @@ constexpr size_t smem_bytes() {
 }
 
 template <int DP>
-int launch(const void* q, const void* k, const void* v, void* out, int batch,
-           int heads, int hkv, int sq, int skv, int d, const long long* st,
-           int causal, int window, int q_offset, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* stats, int batch, int heads, int hkv, int sq, int skv, int d,
+           const long long* st, int causal, int window, int q_offset,
+           float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DP>();
   auto kernel = flash_sm90_kernel<DP>;
   static bool configured = false;   // once, before any graph capture
@@ -553,7 +339,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
     return (int)cudaErrorInvalidValue;
   dim3 grid((sq + kBM - 1) / kBM, heads, batch);
   kernel<<<grid, kThreads, smem, stream>>>(
-      mq, mk, mv, (__nv_bfloat16*)out, heads / hkv, sq, skv, d, st[9],
+      mq, mk, mv, (__nv_bfloat16*)out, stats, heads / hkv, sq, skv, d, st[9],
       st[10], st[11], causal, window, q_offset, scale * kLog2e);
   return (int)cudaGetLastError();
 }
@@ -563,9 +349,15 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
 // q: [B, H, Sq, D], k/v: [B, Hkv, Skv, D], out: [B, H, Sq, D], bfloat16,
 // addressed by element strides (batch, head, row) with a contiguous last
 // dimension; D a multiple of 16 up to 128, every pointer 16-byte aligned
-// and every stride a multiple of 8 elements (TMA's 16 bytes).
+// and every stride a multiple of 8 elements (TMA's 16 bytes). `stats`,
+// when not null, receives each row's m and l, float32 [2, B, H, Sq]
+// contiguous, in the base-2 domain of the kernel's softmax: m the row's
+// largest score times scale·log2(e) (-1e30 where the mask keeps no key),
+// l the sum of 2^(score·scale·log2(e) - m) over the visited keys; the
+// output is the same bits either way.
 extern "C" int etica_flash_attention_sm90(
-    const void* q, const void* k, const void* v, void* out, int batch,
+    const void* q, const void* k, const void* v, void* out, void* stats,
+    int batch,
     int heads, int hkv, int sq, int skv, int d, long long qsb, long long qsh,
     long long qss, long long ksb, long long ksh, long long kss, long long vsb,
     long long vsh, long long vss, long long osb, long long osh, long long oss,
@@ -585,10 +377,10 @@ extern "C" int etica_flash_attention_sm90(
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (d <= 64)
-    return launch<64>(q, k, v, out, batch, heads, hkv, sq, skv, d, st, causal,
-                      window, q_offset, scale, s);
-  return launch<128>(q, k, v, out, batch, heads, hkv, sq, skv, d, st, causal,
-                     window, q_offset, scale, s);
+    return launch<64>(q, k, v, out, (float*)stats, batch, heads, hkv, sq, skv,
+                      d, st, causal, window, q_offset, scale, s);
+  return launch<128>(q, k, v, out, (float*)stats, batch, heads, hkv, sq, skv,
+                     d, st, causal, window, q_offset, scale, s);
 }
 
 // bytes of dynamic shared memory a launch at head dim d takes

@@ -39,10 +39,15 @@ launch counter (:func:`launch_counts`), and nothing else does.
     (``flash_attention_sm90.cu``, bf16 on the tensor cores, D a multiple
     of 16 up to 128) and ``cuda_cores`` (``flash_attention.cu``, float32
     and the other head dims)
-  * ``flash_attention_bwd`` — its backward (``flash_attention_bwd.cu``:
-    row statistics, then dK and dV a KV tile, then dQ a q tile; no
-    atomics), which the training path's autograd Function launches; it
-    has no Pallas original (the JAX package differentiates its jnp scan)
+  * ``flash_attention_bwd`` — its backward, which the training path's
+    autograd Function launches; it has no Pallas original (the JAX
+    package differentiates its jnp scan). Two routes, paired with the
+    forward's by the same test: ``wgmma`` (``flash_attention_bwd_sm90.cu``:
+    the forward's saved row statistics and delta in a small pass, then
+    dK and dV a 128-key tile and dQ a 128-row tile, bf16 ``wgmma`` for
+    all 7 products) and ``cuda_cores`` (``flash_attention_bwd.cu``: row
+    statistics, then the same two passes on the float32 CUDA cores); no
+    atomics on either
 
 ``popularity`` and ``run_sums`` have two routes each, chosen on the
 host from the padded row width (:func:`row_route`): ``row`` groups each
@@ -76,13 +81,14 @@ SOURCES = ("count_between.cu", "evict_scatter.cu", "promote_scatter.cu",
            "clean_scatter.cu", "datapath.cu", "single_level.cu",
            "run_sums.cu", "decode_attention.cu", "popularity.cu",
            "flash_attention.cu", "flash_attention_sm90.cu",
-           "flash_attention_bwd.cu", "chain_probe.cu")
+           "flash_attention_bwd.cu", "flash_attention_bwd_sm90.cu",
+           "chain_probe.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 # ptxas reports registers, shared memory and spills of these sources into
 # the build's log (:func:`build_log`)
 VERBOSE_SOURCES = ("flash_attention_sm90.cu", "flash_attention_bwd.cu",
-                   "datapath.cu",
+                   "flash_attention_bwd_sm90.cu", "datapath.cu",
                    "single_level.cu", "decode_attention.cu",
                    "promote_scatter.cu", "count_between.cu",
                    "evict_scatter.cu", "clean_scatter.cu", "run_sums.cu",
@@ -95,6 +101,9 @@ KERNELS = ("count_between", "evict_scatter", "promote_scatter",
 # kernels with more than one CUDA entry point: route -> C symbol
 ROUTES = {"flash_attention": {"wgmma": "etica_flash_attention_sm90",
                               "cuda_cores": "etica_flash_attention"},
+          "flash_attention_bwd": {
+              "wgmma": "etica_flash_attention_bwd_sm90",
+              "cuda_cores": "etica_flash_attention_bwd"},
           "two_level": {"unclassified": "etica_two_level",
                         "classified": "etica_two_level_classified"},
           "single_level": {"unclassified": "etica_single_level",
@@ -128,11 +137,13 @@ _SIGNATURES = {
     "etica_popularity_tiled": (*(_P,) * 9, _I, _I, _I, _P),
     "etica_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               *(_L,) * 12, _I, _I, _I, _F, _I, _P),
-    "etica_flash_attention_sm90": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                   *(_L,) * 12, _I, _I, _I, _F, _P),
+    "etica_flash_attention_sm90": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, *(_L,) * 12, _I, _I, _I, _F, _P),
     "etica_flash_attention_sm90_smem": (_I,),
     "etica_flash_attention_bwd": (*(_P,) * 11, *(_I,) * 6, _P, _I, _I, _I,
                                   _F, _I, _P),
+    "etica_flash_attention_bwd_sm90": (*(_P,) * 10, *(_I,) * 6, _P, _I, _I,
+                                       _I, _F, _P),
     "etica_chain_probe": (_P, _I, _P, _P),
     "etica_fadd_probe": (_F, _I, _P, _P),
 }

@@ -30,13 +30,30 @@ reference's ``blocked_attention`` argument; 0 in the Pallas kernel).
 
 The backward: :func:`flash_attention_bwd` gives ``dq, dk, dv`` from q,
 k, v, the forward's output and its gradient, through the
-``flash_attention_bwd`` kernel (``csrc/flash_attention_bwd.cu``, one
-launch sequence of three kernels, counted once) for CUDA tensors and
-:func:`flash_attention_bwd_plain` for CPU tensors. :class:`FlashAttention`
-is the ``torch.autograd.Function`` that joins the two directions;
-:func:`attention`, which the model calls, goes through it on both
-devices. The JAX package has no backward kernel: it differentiates its
-jnp scan.
+``flash_attention_bwd`` kernel for CUDA tensors (one launch sequence of
+three kernels, counted once, and once for its route) and
+:func:`flash_attention_bwd_plain` for CPU tensors. Its routes pair with
+the forward's by the same :func:`route`: ``wgmma``
+(``csrc/flash_attention_bwd_sm90.cu``, bf16 on the tensor cores, built
+on the forward's saved row statistics) and ``cuda_cores``
+(``csrc/flash_attention_bwd.cu``, which recomputes them).
+
+Row statistics (``return_stats=True``, ``stats=``): float32 ``[2, B, H,
+Sq]``, each row's ``m`` and ``l`` in the base-2 domain of the ``wgmma``
+kernel's softmax: ``m`` the row's largest ``x = q·k·D^-½·log2(e)``
+(``-1e30`` where the mask keeps no key, the masked score's value in that
+domain), ``l`` the sum of ``2^(x - m)`` (a masked key counts ``x =
+-1e30``), so ``P = 2^(x - m) / max(l, 1e-30)``. They stay two numbers,
+not one log-sum-exp: ``-1e30 + log2(l)`` rounds back to ``-1e30``, which
+would give a row that keeps no key ``P = 1`` in place of ``1 / Skv``.
+The ``wgmma`` forward writes them in the same launch (the output is the
+same bits with or without), the plain forward derives them from its own
+``m`` and ``l``; the ``cuda_cores`` forward has none (None).
+:class:`FlashAttention` is the ``torch.autograd.Function`` that joins
+the two directions: it asks for the statistics only when an input needs
+a gradient and hands them to the backward. :func:`attention`, which the
+model calls, goes through it on both devices. The JAX package has no
+backward kernel: it differentiates its jnp scan.
 """
 from __future__ import annotations
 
@@ -47,6 +64,7 @@ import torch
 from repro_torch import kernels
 
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634
 DEFAULT_TQ = 128
 DEFAULT_TK = 128
 MAX_HEAD_DIM = 128     # the kernels' zero-padded row width
@@ -88,14 +106,45 @@ def _check(q, k, v, tq, tk, window, q_offset):
     return tq, tk
 
 
+def _tma_ok(t) -> bool:
+    """TMA reads ``t``: a 16-byte aligned pointer and strides that are
+    multiples of 8 elements (16 bytes), but where the extent is 1."""
+    return t.data_ptr() % 16 == 0 and all(
+        st % 8 == 0 for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1)
+
+
+def _check_tma(**tensors):
+    for name, t in tensors.items():
+        if not _tma_ok(t):
+            raise ValueError(f"{name}: TMA needs a 16-byte aligned pointer "
+                             f"and strides (strides {t.stride()})")
+
+
+def _launch_wgmma(q, k, v, out, stats, causal, window, q_offset):
+    """One launch of the ``wgmma`` forward into ``out`` (and ``stats``,
+    when not None)."""
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    kernels.launch("flash_attention", q.data_ptr(), k.data_ptr(),
+                   v.data_ptr(), out.data_ptr(),
+                   None if stats is None else stats.data_ptr(), b, h, hkv,
+                   sq, skv, d, *strides, int(causal), int(window),
+                   int(q_offset), d ** -0.5, route="wgmma")
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     tq: int = DEFAULT_TQ, tk: int = DEFAULT_TK,
-                    q_offset: int = 0):
-    """q: [B, H, Sq, D]; k, v: [B, Hkv, Skv, D]. Returns [B, H, Sq, D]."""
+                    q_offset: int = 0, return_stats: bool = False):
+    """q: [B, H, Sq, D]; k, v: [B, Hkv, Skv, D]. Returns [B, H, Sq, D];
+    with ``return_stats``, ``(out, stats)``: the rows' ``[2, B, H, Sq]``
+    statistics (the module docstring), None on the ``cuda_cores``
+    route."""
     tq, tk = _check(q, k, v, tq, tk, window, q_offset)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     tk=tk, q_offset=q_offset)
+                                     tk=tk, q_offset=q_offset,
+                                     return_stats=return_stats)
     dev = q.device
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -107,25 +156,23 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: the last dimension must be contiguous")
     out = torch.empty_like(q)       # q's layout: a BSHD view stays BSHD
+    wgmma = route(q.dtype, d) == "wgmma"
+    stats = None
+    if return_stats and wgmma:
+        stats = torch.empty((2, b, h, sq), dtype=torch.float32, device=dev)
     if not (b and h and sq and d):
-        return out
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-            hkv, sq, skv, d, *strides, int(causal), int(window),
-            int(q_offset), d ** -0.5)
-    if route(q.dtype, d) == "wgmma":
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16 or any(
-                    st % 8 for n, st in zip(t.shape[:3], t.stride()[:3])
-                    if n > 1):
-                raise ValueError(f"{name}: TMA needs a 16-byte aligned "
-                                 f"pointer and strides (strides "
-                                 f"{t.stride()})")
-        kernels.launch("flash_attention", *args, route="wgmma")
+        return (out, stats) if return_stats else out
+    if wgmma:
+        _check_tma(q=q, k=k, v=v)
+        _launch_wgmma(q, k, v, out, stats, causal, window, q_offset)
     else:
-        kernels.launch("flash_attention", *args,
-                       int(q.dtype == torch.bfloat16), route="cuda_cores")
-    return out
+        strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+        kernels.launch("flash_attention", q.data_ptr(), k.data_ptr(),
+                       v.data_ptr(), out.data_ptr(), b, h, hkv, sq, skv, d,
+                       *strides, int(causal), int(window), int(q_offset),
+                       d ** -0.5, int(q.dtype == torch.bfloat16),
+                       route="cuda_cores")
+    return (out, stats) if return_stats else out
 
 
 def _mask(sq: int, skv: int, *, causal: bool, window: int, q_offset: int,
@@ -143,12 +190,16 @@ def _mask(sq: int, skv: int, *, causal: bool, window: int, q_offset: int,
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                          tk: int = DEFAULT_TK, q_offset: int = 0):
+                          tk: int = DEFAULT_TK, q_offset: int = 0,
+                          return_stats: bool = False):
     """The Pallas body over all query rows at once (a row's result does
     not depend on the query tiling): q scaled by ``D**-0.5`` in float32
     before the product, float32 scores masked to -1e30 at absolute
     positions, then the running ``(m, l, acc)`` over ``tk``-wide KV
-    tiles in order; output ``acc / max(l, 1e-30)`` in q's dtype."""
+    tiles in order; output ``acc / max(l, 1e-30)`` in q's dtype. With
+    ``return_stats``, ``(out, stats)``: the final ``m`` and ``l`` in the
+    base-2 domain (``m·log2(e)``, and -1e30 where it is -1e30; ``l`` is
+    the same sum in either domain)."""
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     tk = min(tk, skv)
@@ -171,8 +222,11 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
         l = l * alpha + p.sum(-1, keepdim=True)
         acc = acc * alpha + p @ vj
         m = m_new
-    out = acc / torch.clamp(l, min=1e-30)
-    return out.reshape(b, h, sq, d).to(q.dtype)
+    out = (acc / torch.clamp(l, min=1e-30)).reshape(b, h, sq, d).to(q.dtype)
+    if not return_stats:
+        return out
+    m2 = torch.where(m == NEG_INF, NEG_INF, m * LOG2E)
+    return out, torch.stack([m2, l]).reshape(2, b, h, sq)
 
 
 def _check_bwd(q, out, dout):
@@ -185,18 +239,35 @@ def _check_bwd(q, out, dout):
                         f"q's dtype {q.dtype}")
 
 
+def _check_stats(stats, q):
+    b, h, sq, _ = q.shape
+    if stats.shape != (2, b, h, sq) or stats.dtype != torch.float32:
+        raise ValueError(f"stats {stats.dtype}{tuple(stats.shape)}: "
+                         f"expected float32 {(2, b, h, sq)}")
+    if stats.device != q.device or not stats.is_contiguous():
+        raise ValueError(f"stats: contiguous on {q.device} expected")
+
+
 def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
-                        window: int = 0, q_offset: int = 0):
+                        window: int = 0, q_offset: int = 0, stats=None):
     """The gradients ``(dq, dk, dv)`` of :func:`flash_attention`'s output
     ``out`` under the upstream gradient ``dout`` ([B, H, Sq, D], q's
     dtype), in the layouts and dtypes of q, k and v; each KV head's dk
-    and dv sum over its query heads. CUDA tensors launch the kernel (no
-    fallback); CPU tensors take :func:`flash_attention_bwd_plain`."""
+    and dv sum over its query heads. ``stats``: the forward's row
+    statistics (``return_stats``); without them the ``wgmma`` route gets
+    them from one launch of the ``wgmma`` forward (counted as such), the
+    ``cuda_cores`` route recomputes them in its own first pass (and
+    ignores any given), the plain version recomputes the softmax. CUDA
+    tensors launch the kernel by :func:`route` (no fallback); CPU tensors
+    take :func:`flash_attention_bwd_plain`."""
     _check(q, k, v, q.shape[2], k.shape[2], window, q_offset)
     _check_bwd(q, out, dout)
+    if stats is not None:
+        _check_stats(stats, q)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, dout, causal=causal,
-                                         window=window, q_offset=q_offset)
+                                         window=window, q_offset=q_offset,
+                                         stats=stats)
     dev = q.device
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -205,33 +276,55 @@ def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
             raise ValueError(f"q on {dev}, {name} on {t.device}")
     if d > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {d} > {MAX_HEAD_DIM}")
-    if dout.stride(-1) != 1:
-        dout = dout.contiguous()
+    wgmma = route(q.dtype, d) == "wgmma"
+    if dout.stride(-1) != 1 or (wgmma and not _tma_ok(dout)):
+        dout = dout.contiguous()    # the upstream gradient, copied once
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: the last dimension must be contiguous")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    m, l, delta = torch.empty((3, b, h, sq), dtype=torch.float32, device=dev)
     strides = (ctypes.c_longlong * 24)(*(
         s for t in (q, k, v, out, dout, dq, dk, dv) for s in t.stride()[:3]))
-    kernels.launch("flash_attention_bwd", q.data_ptr(), k.data_ptr(),
-                   v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-                   dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), m.data_ptr(),
-                   l.data_ptr(), delta.data_ptr(), b, h, hkv, sq, skv, d,
-                   ctypes.addressof(strides), int(causal), int(window),
-                   int(q_offset), d ** -0.5, int(q.dtype == torch.bfloat16))
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    tail = (ctypes.addressof(strides), int(causal), int(window),
+            int(q_offset), d ** -0.5)
+    if wgmma:
+        _check_tma(q=q, k=k, v=v, out=out)
+        if stats is None:
+            stats = torch.empty((2, b, h, sq), dtype=torch.float32,
+                                device=dev)
+            _launch_wgmma(q, k, v, torch.empty_like(q), stats, causal,
+                          window, q_offset)
+        n_rt = 2 * -(-sq // 128)     # 64-row records a head, whole 128s
+        rec = torch.empty(b * h * n_rt * 192, dtype=torch.float32,
+                          device=dev)
+        kernels.launch("flash_attention_bwd", *head, stats.data_ptr(),
+                       rec.data_ptr(), b, h, hkv, sq, skv, d, *tail,
+                       route="wgmma")
+    else:
+        m, l, delta = torch.empty((3, b, h, sq), dtype=torch.float32,
+                                  device=dev)
+        kernels.launch("flash_attention_bwd", *head, m.data_ptr(),
+                       l.data_ptr(), delta.data_ptr(), b, h, hkv, sq, skv, d,
+                       *tail, int(q.dtype == torch.bfloat16),
+                       route="cuda_cores")
     return dq, dk, dv
 
 
 def flash_attention_bwd_plain(q, k, v, out, dout, *, causal: bool = True,
-                              window: int = 0, q_offset: int = 0):
+                              window: int = 0, q_offset: int = 0,
+                              stats=None):
     """The backward in plain PyTorch, float32 math, by the standard
     recompute: ``P = softmax(mask(q·kᵀ·D^-½))`` (masked scores -1e30, as
     the forward), ``dV = Pᵀ·dO``, ``dP = dO·Vᵀ``, ``dS = P∘(dP −
     rowsum(dO∘O))`` where the mask keeps the score and 0 where it drops
     it (a constant score has no gradient), ``dQ = dS·K·D^-½``, ``dK =
     dSᵀ·q·D^-½``; GQA's dk and dv summed over each KV head's query
-    heads. Outputs in the dtypes and layouts of q, k and v."""
+    heads. Given the forward's ``stats``, ``P = 2^(x - m) / max(l,
+    1e-30)`` from them (``x`` the masked scores times log2(e), -1e30
+    where masked) instead of the softmax. Outputs in the dtypes and
+    layouts of q, k and v."""
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     g = h // hkv
@@ -241,8 +334,13 @@ def flash_attention_bwd_plain(q, k, v, out, dout, *, causal: bool = True,
     do = dout.float().reshape(b, hkv, g, sq, d)
     mask = _mask(sq, skv, causal=causal, window=window, q_offset=q_offset,
                  device=q.device)
-    p = torch.softmax(torch.where(mask, qf @ kf.transpose(-1, -2), NEG_INF),
-                      dim=-1)                          # [B, Hkv, G, Sq, Skv]
+    s = qf @ kf.transpose(-1, -2)                      # [B, Hkv, G, Sq, Skv]
+    if stats is None:
+        p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    else:
+        m, l = stats.reshape(2, b, hkv, g, sq, 1)
+        p = torch.exp2(torch.where(mask, s * LOG2E, NEG_INF) - m) \
+            / torch.clamp(l, min=1e-30)
     delta = (do * out.float().reshape(b, hkv, g, sq, d)).sum(-1,
                                                              keepdim=True)
     ds = torch.where(mask, p * (do @ vf.transpose(-1, -2) - delta), 0.0)
@@ -259,24 +357,28 @@ def flash_attention_bwd_plain(q, k, v, out, dout, *, causal: bool = True,
 
 
 class FlashAttention(torch.autograd.Function):
-    """:func:`flash_attention` with its backward: saves q, k, v and the
-    output; the backward is :func:`flash_attention_bwd` (the kernel for
-    CUDA tensors, the plain version for CPU tensors)."""
+    """:func:`flash_attention` with its backward: saves q, k, v, the
+    output and, when an input needs a gradient, the forward's row
+    statistics; the backward is :func:`flash_attention_bwd` on them (the
+    kernel for CUDA tensors, the plain version for CPU tensors)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, tq, tk, q_offset):
-        out = flash_attention(q, k, v, causal=causal, window=window, tq=tq,
-                              tk=tk, q_offset=q_offset)
-        ctx.save_for_backward(q, k, v, out)
+        grads = any(ctx.needs_input_grad[:3])
+        res = flash_attention(q, k, v, causal=causal, window=window, tq=tq,
+                              tk=tk, q_offset=q_offset, return_stats=grads)
+        out, stats = res if grads else (res, None)
+        ctx.save_for_backward(q, k, v, out, stats)
         ctx.flags = (causal, window, q_offset)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, stats = ctx.saved_tensors
         causal, window, q_offset = ctx.flags
         dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, causal=causal,
-                                         window=window, q_offset=q_offset)
+                                         window=window, q_offset=q_offset,
+                                         stats=stats)
         return dq, dk, dv, None, None, None, None, None
 
 

@@ -1247,14 +1247,18 @@ def test_classify_block_card_equals_cpu(dev):
     (1, 8, 2, 330, 330, 64, True, 100, 0),     # window across tiles
     (1, 8, 2, 100, 384, 128, False, 0, 0),     # non-causal, Sq != Skv
     (1, 4, 2, 70, 200, 48, True, 0, 130),      # q_offset, D 48
-    (1, 2, 1, 16, 48, 8, True, 4, 60)])        # rows that keep no key
+    (1, 2, 1, 16, 48, 8, True, 4, 60),         # rows that keep no key
+    (1, 4, 2, 100, 96, 16, True, 16, 60),      # D 16: rows 51.. keep none
+    (1, 4, 2, 100, 96, 64, True, 16, 60)])     # D 64: the same rows
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_bwd_kernel(dev, b, h, hkv, sq, skv, d, causal,
                                     window, q_offset, dtype):
     """The backward kernel against its plain version (float32 within
     1e-4 of each gradient's scale, bf16 within 2e-2) on the model's
-    layout: one launch, q, k and v's layouts and dtypes, and the same
-    bits twice (no atomics)."""
+    layout: one launch on the route of its dtype and head dim (``wgmma``
+    for bf16 with D % 16 == 0, else ``cuda_cores``), q, k and v's
+    layouts and dtypes, the same bits twice (no atomics), and the same
+    bits given the forward's row statistics as without them."""
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention import ops
     rng = np.random.default_rng(sq * d + skv)
@@ -1264,11 +1268,16 @@ def test_flash_attention_bwd_kernel(dev, b, h, hkv, sq, skv, d, causal,
             np.float32)).to(dev, dtype).transpose(1, 2)
     q, k, v = rnd(b, sq, h, d), rnd(b, skv, hkv, d), rnd(b, skv, hkv, d)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    out = ops.flash_attention(q, k, v, tq=sq, tk=skv, **kw)
+    out, stats = ops.flash_attention(q, k, v, tq=sq, tk=skv,
+                                     return_stats=True, **kw)
+    route = "wgmma" if dtype == torch.bfloat16 and d % 16 == 0 \
+        else "cuda_cores"
+    assert (stats is not None) == (route == "wgmma")
     do = rnd(b, sq, h, d)
     kernels.reset_launch_counts()
     got = ops.flash_attention_bwd(q, k, v, out, do, **kw)
     assert kernels.launch_counts()["flash_attention_bwd"] == 1
+    assert kernels.route_counts("flash_attention_bwd")[route] == 1
     want = ops.flash_attention_bwd_plain(q, k, v, out, do, **kw)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     for g, w, x in zip(got, want, (q, k, v)):
@@ -1277,6 +1286,32 @@ def test_flash_attention_bwd_kernel(dev, b, h, hkv, sq, skv, d, causal,
             tol * float(w.float().abs().max())
     again = ops.flash_attention_bwd(q, k, v, out, do, **kw)
     assert all(torch.equal(a, c) for a, c in zip(got, again))
+    given = ops.flash_attention_bwd(q, k, v, out, do, stats=stats, **kw)
+    assert all(torch.equal(a, c) for a, c in zip(got, given))
+    assert kernels.route_counts("flash_attention_bwd")[route] == 3
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,window", [
+    (2, 8, 2, 300, 128, 0), (1, 4, 4, 200, 64, 0), (1, 4, 2, 130, 16, 32)])
+def test_flash_attention_stats_keep_the_output(dev, b, h, hkv, s, d, window):
+    """The ``wgmma`` forward's output is the same bits with its row
+    statistics written as without, and the statistics are the plain
+    version's (m within 1e-5 of its scale, l within 1e-4 relative)."""
+    from repro_torch.kernels.flash_attention import ops
+    rng = np.random.default_rng(s + d)
+    q = torch.from_numpy(rng.normal(size=(b, h, s, d)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    k, v = (torch.from_numpy(rng.normal(size=(b, hkv, s, d)).astype(
+        np.float32)).to(dev, torch.bfloat16) for _ in range(2))
+    kw = dict(causal=True, window=window, tq=s, tk=s)
+    plain = ops.flash_attention(q, k, v, **kw)
+    out, stats = ops.flash_attention(q, k, v, return_stats=True, **kw)
+    assert torch.equal(out, plain)
+    _, want = ops.flash_attention_plain(q, k, v, causal=True, window=window,
+                                        tk=s, return_stats=True)
+    assert float((stats[0] - want[0]).abs().max()) <= \
+        1e-5 * float(want[0].abs().max())
+    assert float(((stats[1] - want[1]) / want[1]).abs().max()) <= 1e-4
 
 
 def test_train_step_launches_and_matches_cpu(dev):
