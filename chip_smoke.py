@@ -74,8 +74,11 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    random: the default pool, an exclusive slice, an empty slice, a
    bypass class; at one level the five policies mixed across (VM,
    class)), each with its call and device time beside the unclassified
-   route's, bound, chain bound, plan, one device event a call
-   (asserted) and ptxas's registers and spills; match-all tables equal
+   route's and the ratio of the two device times, bound, chain bound,
+   plan, one device event a call (asserted); ptxas's registers and
+   spills of all six walk instantiations of each source, the
+   unclassified ones asserted equal to ``WALK_PTXAS``, and the SASS of
+   their request steps (``sass_walk_steps``); match-all tables equal
    the unclassified routes;
 3. runs the paper's §5.1 deployment (12 VMs x 20,000 requests, 64 x 64
    geometry) through ``EticaCache.run`` on the card and again on the
@@ -875,7 +878,6 @@ def kernel_classes():
 def ptxas_by_kernel(source: str) -> dict:
     """ptxas's registers and spills of each walk kernel instantiation of
     one source (``kernels.build_log()``), keyed ``kernel<Row>``."""
-    import re
     from repro_torch import kernels
     out, cur, name = {}, None, None
     for ln in kernels.build_log().splitlines():
@@ -884,13 +886,104 @@ def ptxas_by_kernel(source: str) -> dict:
         elif cur != source:
             continue
         elif "Compiling entry function" in ln:
-            k = re.search(r"((?:two|single)_level[a-z_]*_kernel)I", ln)
-            row = re.search(r"(MemRow|RegRowILi(\d)E)", ln)
-            name = (f"{k.group(1) if k else '?'}<"
-                    f"{'RegRow<' + row.group(2) + '>' if row and row.group(2) else 'MemRow'}>")
+            name = walk_kernel_name(ln) or "?"
         elif name and ("registers" in ln or "spill" in ln):
             out[name] = (out.get(name, "") + " " + ln.split(":", 1)[-1]
                          .strip()).strip()
+    return out
+
+
+def walk_kernel_name(mangled: str) -> str | None:
+    """``kernel<Row>`` of a set-walk kernel's mangled or ptxas name."""
+    import re
+    k = re.search(r"((?:two|single)_level[a-z_]*_kernel)I", mangled)
+    if not k:
+        return None
+    row = re.search(r"(MemRow|RegRowILi(\d)E)", mangled)
+    return (f"{k.group(1)}<"
+            f"{'RegRow<' + row.group(2) + '>' if row and row.group(2) else 'MemRow'}>")
+
+
+_WALK_SASS: dict = {}
+
+
+def sass_walk_steps(source: str) -> dict | None:
+    """The SASS of each set-walk kernel of one source (``cuobjdump
+    -sass`` of the kernel library), keyed ``kernel<Row>``: its
+    instructions, and its request steps: every innermost loop (a span
+    from a backward branch's target to the branch) that holds a warp
+    reduction (``REDUX``, the lookups' and victims') and no CTA barrier
+    (``BAR``: the tile's loops), with its static instructions (every
+    branch of the step) and its ``ATOMS`` (shared atomics), ``SHFL``,
+    ``LDS``, ``STS``, ``REDUX`` and ``BSSY`` (a branch the compiler
+    cannot prove uniform across the warp). None where the toolkit has
+    no ``cuobjdump``."""
+    import re
+    from repro_torch import kernels
+    cuobjdump = Path("/usr/local/cuda/bin/cuobjdump")
+    if not cuobjdump.exists():
+        return None
+    if not _WALK_SASS:
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               kernels.library()._name],
+                              capture_output=True, text=True).stdout
+        fn, code, labels = None, [], {}
+        pending = []
+
+        def close():
+            if fn:
+                _WALK_SASS[fn] = (code, labels)
+        for ln in sass.splitlines():
+            m = re.search(r"Function\s*:\s*(\S+)", ln)
+            if m:
+                close()
+                fn, code, labels, pending = m.group(1), [], {}, []
+                continue
+            lab = re.match(r"\s*(\.L_x_\d+):", ln)
+            if lab:
+                pending.append(lab.group(1))
+                continue
+            ins = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", ln)
+            if fn and ins:
+                addr = int(ins.group(1), 16)
+                for p in pending:
+                    labels[p] = addr
+                pending = []
+                code.append((addr, ins.group(2).strip()))
+        close()
+    tag = "_" + source.replace(".", "_") + "_"
+    out = {}
+    for fn, (code, labels) in _WALK_SASS.items():
+        name = walk_kernel_name(fn)
+        if tag not in fn or not name:
+            continue
+        ops_ = [(a, re.sub(r"^@!?U?P\w+\s+", "", t).split()[0], t)
+                for a, t in code]
+        loops = []
+        for a, op, t in ops_:
+            if not op.startswith("BRA"):
+                continue
+            m = re.search(r"0x([0-9a-f]+)", t.split(None, 1)[-1])
+            lab = re.search(r"(\.L_x_\d+)", t)
+            tgt = int(m.group(1), 16) if m else labels.get(
+                lab.group(1)) if lab else None
+            if tgt is not None and tgt <= a:
+                loops.append((tgt, a))
+
+        def stats(lo, hi):
+            body = [op for a, op, _ in ops_ if lo <= a <= hi]
+            return dict(instructions=len(body), **{
+                k: sum(op.startswith(k) for op in body)
+                for k in ("ATOMS", "SHFL", "LDS", "STS", "REDUX", "BSSY",
+                          "BAR")})
+        red = [(lo, hi) for lo, hi in loops
+               if stats(lo, hi)["REDUX"] and not stats(lo, hi)["BAR"]]
+        inner = [(lo, hi) for lo, hi in red if not any(
+            (x, y) != (lo, hi) and lo <= x and y <= hi for x, y in red)]
+        steps = [stats(lo, hi) for lo, hi in sorted(inner)]
+        for st in steps:
+            del st["BAR"]
+        out[name] = dict(instructions=len(code), steps=steps)
     return out
 
 
@@ -994,14 +1087,52 @@ def check_classified(dev, rng, blocks, geo, ways, label, step_ns,
     log(f"{name} [{v},{n}] {sd}x{wmd}" + ("" if single else f" / {ss}x{wms}")
         + f", C {c}: exact over {len(blocks)} blocks; kernel {ms:.4f} ms "
         f"(device {dev_ms:.4f} ms, {events:.0f} device event a call), "
-        f"unclassified route {u_ms:.4f} ms (device {u_dev:.4f} ms), plain "
+        f"unclassified route {u_ms:.4f} ms (device {u_dev:.4f} ms; "
+        f"classified / unclassified device {dev_ms / u_dev:.3f}x), plain "
         f"{fmt_ms(plain_ms)}, bound {b:.5f} ms ({by}), longest same-set "
         f"chain {chain} x {step_ns:.2f} ns = chain bound {chain_b:.5f} ms, "
         f"plan {parts} CTA(s) a VM")
     return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                 bound_ms=b, bound_by=by, library_ms=None, chain=chain,
                 chain_bound_ms=chain_b, unclassified_ms=u_ms,
-                unclassified_device_ms=u_dev, parts=parts, events=events)
+                unclassified_device_ms=u_dev, device_ratio=dev_ms / u_dev,
+                parts=parts, events=events)
+
+
+# ptxas of the unclassified set-walk kernels (registers, spill stores,
+# spill loads), from the build of an earlier run of this script on an
+# H100 80GB HBM3 (PERF.md §6): the classified routes share their header
+# (csrc/set_walk.cuh) and must leave them as they are.
+WALK_PTXAS = {
+    "datapath.cu": {"two_level_kernel<RegRow<1>>": (58, 0, 0),
+                    "two_level_kernel<RegRow<2>>": (62, 0, 0),
+                    "two_level_kernel<MemRow>": (64, 28, 36)},
+    "single_level.cu": {"single_level_kernel<RegRow<1>>": (58, 0, 0),
+                        "single_level_kernel<RegRow<2>>": (58, 0, 0),
+                        "single_level_kernel<MemRow>": (64, 0, 0)}}
+
+
+def ptxas_numbers(info: str) -> tuple[int, int, int]:
+    """(registers, spill stores, spill loads) of a ``ptxas_by_kernel``
+    entry."""
+    import re
+    get = lambda pat: int(re.search(pat, info).group(1))
+    return (get(r"Used (\d+) registers"), get(r"(\d+) bytes spill stores"),
+            get(r"(\d+) bytes spill loads"))
+
+
+def same_walk_ptxas(source: str, ptxas: dict) -> None:
+    """The unclassified walk kernels of ``source`` have the registers and
+    spills of ``WALK_PTXAS``; every one of the six instantiations built."""
+    want = WALK_PTXAS[source]
+    if len(ptxas) != 6 or not set(want) <= set(ptxas):
+        raise AssertionError(f"{source}: walk kernels {sorted(ptxas)}")
+    for k, rec in want.items():
+        got = ptxas_numbers(ptxas[k])
+        if got != rec:
+            raise AssertionError(f"{source} {k}: ptxas (registers, spill "
+                                 f"stores, spill loads) {got}, recorded "
+                                 f"{rec}")
 
 
 def check_match_all_routes(dev, blocks, ways):
@@ -1092,6 +1223,13 @@ def check_classified_routes(dev, rng, paper, blocks12, blocks1024, ways12,
         row["ptxas"] = ptxas_by_kernel(src)
         for k, info in row["ptxas"].items():
             log(f"ptxas {src} {k}: {info}")
+        same_walk_ptxas(src, row["ptxas"])
+        row["sass"] = sass_walk_steps(src)
+        for k, info in (row["sass"] or {}).items():
+            log(f"SASS {src} {k}: {info['instructions']} instructions; "
+                f"request steps (innermost loops with a warp reduction): "
+                + "; ".join(", ".join(f"{n} {x}" for x, n in st.items())
+                            for st in info["steps"]))
         rows[key] = row
     check_match_all_routes(dev, blocks12, ways12)
     return rows

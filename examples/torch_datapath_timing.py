@@ -33,6 +33,18 @@ IO classifier's ``classified`` routes, each shape also times them
 (``"route": "classified"``), with ``chip_smoke.kernel_classes``' four
 classes drawn at random for each request and, at one level, the five
 policies mixed across (VM, class).
+
+``--diagnose`` adds, at the 12-VM shape, what the classified routes'
+cost is made of: each route with ``kernel_classes``' four classes and
+with one match-all class (C = 1: every request served, no bypass, the
+whole active range), on the blocks as drawn (64 sets) and with every
+request moved to set 0 (``chip_smoke.one_set``: one chain a VM), each
+beside the unclassified route (at one level under class 0's policies);
+then ptxas's registers and spills of every walk kernel
+(``chip_smoke.ptxas_by_kernel``) and the SASS of their request steps
+(``chip_smoke.sass_walk_steps``: static instructions, shared atomics,
+shuffles and shared loads of each innermost loop that holds a warp
+reduction).
 """
 from __future__ import annotations
 
@@ -51,6 +63,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="this tree")
+    ap.add_argument("--diagnose", action="store_true",
+                    help="also the classified routes' cost breakdown")
     opts = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs          # puts this tree's src on the path
@@ -158,7 +172,73 @@ def main() -> int:
                 **v1_times(v, call,
                            lambda: ops.single_level_classified_plain(
                                *cargs, t_cache=T_SSD)))), flush=True)
+    if opts.diagnose:
+        diagnose(cs, ops, b12, smi, opts.label, dev)
     return 0
+
+
+def diagnose(cs, ops, b12, smi, label, dev) -> None:
+    """The classified routes at [12, 1000], 64 x 64: C = 4 and C = 1
+    (match-all), 64 sets and one set, beside the unclassified route; then
+    ptxas and the SASS of the walk kernels (see the module docstring)."""
+    import torch
+    from repro_torch.core.policies import T_SSD
+    from repro_torch.core.simulator import make_cache_batch
+    put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    rng = np.random.default_rng(1)
+    ways = [rng.integers(8, 65, 12).astype(np.int32) for _ in range(2)]
+    wd, ws = put(ways[0]), put(ways[1])
+    clf = cs.kernel_classes()
+    four = dict(byp=put(clf.bypass), bounds=[put(x) for w in ways
+                                             for x in clf.way_bounds(w)])
+    zero = torch.zeros((12, 1), dtype=torch.int32, device=dev)
+    one = dict(byp=torch.zeros(1, dtype=torch.bool, device=dev),
+               bounds=[zero, wd[:, None].contiguous(), zero,
+                       ws[:, None].contiguous()])
+    flags4 = cs.random_policy_flags(rng, 12, clf.num_classes, dev)
+    for sets_name, blocks in (("64 sets", b12),
+                              ("one set", cs.one_set(b12, 64))):
+        (a0, w0), (a1, w1) = [(put(a), put(w)) for a, w in blocks]
+        t0 = torch.zeros(12, dtype=torch.int32, device=dev)
+        cl4 = put(rng.integers(0, clf.num_classes, a1.shape).astype(np.int32))
+        cl1 = torch.zeros(a1.shape, dtype=torch.int32, device=dev)
+        row = dict(tree=label, shape="12-VM", sets=sets_name, card=smi)
+        for mode in ("full", "npe"):
+            npe = mode == "npe"
+            st = (*make_cache_batch(12, 64, 64, dev),
+                  *make_cache_batch(12, 64, 64, dev))
+            out = ops.two_level(a0, w0, *st, wd, ws, t0, npe=npe)
+            args = (a1, w1, *out[:6], wd, ws, out[8])
+            base = cs.graph_ms(lambda: ops.two_level(*args, npe=npe), 10)
+            for c, cl, tab in ((4, cl4, four), (1, cl1, one)):
+                ms = cs.graph_ms(lambda: ops.two_level_classified(
+                    a1, w1, cl, *out[:6], wd, ws, out[8], tab["byp"],
+                    *tab["bounds"], npe=npe), 10)
+                print(json.dumps(dict(
+                    row, kernel="two_level", route="classified", mode=mode,
+                    classes=c, device_ms=ms, unclassified_device_ms=base,
+                    ratio=ms / base)), flush=True)
+        st = make_cache_batch(12, 64, 64, dev)
+        for c, cl, tab, fl in ((4, cl4, four, flags4),
+                               (1, cl1, one, [f[:, :1].contiguous()
+                                              for f in flags4])):
+            vm_flags = [f[:, 0].contiguous() for f in fl]
+            out = ops.single_level(a0, w0, *st, wd, *vm_flags, t0,
+                                   t_cache=T_SSD)
+            sargs = (a1, w1, *out[:3], wd)
+            base = cs.graph_ms(lambda: ops.single_level(
+                *sargs, *vm_flags, out[5], t_cache=T_SSD), 10)
+            ms = cs.graph_ms(lambda: ops.single_level_classified(
+                a1, w1, cl, *out[:3], wd, *fl, out[5], tab["byp"],
+                *tab["bounds"][:2], t_cache=T_SSD), 10)
+            print(json.dumps(dict(
+                row, kernel="single_level", route="classified",
+                mode="class 0's policies", classes=c, device_ms=ms,
+                unclassified_device_ms=base, ratio=ms / base)), flush=True)
+    for src in ("datapath.cu", "single_level.cu"):
+        print(json.dumps(dict(tree=label, source=src, card=smi,
+                              ptxas=cs.ptxas_by_kernel(src),
+                              sass=cs.sass_walk_steps(src))), flush=True)
 
 
 if __name__ == "__main__":

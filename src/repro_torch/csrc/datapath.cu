@@ -43,6 +43,9 @@
 // stay over all active ways. Each non-bypassed request adds one to its
 // class's served hits (a read's DRAM or SSD hit, a write's SSD hit) or
 // misses (cls_hits / cls_miss [V, C]). Counts are [V, 9] (bypassed last).
+// Its walk is the one above with the class resolved in the stream step
+// (the key carries the class and its bypass bit, set_walk.cuh ClassSide)
+// and the class counts taken behind the walk (ClassCounts::add_tile).
 //
 // What bounds it on the H100: the longest same-set chain (about 420 of
 // the paper's 1,000-request blocks at 64 sets), each request a few
@@ -118,6 +121,16 @@ __device__ __forceinline__ int ssd_step(Row& row, int ways, int a, bool wr,
   return 3;
 }
 
+// The classified walk's keys: set << sh | class << kClsFlagBits | flags
+// (set_walk.cuh, ClassSide), the flags kWrite, kDHit and kByp.
+constexpr int kByp = 4;
+constexpr int kClsFlagBits = 3;
+
+// The class of a classified key with the set above bit sh.
+__device__ __forceinline__ int class_of(int key, int sh) {
+  return (key >> kClsFlagBits) & ((1 << (sh - kClsFlagBits)) - 1);
+}
+
 // dram_step for a classified request that does not bypass: a read miss
 // inserts into [lo, hi) when that range is not empty.
 template <class Row>
@@ -180,11 +193,10 @@ __device__ __forceinline__ void drop(Row& row, int way, int lane) {
   if (way >= 0) row.put(way, lane, -1, -1, false);
 }
 
-// The counts of a bypassed request (its disk access, and `bypassed` in
-// xc[0]); returns its latency code: 2 disk read, 3 disk write.
-__device__ __forceinline__ int bypass_counts(bool wr, int lane, int (&c)[8],
-                                             int* xc) {
-  if (lane == 0) atomicAdd(&xc[0], 1);
+// The counts of a bypassed request (its disk access; `bypassed` is counted
+// behind the walk, ClassCounts::add_tile); returns its latency code: 2
+// disk read, 3 disk write.
+__device__ __forceinline__ int bypass_counts(bool wr, int (&c)[8]) {
   if (wr) {
     ++c[1];
     ++c[7];
@@ -286,9 +298,12 @@ __global__ void __launch_bounds__(kWalkThreads, 2) two_level_kernel(
          tv + valid);
 }
 
-// The classified walk: a per-VM class table after the ClsTile (rng: the
-// DRAM then the SSD insertion range, each clamped to the active ways; x
-// -1 for a class that bypasses), then the ClassCounts.
+// The classified walk: after the Tile, a per-VM table of each class's
+// DRAM and SSD insertion ranges (clamped to the active ways), the
+// classes' key bits (class << kClsFlagBits | kByp for a class that
+// bypasses) and the ClassCounts. The tile's last walk (the SSD walk when
+// the set counts differ) leaves each request's outcome in its address
+// slot for ClassCounts::add_tile (for_each_classified).
 template <class Row>
 __global__ void __launch_bounds__(kWalkThreads, 2)
     two_level_classified_kernel(
@@ -310,10 +325,10 @@ __global__ void __launch_bounds__(kWalkThreads, 2)
         int* tickets, int n, int sets_d, int ways_max_d, int sets_s,
         int ways_max_s, int classes, int npe, int parts, float4 lat) {
   extern __shared__ __align__(16) unsigned char smem[];
-  ClsTile& ct = *reinterpret_cast<ClsTile*>(smem);
-  Tile& tile = ct.t;
-  int4* rng = reinterpret_cast<int4*>(smem + sizeof(ClsTile));
-  int* xc = reinterpret_cast<int*>(rng + classes);
+  Tile& tile = *reinterpret_cast<Tile*>(smem);
+  int4* rng = reinterpret_cast<int4*>(smem + sizeof(Tile));
+  int* bits = reinterpret_cast<int*>(rng + classes);
+  int* xc = bits + classes;
   __shared__ RowScan<kLoadTiles> scan;
   __shared__ int total[8];
   const Split sp(parts, lat_g, part_counts, tickets, n);
@@ -324,24 +339,23 @@ __global__ void __launch_bounds__(kWalkThreads, 2)
   const Level S(tags_s_in, lru_s_in, dirty_s_in, tags_s, lru_s, dirty_s,
                 (long long)v * sets_s * ways_max_s, ways_max_s, ways_s_v[v]);
   const int tv = t0[v];
+  const int sh = class_shift(classes, kClsFlagBits);
   if (threadIdx.x < 8) total[threadIdx.x] = 0;
   for (int j = threadIdx.x; j < classes; j += kWalkThreads) {
     const long long o = (long long)v * classes + j;
     const int hd = max(min(hi_d[o], D.ways), 0);
     const int hs = max(min(hi_s[o], S.ways), 0);
-    rng[j] = bypass[j] ? make_int4(-1, 0, 0, 0)
-                       : make_int4(max(min(lo_d[o], hd), 0), hd,
-                                   max(min(lo_s[o], hs), 0), hs);
+    rng[j] = make_int4(max(min(lo_d[o], hd), 0), hd,
+                       max(min(lo_s[o], hs), 0), hs);
+    bits[j] = j << kClsFlagBits | (bypass[j] ? kByp : 0);
   }
   for (int j = threadIdx.x; j < 1 + 2 * classes; j += kWalkThreads)
     xc[j] = 0;
+  const ClassCounts xcnt{xc, classes, counts, cls_hits, cls_miss, sh,
+                         kClsFlagBits, kByp};
   int c[8] = {0, 0, 0, 0, 0, 0, 0, 0};
   float lat_sum = 0.0f;
   const long long row0 = (long long)v * n;
-  // one request's class outcome: served hit or miss of class k
-  auto served = [&](int k, bool hit) {
-    if (lane == 0) atomicAdd(&xc[hit ? 1 + k : 1 + classes + k], 1);
-  };
   const int valid = stream_row(
       addr + row0, is_write + row0, n, sets_d, tile, scan,
       [&](int fill, int base, bool first) {
@@ -354,26 +368,29 @@ __global__ void __launch_bounds__(kWalkThreads, 2)
             Row rd, rs;
             rd.load(D, s, first, lane);
             rs.load(S, s, first, lane);
-            for_each_classified(tile, ct.cls, rng, fill, s, lane,
-                                [&](int i, int a, int f, int k, int4 r) {
-              const bool wr = (f & kWrite) != 0;
+            for_each_classified<true>(tile, fill, s, sh, lane,
+                                      [&](int i, int a, int k) {
+              const bool wr = (k & kWrite) != 0;
               int code;
-              if (r.x < 0) {
+              bool hit = false;
+              if (k & kByp) {
                 if (wr) {
                   drop(rd, rd.find(a, D.ways, lane), lane);
                   drop(rs, rs.find(a, S.ways, lane), lane);
                 }
-                code = bypass_counts(wr, lane, c, xc);
+                code = bypass_counts(wr, c);
               } else {
+                const int4 r = rng[class_of(k, sh)];   // under the lookups
                 const int dw = rd.find(a, D.ways, lane);
                 const int sw = rs.find(a, S.ways, lane);
                 const bool dh = dram_step_in(rd, r.x, r.y, a, wr, tb + i,
                                              lane, c, dw);
-                code = ssd_step_in(rs, r.z, r.w, a, wr, tb + i, dh,
-                                   npe != 0, lane, c, sw);
-                served(k, wr ? sw >= 0 : dh || sw >= 0);
+                code = ssd_step_in(rs, r.z, r.w, a, wr, tb + i, dh, npe != 0,
+                                   lane, c, sw);
+                hit = sw >= 0 || (dh && !wr);
               }
               if (lane == 0) lat_out[i] = latency_of(code, lat);
+              return hit;
             });
             rd.store(D, s, lane);
             rs.store(S, s, lane);
@@ -383,54 +400,60 @@ __global__ void __launch_bounds__(kWalkThreads, 2)
                s += sp.set_step()) {
             Row rd;
             rd.load(D, s, first, lane);
-            for_each_classified(tile, ct.cls, rng, fill, s, lane,
-                                [&](int i, int a, int f, int, int4 r) {
-              const bool wr = (f & kWrite) != 0;
+            for_each_classified<false>(tile, fill, s, sh, lane,
+                                       [&](int i, int a, int k) {
+              const bool wr = (k & kWrite) != 0;
               bool dh = false;
-              if (r.x >= 0) {
+              if (!(k & kByp)) {
+                const int4 r = rng[class_of(k, sh)];
                 dh = dram_step_in(rd, r.x, r.y, a, wr, tb + i, lane, c,
                                   rd.find(a, D.ways, lane));
               } else if (wr) {
                 drop(rd, rd.find(a, D.ways, lane), lane);
               }
               if (lane == 0) tile.lat[i] = dh ? 1.0f : 0.0f;
+              return false;
             });
             rd.store(D, s, lane);
           }
           __syncthreads();
-          rekey(tile, fill, sets_s);
+          rekey_classified(tile, fill, sets_s, sh);
           __syncthreads();
           for (int s = sp.first_set(warp); s < sets_s;
                s += sp.set_step()) {
             Row rs;
             rs.load(S, s, first, lane);
-            for_each_classified(tile, ct.cls, rng, fill, s, lane,
-                                [&](int i, int a, int f, int k, int4 r) {
-              const bool wr = (f & kWrite) != 0;
+            for_each_classified<true>(tile, fill, s, sh, lane,
+                                      [&](int i, int a, int k) {
+              const bool wr = (k & kWrite) != 0;
               int code;
-              if (r.x < 0) {
+              bool hit = false;
+              if (k & kByp) {
                 if (wr) drop(rs, rs.find(a, S.ways, lane), lane);
-                code = bypass_counts(wr, lane, c, xc);
+                code = bypass_counts(wr, c);
               } else {
-                const bool dh = (f & kDHit) != 0;
+                const int4 r = rng[class_of(k, sh)];
+                const bool dh = (k & kDHit) != 0;
                 const int sw = rs.find(a, S.ways, lane);
-                code = ssd_step_in(rs, r.z, r.w, a, wr, tb + i, dh,
-                                   npe != 0, lane, c, sw);
-                served(k, wr ? sw >= 0 : dh || sw >= 0);
+                code = ssd_step_in(rs, r.z, r.w, a, wr, tb + i, dh, npe != 0,
+                                   lane, c, sw);
+                hit = sw >= 0 || (dh && !wr);
               }
               if (lane == 0) lat_out[i] = latency_of(code, lat);
+              return hit;
             });
             rs.store(S, s, lane);
           }
         }
         __syncthreads();
+        xcnt.add_tile(tile, fill);
+        __syncthreads();   // before the next tile's addresses and keys
         if (parts == 1 && warp == 0)
           lat_sum = ordered_sum(tile.lat, fill, lat_sum);
       },
-      ClassSide{cls + row0, ct.cls, classes - 1});
+      ClassSide{cls + row0, bits, classes - 1, sh});
   finish(c, total, sp, tile, counts, latency, t_end, lat_sum, valid,
-         tv + valid,
-         ClassCounts{xc, classes, counts, cls_hits, cls_miss});
+         tv + valid, xcnt);
 }
 
 template <class Row>
@@ -508,16 +531,16 @@ int launch_classified(const int* addr, const unsigned char* is_write,
   static bool configured = false;
   const cudaError_t err =
       walk_kernel_setup(two_level_classified_kernel<Row>, configured,
-                        cls_smem_bytes(kMaxClasses));
+                        cls_smem_bytes(kMaxClasses, sizeof(int4)));
   if (err != cudaSuccess) return (int)err;
   two_level_classified_kernel<Row>
-      <<<num_vms * parts, kWalkThreads, cls_smem_bytes(classes),
-         stream>>>(addr, is_write, cls, in[0], in[1], din[0], in[2], in[3],
-                   din[1], out[0], out[1], dout[0], out[2], out[3], dout[1],
-                   ways_d, ways_s, t0, bypass, lo_d, hi_d, lo_s, hi_s,
-                   counts, latency, t_end, cls_hits, cls_miss, lat_g,
-                   part_counts, tickets, n, sets_d, ways_max_d, sets_s,
-                   ways_max_s, classes, npe, parts, lat);
+      <<<num_vms * parts, kWalkThreads,
+         cls_smem_bytes(classes, sizeof(int4)), stream>>>(
+          addr, is_write, cls, in[0], in[1], din[0], in[2], in[3], din[1],
+          out[0], out[1], dout[0], out[2], out[3], dout[1], ways_d, ways_s,
+          t0, bypass, lo_d, hi_d, lo_s, hi_s, counts, latency, t_end,
+          cls_hits, cls_miss, lat_g, part_counts, tickets, n, sets_d,
+          ways_max_d, sets_s, ways_max_s, classes, npe, parts, lat);
   return (int)cudaGetLastError();
 }
 
@@ -526,7 +549,8 @@ int launch_classified(const int* addr, const unsigned char* is_write,
 // etica_two_level with IO classes: cls [V, n] int32 (clipped to [0, C)),
 // bypass [C] bytes, insertion bounds lo_*/hi_* [V, C] int32 (>= 0);
 // counts [V, 9] (bypassed last), cls_hits / cls_miss [V, C]. With
-// parts > 1, part_counts holds [V, parts, 9 + 2C] ints.
+// parts > 1, part_counts holds [V, parts, 9 + 2C] ints. Each level's set
+// count must fit the keys: class_keys_fit(sets, class_shift(C, 3)).
 extern "C" int etica_two_level_classified(
     const int* addr, const unsigned char* is_write, const int* cls,
     const int* tags_d_in, const int* lru_d_in,
@@ -543,7 +567,9 @@ extern "C" int etica_two_level_classified(
     void* stream) {
   if (num_vms <= 0) return 0;
   if (parts < 1 || (parts > 1 && sets_d != sets_s) || classes < 1 ||
-      classes > kMaxClasses)
+      classes > kMaxClasses ||
+      !class_keys_fit(max(sets_d, sets_s),
+                      class_shift(classes, kClsFlagBits)))
     return (int)cudaErrorInvalidValue;
   const int w = max(ways_max_d, ways_max_s);
   const float4 lat = make_float4(t_dram, t_ssd, t_hdd, t_hdd_write);

@@ -45,13 +45,19 @@
 // reading the padded block.
 //
 // The classified walks (datapath.cu, single_level.cu, the IO classifier's
-// routes) carry each request's class id beside it: stream_row stores it
-// by rank in a byte array after the tile (ClsTile, ClassSide), and the
-// walk (for_each_classified) fetches the class's entry of a per-VM table
-// in shared memory (its insertion ranges, and its bypass bit or flags)
-// a request ahead, so the victim search takes its range per request
-// (victim_in). Their extra counts (bypassed, per-class served hits and
-// misses) go through finish with the eight (ClassCounts).
+// routes) resolve each request's class in the stream step, not on the
+// chain: ClassSide folds the class id and what the walk branches on (its
+// bypass bit and, at one level, its policy flags) into the key's low bits,
+// key = set << sh | class << F | flags, from a per-VM table in shared
+// memory. Their chain (for_each_classified) takes the key by a reduction,
+// so it lands in a uniform register and every branch on it is uniform; a
+// request that does not bypass loads its class's way range from the table
+// under its lookups. The per-class counts stay off the chain: in a tile's
+// last walk the lane holding a request's key keeps its outcome in a
+// register, the warp stores its set's outcomes in their address slots
+// once per 32 keys, and behind the walk's barrier ClassCounts::add_tile
+// counts the tile's outcomes by class, one shared add per distinct
+// (class, outcome) a warp (__match_any_sync).
 //
 // Tried on the H100 and dropped, each slower at the paper's [12, 1000]
 // block: lookups by __ballot_sync (a reduction's result lands in a
@@ -59,7 +65,11 @@
 // not), every request's victims computed without branches, a packed
 // (score, way) victim in one reduction, and a 128-key scan step with a
 // queue of matches. Latency codes of one byte, decoded in the sum, put
-// the decode's latency in front of every add.
+// the decode's latency in front of every add. For the classified walks:
+// a shared atomic a request for the class counts, the class id as a byte
+// by rank fetched with a shuffle, the class's table entry loaded a
+// request ahead (its load waits on the key's reduction at once), and
+// lane 0 storing each outcome on the chain.
 #pragma once
 
 #include <climits>
@@ -83,12 +93,7 @@ struct Tile {
   int key[kTileCap];                // set << 2 | flags
   float lat[kTileCap + kSumStep];   // latency by rank; +0.0f past the fill
 };
-// The tile of a classified walk: each request's class id by rank.
-struct ClsTile {
-  Tile t;
-  unsigned char cls[kTileCap];
-};
-constexpr int kMaxClasses = 256;   // class ids live in one byte
+constexpr int kMaxClasses = 256;   // class ids of a classified walk
 
 // the flags of a key: the request writes; its DRAM lookup hit (set by
 // rekey for the two-level walk's second level)
@@ -189,14 +194,16 @@ struct RegRow {
     return __reduce_min_sync(kFull, bs == m ? bw : INT_MAX);
   }
 
-  // victim over the ways [lo, hi) (a class's insertion range, lo < hi)
+  // victim over the ways [lo, hi) (a class's insertion range, lo < hi):
+  // w is in it when w - lo, unsigned, is below hi - lo
   __device__ __forceinline__ int victim_in(int lo, int hi, int lane) const {
     int bs = INT_MAX, bw = INT_MAX;
+    const unsigned off = (unsigned)(lane - lo), span = (unsigned)(hi - lo);
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int w = lane + 32 * k;
       const int sc = tag[k] < 0 ? -1 : lru[k];
-      if (w >= lo && w < hi && (bw == INT_MAX || sc < bs)) {
+      if (off + 32u * k < span && (bw == INT_MAX || sc < bs)) {
         bs = sc;
         bw = w;
       }
@@ -349,41 +356,58 @@ __device__ __forceinline__ void for_each_request(const Tile& tile, int fill,
   }
 }
 
-// for_each_request for a classified walk: f(i, addr, flags, class, entry)
-// also gets the request's class id (each lane reads its key's class with
-// the key) and its class's table entry, both fetched a request ahead
-// like the address, so the class costs the set's chain no load.
-template <class F>
-__device__ __forceinline__ void for_each_classified(const Tile& tile,
-                                                    const unsigned char* cls,
-                                                    const int4* table,
-                                                    int fill, int s, int lane,
+// for_each_request for a classified walk, whose keys carry the class and
+// its flags below bit sh (ClassSide): f(i, addr, key) returns whether the
+// request was a served hit. The key comes to the warp by a reduction
+// (__reduce_or_sync) rather than a shuffle: its result lands in a uniform
+// register, so the walk's branches on the key's flags and its class's
+// table loads stay uniform. With kRecord (a tile's last walk) the lane
+// that holds a request's key keeps its outcome in a register, and after
+// the 32 keys' requests the warp stores the outcomes of its set's
+// requests in one store, in their address slots: -1 - hit, negative
+// where every address is not (read by ClassCounts::add_tile). No store
+// on the chain.
+template <bool kRecord, class F>
+__device__ __forceinline__ void for_each_classified(Tile& tile, int fill,
+                                                    int s, int sh, int lane,
                                                     F&& f) {
   for (int b = 0; b < fill; b += 32) {
     const int i = b + lane;
     const int key = i < fill ? tile.key[i] : -1;
-    unsigned m = __ballot_sync(kFull, key >= 0 && (key >> 2) == s);
+    unsigned m = __ballot_sync(kFull, key >= 0 && (key >> sh) == s);
     if (!m) continue;
-    const int mine = i < fill ? cls[i] : 0;
+    const unsigned mine = m;
     int j = __ffs(m) - 1;
-    int a = tile.addr[b + j], k = __shfl_sync(kFull, key, j);
-    int c = __shfl_sync(kFull, mine, j);
-    int4 e = table[c];
+    int a = tile.addr[b + j];
+    int k = (int)__reduce_or_sync(kFull, lane == j ? (unsigned)key : 0u);
+    int out = 0;
     for (;;) {
       m &= m - 1;
       const int jn = m ? __ffs(m) - 1 : j;
-      const int an = tile.addr[b + jn], kn = __shfl_sync(kFull, key, jn);
-      const int cn = __shfl_sync(kFull, mine, jn);
-      const int4 en = table[cn];
-      f(b + j, a, k & 3, c, e);
+      const int an = tile.addr[b + jn];
+      const int kn =
+          (int)__reduce_or_sync(kFull, lane == jn ? (unsigned)key : 0u);
+      const bool hit = f(b + j, a, k);
+      if (kRecord && lane == j) out = hit;
       if (!m) break;
       j = jn;
       a = an;
       k = kn;
-      c = cn;
-      e = en;
     }
+    if (kRecord && (mine >> lane & 1u)) tile.addr[i] = -1 - out;
   }
+}
+
+// The bits below the set of a classified key with C classes and F flag
+// bits: F, then enough for the class ids [0, C). A launch's set counts
+// must fit above them (set << sh stays a non-negative int).
+__host__ __device__ constexpr int class_shift(int classes, int flag_bits) {
+  int b = 0;
+  while ((1 << b) < classes) ++b;
+  return flag_bits + b;
+}
+__host__ __device__ constexpr bool class_keys_fit(int sets, int sh) {
+  return sets >= 0 && sets <= (1 << (31 - sh));
 }
 
 // Re-keys the tile's requests by another set count, with the DRAM hit
@@ -393,6 +417,15 @@ __device__ __forceinline__ void rekey(Tile& tile, int fill, int sets) {
   for (int i = threadIdx.x; i < fill; i += kWalkThreads)
     tile.key[i] = (tile.addr[i] % sets) << 2 |
                   (tile.lat[i] != 0.0f ? kDHit : 0) | (tile.key[i] & kWrite);
+}
+
+// rekey for a classified walk: the class and its flags kept below bit sh.
+__device__ __forceinline__ void rekey_classified(Tile& tile, int fill,
+                                                 int sets, int sh) {
+  const int low = (1 << sh) - 1;
+  for (int i = threadIdx.x; i < fill; i += kWalkThreads)
+    tile.key[i] = (tile.addr[i] % sets) << sh |
+                  (tile.lat[i] != 0.0f ? kDHit : 0) | (tile.key[i] & low);
 }
 
 __device__ __forceinline__ float latency_of(int code, float4 lat) {
@@ -454,22 +487,26 @@ struct Split {
   }
 };
 
-// What stream_row carries beside each request: nothing (NoSide), or its
-// class id (ClassSide), clipped to [0, C) and stored by rank in the
-// ClsTile's byte array. The class is read when the request is kept, not
-// a step ahead like the address: four more registers live across the
-// walk cost more at 1,024 VMs than the load's latency here.
+// Each kept request's key: set << 2 | write (NoSide), or a classified
+// walk's (ClassSide): set << sh | class << F | flags | write, the class id
+// clipped to [0, C) and its bits (class << F | its flags) taken from the
+// VM's table in shared memory, which must be complete before the first
+// key (stream_row's first bases() is a barrier).
 struct NoSide {
-  __device__ __forceinline__ void keep(int, int) {}
+  __device__ __forceinline__ int key(int set, bool w, int) const {
+    return set << 2 | (w ? kWrite : 0);
+  }
 };
 
 struct ClassSide {
   const int* cls;        // the VM's row of class ids
-  unsigned char* out;    // ClsTile::cls
+  const int* bits;       // shared: class c's key bits
   int top;               // C - 1
+  int sh;                // class_shift
 
-  __device__ __forceinline__ void keep(int i, int col) {
-    out[i] = (unsigned char)min(max(__ldg(cls + col), 0), top);
+  __device__ __forceinline__ int key(int set, bool w, int col) const {
+    return set << sh | bits[min(max(__ldg(cls + col), 0), top)] |
+           (w ? kWrite : 0);
   }
 };
 
@@ -528,8 +565,8 @@ __device__ __forceinline__ int stream_row(const int* __restrict__ addr,
       const int i = fill + scan.rank(r, a[r] >= 0);
       if (a[r] >= 0) {
         tile.addr[i] = a[r];
-        tile.key[i] = (a[r] % sets) << 2 | (w[r] ? kWrite : 0);
-        side.keep(i, c0 + r * kWalkThreads + threadIdx.x);
+        tile.key[i] = side.key(a[r] % sets, w[r],
+                               c0 + r * kWalkThreads + threadIdx.x);
       }
     }
     fill += cnt;
@@ -539,10 +576,9 @@ __device__ __forceinline__ int stream_row(const int* __restrict__ addr,
 
 // The counts a walk keeps beyond the eight: none (NoCounts), or the
 // classified walks' bypassed requests and per-class served hits and
-// misses (ClassCounts), n() ints in shared memory, added there by lane 0
-// of the walking warp. Their code in finish is compiled only for the
-// classified walks (if constexpr), so the unclassified walks' code is as
-// it was.
+// misses (ClassCounts), n() ints in shared memory. Their code in finish is
+// compiled only for the classified walks (if constexpr), so the
+// unclassified walks' code is as it was.
 struct NoCounts {
   static constexpr int kCounts = 8;   // ints a VM's row of `counts`
   static constexpr bool kClassified = false;
@@ -553,11 +589,12 @@ struct ClassCounts {
   // also: the last CTA puts its VM's ticket back to 0, so the tickets
   // are zeroed once (datapath ops, _tickets), not before every launch
   static constexpr bool kClassified = true;
-  const int* x;      // shared: [0] bypassed, [1, 1 + C) hits, then misses
+  int* x;            // shared: [0] bypassed, [1, 1 + C) hits, then misses
   int classes;
   int* counts;       // [V, 9]
   int* hits;         // [V, C]
   int* miss;         // [V, C]
+  int sh, flag_bits, bypass_bit;   // the keys' layout (ClassSide)
 
   __device__ __forceinline__ int n() const { return 1 + 2 * classes; }
   __device__ __forceinline__ int value(int j) const { return x[j]; }
@@ -568,6 +605,28 @@ struct ClassCounts {
       hits[v * classes + j - 1] = val;
     else
       miss[v * classes + j - 1 - classes] = val;
+  }
+
+  // The outcomes of a tile's last walk, which left -1 - hit in the
+  // address slot of each request it walked (for_each_classified): each of
+  // those (the requests of this CTA's sets) adds one to bypassed, or to
+  // its class's hits or misses. Runs on the whole CTA between two
+  // barriers; a warp adds each distinct counter it holds once.
+  __device__ __forceinline__ void add_tile(const Tile& tile, int fill) const {
+    const int lane = threadIdx.x & 31;
+    const int cmask = (1 << (sh - flag_bits)) - 1;
+    for (int b = threadIdx.x - lane; b < fill; b += kWalkThreads) {
+      const int i = b + lane;
+      const int o = i < fill ? tile.addr[i] : 0;
+      int j = -1;
+      if (o < 0) {
+        const int key = tile.key[i];
+        const int c = (key >> flag_bits) & cmask;
+        j = (key & bypass_bit) ? 0 : o == -2 ? 1 + c : 1 + classes + c;
+      }
+      const unsigned peers = __match_any_sync(kFull, j);
+      if (j >= 0 && lane == __ffs(peers) - 1) atomicAdd(&x[j], __popc(peers));
+    }
   }
 };
 
@@ -646,10 +705,13 @@ __device__ __forceinline__ void finish(const int (&c)[8], int* total,
   }
 }
 
-// Dynamic shared memory of a classified walk with C classes: the ClsTile,
-// then its table (an int4 a class), then the ClassCounts.
-__host__ __device__ constexpr int cls_smem_bytes(int classes) {
-  return (int)sizeof(ClsTile) + 16 * classes + (1 + 2 * classes) * 4;
+// Dynamic shared memory of a classified walk with C classes: the Tile,
+// then its way-range table (range_bytes a class), the classes' key bits
+// (an int a class) and the ClassCounts.
+__host__ __device__ constexpr int cls_smem_bytes(int classes,
+                                                 int range_bytes) {
+  return (int)sizeof(Tile) + (range_bytes + 4) * classes +
+         (1 + 2 * classes) * 4;
 }
 
 // Opts `kernel` into a tile of dynamic shared memory, once (before any

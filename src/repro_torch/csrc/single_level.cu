@@ -44,6 +44,10 @@
 // count `bypassed` and advance the clock. Each non-bypassed request adds
 // one to its class's served hits (a hit, unless a write under inv) or
 // misses (cls_hits / cls_miss [V, C]). Counts are [V, 9] (bypassed last).
+// Its walk is the one above with the class resolved in the stream step
+// (the key carries the class, its bypass bit and its policy flags,
+// set_walk.cuh ClassSide) and the class counts taken behind the walk
+// (ClassCounts::add_tile).
 //
 // What bounds it on the H100: as for two_level (datapath.cu), the longest
 // same-set chain (one lookup and at most one victim search a request),
@@ -108,15 +112,27 @@ __device__ __forceinline__ int step(Row& row, int ways, const Policy& p,
   return 2;
 }
 
-// step for a classified request that does not bypass, under policy p: as
-// step, with insertions into [lo, hi) when that range is not empty.
+// The classified walk's keys: set << sh | class << kClsFlagBits | flags
+// (set_walk.cuh, ClassSide): kWrite, then the class's bypass bit and its
+// policy flags.
+constexpr int kByp = 2, kAr = 4, kInv = 8, kHd = 16, kWt = 32;
+constexpr int kClsFlagBits = 6;
+
+// The class of a classified key with the set above bit sh.
+__device__ __forceinline__ int class_of(int key, int sh) {
+  return (key >> kClsFlagBits) & ((1 << (sh - kClsFlagBits)) - 1);
+}
+
+// step for a classified request that does not bypass, under the policy
+// flags of its key: as step, with insertions into [lo, hi) when that
+// range is not empty. `served`: a hit, unless a write under inv.
 template <class Row>
 __device__ __forceinline__ int step_in(Row& row, int ways, int lo, int hi,
-                                       const Policy& p, int a, bool wr, int t,
+                                       int key, int a, bool wr, int t,
                                        int lane, int (&c)[8], bool& served) {
   const int way = row.find(a, ways, lane);
   const bool hit = way >= 0;
-  served = hit && !(wr && p.inv);
+  served = hit && !(wr && (key & kInv));
   if (!wr) {
     ++c[0];
     if (hit) {
@@ -125,7 +141,7 @@ __device__ __forceinline__ int step_in(Row& row, int ways, int lo, int hi,
       return 0;
     }
     ++c[6];
-    if (p.ar && hi > lo) {
+    if ((key & kAr) && hi > lo) {
       const int w = row.victim_in(lo, hi, lane);
       ++c[5];
       c[7] += row.dirty_valid(w) ? 1 : 0;
@@ -134,25 +150,26 @@ __device__ __forceinline__ int step_in(Row& row, int ways, int lo, int hi,
     return 1;
   }
   ++c[1];
-  if (p.inv) {
+  if (key & kInv) {
     ++c[7];
     if (hit) row.put(way, lane, -1, -1, false);
     return 2;
   }
+  const bool wt = (key & kWt) != 0;
   if (hit || hi > lo) {
     ++c[5];
-    c[7] += p.wt ? 1 : 0;
+    c[7] += wt ? 1 : 0;
     if (hit) {
       ++c[4];
-      row.touch(way, lane, t, p.hd);
+      row.touch(way, lane, t, (key & kHd) != 0);
     } else {
       const int w = row.victim_in(lo, hi, lane);
       c[7] += row.dirty_valid(w) ? 1 : 0;
-      row.put(w, lane, a, t, p.hd);
+      row.put(w, lane, a, t, (key & kHd) != 0);
     }
-    return p.wt ? 2 : 0;
+    return wt ? 2 : 0;
   }
-  c[7] += p.wt ? 2 : 1;  // nothing committed to the cache
+  c[7] += wt ? 2 : 1;  // nothing committed to the cache
   return 2;
 }
 
@@ -208,12 +225,11 @@ __global__ void __launch_bounds__(kWalkThreads, 2) single_level_kernel(
          tv + valid);
 }
 
-// a class's policy flags and bypass bit, packed in its table entry
-constexpr int kAr = 1, kInv = 2, kHd = 4, kWt = 8, kByp = 16;
-
-// The classified walk: per-VM class tables (x, y: the insertion range
-// clamped to the active ways; z: the flags) after the ClsTile, then the
-// ClassCounts.
+// The classified walk: after the Tile, a per-VM table of each class's
+// insertion range (clamped to the active ways), the classes' key bits
+// (class << kClsFlagBits | its bypass bit and policy flags) and the
+// ClassCounts. The walk leaves each request's outcome in its address
+// slot for ClassCounts::add_tile (for_each_classified).
 template <class Row>
 __global__ void __launch_bounds__(kWalkThreads, 2)
     single_level_classified_kernel(
@@ -234,10 +250,10 @@ __global__ void __launch_bounds__(kWalkThreads, 2)
         float* lat_g, int* part_counts, int* tickets, int n, int sets,
         int ways_max, int classes, int parts, float4 lat) {
   extern __shared__ __align__(16) unsigned char smem[];
-  ClsTile& ct = *reinterpret_cast<ClsTile*>(smem);
-  Tile& tile = ct.t;
-  int4* tab = reinterpret_cast<int4*>(smem + sizeof(ClsTile));
-  int* xc = reinterpret_cast<int*>(tab + classes);
+  Tile& tile = *reinterpret_cast<Tile*>(smem);
+  int2* rng = reinterpret_cast<int2*>(smem + sizeof(Tile));
+  int* bits = reinterpret_cast<int*>(rng + classes);
+  int* xc = bits + classes;
   __shared__ RowScan<kLoadTiles> scan;
   __shared__ int total[8];
   const Split sp(parts, lat_g, part_counts, tickets, n);
@@ -246,17 +262,20 @@ __global__ void __launch_bounds__(kWalkThreads, 2)
   const Level L(tags_in, lru_in, dirty_in, tags, lru, dirty,
                 (long long)v * sets * ways_max, ways_max, ways_v[v]);
   const int tv = t0[v];
+  const int sh = class_shift(classes, kClsFlagBits);
   if (threadIdx.x < 8) total[threadIdx.x] = 0;
   for (int j = threadIdx.x; j < classes; j += kWalkThreads) {
     const long long o = (long long)v * classes + j;
     const int hi = max(min(hi_vc[o], L.ways), 0);
-    const int fl = (ar_vc[o] ? kAr : 0) | (inv_vc[o] ? kInv : 0) |
-                   (hd_vc[o] ? kHd : 0) | (wt_vc[o] ? kWt : 0) |
-                   (bypass[j] ? kByp : 0);
-    tab[j] = make_int4(max(min(lo_vc[o], hi), 0), hi, fl, 0);
+    rng[j] = make_int2(max(min(lo_vc[o], hi), 0), hi);
+    bits[j] = j << kClsFlagBits | (ar_vc[o] ? kAr : 0) |
+              (inv_vc[o] ? kInv : 0) | (hd_vc[o] ? kHd : 0) |
+              (wt_vc[o] ? kWt : 0) | (bypass[j] ? kByp : 0);
   }
   for (int j = threadIdx.x; j < 1 + 2 * classes; j += kWalkThreads)
     xc[j] = 0;
+  const ClassCounts xcnt{xc, classes, counts, cls_hits, cls_miss, sh,
+                         kClsFlagBits, kByp};
   int c[8] = {0, 0, 0, 0, 0, 0, 0, 0};
   float lat_sum = 0.0f;
   const long long row0 = (long long)v * n;
@@ -269,12 +288,12 @@ __global__ void __launch_bounds__(kWalkThreads, 2)
         for (int s = sp.first_set(warp); s < sets; s += sp.set_step()) {
           Row r;
           r.load(L, s, first, lane);
-          for_each_classified(tile, ct.cls, tab, fill, s, lane,
-                              [&](int i, int a, int f, int k, int4 e) {
-            const bool wr = (f & kWrite) != 0;
+          for_each_classified<true>(tile, fill, s, sh, lane,
+                                    [&](int i, int a, int k) {
+            const bool wr = (k & kWrite) != 0;
             int code;
-            if (e.z & kByp) {
-              if (lane == 0) atomicAdd(&xc[0], 1);
+            bool hit = false;
+            if (k & kByp) {
               if (wr) {
                 const int way = r.find(a, L.ways, lane);
                 if (way >= 0) r.put(way, lane, -1, -1, false);
@@ -287,26 +306,24 @@ __global__ void __launch_bounds__(kWalkThreads, 2)
                 code = 1;
               }
             } else {
-              const Policy p{(e.z & kAr) != 0, (e.z & kInv) != 0,
-                             (e.z & kHd) != 0, (e.z & kWt) != 0};
-              bool hit;
-              code = step_in(r, L.ways, e.x, e.y, p, a, wr, tb + i, lane, c,
+              const int2 e = rng[class_of(k, sh)];   // under the lookup
+              code = step_in(r, L.ways, e.x, e.y, k, a, wr, tb + i, lane, c,
                              hit);
-              if (lane == 0)
-                atomicAdd(&xc[hit ? 1 + k : 1 + classes + k], 1);
             }
             if (lane == 0) lat_out[i] = latency_of(code, lat);
+            return hit;
           });
           r.store(L, s, lane);
         }
         __syncthreads();
+        xcnt.add_tile(tile, fill);
+        __syncthreads();   // before the next tile's addresses and keys
         if (parts == 1 && warp == 0)
           lat_sum = ordered_sum(tile.lat, fill, lat_sum);
       },
-      ClassSide{cls + row0, ct.cls, classes - 1});
+      ClassSide{cls + row0, bits, classes - 1, sh});
   finish(c, total, sp, tile, counts, latency, t_end, lat_sum, valid,
-         tv + valid,
-         ClassCounts{xc, classes, counts, cls_hits, cls_miss});
+         tv + valid, xcnt);
 }
 
 template <class Row>
@@ -377,11 +394,11 @@ int launch_classified(const int* addr, const unsigned char* is_write,
   static bool configured = false;
   const cudaError_t err =
       walk_kernel_setup(single_level_classified_kernel<Row>, configured,
-                        cls_smem_bytes(kMaxClasses));
+                        cls_smem_bytes(kMaxClasses, sizeof(int2)));
   if (err != cudaSuccess) return (int)err;
   single_level_classified_kernel<Row>
-      <<<num_vms * parts, kWalkThreads, cls_smem_bytes(classes),
-         stream>>>(addr, is_write, cls, tg_in, lr_in, dt_in, tg, lr, dt,
+      <<<num_vms * parts, kWalkThreads,
+         cls_smem_bytes(classes, sizeof(int2)), stream>>>(addr, is_write, cls, tg_in, lr_in, dt_in, tg, lr, dt,
                    ways, flags[0], flags[1], flags[2], flags[3], bypass, lo,
                    hi, t0, counts, latency, t_end, cls_hits, cls_miss,
                    lat_g, part_counts, tickets, n, sets, ways_max, classes,
@@ -395,7 +412,8 @@ int launch_classified(const int* addr, const unsigned char* is_write,
 // [0, C)), the four policy flags as [V, C] bytes, bypass [C] bytes,
 // insertion bounds lo / hi [V, C] int32 (>= 0); counts [V, 9] (bypassed
 // last), cls_hits / cls_miss [V, C]. With parts > 1, part_counts holds
-// [V, parts, 9 + 2C] ints.
+// [V, parts, 9 + 2C] ints. The set count must fit the keys:
+// class_keys_fit(sets, class_shift(C, 6)).
 extern "C" int etica_single_level_classified(
     const int* addr, const unsigned char* is_write, const int* cls,
     const int* tags_in, const int* lru_in, const unsigned char* dirty_in,
@@ -408,7 +426,8 @@ extern "C" int etica_single_level_classified(
     int num_vms, int n, int sets, int ways_max, int classes, int parts,
     float t_cache, float t_hdd, float t_hdd_write, void* stream) {
   if (num_vms <= 0) return 0;
-  if (parts < 1 || classes < 1 || classes > kMaxClasses)
+  if (parts < 1 || classes < 1 || classes > kMaxClasses ||
+      !class_keys_fit(sets, class_shift(classes, kClsFlagBits)))
     return (int)cudaErrorInvalidValue;
   const float4 lat = make_float4(t_cache, t_hdd, t_hdd_write, 0.0f);
   const unsigned char* flags[4] = {ar, inv, hd, wt};

@@ -28,7 +28,8 @@ are ``[V, 9]`` (:data:`COUNT_FIELDS`, then ``bypassed``), and they
 also return the per-class served hits and misses, int32 ``[V, C]``. A
 lookup stays over all active ways; only the victim is taken from the
 class's range ``[min(lo, hi'), hi')``, ``hi' = min(hi, ways)``. At most
-:data:`MAX_CLASSES` classes on the card.
+:data:`MAX_CLASSES` classes on the card, and at most
+:func:`max_classified_sets` sets a level.
 """
 from __future__ import annotations
 
@@ -40,7 +41,10 @@ from repro_torch.core.policies import T_DRAM, T_HDD, T_HDD_WRITE, T_SSD
 COUNT_FIELDS = ("reads", "writes", "read_hits_l1", "read_hits_l2",
                 "write_hits_l2", "cache_writes_l2", "disk_reads",
                 "disk_writes")
-MAX_CLASSES = 256    # class ids a classified walk keeps in one byte
+MAX_CLASSES = 256    # class ids of a classified walk
+# flag bits below the class id in a classified walk's keys
+# (csrc/datapath.cu, csrc/single_level.cu kClsFlagBits)
+CLASS_FLAG_BITS = {"two_level": 3, "single_level": 6}
 INT32_MAX = 2**31 - 1
 WALK_WARPS = 16      # warps of a set-walk CTA (csrc/set_walk.cuh kWalkWarps)
 
@@ -354,6 +358,22 @@ def _check_classes(cls, bypass, bounds, v: int, n: int, dev) -> int:
     return c
 
 
+def max_classified_sets(kernel: str, classes: int) -> int:
+    """The most sets a level of a ``classified`` launch may have: its keys
+    hold the set above the class id and its flags (``set << sh | class
+    << F | flags``, ``csrc/set_walk.cuh`` ``class_shift``) in a
+    non-negative int32."""
+    sh = CLASS_FLAG_BITS[kernel] + max(classes - 1, 0).bit_length()
+    return 1 << (31 - sh)
+
+
+def _check_class_sets(kernel: str, c: int, *sets: int) -> None:
+    top = max_classified_sets(kernel, c)
+    if max(sets) > top:
+        raise ValueError(f"{max(sets)} sets: a classified {kernel} walk "
+                         f"with {c} classes takes at most {top}")
+
+
 def _class_outputs(v: int, c: int, dev):
     return (torch.empty((v, 9), dtype=torch.int32, device=dev),
             torch.empty(v, dtype=torch.float32, device=dev),
@@ -389,6 +409,7 @@ def two_level_classified(addr, is_write, cls, tags_d, lru_d, dirty_d,
     c = _check_classes(cls, bypass, (("lo_d", lo_d), ("hi_d", hi_d),
                                      ("lo_s", lo_s), ("hi_s", hi_s)),
                        v, n, dev)
+    _check_class_sets("two_level", c, sd, ss)
     state = (tags_d, lru_d, dirty_d, tags_s, lru_s, dirty_s)
     out = [torch.empty_like(x) for x in state]
     res = _class_outputs(v, c, dev)
@@ -551,6 +572,7 @@ def single_level_classified(addr, is_write, cls, tags, lru, dirty, ways,
     kernels.check(ways, "ways", torch.int32, (v,), dev)
     kernels.check(t0, "t0", torch.int32, (v,), dev)
     c = _check_classes(cls, bypass, (("lo", lo), ("hi", hi)), v, n, dev)
+    _check_class_sets("single_level", c, s)
     for name, f in zip(("allocates_reads", "write_invalidates",
                         "holds_dirty", "write_through"), flags):
         kernels.check(f, name, torch.bool, (v, c), dev)

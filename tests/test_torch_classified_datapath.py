@@ -6,8 +6,9 @@ package's ``simulate_*_classified(_batch)``.
 reference on seeded inputs: states, ``Stats`` (``bypassed`` and the
 ``latency_sum`` bits included), ``t_end``, ``cls_hits`` and
 ``cls_miss``, at V 3 and N 200 over 8 x 8 and 4 x 16 geometries, 1 to 4
-classes, empty and exclusive insertion ranges, bypass classes, class
-ids outside ``[0, C)``, padding, states that hold dirty and stale rows,
+classes and 256 (the widest table the kernels take, with a seeded
+bypass mask), empty and exclusive insertion ranges, bypass classes,
+class ids outside ``[0, C)``, padding, states that hold dirty and stale rows,
 and every write policy. Match-all tables give the unclassified plain
 versions' results. Every other case also runs the per-state entry
 points on one VM.
@@ -75,13 +76,21 @@ def _same(jout, tout):
             assert np.array_equal(np.asarray(a), b.numpy())
 
 
-CASES = [  # classes, (sets, ways) DRAM, SSD, bypass mask, all ranges empty
+CASES = [  # classes, (sets, ways) DRAM, SSD, bypass mask (None: seeded),
+    #         all ranges empty
     (1, (8, 8), (8, 8), (False,), False),
     (2, (4, 16), (8, 8), (False, True), False),
     (3, (8, 8), (4, 16), (True, False, False), False),
     (4, (8, 8), (8, 8), (False, True, False, True), False),
     (4, (4, 16), (4, 16), (False, False, True, False), True),
+    (256, (8, 8), (4, 16), None, False),
 ]
+
+
+def _bypass(rng, c, byp):
+    """The case's bypass mask, or a seeded one (a quarter of the
+    classes)."""
+    return rng.random(c) < 0.25 if byp is None else np.asarray(byp)
 
 
 @pytest.mark.parametrize("mode", ["full", "npe"])
@@ -96,7 +105,7 @@ def test_two_level_classified_equals_jax(case, mode):
     ways_s = np.array([ws // 2, ws, 2], np.int32)
     lo_d, hi_d = _tables(rng, c, ways_d, wd, empty)
     lo_s, hi_s = _tables(rng, c, ways_s, ws, empty)
-    byp = np.asarray(byp)
+    byp = _bypass(rng, c, byp)
     t0 = np.array([5, 70, 300], np.int32)
     args = (byp, lo_d, hi_d, lo_s, hi_s)
     jout = J.simulate_two_level_classified_batch(
@@ -146,7 +155,7 @@ def test_single_level_classified_equals_jax(case):
     ways = np.array([w, w // 3, 0], np.int32)
     lo, hi = _tables(rng, c, ways, w, empty)
     flags = _policy_tables(rng, c)
-    byp = np.asarray(byp)
+    byp = _bypass(rng, c, byp)
     t0 = np.array([9, 0, 41], np.int32)
     jout = J.simulate_single_level_classified_batch(
         addr, wr, cls, J.CacheState(*map(jnp.asarray, state)), ways,

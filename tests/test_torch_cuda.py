@@ -1114,7 +1114,8 @@ def test_fig10_card_equals_cpu(dev):
 
 # (V, N, sets_d, ways_d, sets_s, ways_s, classes, bypass share, empty
 # ranges): the classified routes' cases (csrc/datapath.cu,
-# csrc/single_level.cu, the IO classifier)
+# csrc/single_level.cu, the IO classifier); "one_set" moves every
+# request into set 0 of both levels
 CLASSIFIED_CASES = {
     "v0": (0, 300, 16, 32, 16, 32, 4, 0.25, False),
     "n0": (3, 0, 16, 32, 16, 32, 4, 0.25, False),
@@ -1127,6 +1128,8 @@ CLASSIFIED_CASES = {
     "two_tiles": (3, 9000, 8, 64, 8, 64, 4, 0.25, False),
     "wide_rows": (3, 600, 8, 128, 8, 128, 4, 0.25, False),
     "sets_differ": (5, 700, 32, 16, 12, 32, 4, 0.25, False),
+    "c256": (3, 2000, 64, 32, 64, 32, 256, 0.25, False),
+    "one_set": (12, 1000, 64, 64, 64, 64, 4, 0.25, False),
 }
 
 
@@ -1135,6 +1138,8 @@ def _classified_case(dev, rng, case):
     ids outside [0, C) included, one exclusive slice per level."""
     v, n, sd, wd, ss, ws, c, byp_share, empty = CLASSIFIED_CASES[case]
     a = rng.integers(0, 3 * sd * max(wd, ws), (v, n)).astype(np.int32)
+    if case == "one_set":
+        a *= np.lcm(sd, ss)
     a[rng.random((v, n)) < 0.1] = -1
     w = rng.random((v, n)) < 0.35
     cls = rng.integers(-1, c + 1, (v, n)).astype(np.int32)
@@ -1206,6 +1211,59 @@ def test_single_level_classified_kernel(dev, case):
     _same(cpu(ops.single_level_classified(a, w, cls, *state[:3], ways,
                                           *flags, t0, byp, *bounds[:2],
                                           t_cache=2e-5)), want)
+
+
+def test_classified_key_room():
+    """The classified walks' keys hold the set above the class id and its
+    flags: the most sets a level takes, by route and class count."""
+    from repro_torch.kernels.datapath import ops
+    assert ops.max_classified_sets("two_level", 1) == 2**28
+    assert ops.max_classified_sets("two_level", 4) == 2**26
+    assert ops.max_classified_sets("two_level", 256) == 2**20
+    assert ops.max_classified_sets("single_level", 5) == 2**22
+    assert ops.max_classified_sets("single_level", 256) == 2**17
+
+
+def test_sharded_dispatches_default_t0(dev):
+    """``simulate_two_level_sharded`` and ``simulate_single_level_sharded``
+    with the default ``t0=0`` (a scalar, broadcast to ``[V]`` a shard by
+    ``simulator._vec``) on a 2-shard mesh of the card == the unsharded
+    dispatches with ``t0=0``."""
+    from repro_torch.core import simulator as S
+    from repro_torch.core.policies import Policy
+    from repro_torch.launch.mesh import VMMesh
+    rng = np.random.default_rng(12)
+    v, n, s, w = 6, 500, 16, 32
+    a = rng.integers(0, 6 * s * w, (v, n)).astype(np.int32)
+    a[rng.random((v, n)) < 0.1] = -1
+    wr = rng.random((v, n)) < 0.35
+    st = lambda: S.CacheState(*(torch.from_numpy(x).to(dev)
+                                for x in _state(rng, v, s, w)))
+    dram, ssd = st(), st()
+    wd, ws = (rng.integers(0, w + 1, v).astype(np.int32) for _ in range(2))
+    mesh = VMMesh((torch.device("cuda", 0),) * 2)
+    at, wt_ = torch.from_numpy(a).to(dev), torch.from_numpy(wr).to(dev)
+    for mode in ("full", "npe"):
+        want = S.simulate_two_level_batch(at, wt_, dram, ssd, wd, ws, mode)
+        got = S.simulate_two_level_sharded(at, wt_, dram, ssd, wd, ws, mesh,
+                                           mode)
+        _same_outputs(got, want)
+    flags = S.policy_flags([list(Policy)[k % 5] for k in range(v)], dev)
+    want = S.simulate_single_level_batch(at, wt_, ssd, wd, flags)
+    got = S.simulate_single_level_sharded(at, wt_, ssd, wd, flags, mesh)
+    _same_outputs(got, want)
+
+
+def _same_outputs(sharded, whole):
+    """Sharded outputs (one list an output, one entry a shard) == the
+    unsharded dispatch's, rows gathered in shard order."""
+    from repro_torch.core import simulator as S
+    for got, want in zip(sharded, whole):
+        g = S.gather_rows(got)
+        if isinstance(want, tuple):
+            _same([x.cpu() for x in g], [x.cpu() for x in want])
+        else:
+            _same([g.cpu()], [want.cpu()])
 
 
 def test_classify_block_card_equals_cpu(dev):
