@@ -272,7 +272,29 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    device memory, a step's parts (CUDA events) and one profiled step's
    device time by kernel group; (d) runs ``repro_torch.launch.train``'s
    ``main`` on the card with and without ``--inject-failure-at 2
-   --ckpt-every 1``: the same losses, and whether to the bit.
+   --ckpt-every 1``: the same losses, and whether to the bit; then trains
+   the other families: (e) holds ``flash_attention_bwd`` to its plain
+   version at seamless-m4t-large-v2's encoder shape (B 2, H 16, S 1024,
+   D 64) and cross shape (Sq 256 against Skv 1,024), bf16, non-causal,
+   on the ``wgmma`` route, each timed beside SDPA's backward and the
+   bound; (f) trains the six families' reduced configs (deepseek-moe,
+   mixtral, mamba2, jamba, internvl2, seamless) for 3 steps on the card
+   and on the CPU from one weight set (B 4 x 128; MoE layers replay the
+   CPU run's expert choices on the card, whose own flips are counted),
+   each step's launches checked: losses within 2e-2, each parameter
+   within 2e-2 (relative L2) or, where the CPU run's own move under a
+   quarter-ulp change of its unembedding passes 1e-2, within twice that
+   move; (g) trains deepseek-moe-16b at full width cut to 4 layers (the
+   dense first layer and 3 MoE layers: 2.27 B parameters, 36.3 GB of
+   float32 state), mamba2-370m (full) and seamless-m4t-large-v2 (full,
+   B 2 x 256 decoder tokens over 1,024 frames) for 3 AdamW steps each:
+   exactly ``train_launches``' counts a step (deepseek 7 + 4, mamba2
+   none, seamless 144 + 72: the encoder's and the decoder's layers and
+   the cross attention, each forward twice under its checkpoint), all on
+   the ``wgmma`` route, finite losses, ms and tokens/s a step, peak
+   device memory, a step taken twice from one state with the same bits,
+   a step's parts (CUDA events) and a profiled step by kernel group
+   (mamba2: one superlayer, its step being about 200,000 device events).
 
 The §5.1 deployment (VMs, requests, intervals, the DRAM share of the
 capacity) comes from ``src/repro_torch/configs/etica_paper.py``.
@@ -290,7 +312,8 @@ kernel; ``routes`` and ``routes_by_path``, where a kernel has more than
 one route, count each route's launches; ``launches`` from its own path: the 12-VM paths, the full-width
 serving run for ``paged_decode_attention``, the staged 12-VM run for
 ``popularity``, the full-width prefill for ``flash_attention`` and the
-full-width training run's 5 steps for ``flash_attention_bwd``; the
+full-width qwen3-4b training run's 5 steps for ``flash_attention_bwd``,
+the other training runs in ``launches_by_path``; the
 ``classified`` routes as entries of their own, ``two_level_classified``
 and ``single_level_classified``, with their route's launches on the
 seq-cutoff 12-VM runs; the backward's ``cuda_cores`` route as
@@ -5756,12 +5779,47 @@ def check_flash_bwd(dev, shape=TRAIN_BWD, cases=BWD_SHAPES) -> dict:
     return row, f32
 
 
-def train_run(model, cfg, opt_cfg, pipe, steps, dev, check_launches=True):
-    """``steps`` calls of ``make_train_step`` on the pipeline's batches,
-    each timed on the host clock to a synchronise; with
-    ``check_launches``, each step must launch exactly 2 ``flash_attention``
-    (forward and checkpoint recompute) and 1 ``flash_attention_bwd`` a
-    layer, every one on the ``wgmma`` route (the model's bf16 q, k, v).
+def train_launches(cfg) -> dict:
+    """Exact ``flash_attention`` and ``flash_attention_bwd`` launches of
+    one training step, from the code: each attention layer inside a
+    checkpoint (the superlayers' causal ones, the enc-dec decoder's cross
+    attention, the encoder's layers) runs its forward twice (the forward
+    and the backward's recompute) and its backward once; deepseek's dense
+    first layer, outside any checkpoint, once each."""
+    remat = sum(b.kind == "attn" for b in cfg.layer_pattern()) \
+        * cfg.num_superlayers
+    if cfg.is_encdec:
+        remat += cfg.encoder_layers + cfg.num_superlayers
+    once = 1 if cfg.first_dense_ff else 0
+    return {"flash_attention": 2 * remat + once,
+            "flash_attention_bwd": remat + once}
+
+
+def train_batches(cfg, b, s, frames=0, seed=0):
+    """``step -> batch`` of B x S decoder tokens: ``TokenPipeline``'s, and
+    for enc-dec, frames ``[B, frames, D]`` beside the decoder tokens,
+    drawn as the pipeline draws (from seed and step)."""
+    from repro_torch.data.pipeline import TokenPipeline
+    if not cfg.is_encdec:
+        return TokenPipeline(cfg, b, s, seed=seed).batch_at
+
+    def batch_at(step):
+        rng = np.random.default_rng((seed * 1_000_003 + step) * 97)
+        return {"frames": rng.normal(size=(b, frames, cfg.d_model)).astype(
+                    np.float32),
+                "dec_tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(
+                    np.int32)}
+    return batch_at
+
+
+def train_run(model, cfg, opt_cfg, batch_at, steps, dev,
+              check_launches=True):
+    """``steps`` calls of ``make_train_step`` on the batches of
+    ``batch_at(step)``, each timed on the host clock to a synchronise;
+    with ``check_launches``, each step must launch exactly
+    :func:`train_launches`' ``flash_attention`` and
+    ``flash_attention_bwd`` counts (2 and 1 a layer of the dense model),
+    every one on the ``wgmma`` route (the model's bf16 q, k, v).
     Returns (losses, step seconds, per-step launches)."""
     import torch
     from repro_torch import kernels
@@ -5770,8 +5828,9 @@ def train_run(model, cfg, opt_cfg, pipe, steps, dev, check_launches=True):
     opt = init_opt_state(dict(model.named_parameters()), opt_cfg)
     step_fn = make_train_step(cfg, opt_cfg)
     losses, secs, per_step = [], [], []
+    want = train_launches(cfg)
     for step in range(steps):
-        batch = pipe.batch_at(step)
+        batch = batch_at(step)
         before = kernels.launch_counts()
         routes0 = {k: kernels.route_counts(k) for k in (
             "flash_attention", "flash_attention_bwd")}
@@ -5787,8 +5846,6 @@ def train_run(model, cfg, opt_cfg, pipe, steps, dev, check_launches=True):
         wgmma = {k: kernels.route_counts(k)["wgmma"] - r["wgmma"]
                  for k, r in routes0.items()}
         per_step.append(dict(n, wgmma=wgmma))
-        want = {"flash_attention": 2 * cfg.num_layers,
-                "flash_attention_bwd": cfg.num_layers}
         if check_launches and wgmma != want:
             raise AssertionError(f"train step {step}: wgmma launches "
                                  f"{wgmma}, expected {want}")
@@ -5799,6 +5856,14 @@ def train_run(model, cfg, opt_cfg, pipe, steps, dev, check_launches=True):
             raise AssertionError(f"train step {step}: loss {loss}")
         losses.append(loss)
     return losses, secs, per_step, opt
+
+
+def param_errors(got, want) -> dict:
+    """Relative L2 error of each parameter of ``got`` against ``want``'s
+    (same structure; ``got`` on any device)."""
+    return {n: float((a.detach().cpu() - b.detach()).norm()
+                     / b.detach().norm().clamp_min(1e-30))
+            for (n, a), b in zip(got.named_parameters(), want.parameters())}
 
 
 def check_reduced_train_card_cpu(steps=3) -> dict:
@@ -5818,14 +5883,12 @@ def check_reduced_train_card_cpu(steps=3) -> dict:
     pipe = TokenPipeline(cfg, 4, 128, seed=3)
     cpu = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     card = copy.deepcopy(cpu).to("cuda")
-    l_card, *_ = train_run(card, cfg, opt_cfg, pipe, steps,
+    l_card, *_ = train_run(card, cfg, opt_cfg, pipe.batch_at, steps,
                            torch.device("cuda"))
-    l_cpu, *_ = train_run(cpu, cfg, opt_cfg, pipe, steps,
+    l_cpu, *_ = train_run(cpu, cfg, opt_cfg, pipe.batch_at, steps,
                           torch.device("cpu"), check_launches=False)
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu))
-    par_err = max(float((pc.detach().cpu() - pp.detach()).norm()
-                        / pp.detach().norm().clamp_min(1e-30))
-                  for pc, pp in zip(card.parameters(), cpu.parameters()))
+    par_err = max(param_errors(card, cpu).values())
     if not (loss_err <= 2e-2 and par_err <= 2e-2):
         raise AssertionError(f"reduced train card vs CPU: losses {l_card} "
                              f"vs {l_cpu}, parameters {par_err:.3e}")
@@ -5851,13 +5914,15 @@ def kernel_group(name: str) -> str:
     return "elementwise, reductions, copies"
 
 
-def train_step_phases(model, cfg, opt_cfg, batch, reps=2) -> dict:
+def train_step_phases(model, cfg, opt_cfg, batch, reps=2,
+                      warm=True) -> dict:
     """CUDA-event milliseconds of a training step's parts (the step of
     ``make_train_step`` cut at its seams): forward (loss), backward
     (the checkpointed superlayers' recompute and every gradient), AdamW;
     and the chunked cross-entropy's forward and backward alone on the
     same hidden state. Means over ``reps`` steps after one untimed step
-    (the allocator's first requests for the step's buffers)."""
+    (the allocator's first requests for the step's buffers; without
+    ``warm``, none: the model has taken steps of this shape already)."""
     import torch
     from repro_torch.models import model as M
     from repro_torch.models.layers import rmsnorm
@@ -5867,7 +5932,8 @@ def train_step_phases(model, cfg, opt_cfg, batch, reps=2) -> dict:
     batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     out = {"forward": 0.0, "backward": 0.0, "adamw": 0.0}
-    for rep in range(reps + 1):
+    first = 0 if warm else 1
+    for rep in range(first, reps + 1):
         for p in named.values():
             p.grad = None
         ev[0].record()
@@ -5895,14 +5961,16 @@ def train_step_phases(model, cfg, opt_cfg, batch, reps=2) -> dict:
     return out
 
 
-def grouped_profile(fn) -> tuple[float | None, float, dict]:
+def grouped_profile(fn, warm=True) -> tuple[float | None, float, dict]:
     """``(device ms, device events, {kernel group: ms})`` of one call of
-    ``fn`` from a ``torch.profiler`` trace (after one call outside it);
-    ``None`` ms when the trace shows no device time."""
+    ``fn`` from a ``torch.profiler`` trace (after one call outside it,
+    unless not ``warm``); ``None`` ms when the trace shows no device
+    time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -5950,8 +6018,8 @@ def check_full_width_training(launches, dev="cuda", layers=QWEN3_TRAIN_LAYERS,
     opt_cfg = OptConfig(lr=3e-4, warmup_steps=1, total_steps=steps)
     pipe = TokenPipeline(cfg, b, s, seed=0)
     kernels.reset_launch_counts()
-    losses, secs, per_step, opt = train_run(model, cfg, opt_cfg, pipe, steps,
-                                            dev)
+    losses, secs, per_step, opt = train_run(model, cfg, opt_cfg,
+                                            pipe.batch_at, steps, dev)
     launches["qwen3-4b-train"] = serving_launches(
         "qwen3-4b train", ("flash_attention", "flash_attention_bwd"),
         only=True)
@@ -6038,6 +6106,321 @@ def check_train_recovery(dev="cuda", steps=4, seq=256) -> dict:
            f"between two identical backward passes: {differ}"))
     return dict(losses=failed, clean=clean, bit_equal=bits, rel_err=err,
                 nondeterministic_grads=differ)
+
+
+# the other families' training (phase 17 (e) to (g)): full-width cells,
+# weights from a seeded generator on the card; deepseek-moe-16b cut to its
+# dense first layer and 3 MoE layers (2.27 B parameters: 36.3 GB of float32
+# parameters, gradients and AdamW moments); B x S decoder tokens (and
+# encoder frames)
+FAMILY_TRAIN = {
+    "deepseek-moe-16b": dict(layers=4, batch=(2, 1024)),
+    "mamba2-370m": dict(batch=(4, 1024), profile="layer"),
+    "seamless-m4t-large-v2": dict(batch=(2, 256), frames=1024)}
+# mamba2's step is about 200,000 device events, whose profiler trace takes
+# minutes to read: its breakdown by kernel group profiles one superlayer
+# (layer_profile) instead of the whole step
+FAMILY_TRAIN_STEPS = 3
+# flash_attention_bwd at seamless's shapes (B, H, Hkv, Sq, Skv, D; bf16,
+# non-causal): its encoder self-attention and its decoder's cross attention
+SEAMLESS_BWD = (("seamless encoder", (2, 16, 16, 1024, 1024, 64)),
+                ("seamless cross", (2, 16, 16, 256, 1024, 64)))
+
+
+def check_seamless_bwd(dev) -> dict:
+    """Phase 17 (e): ``flash_attention_bwd`` against its plain version at
+    seamless-m4t-large-v2's encoder and cross shapes (bf16, non-causal,
+    model layout, the ``wgmma`` route), each timed (calls, a CUDA graph,
+    the profiler's parts) beside the plain version, SDPA's backward and
+    the bound."""
+    import torch
+    out = {}
+    for i, (label, shape) in enumerate(SEAMLESS_BWD):
+        args = bwd_inputs(dev, shape, torch.bfloat16, 200 + i, causal=False)
+        rel, err, route = bwd_check(label, args, causal=False)
+        row = time_flash_bwd(args, causal=False)
+        row.update(shape=shape, max_rel_err=rel, max_abs_err=err,
+                   route=route)
+        log(f"flash_attention_bwd {label} {shape} bf16 non-causal, {route} "
+            f"route: == plain (relative {rel:.2e}, absolute {err:.2e}); "
+            f"kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f} ms, "
+            f"{row['tflops']:.1f} TFLOP/s of the 5 products), plain "
+            f"{row['plain_ms']:.4f} ms, SDPA backward "
+            f"{row['library_ms']:.4f} ms (device "
+            f"{fmt_ms(row['library_device_ms'])}), bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); its kernels: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in
+                        row["device_parts"].items()))
+        out[label] = row
+        del args
+    return out
+
+
+@contextlib.contextmanager
+def experts_replayed(records, flips):
+    """Inside the block the k-th call of ``moe.route`` computes its own
+    routing, then takes ``records[k]``'s expert ids (moved to its device)
+    and gate values gathered from its own probabilities at those ids, so
+    that its router keeps its gradient; ``flips`` gets, a call, the
+    tokens whose own expert set differed. Holds a training run's expert
+    choices to another's (:func:`routing_replayed` for training)."""
+    import torch
+    from repro_torch._xla_math import sum_rows_f32
+    from repro_torch.models import moe
+    route, calls = moe.route, iter(records)
+
+    def replay(p, cfg, xf):
+        probs, _, idx = route(p, cfg, xf)
+        want = next(calls)[2].to(idx.device)
+        flips.append(int((torch.sort(idx, -1).values
+                          != torch.sort(want, -1).values).any(-1).sum()))
+        gate = probs.gather(-1, want)
+        gate = gate / torch.clamp(sum_rows_f32(gate)[:, None], min=1e-9)
+        return probs, gate, want
+    with swapped(moe, "route", replay):
+        yield
+
+
+def check_reduced_family_train(arch, steps=3) -> dict:
+    """Phase 17 (f): a family's reduced config from one CPU-drawn weight
+    set, ``steps`` ``make_train_step`` steps (B 4 x 128 decoder tokens,
+    enc-dec over 128 frames; lr 1e-2) on the card (the kernels; launches
+    checked a step) and on the CPU (the plain versions), with MoE layers
+    replaying the CPU run's expert choices on the card
+    (:func:`experts_replayed`; the card's own flips reported): phase 17
+    (b)'s bar, losses within 2e-2 and each parameter within 2e-2
+    (relative L2) after the steps — but where the CPU run's own move
+    under a quarter-ulp change of its unembedding table (2^-9 of each
+    entry, random signs; the same expert choices) passes 1e-2, within
+    twice that move (Adam's steps are about +-lr whatever a gradient's
+    size, so a parameter that starts at zero, the SSM's ``conv_b`` and
+    ``dt_bias``, follows the signs of gradients that rounding can
+    flip; reduced jamba's training is chaotic there). The parameters
+    held that way are printed with both numbers."""
+    import copy
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.optim import OptConfig
+    t0 = time.perf_counter()
+    cfg = configs.get_reduced(arch)
+    opt_cfg = OptConfig(lr=1e-2, warmup_steps=1, total_steps=steps)
+    batch_at = train_batches(cfg, 4, 128, frames=128, seed=3)
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    moved = copy.deepcopy(cpu)
+    routes, flips = [], []
+    with captured(moe, "route", routes, first_only=False, result=True):
+        l_cpu, *_ = train_run(cpu, cfg, opt_cfg, batch_at, steps,
+                              torch.device("cpu"), check_launches=False)
+    routes = [tuple(x.detach() for x in r) for r in routes]
+    with experts_replayed(routes, flips):
+        l_card, _, per_step, _ = train_run(card, cfg, opt_cfg, batch_at,
+                                           steps, torch.device("cuda"))
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu))
+    errs, own = param_errors(card, cpu), {}
+    if max(errs.values()) > 2e-2:
+        # the CPU run's own move, from a quarter-ulp change
+        with torch.no_grad():
+            t = moved.unembed
+            signs = torch.from_numpy(np.random.default_rng(5).choice(
+                [-1.0, 1.0], tuple(t.shape)).astype(np.float32))
+            t.add_(signs * t.abs() * 2.0 ** -9)
+        with experts_replayed(routes, []):
+            train_run(moved, cfg, opt_cfg, batch_at, steps,
+                      torch.device("cpu"), check_launches=False)
+        own = param_errors(moved, cpu)
+    bar = {n: max(2e-2, 2 * own[n]) if own.get(n, 0) > 1e-2 else 2e-2
+           for n in errs}
+    over = [n for n in errs if errs[n] > bar[n]]
+    noisy = {n: (round(errs[n], 5), round(own[n], 5)) for n in errs
+             if errs[n] > 2e-2}
+    shown = dict(sorted(noisy.items(), key=lambda x: -x[1][0])[:8])
+    if not loss_err <= 2e-2 or over:
+        raise AssertionError(f"reduced {arch} train card vs CPU: losses "
+                             f"{l_card} vs {l_cpu}, parameters over the bar "
+                             f"{[(n, errs[n], bar[n]) for n in over]}")
+    worst = max((n for n in errs if n not in noisy), key=errs.get)
+    note = (f"; MoE: the CPU's expert choices replayed, the card's own "
+            f"differed for {sum(flips)} of "
+            f"{sum(r[2].shape[0] for r in routes)} routed tokens"
+            if routes else "")
+    log(f"reduced {arch} training, {steps} steps of B 4 x 128: card losses "
+        f"{[round(x, 6) for x in l_card]}, CPU {[round(x, 6) for x in l_cpu]}"
+        f" (largest relative gap {loss_err:.2e}); launches a step "
+        f"{per_step[0]}; parameters after the steps within "
+        f"{errs[worst]:.2e} ({worst}); {len(noisy)} past 2e-2, within "
+        f"twice the CPU's own quarter-ulp move (card error, that move; the "
+        f"largest): {shown}{note}; {time.perf_counter() - t0:.1f} s")
+    return dict(loss_err=loss_err, param_err=errs[worst], noisy=noisy,
+                card=l_card, cpu=l_cpu, flips=sum(flips),
+                launches=per_step[0])
+
+
+def family_train_cfg(arch):
+    from repro_torch import configs
+    cfg = configs.get(arch)
+    layers = FAMILY_TRAIN[arch].get("layers")
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+
+
+def step_twice(model, cfg, opt_cfg, batch) -> dict:
+    """One ``make_train_step`` step from one state (the parameters as they
+    are, fresh AdamW moments), taken twice, the parameters restored from
+    a device copy in between: the loss, the gradient norm and every
+    updated parameter the same bits. Returns the names that differ."""
+    import torch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import init_opt_state
+    named = dict(model.named_parameters())
+    start = {n: p.detach().clone() for n, p in named.items()}
+    step_fn = make_train_step(cfg, opt_cfg)
+    runs = []
+    for _ in range(2):
+        with torch.no_grad():
+            for n, p in named.items():
+                p.copy_(start[n])
+        opt = init_opt_state(named, opt_cfg)
+        _, opt, m = step_fn(model, opt, batch)
+        del opt
+        after = {n: p.detach().clone() for n, p in named.items()}
+        runs.append((float(m["loss"]), float(m["grad_norm"]), after))
+    (la, ga, a), (lb, gb, b) = runs
+    differ = [n for n in a if not torch.equal(a[n], b[n])]
+    if la != lb or ga != gb:
+        differ.append("loss or grad_norm")
+    del start, runs, a, b
+    return dict(loss=la, grad_norm=ga, differ=differ)
+
+
+def layer_profile(model, cfg, b, s) -> tuple[float | None, float, dict]:
+    """:func:`grouped_profile` of one superlayer as the training step runs
+    it (checkpointed: its forward, then the backward's recompute and
+    gradients) on a random bf16 hidden state of the cell's shape."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.models import model as M
+    dev = next(model.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(b, s, cfg.d_model, device=dev, generator=gen).to(
+        torch.bfloat16).requires_grad_(True)
+    positions = torch.arange(s, device=dev)[None]
+
+    def step():
+        y, _ = checkpoint(M._superlayer, model.layers[0], cfg, x, positions,
+                          None, use_reentrant=False, preserve_rng_state=False)
+        y.float().sum().backward()
+    out = grouped_profile(step)
+    for p in model.parameters():
+        p.grad = None
+    return out
+
+
+def check_family_training(launches, arch, dev="cuda") -> dict:
+    """Phase 17 (g): ``arch`` at full width (``FAMILY_TRAIN``), weights
+    from a seeded generator on the card, ``FAMILY_TRAIN_STEPS`` AdamW steps
+    of ``make_train_step`` (lr 3e-4, float32 moments): launch counts set to
+    0 before and read after the run, each step exactly
+    :func:`train_launches`' counts, all on the ``wgmma`` route; finite
+    losses; per step loss, ms and tokens/s; peak device memory; a step
+    taken twice from one state, the same bits (:func:`step_twice`); a
+    step's parts (CUDA events) and one profiled step's device time by
+    kernel group (mamba2: one superlayer's, :func:`layer_profile`)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import OptConfig, init_opt_state
+    t0 = time.perf_counter()
+    dev = torch.device(dev)
+    b, s = FAMILY_TRAIN[arch]["batch"]
+    frames = FAMILY_TRAIN[arch].get("frames", 0)
+    steps = FAMILY_TRAIN_STEPS
+    cfg = family_train_cfg(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt_cfg = OptConfig(lr=3e-4, warmup_steps=1, total_steps=steps)
+    batch_at = train_batches(cfg, b, s, frames=frames)
+    want = train_launches(cfg)
+    label = f"{arch}-train"
+    kernels.reset_launch_counts()
+    losses, secs, per_step, opt = train_run(model, cfg, opt_cfg, batch_at,
+                                            steps, dev)
+    launches[label] = serving_launches(
+        label, tuple(k for k, n in want.items() if n), only=True)
+    peak = torch.cuda.max_memory_allocated()
+    tok = [b * s / t for t in secs]
+    shape = f"B {b} x {s}" + (f" over {frames} frames" if frames else "")
+    for i, (loss, t, n) in enumerate(zip(losses, secs, per_step)):
+        log(f"{arch} train ({cfg.num_layers} layers, {shape}) step {i}: "
+            f"loss {loss:.6f}, {t * 1e3:.1f} ms, {tok[i]:.0f} tokens/s, "
+            f"launches {n}")
+    log(f"{arch} train: {n_params:,} float32 parameters "
+        f"({n_params / 1e9:.3f} B), peak device memory {peak / 2**30:.2f} "
+        f"GiB ({peak / 1e9:.2f} GB), launches {want} a step, "
+        f"{launches[label]['flash_attention']} flash_attention and "
+        f"{launches[label]['flash_attention_bwd']} flash_attention_bwd in "
+        f"{steps} steps")
+    del opt
+    batch = batch_at(steps)
+    twice = step_twice(model, cfg, opt_cfg, batch)
+    if twice["differ"]:
+        raise AssertionError(f"{arch} train: a step taken twice from one "
+                             f"state differs in {twice['differ']}")
+    log(f"{arch} train: one step taken twice from one state gives the same "
+        f"bits (loss {twice['loss']:.6f}, gradient norm "
+        f"{twice['grad_norm']:.6f}, every parameter)")
+    phases = train_step_phases(model, cfg, opt_cfg, batch, reps=1,
+                               warm=False)
+    log(f"{arch} train step parts (CUDA events): " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in phases.items()))
+    opt = None
+    if FAMILY_TRAIN[arch].get("profile") == "layer":
+        dev_ms, events, groups = layer_profile(model, cfg, b, s)
+        what = (f"one of its {cfg.num_superlayers} superlayers (forward, "
+                f"recompute, backward)")
+    else:
+        step_fn = make_train_step(cfg, opt_cfg)
+        opt = init_opt_state(dict(model.named_parameters()), opt_cfg)
+        dev_ms, events, groups = grouped_profile(
+            lambda: step_fn(model, opt, batch), warm=False)
+        what = "step"
+    log(f"{arch} train {what}, profiled: device {fmt_ms(dev_ms)} in "
+        f"{events} events; by kernel group " + ", ".join(
+            f"{k} {v:.2f} ms" for k, v in sorted(groups.items(),
+                                                 key=lambda x: -x[1])))
+    del model, opt
+    torch.cuda.empty_cache()
+    log(f"{arch} train cell: {time.perf_counter() - t0:.1f} s")
+    return dict(layers=cfg.num_layers, batch=b, seq=s, frames=frames,
+                params=n_params, losses=losses,
+                step_ms=[t * 1e3 for t in secs], tokens_per_s=tok,
+                peak_bytes=peak, launches_per_step=want, per_step=per_step,
+                same_bits_twice=True, phases_ms=phases,
+                profiled=what, profiled_device_ms=dev_ms,
+                profiled_events=events, device_ms_by_group=groups)
+
+
+def check_families_training(launches, dev) -> dict:
+    """Phase 17 (e) to (g): ``flash_attention_bwd`` at seamless's shapes,
+    the six families' reduced configs card == CPU, and the three
+    full-width training cells."""
+    t0 = time.perf_counter()
+    out = dict(seamless_bwd=check_seamless_bwd(dev))
+    log(f"flash_attention_bwd at seamless's shapes: "
+        f"{time.perf_counter() - t0:.1f} s")
+    out["reduced_card_cpu"] = {arch: check_reduced_family_train(arch)
+                               for arch in FAMILY_ARCHS}
+    out.update({arch: check_family_training(launches, arch)
+                for arch in FAMILY_TRAIN})
+    log(f"phase 17 (e)-(g), the other families' training: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -6268,6 +6651,12 @@ def main() -> int:
         reduced_card_cpu=check_reduced_train_card_cpu(),
         qwen3_4b=check_full_width_training(launches),
         recovery=check_train_recovery())
+    fam = check_families_training(launches, dev)
+    bwd = rows["flash_attention_bwd"]
+    bwd["seamless_shapes"] = fam.pop("seamless_bwd")
+    bwd["max_abs_err"] = max([bwd["max_abs_err"]] + [
+        r["max_abs_err"] for r in bwd["seamless_shapes"].values()])
+    bwd["train"].update(fam)
     log(f"phase 17: {time.perf_counter() - t17:.1f} s")
 
     sources = {"count_between": "src/repro_torch/csrc/count_between.cu",

@@ -29,6 +29,19 @@ CUDA:
 
 All are plain tensor code and give the same bits on the CPU and on
 CUDA.
+
+Gradients: where an input requires one (and grad mode is on),
+:func:`exp_xla_f32`, :func:`sum_f32`, :func:`sum_rows_f32` and
+:func:`cumsum_f32` run as ``torch.autograd.Function`` classes whose
+forward is the same code under ``no_grad`` (the same bits, and no
+graph of its float64 steps or per-element adds) and whose backward is
+JAX's rule: ``exp`` the upstream gradient times the saved output
+(``jnp.exp``'s JVP: past the clamp the clamped output, and 0 wherever
+the output flushed to 0, as at ``-inf``; a subnormal product flushed
+too); a sum the gradient broadcast; a cumulative sum the reverse
+cumulative sum of the gradient (summed as :func:`cumsum_f32` sums).
+Without a gradient they are plain calls (the cache path's host cost
+unchanged).
 """
 from __future__ import annotations
 
@@ -62,8 +75,31 @@ def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
     return (a.double() * b + c).float()
 
 
+def _differentiable(x: torch.Tensor) -> bool:
+    return x.requires_grad and torch.is_grad_enabled()
+
+
+class _Exp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        out = _exp(x)
+        ctx.save_for_backward(out)
+        ctx.dtype = x.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (out,) = ctx.saved_tensors
+        return ftz(g * out).to(ctx.dtype)
+
+
 def exp_xla_f32(x: torch.Tensor) -> torch.Tensor:
-    """float32 ``exp`` bit-identical to XLA:CPU's, subnormals flushed."""
+    """float32 ``exp`` bit-identical to XLA:CPU's, subnormals flushed;
+    differentiable as ``jnp.exp``."""
+    return _Exp.apply(x) if _differentiable(x) else _exp(x)
+
+
+def _exp(x: torch.Tensor) -> torch.Tensor:
     x = x.float().clamp(f32(-88.8), f32(88.8))
     n = torch.floor(_fma(x, _LOG2EF, 0.5)).clamp(-127.0, 127.0)
     a = _fma(n, _C1, x)
@@ -79,11 +115,30 @@ def exp_xla_f32(x: torch.Tensor) -> torch.Tensor:
 _WINDOW = 32     # XLA:CPU's reduction window (tree reduction rewriter)
 
 
+class _Sum(torch.autograd.Function):
+    """A float32 reduction ``fn`` of ``x`` whose gradient is the upstream
+    gradient broadcast back to ``x``'s shape."""
+
+    @staticmethod
+    def forward(ctx, x, fn):
+        ctx.shape, ctx.dtype = x.shape, x.dtype
+        return fn(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.reshape(g.shape + (1,) * (len(ctx.shape) - g.dim()))
+        return g.expand(ctx.shape).to(ctx.dtype), None
+
+
 def sum_f32(x: torch.Tensor) -> torch.Tensor:
     """The 0-d float32 sum of a 1-D tensor, bit-identical to XLA:CPU's
     ``jnp.sum``: in order up to 32 elements; above that, windows of 32
     over the input padded by ``p = -n % 32`` zeros (``p // 2`` in
     front), each window in order, and the window sums reduced again."""
+    return _Sum.apply(x, _sum) if _differentiable(x) else _sum(x)
+
+
+def _sum(x: torch.Tensor) -> torch.Tensor:
     x = x.float().reshape(-1)
     while x.numel() > _WINDOW:
         p = -x.numel() % _WINDOW
@@ -95,6 +150,10 @@ def sum_f32(x: torch.Tensor) -> torch.Tensor:
 def sum_rows_f32(x: torch.Tensor) -> torch.Tensor:
     """:func:`sum_f32` of each row of a 2-D float32 tensor (``jnp.sum(x,
     axis=-1)`` on XLA:CPU): ``[T, N]`` -> ``[T]``."""
+    return _Sum.apply(x, _sum_rows) if _differentiable(x) else _sum_rows(x)
+
+
+def _sum_rows(x: torch.Tensor) -> torch.Tensor:
     x = x.float()
     while x.shape[1] > _WINDOW:
         p = -x.shape[1] % _WINDOW
@@ -107,9 +166,25 @@ def sum_rows_f32(x: torch.Tensor) -> torch.Tensor:
 _SCAN_BASE = 16   # XLA's reduce-window rewriter's base length
 
 
+class _Cumsum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim, ctx.dtype = dim, x.dtype
+        return _cumsum(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        rev = _cumsum(g.flip(ctx.dim), ctx.dim).flip(ctx.dim)
+        return rev.to(ctx.dtype), None
+
+
 def cumsum_f32(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """float32 cumulative sum along ``dim``, bit-identical to XLA:CPU's
     ``jnp.cumsum``."""
+    return _Cumsum.apply(x, dim) if _differentiable(x) else _cumsum(x, dim)
+
+
+def _cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
     x = x.float().movedim(dim, -1)
     return _block_scan(x).movedim(-1, dim)
 

@@ -15,19 +15,6 @@ from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig, ShapeSpec
 from repro_torch.optim import OptConfig, apply_updates
 
-TRAINABLE_FAMILIES = ("dense",)
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Training ports the dense family. MoE routing and the SSM's scans
-    hold the reference's bits through ``_xla_math``, whose exponent
-    bit tricks autograd cannot differentiate, so their gradients would
-    be silently wrong: refuse them (ROADMAP Queue 1 item 9)."""
-    if cfg.family not in TRAINABLE_FAMILIES:
-        raise NotImplementedError(
-            f"training {cfg.name} ({cfg.family}): only the "
-            f"{TRAINABLE_FAMILIES} families train in this port")
-
 
 def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig | None = None,
                     grad_dtype: str | None = None):
@@ -39,8 +26,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig | None = None,
     ``init_opt_state(dict(params.named_parameters()), opt_cfg)``; the
     batch's arrays (numpy or tensors) go to the model's device.
     ``grad_dtype="bfloat16"`` casts gradients before the optimizer — the
-    cross-replica all-reduce then moves half the bytes (§Perf lever)."""
-    check_trainable(cfg)
+    cross-replica all-reduce then moves half the bytes (§Perf lever).
+    Every family trains: MoE routing and the SSM's scans hold the
+    reference's bits through ``_xla_math``, whose functions carry JAX's
+    backward rules (:mod:`repro_torch._xla_math`)."""
     opt_cfg = opt_cfg or OptConfig()
     cast = getattr(torch, grad_dtype) if grad_dtype else None
 

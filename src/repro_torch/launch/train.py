@@ -8,8 +8,10 @@ Wires together the model, AdamW, the deterministic data pipeline, async
 atomic checkpointing, straggler monitoring and bounded-retry recovery
 with exact replay. Runs on the card unless ``--device cpu``: every
 layer's attention goes through the ``flash_attention`` kernel forward
-and the ``flash_attention_bwd`` kernel backward. The dense family
-trains (``steps.check_trainable``).
+and the ``flash_attention_bwd`` kernel backward. Every config trains
+(``--arch`` of any family, reduced or ``--full``); the pipeline gives
+each family its batch (tokens; the VLM's patches; the enc-dec's frames
+and decoder tokens).
 
 The optimizer updates the live tensors in place, so the committed state
 that recovery goes back to is a host copy, and restoring it copies it
@@ -31,7 +33,7 @@ from repro_torch.checkpoint.store import AsyncCheckpointer, latest_step, \
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.kernels import resolve_device
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.launch.steps import check_trainable, make_train_step
+from repro_torch.launch.steps import make_train_step
 from repro_torch.models import model as M
 from repro_torch.optim import OptConfig, init_opt_state
 from repro_torch.runtime.fault import StragglerMonitor, run_with_recovery
@@ -65,7 +67,6 @@ def main(argv=None):
     dev = resolve_device(args.device)
     cfg = (configs.get_reduced(args.arch) if args.reduced
            else configs.get(args.arch))
-    check_trainable(cfg)
     opt_cfg = OptConfig(lr=args.lr, total_steps=args.steps,
                         warmup_steps=max(args.steps // 10, 1))
     mesh = make_host_mesh(device=dev)

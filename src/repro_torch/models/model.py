@@ -198,14 +198,26 @@ def _loss_targets(cfg: ModelConfig, batch, seq: int):
     return mask, labels
 
 
+def _encoder_layer(layer, cfg: ModelConfig, x, positions):
+    x, _, _ = blocks.block_train(layer, cfg, _ATTN, x, positions,
+                                 collect_cache=False, causal=False)
+    return x
+
+
 def _encode(params: Model, cfg: ModelConfig, frames):
-    """Encoder stack over (stub) frame embeddings [B, S_enc, D]."""
+    """Encoder stack over (stub) frame embeddings [B, S_enc, D]. Under
+    autograd each layer is checkpointed (the reference's
+    ``jax.checkpoint`` of its scan body): only its input is kept."""
     x = dense(params.frontend, frames) if hasattr(params, "frontend") \
         else frames
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    remat = torch.is_grad_enabled()
     for layer in params.encoder.layers:
-        x, _, _ = blocks.block_train(layer, cfg, _ATTN, x, positions,
-                                     collect_cache=False, causal=False)
+        if remat:
+            x = checkpoint(_encoder_layer, layer, cfg, x, positions,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _encoder_layer(layer, cfg, x, positions)
     return rmsnorm(params.encoder.final_norm, x, cfg.norm_eps)
 
 

@@ -10,14 +10,22 @@ batched products, and the combine adds each token's kept pairs back.
 
 Numerics follow the reference bit for bit where it fixes them: the
 router's softmax uses XLA:CPU's float32 ``exp`` and sums
-(:mod:`repro_torch._xla_math`); top-k takes the lower expert id first on
-ties (the first k of a stable descending sort, as ``lax.top_k``); the
-combine adds a token's k contributions in bfloat16, one rounding per
-add, in the order of the stable expert sort, as the reference's
-scatter-add does. The combine gathers through the inverse permutation
-instead of scattering, so it uses no atomics and gives the same bits on
-every run. Returns the Switch-style load-balancing loss beside the
-output.
+(:mod:`repro_torch._xla_math`), and its gradient is
+``jax.nn.softmax``'s own rule, ``y * (g - sum(y * g))`` (no gradient
+flows through the max it subtracts); top-k takes the lower expert id
+first on ties (the first k of a stable descending sort, as
+``lax.top_k``); the combine adds a token's k contributions in bfloat16,
+one rounding per add, in the order of the stable expert sort, as the
+reference's scatter-add does. The combine gathers through the inverse
+permutation instead of scattering, so it uses no atomics and gives the
+same bits on every run. Returns the Switch-style load-balancing loss
+beside the output.
+
+Gradients are the reference's: the gate values' gradient flows through
+the sort's values to the chosen probabilities (``lax.top_k``'s), the
+expert ids and the load-balancing density carry none (the reference's
+``one_hot`` of integer ids), and the dispatch and combine gathers
+differentiate to scatter-adds.
 """
 from __future__ import annotations
 
@@ -73,13 +81,30 @@ def capacity(cfg: ModelConfig, t: int) -> int:
     return int(max((t * k * cfg.moe_capacity_factor) // e, min(t, 256), 1))
 
 
+class _Softmax(torch.autograd.Function):
+    """The router's softmax over the last axis of ``[T, E]`` float32
+    logits (XLA:CPU's ``exp`` and sums), with the gradient of
+    ``jax.nn.softmax``'s custom JVP: ``t - y * sum(t)``, ``t = y * g``."""
+
+    @staticmethod
+    def forward(ctx, logits):
+        z = exp_xla_f32(logits - logits.amax(-1, keepdim=True))
+        probs = z / sum_rows_f32(z)[:, None]
+        ctx.save_for_backward(probs)
+        return probs
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        t = y * g
+        return t - y * sum_rows_f32(t)[:, None]
+
+
 def route(p: MoE, cfg: ModelConfig, xf):
     """Router of ``xf`` [T, D]: (probs [T, E] float32, gate values [T, k]
     normalised to sum 1, expert ids [T, k] int64)."""
     k = cfg.moe_top_k
-    logits = xf.float() @ p.router.float()
-    z = exp_xla_f32(logits - logits.amax(-1, keepdim=True))
-    probs = z / sum_rows_f32(z)[:, None]
+    probs = _Softmax.apply(xf.float() @ p.router.float())
     # lax.top_k: the k largest, the lower index first on ties
     gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, idx = gate[:, :k], idx[:, :k]

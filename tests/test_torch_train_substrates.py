@@ -249,15 +249,37 @@ def test_train_main_recovers_and_resumes(tmp_path, capsys):
     assert "restored from step 4" in out and "final loss" in out
 
 
-def test_train_main_refuses_moe():
-    with pytest.raises(NotImplementedError):
-        _main("--arch", "deepseek-moe-16b", "--steps", "1")
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_train_main_every_config(arch, capsys):
+    """``python -m repro_torch.launch.train --arch <arch>`` (reduced, the
+    default) takes two steps of every config on the CPU: the family's
+    pipeline batch, finite losses."""
+    losses = _main("--arch", arch, "--steps", "2")
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    assert f"arch={configs.get_reduced(arch).name}" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_pipeline_matches_batch_specs(arch):
+    """Each family's pipeline batch has the shapes and dtypes of the
+    reference's ``launch.steps.batch_specs`` (tokens; the VLM's text
+    tokens after its patches; the enc-dec's frames and decoder
+    tokens)."""
+    from repro.launch.steps import batch_specs
+    from repro.models.config import ShapeSpec
+    shape = ShapeSpec("train", 48, 2, "train")
+    want = batch_specs(jconfigs.get_reduced(arch), shape)
+    got = TokenPipeline(configs.get_reduced(arch), 2, 48).batch_at(0)
+    assert set(got) == set(want)
+    for k, spec in want.items():
+        assert got[k].shape == spec.shape and got[k].dtype == spec.dtype, k
 
 
 def test_training_imports_no_jax():
     """``repro_torch.launch.train`` and the modules it brings (optim,
-    checkpoint, data, runtime.fault) run a training without loading
-    ``jax`` or the JAX package."""
+    checkpoint, data, runtime.fault) run a training, and a step of each
+    family beyond the dense one (MoE, SSM, hybrid, VLM, audio enc-dec),
+    without loading ``jax`` or the JAX package."""
     code = textwrap.dedent("""
         import sys, tempfile
         import repro_torch.checkpoint.store
@@ -268,6 +290,10 @@ def test_training_imports_no_jax():
         with tempfile.TemporaryDirectory() as d:
             train.main(["--device", "cpu", "--steps", "2", "--batch", "2",
                         "--seq", "16", "--ckpt-dir", d, "--ckpt-every", "1"])
+        for arch in ("deepseek-moe-16b", "mamba2-370m", "jamba-v0.1-52b",
+                     "internvl2-26b", "seamless-m4t-large-v2"):
+            train.main(["--arch", arch, "--device", "cpu", "--steps", "1",
+                        "--batch", "2", "--seq", "32"])
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "repro" or m.startswith("repro."))
