@@ -295,6 +295,27 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    device memory, a step taken twice from one state with the same bits,
    a step's parts (CUDA events) and a profiled step by kernel group
    (mamba2: one superlayer, its step being about 200,000 device events).
+   SDPA's backward is also timed by CUDA-graph replay (a graph of its
+   forward and backward less one of the forward), which needs no
+   profiler;
+18. the distribution plan: (a) ``compressed_psum`` over a mesh of 4
+   data replicas that repeats ``cuda:0`` == the same call on the CPU,
+   bit for bit, on reduced qwen3's gradients of 4 batches (float32 and
+   bf16); (b) ``reuse_distances`` (POD(RO), POD(WBWO), TRD) and
+   ``sizing_reduction`` (each kind) on every VM of the paper 12-VM first
+   window, the ``count_between`` route == plain with one launch a call,
+   and ``table_len`` of phase 3's fused run's popularity table == the
+   CPU run's; (c) ``python -m repro_torch.launch.dryrun --profile`` on
+   qwen3-4b ``train_4k`` cut to 8 layers and B 2 x 2048 (phase 17 (c)'s
+   cell) in a process of its own: the 16 x 16 record, the cut's measured
+   step and device time by kernel group beside its roofline terms, the
+   card's name and power limit; (d) ``python -m
+   repro_torch.launch.sweep``: the abstract dry-run of all 10 configs x 4
+   shapes x both production meshes (3 worker processes, CPU only,
+   started at phase 1 at the lowest CPU priority and awaited here),
+   failing on anything but the reference's ``shape_applicable`` skips,
+   its time logged. The records go to ``build/dryrun*`` and each
+   one's numbers to the log.
 
 The §5.1 deployment (VMs, requests, intervals, the DRAM share of the
 capacity) comes from ``src/repro_torch/configs/etica_paper.py``.
@@ -329,6 +350,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2247,12 +2269,13 @@ def fig15_config(active, total):
                        promo_interval=max(125, total // 12))
 
 
-def drive(build, trace, label, expect):
+def drive(build, trace, label, expect, twin: dict | None = None):
     """One card run of the controller's ``run`` with the launch counts
     set to 0 just before and read just after (exactly the kernels in
     ``expect`` must have launched), then the same run on the CPU, which
     must give identical results. Returns ``(launches, cache, results,
-    requests/s)`` of the card run."""
+    requests/s)`` of the card run; ``twin["cpu"]`` receives the CPU run's
+    cache."""
     import torch
     from repro_torch import kernels
     torch.cuda.reset_peak_memory_stats()
@@ -2263,7 +2286,9 @@ def drive(build, trace, label, expect):
     log(f"{label} ({len(trace)} requests): card {wall:.3f} s, "
         f"{len(trace) / wall:.0f} requests/s, peak device memory "
         f"{peak / 2**20:.1f} MiB, launches {launches}")
-    _, res_cpu, wall_cpu = run_controller(build, trace, "cpu")
+    cpu_cache, res_cpu, wall_cpu = run_controller(build, trace, "cpu")
+    if twin is not None:
+        twin["cpu"] = cpu_cache
     assert_same(res_card, res_cpu, label)
     hit = float(np.mean([r.hit_ratio for r in res_card]))
     log(f"{label}: card == CPU (CPU plain path {wall_cpu:.1f} s); avg_hit "
@@ -5656,6 +5681,7 @@ def time_flash_bwd(args, causal=True) -> dict:
         q, k, v, out, do, causal=causal), 2)
     lib_ms = cuda_ms(sdpa_bwd, 10)
     lib_dev_ms = profiled_ms(sdpa_bwd, 3)
+    lib_graph_ms = sdpa_bwd_graph_ms(q, k, v, do, causal)
     b, by = bwd_bound(q, k, causal)
     bq, h, _, d = q.shape
     flops5 = 10.0 * bq * h * sq * k.shape[2] * d / (2 if causal else 1)
@@ -5663,8 +5689,29 @@ def time_flash_bwd(args, causal=True) -> dict:
                 bound_by=by, library_ms=lib_ms,
                 device_parts={name: t for t, _, name in parts},
                 library_device_ms=lib_dev_ms,
+                library_graph_ms=lib_graph_ms,
                 tflops=flops5 / dev_ms / 1e9,
                 tflops_run=flops5 * 7 / 5 / dev_ms / 1e9)
+
+
+def sdpa_bwd_graph_ms(q, k, v, do, causal=True) -> float:
+    """Device ms of the backward of ``scaled_dot_product_attention(
+    is_causal=causal, enable_gqa=True)`` alone: a CUDA graph of its
+    forward and backward (autograd's backward captured on the capture
+    stream with its forward) less a graph of the forward, each replayed
+    (``graph_ms``); the profiler is not needed."""
+    import torch
+    import torch.nn.functional as F
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+
+    def fwd():
+        return F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                              enable_gqa=True)
+
+    def fwd_bwd():
+        return torch.autograd.grad(fwd(), leaves, do)
+    return graph_ms(fwd_bwd, reps=3, replays=5) - graph_ms(fwd, reps=3,
+                                                           replays=5)
 
 
 def ptxas_by_function(source: str) -> dict:
@@ -5761,8 +5808,8 @@ def check_flash_bwd(dev, shape=TRAIN_BWD, cases=BWD_SHAPES) -> dict:
         f"ms, {row['tflops']:.1f} TFLOP/s of the 5 products, "
         f"{row['tflops_run']:.1f} of the 7 it runs), plain "
         f"{row['plain_ms']:.4f} ms, SDPA backward {row['library_ms']:.4f} "
-        f"ms (device {fmt_ms(row['library_device_ms'])}), bound "
-        f"{row['bound_ms']:.4f} ms "
+        f"ms (device {fmt_ms(row['library_device_ms'])}, graph replay "
+        f"{row['library_graph_ms']:.4f}), bound {row['bound_ms']:.4f} ms "
         f"({row['bound_by']}); its kernels (profiler, ms a call): "
         + ", ".join(f"{k} {v:.4f}" for k, v in row["device_parts"].items()))
     f32_errs = [v for k, v in worst.items() if v[2] == "cuda_cores"]
@@ -5773,7 +5820,8 @@ def check_flash_bwd(dev, shape=TRAIN_BWD, cases=BWD_SHAPES) -> dict:
         f"route: kernel {f32['ms']:.4f} ms (device {f32['device_ms']:.4f} "
         f"ms), plain {f32['plain_ms']:.4f} ms, SDPA backward "
         f"{f32['library_ms']:.4f} ms (device "
-        f"{fmt_ms(f32['library_device_ms'])}), bound {f32['bound_ms']:.4f} "
+        f"{fmt_ms(f32['library_device_ms'])}, graph replay "
+        f"{f32['library_graph_ms']:.4f}), bound {f32['bound_ms']:.4f} "
         f"ms ({f32['bound_by']})")
     del args
     return row, f32
@@ -5900,20 +5948,6 @@ def check_reduced_train_card_cpu(steps=3) -> dict:
                 cpu=l_cpu)
 
 
-def kernel_group(name: str) -> str:
-    """The part of a training step a device event belongs to, by its
-    kernel's name."""
-    import re
-    if "flash_sm90" in name or "flash_kernel" in name:
-        return "flash_attention (forward and recompute)"
-    if any(s in name for s in ("row_stats", "kv_pass", "q_pass",
-                               "bwd_prep")):
-        return "flash_attention_bwd"
-    if re.search(r"gemm|nvjet|xmma|cutlass|cublas", name, re.I):
-        return "cuBLAS products"
-    return "elementwise, reductions, copies"
-
-
 def train_step_phases(model, cfg, opt_cfg, batch, reps=2,
                       warm=True) -> dict:
     """CUDA-event milliseconds of a training step's parts (the step of
@@ -5961,35 +5995,6 @@ def train_step_phases(model, cfg, opt_cfg, batch, reps=2,
     return out
 
 
-def grouped_profile(fn, warm=True) -> tuple[float | None, float, dict]:
-    """``(device ms, device events, {kernel group: ms})`` of one call of
-    ``fn`` from a ``torch.profiler`` trace (after one call outside it,
-    unless not ``warm``); ``None`` ms when the trace shows no device
-    time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    if warm:
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    total, events, groups = 0.0, 0, {}
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and not getattr(
-                ev, "is_user_annotation", False):
-            ms = float(getattr(ev, "self_device_time_total",
-                               getattr(ev, "self_cuda_time_total",
-                                       0.0))) / 1e3
-            total += ms
-            events += ev.count
-            g = kernel_group(ev.key)
-            groups[g] = groups.get(g, 0.0) + ms
-    return (total if total > 0 else None), events, groups
-
-
 def check_full_width_training(launches, dev="cuda", layers=QWEN3_TRAIN_LAYERS,
                               shape=QWEN3_TRAIN) -> dict:
     """Phase 17 (c): qwen3-4b at full width cut to ``layers`` layers
@@ -6006,6 +6011,7 @@ def check_full_width_training(launches, dev="cuda", layers=QWEN3_TRAIN_LAYERS,
     from repro_torch import configs, kernels
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.trace_analysis import grouped_profile
     from repro_torch.models import model as M
     from repro_torch.optim import OptConfig, init_opt_state
     dev = torch.device(dev)
@@ -6147,7 +6153,8 @@ def check_seamless_bwd(dev) -> dict:
             f"{row['tflops']:.1f} TFLOP/s of the 5 products), plain "
             f"{row['plain_ms']:.4f} ms, SDPA backward "
             f"{row['library_ms']:.4f} ms (device "
-            f"{fmt_ms(row['library_device_ms'])}), bound "
+            f"{fmt_ms(row['library_device_ms'])}, graph replay "
+            f"{row['library_graph_ms']:.4f}), bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}); its kernels: "
             + ", ".join(f"{k} {v:.4f}" for k, v in
                         row["device_parts"].items()))
@@ -6296,11 +6303,13 @@ def step_twice(model, cfg, opt_cfg, batch) -> dict:
 
 
 def layer_profile(model, cfg, b, s) -> tuple[float | None, float, dict]:
-    """:func:`grouped_profile` of one superlayer as the training step runs
-    it (checkpointed: its forward, then the backward's recompute and
-    gradients) on a random bf16 hidden state of the cell's shape."""
+    """``trace_analysis.grouped_profile`` of one superlayer as the
+    training step runs it (checkpointed: its forward, then the backward's
+    recompute and gradients) on a random bf16 hidden state of the cell's
+    shape."""
     import torch
     from torch.utils.checkpoint import checkpoint
+    from repro_torch.launch.trace_analysis import grouped_profile
     from repro_torch.models import model as M
     dev = next(model.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -6331,6 +6340,7 @@ def check_family_training(launches, arch, dev="cuda") -> dict:
     import torch
     from repro_torch import kernels
     from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.trace_analysis import grouped_profile
     from repro_torch.models import model as M
     from repro_torch.optim import OptConfig, init_opt_state
     t0 = time.perf_counter()
@@ -6423,6 +6433,276 @@ def check_families_training(launches, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the distribution plan and the dry-run
+# ---------------------------------------------------------------------------
+
+PSUM_REPLICAS = 4             # data-axis replicas of compressed_psum on cuda:0
+DRYRUN_CELL = ("qwen3-4b", "train_4k")       # phase 17 (c)'s cell, cut
+DRYRUN_CUT = ("--layers", "8", "--batch", "2", "--seq", "2048")
+SIZING_GRID = tuple(range(0, 8193, 512))     # blocks, the sizing grid
+
+
+def replica_grads(n=PSUM_REPLICAS, seq=64) -> list:
+    """Reduced qwen3's gradients on the CPU for ``n`` different batches
+    (one a replica; one weight set), by ``forward_train`` and
+    ``backward()``."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import model as M
+    cfg = configs.get_reduced("qwen3-4b")
+    model = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    model.requires_grad_(True)
+    pipe = TokenPipeline(cfg, 2, seq, seed=18)
+    out = []
+    for r in range(n):
+        batch = {k: torch.as_tensor(v) for k, v in pipe.batch_at(r).items()}
+        model.zero_grad(set_to_none=True)
+        M.forward_train(model, cfg, batch)[0].backward()
+        out.append({k: p.grad.clone() for k, p in model.named_parameters()})
+    return out
+
+
+def check_compressed_psum(dev="cuda") -> dict:
+    """Phase 18 (a): ``compressed_psum`` over a ``('data', 'model')``
+    mesh of ``PSUM_REPLICAS`` x 1 that repeats ``dev`` (the sums as
+    device copies in mesh order) == the same call over the CPU, bit for
+    bit, on reduced qwen3's gradients of different batches (float32, and
+    cast to bf16); each result on its replica's device."""
+    import torch
+    from repro_torch.launch.mesh import ModelMesh
+    from repro_torch.optim import compressed_psum
+    grads = replica_grads()
+    worst, n_leaves, ms = 0, 0, None
+    for dtype in (torch.float32, torch.bfloat16):
+        cpu_in = [{k: g.to(dtype) for k, g in r.items()} for r in grads]
+        meshes = {d: ModelMesh(((torch.device(d),),) * PSUM_REPLICAS,
+                               ("data", "model")) for d in ("cpu", dev)}
+        want = compressed_psum(cpu_in, meshes["cpu"])
+        card_in = [{k: g.to(dev) for k, g in r.items()} for r in cpu_in]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = compressed_psum(card_in, meshes[dev])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 if ms is None else ms
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        for r in range(PSUM_REPLICAS):
+            for k, w in want[r].items():
+                g = got[r][k]
+                if g.device.type != "cuda" or g.dtype != dtype:
+                    raise AssertionError(f"compressed_psum {k}: {g.device} "
+                                         f"{g.dtype}")
+                if not torch.equal(g.cpu().view(bits), w.view(bits)):
+                    raise AssertionError(f"compressed_psum {k} replica {r} "
+                                         f"{dtype}: card != CPU")
+                n_leaves += 1
+        spread = max(float((grads[0][k] - grads[r][k]).abs().max())
+                     for r in range(1, PSUM_REPLICAS) for k in grads[0])
+        worst = max(worst, spread)
+    log(f"compressed_psum over {PSUM_REPLICAS} replicas on {dev}:0 == the "
+        f"CPU bit for bit ({n_leaves} leaf results, float32 and bf16; the "
+        f"replicas' gradients differ by up to {worst:.3e}); the card call "
+        f"{ms:.2f} ms on the host clock")
+    return dict(replicas=PSUM_REPLICAS, leaf_results=n_leaves,
+                replica_spread=worst, ms=ms)
+
+
+def check_reuse_helpers(subs, fused=None, cpu_twin=None) -> dict:
+    """Phase 18 (b): ``reuse_distances`` (POD(RO), POD(WBWO), TRD) and
+    ``sizing_reduction`` (each kind, with the read count) of every VM's
+    sub-trace in the paper-12vm first window, the kernel route
+    (``count_between`` on the card, launches counted) == the plain one;
+    ``table_len`` of the fused 12-VM run's popularity table on the card ==
+    the CPU run's."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.policies import Policy
+    from repro_torch.core.popularity import table_len
+    from repro_torch.kernels.reuse_distance import ops
+    grid = np.asarray(SIZING_GRID)
+    kernels.reset_launch_counts()
+    calls = 0
+    for sub in subs:
+        a, w = np.asarray(sub.addr), np.asarray(sub.is_write)
+        for pol, reads_only in ((Policy.RO, True), (Policy.WBWO, True),
+                                (Policy.WB, False)):
+            card = ops.reuse_distances(a, w, pol, device="cuda",
+                                       sizing_reads_only=reads_only)
+            cpu = ops.reuse_distances(a, w, pol, device="cpu",
+                                      sizing_reads_only=reads_only)
+            for f in ("dist", "served", "touch"):
+                if not torch.equal(getattr(card, f).cpu(), getattr(cpu, f)):
+                    raise AssertionError(f"reuse_distances {pol} {f}: card "
+                                         "!= plain")
+            calls += 1
+        for kind in ("urd", "trd", "wss", "reuse_intensity"):
+            card = ops.sizing_reduction(a, w, kind, grid, with_reads=True,
+                                        device="cuda")
+            cpu = ops.sizing_reduction(a, w, kind, grid, with_reads=True,
+                                       device="cpu")
+            if not all(torch.equal(x.cpu(), y) for x, y in zip(card, cpu)):
+                raise AssertionError(f"sizing_reduction {kind}: card != "
+                                     "plain")
+            calls += 1
+    n = kernels.launch_counts()["count_between"]
+    if n != calls:
+        raise AssertionError(f"reuse helpers: {n} count_between launches "
+                             f"for {calls} calls")
+    out = dict(calls=calls, count_between_launches=n,
+               requests=[len(s.addr) for s in subs])
+    if fused is not None:
+        got = table_len(fused.pop_table).cpu()
+        want = table_len(cpu_twin.pop_table)
+        if not torch.equal(got, want):
+            raise AssertionError(f"table_len: card {got.tolist()} != CPU "
+                                 f"{want.tolist()}")
+        out["table_len"] = got.tolist()
+    log(f"reuse_distances / sizing_reduction on the paper 12-VM first "
+        f"window ({sum(out['requests'])} requests): kernel route == plain "
+        f"in {calls} calls, {n} count_between launches; table_len of the "
+        f"fused 12-VM run card == CPU: {out.get('table_len')}")
+    return out
+
+
+def check_dryrun_profile(smi) -> dict:
+    """Phase 18 (c): ``python -m repro_torch.launch.dryrun --profile`` on
+    qwen3-4b ``train_4k`` cut to 8 layers and B 2 x 2048 (phase 17 (c)'s
+    cell) in a process of its own: the 16 x 16 record (the full cell's
+    roofline) and, for the cut on this card, the measured step and its
+    device time by kernel group beside the cut's roofline terms."""
+    import torch
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "build" / "dryrun"
+    arch, shape = DRYRUN_CELL
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+           "--shape", shape, "--profile", *DRYRUN_CUT, "--out", str(out_dir)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                         cwd=ROOT, timeout=600)
+    if run.returncode:
+        raise AssertionError(f"dryrun --profile failed:\n{run.stderr[-3000:]}")
+    rec = json.loads(run.stdout)
+    prof = rec["profile"]
+    if rec["status"] != "ok" or prof["device_ms"] is None:
+        raise AssertionError(f"dryrun --profile: {rec['status']}, device ms "
+                             f"{prof.get('device_ms')}")
+    layers = prof["reduced"]["num_layers"]
+    want = {"flash_attention": 2 * layers * prof["steps"],
+            "flash_attention_bwd": layers * prof["steps"]}
+    if prof["launches"] != want:
+        raise AssertionError(f"dryrun --profile launches {prof['launches']}"
+                             f", expected {want}")
+    roof = prof["roofline_one_device"]
+    log(f"dryrun {arch} {shape} {rec['mesh']} ({rec['chips']} x "
+        f"{rec['device']}): {rec['flops']:.4g} FLOPs, "
+        f"{rec['state_bytes_per_device'] / 1e9:.3f} GB state a device, "
+        f"compute {rec['t_compute_s']:.4g} s, memory "
+        f"{rec['t_memory_s']:.4g} s, collective {rec['t_collective_s']:.4g} "
+        f"s: {rec['bottleneck']}-bound (trace {rec['trace_s']} s)")
+    log(f"dryrun --profile, the cut {prof['reduced']} on {prof['card']}: "
+        f"step {prof['step_ms']:.1f} ms on the host clock ({prof['steps']} "
+        f"steps, launches {prof['launches']}), device "
+        f"{prof['device_ms']:.1f} ms in {prof['device_events']:.0f} events "
+        f"(" + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+            prof["device_ms_by_group"].items(), key=lambda x: -x[1]))
+        + f"); roofline of the cut on one card: compute "
+        f"{roof['t_compute_s'] * 1e3:.1f} ms ({prof['step_flops']:.4g} "
+        f"FLOPs), memory {roof['t_memory_s'] * 1e3:.1f} ms "
+        f"({prof['step_bytes']:.4g} bytes): {roof['bottleneck']}-bound; "
+        f"measured / dominant term "
+        f"{prof['device_ms'] / 1e3 / max(roof['t_compute_s'], roof['t_memory_s']):.2f}; "
+        f"peak {prof['peak_bytes'] / 1e9:.2f} GB ({time.perf_counter() - t0:.1f} s)")
+    log(smi)
+    log("dryrun record: " + json.dumps(rec))
+    return rec
+
+
+def start_dryrun_sweep(jobs: int = 3):
+    """Start phase 18 (d) in the background at phase 1: ``python -m
+    repro_torch.launch.sweep`` over every config x shape x both
+    production meshes (``jobs`` worker processes, each tracing its cells
+    on ``meta``, CPU only), in a session of its own at the lowest CPU
+    priority, so it takes only the cores the card's phases leave idle.
+    It is stopped, with its workers, when this script exits."""
+    import atexit
+    import shutil
+    import signal
+    out_dir = ROOT / "build" / "dryrun_sweep"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def detach():
+        os.setsid()
+        os.nice(19)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.sweep", "--out",
+         str(out_dir), "--jobs", str(jobs), "--timeout", "1000"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, cwd=ROOT, preexec_fn=detach)
+
+    def stop():
+        if proc.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    atexit.register(stop)
+    return dict(proc=proc, t0=time.perf_counter(), out_dir=out_dir,
+                jobs=jobs)
+
+
+def check_dryrun_sweep(started: dict) -> dict:
+    """Phase 18 (d): wait for the sweep :func:`start_dryrun_sweep`
+    started; every config x shape x mesh has a record, ``ok`` or skipped
+    for the reference's own ``shape_applicable`` reason, or the phase
+    fails. Logs each record's FLOPs, state bytes and roofline terms."""
+    import glob
+    from repro_torch import configs
+    from repro_torch.models.config import SHAPES, shape_applicable
+    proc, out_dir = started["proc"], started["out_dir"]
+    waited = time.perf_counter()
+    out, _ = proc.communicate(timeout=900)
+    secs = time.perf_counter() - started["t0"]
+    if proc.returncode:
+        raise AssertionError(f"dry-run sweep failed:\n{out[-4000:]}")
+    recs = []
+    for path in sorted(glob.glob(str(out_dir / "*.json"))):
+        with open(path) as f:
+            recs.append(json.load(f))
+    ok = [r for r in recs if r["status"] == "ok"]
+    skip = [r for r in recs if r["status"] == "skip"]
+    if len(recs) != 80 or len(ok) + len(skip) != 80:
+        raise AssertionError(f"dry-run sweep: {len(recs)} records, "
+                             f"{len(ok)} ok, {len(skip)} skipped")
+    for r in skip:
+        if shape_applicable(configs.get(r["arch"]), SHAPES[r["shape"]])[0]:
+            raise AssertionError(f"dry-run {r['arch']} {r['shape']}: "
+                                 "skipped, but applicable")
+    log(f"dry-run sweep: {len(ok)} records ok, {len(skip)} skipped (the "
+        f"reference's shape_applicable); {secs:.1f} s since its start at "
+        f"phase 1 ({started['jobs']} niced worker processes), "
+        f"{time.perf_counter() - waited:.1f} s waited here; traces "
+        f"{sum(r['trace_s'] for r in ok if r['mesh'] == '16x16'):.1f} s")
+    for r in ok:
+        log(f"  dryrun {r['arch']} {r['shape']} {r['mesh']}: "
+            f"{r['flops']:.4g} FLOPs, state {r['state_bytes_per_device']:.4g}"
+            f" B a device, compute {r['t_compute_s']:.4g} s, memory "
+            f"{r['t_memory_s']:.4g} s, collective {r['t_collective_s']:.4g} "
+            f"s, {r['bottleneck']}, fsdp {r['fsdp']}, trace {r['trace_s']} s")
+    return dict(ok=len(ok), skipped=len(skip), seconds=secs)
+
+
+def check_phase18(smi, subs12, sweep, fused=None, cpu_twin=None) -> dict:
+    """Phase 18 (a)-(d); ``sweep`` from :func:`start_dryrun_sweep`."""
+    out = dict(compressed_psum=check_compressed_psum(),
+               reuse_helpers=check_reuse_helpers(subs12, fused, cpu_twin))
+    out["dryrun_profile"] = check_dryrun_profile(smi)
+    out["dryrun_sweep"] = check_dryrun_sweep(sweep)
+    return out
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6448,6 +6728,7 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.library()
     log(f"kernel build + load: {time.perf_counter() - t0:.1f} s")
+    sweep = start_dryrun_sweep()        # phase 18 (d), in the background
 
     # phase 2: every kernel against its plain version at the shapes of
     # the 12-VM and 1024-VM runs (the JSON rows are the 12-VM ones)
@@ -6528,8 +6809,9 @@ def main() -> int:
     cfg = EticaConfig(dram_capacity=dram, ssd_capacity=ssd,
                       resize_interval=pcfg.resize_interval,
                       promo_interval=pcfg.promo_interval)
+    paper_twin = {}
     launches["paper-12vm"], fused, paper_res, fused_rate = drive(
-        etica(cfg, 12), paper, "paper 12-VM", ETICA_KERNELS)
+        etica(cfg, 12), paper, "paper 12-VM", ETICA_KERNELS, paper_twin)
     span_breakdown(etica(cfg, 12), paper, "paper 12-VM", repeats=3)
     launches["fig15-128vm"], *_ = drive(
         etica(fig15_config(128, len(fig128)), 128), fig128, "fig15 128-VM",
@@ -6658,6 +6940,14 @@ def main() -> int:
         r["max_abs_err"] for r in bwd["seamless_shapes"].values()])
     bwd["train"].update(fam)
     log(f"phase 17: {time.perf_counter() - t17:.1f} s")
+
+    # phase 18: the distribution plan: compressed_psum over replicas on
+    # cuda:0, the reuse helpers' kernel route, dryrun --profile of phase
+    # 17 (c)'s cell, the abstract dry-run of every cell on both meshes
+    t18 = time.perf_counter()
+    phase18 = check_phase18(smi, subs12, sweep, fused, paper_twin["cpu"])
+    rows["count_between"]["reuse_helpers"] = phase18["reuse_helpers"]
+    log(f"phase 18: {time.perf_counter() - t18:.1f} s")
 
     sources = {"count_between": "src/repro_torch/csrc/count_between.cu",
                "evict_scatter": "src/repro_torch/csrc/evict_scatter.cu",

@@ -42,6 +42,12 @@ too); a sum the gradient broadcast; a cumulative sum the reverse
 cumulative sum of the gradient (summed as :func:`cumsum_f32` sums).
 Without a gradient they are plain calls (the cache path's host cost
 unchanged).
+
+On the ``meta`` device (shapes without data: the dry-run,
+:mod:`repro_torch.launch.dryrun`) the four take ``torch.exp``,
+``torch.sum`` and ``torch.cumsum``: with no values there are no bits to
+keep, the shapes, dtypes and FLOP counts are the same, and the traced
+step skips thousands of element-wise ops a chunk of the SSM loop.
 """
 from __future__ import annotations
 
@@ -96,6 +102,8 @@ class _Exp(torch.autograd.Function):
 def exp_xla_f32(x: torch.Tensor) -> torch.Tensor:
     """float32 ``exp`` bit-identical to XLA:CPU's, subnormals flushed;
     differentiable as ``jnp.exp``."""
+    if x.device.type == "meta":
+        return torch.exp(x.float())
     return _Exp.apply(x) if _differentiable(x) else _exp(x)
 
 
@@ -135,6 +143,8 @@ def sum_f32(x: torch.Tensor) -> torch.Tensor:
     ``jnp.sum``: in order up to 32 elements; above that, windows of 32
     over the input padded by ``p = -n % 32`` zeros (``p // 2`` in
     front), each window in order, and the window sums reduced again."""
+    if x.device.type == "meta":
+        return x.float().sum()
     return _Sum.apply(x, _sum) if _differentiable(x) else _sum(x)
 
 
@@ -150,6 +160,8 @@ def _sum(x: torch.Tensor) -> torch.Tensor:
 def sum_rows_f32(x: torch.Tensor) -> torch.Tensor:
     """:func:`sum_f32` of each row of a 2-D float32 tensor (``jnp.sum(x,
     axis=-1)`` on XLA:CPU): ``[T, N]`` -> ``[T]``."""
+    if x.device.type == "meta":
+        return x.float().sum(-1)
     return _Sum.apply(x, _sum_rows) if _differentiable(x) else _sum_rows(x)
 
 
@@ -181,6 +193,8 @@ class _Cumsum(torch.autograd.Function):
 def cumsum_f32(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """float32 cumulative sum along ``dim``, bit-identical to XLA:CPU's
     ``jnp.cumsum``."""
+    if x.device.type == "meta":
+        return torch.cumsum(x.float(), dim)
     return _Cumsum.apply(x, dim) if _differentiable(x) else _cumsum(x, dim)
 
 

@@ -35,7 +35,8 @@ _EXPORTS = {
               "urd_distances"),
     "popularity": ("PopularityTable", "PopularityTracker", "block_scores",
                    "contributions", "table_init", "table_least_popular",
-                   "table_scores", "table_top_known", "table_update"),
+                   "table_len", "table_scores", "table_top_known",
+                   "table_update"),
     "partition": ("PartitionResult", "partition"),
     "simulator": ("CacheState", "PolicyFlags", "Stats",
                   "aggregate_stats_sharded", "capacity_to_ways",

@@ -109,6 +109,10 @@ class PopularityTracker:
             keep = self._val > thr
             self._addr, self._val = self._addr[keep], self._val[keep]
 
+    def score(self, addr: int) -> float:
+        """One address's score (0 for an unknown address)."""
+        return float(self.scores_for(np.asarray([addr]))[0])
+
     def scores_for(self, addrs: np.ndarray) -> np.ndarray:
         addrs = np.asarray(addrs, np.int64)
         out = np.zeros(addrs.shape, np.float32)
@@ -180,6 +184,12 @@ def table_init(num_vms: int, capacity: int, device="cuda") -> PopularityTable:
                         device=device),
         val=torch.zeros((num_vms, capacity), dtype=torch.float32,
                         device=device))
+
+
+def table_len(table: PopularityTable) -> torch.Tensor:
+    """Occupied entries per row (``[V]`` int32, on the table's device):
+    the overflow telemetry of the fused path's bounded table."""
+    return (table.addr != TABLE_EMPTY).sum(dim=-1, dtype=torch.int32)
 
 
 def _scatter_drop(base: torch.Tensor, dest: torch.Tensor, src: torch.Tensor,

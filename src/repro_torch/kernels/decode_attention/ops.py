@@ -14,13 +14,19 @@ table itself; CPU tensors through :func:`paged_decode_attention_plain`,
 a direct transcription of ``repro.kernels.decode_attention.ref``. The
 wrapper checks operands and plans the launch (:func:`launch_plan`) from
 shapes and pointers alone, without reading ``lengths`` or the page table
-on the host, so a call never waits for the device.
+on the host, so a call never waits for the device. Tensors on the
+``meta`` device (shapes without data) get an empty output from the
+custom op ``repro_torch::paged_decode_attention``, which has no kernel
+for any other device and registers the FLOPs of a full table with
+``torch.utils.flop_counter`` (4 per slot, query head and head dim: the
+lengths are data, so every slot of the table counts).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch import kernels
 
@@ -108,10 +114,34 @@ def split_range(n_visit: int, split: int, splits: int) -> tuple[int, int]:
     return p0, min(p0 + per, n_visit)
 
 
+@torch.library.custom_op("repro_torch::paged_decode_attention",
+                         mutates_args=())
+def _meta_decode(q: torch.Tensor, k_pages: torch.Tensor,
+                 v_pages: torch.Tensor, page_table: torch.Tensor,
+                 lengths: torch.Tensor) -> torch.Tensor:
+    raise RuntimeError("repro_torch::paged_decode_attention runs on meta "
+                       "tensors only: use paged_decode_attention()")
+
+
+@_meta_decode.register_fake
+def _(q, k_pages, v_pages, page_table, lengths):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.paged_decode_attention)
+def _decode_flops(q, k_pages, v_pages, page_table, lengths, *,
+                  out_shape=None, **kwargs) -> int:
+    b, h, d = q
+    return 4 * b * h * d * page_table[1] * k_pages[1]
+
+
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths):
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pages, v_pages, page_table,
                                             lengths)
+    if q.device.type == "meta":
+        return torch.ops.repro_torch.paged_decode_attention(
+            q, k_pages, v_pages, page_table, lengths)
     dev = q.device
     b, h, d = q.shape
     pool, ps, hkv, _ = k_pages.shape

@@ -54,12 +54,24 @@ the two directions: it asks for the statistics only when an input needs
 a gradient and hands them to the backward. :func:`attention`, which the
 model calls, goes through it on both devices. The JAX package has no
 backward kernel: it differentiates its jnp scan.
+
+Tensors on the ``meta`` device (the dry-run's shapes without data,
+:mod:`repro_torch.launch.dryrun`) take neither: both wrappers return
+empty outputs (and statistics) of the right shapes and dtypes from the
+custom ops ``repro_torch::flash_attention`` and
+``repro_torch::flash_attention_bwd``, which have no kernel for any
+other device and register the kernels' FLOPs with
+``torch.utils.flop_counter`` (:func:`attention_flops`): 4 per kept (row,
+key) pair and head dim forward, 10 backward (its five products). Any
+other device raises in the launch.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch import kernels
 
@@ -133,6 +145,69 @@ def _launch_wgmma(q, k, v, out, stats, causal, window, q_offset):
                    int(q_offset), d ** -0.5, route="wgmma")
 
 
+def kept_pairs(sq: int, skv: int, *, causal: bool, window: int,
+               q_offset: int) -> int:
+    """How many (query row, key) pairs of one head the mask keeps
+    (:func:`_mask`'s count, without building it)."""
+    p = q_offset + np.arange(sq, dtype=np.int64)
+    lo = np.maximum(p - window + 1, 0) if window else np.zeros_like(p)
+    hi = np.minimum(p, skv - 1) if causal else np.full_like(p, skv - 1)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def attention_flops(q_shape, k_shape, *, causal: bool, window: int,
+                    q_offset: int, products: int) -> int:
+    """FLOPs of ``products`` Sq x Skv x D products a head over the pairs
+    the mask keeps (the kernels skip tiles the mask drops): 2 for the
+    forward (``q·kᵀ`` and ``p·V``), 5 for the backward."""
+    b, h, sq, d = q_shape
+    return 2 * products * b * h * d * kept_pairs(
+        sq, k_shape[2], causal=causal, window=window, q_offset=q_offset)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _meta_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, window: int, q_offset: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    raise RuntimeError("repro_torch::flash_attention runs on meta tensors "
+                       "only: use flash_attention()")
+
+
+@_meta_forward.register_fake
+def _(q, k, v, causal, window, q_offset):
+    b, h, sq, _ = q.shape
+    return torch.empty_like(q), q.new_empty((2, b, h, sq),
+                                            dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _forward_flops(q, k, v, causal, window, q_offset, *, out_shape=None,
+                   **kwargs) -> int:
+    return attention_flops(q, k, causal=causal, window=window,
+                           q_offset=q_offset, products=2)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def _meta_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   out: torch.Tensor, dout: torch.Tensor, causal: bool,
+                   window: int, q_offset: int
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    raise RuntimeError("repro_torch::flash_attention_bwd runs on meta "
+                       "tensors only: use flash_attention_bwd()")
+
+
+@_meta_backward.register_fake
+def _(q, k, v, out, dout, causal, window, q_offset):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _backward_flops(q, k, v, out, dout, causal, window, q_offset, *,
+                    out_shape=None, **kwargs) -> int:
+    return attention_flops(q, k, causal=causal, window=window,
+                           q_offset=q_offset, products=5)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     tq: int = DEFAULT_TQ, tk: int = DEFAULT_TK,
                     q_offset: int = 0, return_stats: bool = False):
@@ -145,6 +220,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      tk=tk, q_offset=q_offset,
                                      return_stats=return_stats)
+    if q.device.type == "meta":
+        out, stats = torch.ops.repro_torch.flash_attention(
+            q, k, v, causal, window, q_offset)
+        if route(q.dtype, q.shape[3]) != "wgmma":
+            stats = None
+        return (out, stats) if return_stats else out
     dev = q.device
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -259,7 +340,8 @@ def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
     ``cuda_cores`` route recomputes them in its own first pass (and
     ignores any given), the plain version recomputes the softmax. CUDA
     tensors launch the kernel by :func:`route` (no fallback); CPU tensors
-    take :func:`flash_attention_bwd_plain`."""
+    take :func:`flash_attention_bwd_plain`; ``meta`` tensors get empty
+    gradients and the kernel's FLOPs (the module docstring)."""
     _check(q, k, v, q.shape[2], k.shape[2], window, q_offset)
     _check_bwd(q, out, dout)
     if stats is not None:
@@ -268,6 +350,9 @@ def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
         return flash_attention_bwd_plain(q, k, v, out, dout, causal=causal,
                                          window=window, q_offset=q_offset,
                                          stats=stats)
+    if q.device.type == "meta":
+        return torch.ops.repro_torch.flash_attention_bwd(
+            q, k, v, out, dout, causal, window, q_offset)
     dev = q.device
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]

@@ -10,9 +10,17 @@ address before i). CUDA tensors go through the ``count_between`` kernel
 (``csrc/count_between.cu``: a group of lanes a row, planned by
 :func:`count_plan`); CPU tensors through :func:`count_between_plain`.
 Counts are int32 and exact either way.
+
+:func:`reuse_distances` and :func:`sizing_reduction` are the
+reference's one-trace entry points over that count (the port of
+``repro.kernels.reuse_distance.ops``): the POD / URD / TRD distances of
+one trace, and one sizing metric's reduction of them, both from
+:func:`repro_torch.core.reuse.decompose` on a ``[1, N]`` row, so the
+distance channel goes through ``count_between`` on the card.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch import kernels
@@ -81,3 +89,50 @@ def count_between_plain(prev: torch.Tensor, touch: torch.Tensor,
              & tj & (ntj >= i[None, :, None]))
         out[:, lo:lo + rows] = m.sum(dim=2, dtype=torch.int32)
     return out
+
+
+def reuse_distances(addr, is_write, policy, *, sizing_reads_only: bool = True,
+                    device="cuda"):
+    """The policy-filtered reuse distances of one trace as a
+    :class:`repro_torch.core.reuse.DistResult` of ``[N]`` tensors on
+    ``device``: ``dist`` (int32, ``COLD`` where not served), ``served``
+    and ``touch``. ``sizing_reads_only=False`` widens the served set to
+    write re-references too (the TRD convention)."""
+    from repro_torch.core.reuse import DistResult, decompose
+    from repro_torch.kernels import resolve_device, upload
+    dev = resolve_device(device)
+    a = upload(np.asarray(addr, np.int32)[None], dev)
+    w = upload(np.asarray(is_write, bool)[None], dev)
+    dist, served, touch = decompose(a, w, policy,
+                                    sizing_reads_only=sizing_reads_only)
+    return DistResult(dist[0], served[0], touch[0])
+
+
+def sizing_reduction(addr, is_write, kind: str, grid, *, n_valid=None,
+                     with_reads: bool = False, device="cuda"):
+    """``(demand, hit_counts[G])`` int32 tensors on ``device`` for one
+    trace (with ``with_reads`` also its read count): the
+    :func:`~repro_torch.core.reuse.sizing_policy` decomposition of the
+    trace reduced by :func:`~repro_torch.core.reuse.sizing_from_dists`,
+    the batched sizing path's own code. ``kind`` is one of
+    ``SIZING_KINDS``; ``n_valid`` (default: the trace's length) masks a
+    pad tail out of the WSS distinct count when the caller hands in a
+    bucket-padded row."""
+    from repro_torch.core import reuse
+    from repro_torch.kernels import resolve_device, upload
+    if kind not in reuse.SIZING_KINDS:
+        raise ValueError(
+            f"kind must be one of {reuse.SIZING_KINDS}, got {kind!r}")
+    dev = resolve_device(device)
+    a = upload(np.asarray(addr, np.int32)[None], dev)
+    w = upload(np.asarray(is_write, bool)[None], dev)
+    g = upload(np.asarray(grid, np.int32), dev)
+    nv = torch.tensor([a.shape[1] if n_valid is None else int(n_valid)],
+                      dtype=torch.int32, device=dev)
+    policy, reads_only = reuse.sizing_policy(kind)
+    dist, served, _ = reuse.decompose(a, w, policy,
+                                      sizing_reads_only=reads_only)
+    demand, hits = reuse.sizing_from_dists(a, w, dist, served, nv, g, kind)
+    if with_reads:
+        return demand[0], hits[0], reuse.read_count(w, nv)[0]
+    return demand[0], hits[0]

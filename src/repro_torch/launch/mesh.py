@@ -11,16 +11,21 @@ devices (``--xla_force_host_platform_device_count``) for the same
 purpose. The JAX package's ``vm_spec`` has no counterpart here: its
 role, placing each row block on its device, is :func:`device_row_blocks`.
 
-The model mesh of training is :class:`ModelMesh` (``make_host_mesh``,
-``dp_axes``, ``axis_size``): the reference's ``('data', 'model')`` mesh
-as a grid of devices. The reference's ``make_production_mesh`` is
-dry-run machinery and waits with its ``dryrun.py`` (ROADMAP Queue 1
-item 9).
+The model meshes of training are :class:`ModelMesh`, a grid of devices
+with any number of named axes (``('data', 'model')`` for the host mesh,
+``('pod', 'data', 'model')`` for the multi-pod production mesh), and
+:class:`AbstractMesh`, the same axis names and sizes without devices:
+the production meshes of :func:`make_production_mesh` need 256 or 512
+devices, so the dry-run (:mod:`repro_torch.launch.dryrun`) plans over
+:func:`abstract_production_mesh`. The sharding rules
+(:mod:`repro_torch.launch.sharding`) read only ``axis_names`` and
+``shape``, so they take either.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 
 import torch
 
@@ -103,23 +108,101 @@ def on_device(dev: torch.device):
             else contextlib.nullcontext())
 
 
+def _grid_shape(devices, depth: int) -> tuple[int, ...]:
+    """The sizes of a ``depth``-deep grid of nested tuples; raises on a
+    ragged one."""
+    if depth == 0:
+        return ()
+    if not isinstance(devices, tuple) or not devices:
+        raise ValueError("a mesh axis needs a non-empty tuple of entries")
+    inner = {_grid_shape(d, depth - 1) for d in devices}
+    if len(inner) != 1:
+        raise ValueError("a mesh's device grid must be rectangular")
+    return (len(devices),) + inner.pop()
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelMesh:
-    """A device grid with named axes: ``devices[i][j]`` sits at index i
-    of the first axis and j of the second (``('data', 'model')`` for the
-    host mesh)."""
+    """A device grid with named axes: ``devices`` nests one tuple level
+    an axis, ``devices[i][j]`` at index i of the first axis and j of the
+    second (``('data', 'model')`` for the host mesh; three levels for
+    ``('pod', 'data', 'model')``). A device may repeat."""
 
-    devices: tuple[tuple[torch.device, ...], ...]
+    devices: tuple
     axis_names: tuple[str, ...]
+
+    def __post_init__(self):
+        _grid_shape(self.devices, len(self.axis_names))
 
     @property
     def shape(self) -> dict[str, int]:
-        return {self.axis_names[0]: len(self.devices),
-                self.axis_names[1]: len(self.devices[0])}
+        return dict(zip(self.axis_names,
+                        _grid_shape(self.devices, len(self.axis_names))))
 
     @property
     def size(self) -> int:
-        return len(self.devices) * len(self.devices[0])
+        return math.prod(self.shape.values())
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh's axis names and sizes without devices (the reference
+    dry-run's 256 and 512 placeholder devices have no counterpart on one
+    card): what the sharding rules and the dry-run's byte counts read."""
+
+    axis_sizes: tuple[int, ...]
+    axis_names: tuple[str, ...]
+
+    def __post_init__(self):
+        if len(self.axis_sizes) != len(self.axis_names) or any(
+                n < 1 for n in self.axis_sizes):
+            raise ValueError(f"axis sizes {self.axis_sizes} for axes "
+                             f"{self.axis_names}")
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.axis_sizes)
+
+
+def production_shape(multi_pod: bool = False):
+    """``(shape, axis names)`` of the production mesh: 16 x 16 =
+    256 devices over ``('data', 'model')``, or 2 x 16 x 16 = 512 over
+    ``('pod', 'data', 'model')`` (the ``'pod'`` axis carries batch
+    only)."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
+def abstract_production_mesh(multi_pod: bool = False) -> AbstractMesh:
+    """The production mesh's axes without devices."""
+    return AbstractMesh(*production_shape(multi_pod))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device="cuda") -> ModelMesh:
+    """The production mesh over the first 256 (or 512) devices of
+    ``device``'s type. Raises ``ValueError`` when fewer exist, as the
+    reference does; plan over :func:`abstract_production_mesh` then."""
+    shape, axes = production_shape(multi_pod)
+    n = math.prod(shape)
+    dev = torch.device(device)
+    have = (torch.cuda.device_count() if dev.type == "cuda"
+            and torch.cuda.is_available() else 1 if dev.type == "cpu"
+            else 0)
+    if have < n:
+        raise ValueError(
+            f"need {n} devices for mesh shape {shape} with axes {axes}, "
+            f"have {have} — plan over abstract_production_mesh() (the "
+            "dry-run, repro_torch.launch.dryrun) instead")
+    flat = [torch.device(dev.type, i) for i in range(n)]
+    for size in reversed(shape[1:]):
+        flat = [tuple(flat[i:i + size]) for i in range(0, len(flat), size)]
+    return ModelMesh(tuple(flat), axes)
 
 
 def make_host_mesh(model: int = 1, device="cuda") -> ModelMesh:

@@ -1,19 +1,29 @@
 """Step functions (the port of :mod:`repro.launch.steps`): the train
 step, and the prefill and decode steps (greedy next tokens by
-``argmax``).
+``argmax``), and their abstract inputs.
 
-The reference's abstract input specs (``input_specs``,
-``abstract_params``, ...) are its dry-run machinery and wait with
-``dryrun.py`` (ROADMAP Queue 1 item 9).
+``input_specs(cfg, shape)`` gives every input of the step that the
+shape's kind implies as tensors on the ``meta`` device: the model
+(:func:`abstract_params`), its AdamW moments, the batch, or the decode
+cache, tokens and position. Nothing is allocated, so the dry-run
+(:mod:`repro_torch.launch.dryrun`) runs the step on them at any size.
+:func:`reference_specs` lays them out as the reference's trees (the
+parameters and moments stacked ``[R, ...]`` under its paths), which is
+what the sharding rules read.
 """
 from __future__ import annotations
+
+from typing import Any
 
 import torch
 
 from repro_torch.kernels import upload
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig, ShapeSpec
-from repro_torch.optim import OptConfig, apply_updates
+from repro_torch.optim import OptConfig, apply_updates, init_opt_state
+
+ENC_DECODE_LEN = 4_096   # encoder memory length used for decode shapes
+META = torch.device("meta")
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig | None = None,
@@ -78,3 +88,82 @@ def cache_len_for(cfg: ModelConfig, shape: ShapeSpec) -> int:
     if cfg.sliding_window:
         return min(shape.seq_len, cfg.sliding_window)
     return shape.seq_len
+
+
+# ---------------------------------------------------------------------------
+# abstract inputs
+# ---------------------------------------------------------------------------
+
+def _sds(shape, dtype) -> torch.Tensor:
+    """A stand-in of ``shape`` and ``dtype``: a tensor on ``meta``."""
+    return torch.empty(shape, dtype=dtype, device=META)
+
+
+def abstract_params(cfg: ModelConfig) -> M.Model:
+    """The model on ``meta``: every parameter's shape and dtype, no
+    data."""
+    return M.Model(cfg, None, META)
+
+
+def abstract_opt_state(cfg: ModelConfig, params: M.Model,
+                       opt_cfg: OptConfig | None = None) -> dict:
+    """``init_opt_state`` of ``params`` (on ``meta``): the moments in
+    ``opt_cfg``'s dtype, keyed by parameter name, and the step."""
+    return init_opt_state(dict(params.named_parameters()),
+                          opt_cfg or OptConfig())
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict[str, Any]:
+    """Training/prefill batch stand-ins for this (arch, shape)."""
+    b, s = shape.global_batch, shape.seq_len
+    if cfg.is_encdec:
+        return {"frames": _sds((b, s, cfg.d_model), torch.float32),
+                "dec_tokens": _sds((b, s), torch.int32)}
+    if cfg.frontend == "vision":
+        p = cfg.frontend_tokens
+        return {"tokens": _sds((b, s - p), torch.int32),
+                "patches": _sds((b, p, cfg.d_model), torch.float32)}
+    return {"tokens": _sds((b, s), torch.int32)}
+
+
+def decode_specs(cfg: ModelConfig, shape: ShapeSpec):
+    """(cache, tokens, pos) stand-ins for the decode step."""
+    b = shape.global_batch
+    clen = cache_len_for(cfg, shape)
+    enc_len = ENC_DECODE_LEN if cfg.is_encdec else 0
+    cache = M.init_cache(cfg, b, clen, device=META, enc_len=enc_len)
+    return cache, _sds((b, 1), torch.int32), _sds((), torch.int32)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec,
+                opt_cfg: OptConfig | None = None) -> dict[str, Any]:
+    """All abstract inputs for the step this shape runs."""
+    params = abstract_params(cfg)
+    if shape.kind == "train":
+        return {"params": params,
+                "opt_state": abstract_opt_state(cfg, params, opt_cfg),
+                "batch": batch_specs(cfg, shape)}
+    if shape.kind == "prefill":
+        return {"params": params, "batch": batch_specs(cfg, shape)}
+    if shape.kind == "decode":
+        cache, tokens, pos = decode_specs(cfg, shape)
+        return {"params": params, "cache": cache, "tokens": tokens,
+                "pos": pos}
+    raise ValueError(shape.kind)
+
+
+def reference_specs(specs: dict[str, Any]) -> dict[str, Any]:
+    """:func:`input_specs` as the reference's trees: the parameters and
+    the moments stacked ``[R, ...]`` under its paths
+    (:func:`repro_torch.models.model.param_shapes`); the batch, cache,
+    tokens and position as they are."""
+    out = dict(specs)
+    model = specs["params"]
+    out["params"] = M.param_shapes(model)
+    if "opt_state" in specs:
+        opt = specs["opt_state"]
+        dt = next(iter(opt["m"].values())).dtype
+        moments = M.param_shapes(model, dtype=dt)
+        out["opt_state"] = {"m": moments, "v": M.param_shapes(model, dt),
+                            "step": _sds((), opt["step"].dtype)}
+    return out

@@ -132,22 +132,57 @@ def params_to_numpy(model: Model, named=None) -> dict:
     model: the inverse of :func:`params_from_jax`. Each superlayer's
     (and the encoder's) rows are stacked on a leading ``[R, ...]`` axis
     and each leaf sits in its ``{"w"}``, ``{"scale"}`` or ``{"table"}``
-    dict, named by the module as the reference names it. ``named`` maps
-    parameter names to tensors in place of ``model``'s own (gradients,
-    optimizer moments), giving their tree."""
+    dict, named by the module as the reference names it
+    (:func:`reference_tree`). ``named`` maps parameter names to tensors
+    in place of ``model``'s own (gradients, optimizer moments), giving
+    their tree."""
     named = dict(model.named_parameters()) if named is None else named
+
+    def value(names):
+        a = [named[n].detach().float().cpu().numpy() for n in names]
+        return np.stack(a) if _stacked(names[0]) else a[0]
+    return reference_tree(model, value)
+
+
+def param_shapes(model: Model, dtype=None) -> dict:
+    """The reference's parameter pytree as tensors on the ``meta`` device
+    (the shapes and dtypes of ``jax.eval_shape`` of its
+    ``init_params``; ``dtype`` in place of the parameters' own): no data
+    is read, so it works on a model built on ``meta``."""
+    params = dict(model.named_parameters())
+
+    def value(names):
+        p = params[names[0]]
+        rows = (len(names),) if _stacked(names[0]) else ()
+        return torch.empty(rows + tuple(p.shape), dtype=dtype or p.dtype,
+                           device="meta")
+    return reference_tree(model, value)
+
+
+def _stacked(name: str) -> bool:
+    """Whether a parameter is one row of a stacked ``[R, ...]`` leaf (a
+    module index in its name)."""
+    return any(k.isdigit() for k in name.split("."))
+
+
+def reference_tree(model: Model, value) -> dict:
+    """The reference's parameter pytree over ``model``: one leaf a
+    reference path, ``value(names)`` of the parameter names that stack
+    into it (one a superlayer or encoder layer in row order; one name
+    for an unstacked leaf), placed in its ``{"w"}``, ``{"scale"}`` or
+    ``{"table"}`` dict or bare as the reference holds it
+    (:func:`_leaf`). The path drops the module indices
+    (``layers.3.block0.mixer.wq`` -> ``layers/block0/mixer/wq/w``)."""
     stacks: dict = {}
-    for name, p in model.named_parameters():
+    for name, _ in model.named_parameters():
         keys = name.split(".")
         path = tuple(k for k in keys if not k.isdigit())
         rows = tuple(int(k) for k in keys if k.isdigit())
         owner = model.get_submodule(".".join(keys[:-1]))
-        a = named[name].detach().float().cpu().numpy()
-        stacks.setdefault(path, (owner, {}))[1][rows] = a
+        stacks.setdefault(path, (owner, {}))[1][rows] = name
     tree: dict = {}
     for path, (owner, by_rows) in stacks.items():
-        a = (by_rows[()] if by_rows.keys() == {()}
-             else np.stack([by_rows[r] for r in sorted(by_rows)]))
+        a = value([by_rows[r] for r in sorted(by_rows)])
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})

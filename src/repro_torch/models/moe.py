@@ -112,6 +112,14 @@ def route(p: MoE, cfg: ModelConfig, xf):
     return probs, gate, idx
 
 
+def _expert_counts(ids, e: int):
+    """int64 ``[e]``: how many of ``ids`` name each expert (a
+    ``bincount`` of fixed length, so its shape does not depend on the
+    data and the ``meta`` device can trace it)."""
+    return torch.zeros(e, dtype=torch.int64, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
+
+
 def dispatch(cfg: ModelConfig, idx, cap: int):
     """The (token, choice) pairs sorted by expert: ``order`` (pair ids
     in stable expert order), ``e_sorted``, ``tok_sorted``, each pair's
@@ -125,7 +133,7 @@ def dispatch(cfg: ModelConfig, idx, cap: int):
     tok_flat = torch.arange(t, device=idx.device).repeat_interleave(k)
     order = torch.sort(e_flat, stable=True).indices
     e_sorted, tok_sorted = e_flat[order], tok_flat[order]
-    counts = torch.bincount(e_flat, minlength=e)
+    counts = _expert_counts(e_flat, e)
     starts = torch.cumsum(counts, 0) - counts
     slot = torch.arange(t * k, device=idx.device) - starts[e_sorted]
     keep = slot < cap
@@ -162,7 +170,7 @@ def moe_mlp(p: MoE, cfg: ModelConfig, x):
     probs, gate, idx = route(p, cfg, xf)
 
     # Switch-style load-balance aux loss
-    density = torch.bincount(idx[:, 0], minlength=e).float() / t
+    density = _expert_counts(idx[:, 0], e).float() / t
     aux_loss = (density * probs.mean(0)).sum() * e
 
     order, e_sorted, _, slot, keep, disp = dispatch(cfg, idx, capacity(cfg, t))

@@ -1,7 +1,6 @@
 """The optimizer and gradient compression (the port of
-:mod:`repro.optim`; its ``compressed_psum`` waits for the model
-meshes)."""
+:mod:`repro.optim`)."""
 from .adamw import OptConfig, apply_updates, clip_by_global_norm, \
     global_norm, init_opt_state, schedule
-from .compress import (dequantize_int8, ef_compress_update, init_error_buf,
-                       quantize_int8)
+from .compress import (compressed_psum, dequantize_int8, ef_compress_update,
+                       init_error_buf, quantize_int8)

@@ -1402,3 +1402,73 @@ def test_train_step_launches_and_matches_cpu(dev):
         losses[model.embed.device.type] = out
     for a, c in zip(losses["cuda"], losses["cpu"]):
         assert abs(a - c) <= 2e-2 * abs(c)
+
+
+def test_meta_routes_leave_the_card_route(dev):
+    """The wrappers' ``meta`` routes launch nothing; on the card the same
+    calls still launch their kernels, once each, equal to the plain
+    versions as before; the helpers' card route == the CPU's."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.core.policies import Policy
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.reuse_distance import ops as rops
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(s, generator=g, device=dev, dtype=torch.bfloat16)
+               for s in ((1, 4, 128, 64), (1, 2, 128, 64), (1, 2, 128, 64)))
+    kernels.reset_launch_counts()
+    meta = [t.to("meta") for t in (q, k, v)]
+    out_m = fops.flash_attention(*meta)
+    fops.flash_attention_bwd(*meta, out_m, out_m)
+    assert sum(kernels.launch_counts().values()) == 0
+    out = fops.flash_attention(q, k, v)
+    grads = fops.flash_attention_bwd(q, k, v, out, out)
+    n = kernels.launch_counts()
+    assert n["flash_attention"] >= 1 and n["flash_attention_bwd"] == 1
+    assert all(t.device.type == "cuda" for t in grads)
+    kernels.reset_launch_counts()
+    pool = torch.randn(8, 16, 2, 64, generator=g, device=dev)
+    table = torch.arange(8, dtype=torch.int32, device=dev).view(2, 4)
+    lens = torch.tensor([50, 17], dtype=torch.int32, device=dev)
+    qd = torch.randn(2, 4, 64, generator=g, device=dev)
+    got = dops.paged_decode_attention(qd, pool, pool, table, lens)
+    assert kernels.launch_counts()["paged_decode_attention"] == 1
+    want = dops.paged_decode_attention_plain(qd, pool, pool, table, lens)
+    assert float((got - want).abs().max()) <= 2e-5
+    rng = np.random.default_rng(2)
+    addr = rng.integers(0, 50, 400).astype(np.int32)
+    w = rng.random(400) < 0.4
+    kernels.reset_launch_counts()
+    card = rops.reuse_distances(addr, w, Policy.RO, device="cuda")
+    assert kernels.launch_counts()["count_between"] == 1
+    cpu = rops.reuse_distances(addr, w, Policy.RO, device="cpu")
+    assert torch.equal(card.dist.cpu(), cpu.dist)
+    grid = np.arange(0, 321, 20)
+    for a, b in zip(rops.sizing_reduction(addr, w, "trd", grid,
+                                          with_reads=True, device="cuda"),
+                    rops.sizing_reduction(addr, w, "trd", grid,
+                                          with_reads=True, device="cpu")):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_quantize_int8_card_equals_cpu(dev):
+    """The int8 compressor's scale divides by 127 on the card as on the
+    CPU (a 0-d tensor divisor: CUDA turns a Python number into a multiply
+    by its reciprocal), so codes and scales match bit for bit."""
+    from repro_torch.optim import compressed_psum, quantize_int8
+    from repro_torch.launch.mesh import ModelMesh
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(64, 333, generator=g) * torch.rand(64, 1, generator=g)
+    q, s = quantize_int8(x.to(dev))
+    qc, sc = quantize_int8(x)
+    assert torch.equal(q.cpu(), qc)
+    assert torch.equal(s.cpu().view(torch.int32), sc.view(torch.int32))
+    grads = [{"w": x * (r + 1) / 3} for r in range(3)]
+    meshes = [ModelMesh(((d,),) * 3, ("data", "model"))
+              for d in (torch.device("cpu"), dev)]
+    want = compressed_psum(grads, meshes[0])
+    got = compressed_psum([{"w": t["w"].to(dev)} for t in grads], meshes[1])
+    for a, b in zip(got, want):
+        assert torch.equal(a["w"].cpu().view(torch.int32),
+                           b["w"].view(torch.int32))
