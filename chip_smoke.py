@@ -315,12 +315,39 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    started at phase 1 at the lowest CPU priority and awaited here),
    failing on anything but the reference's ``shape_applicable`` skips,
    its time logged. The records go to ``build/dryrun*`` and each
-   one's numbers to the log.
+   one's numbers to the log;
+19. runs the two examples that complete the port: (a)
+   ``examples/torch_serve_two_tier.py`` (ETICA's two-tier KV manager
+   and global LRU, 800 events, 48 live sessions, 40 pool pages, 3
+   tenants, a decode every 8th activation) on the card and on the CPU,
+   both managers' statistics equal to each other and to the JAX
+   package's CPU values (``SERVE_TWO_TIER_JAX_CPU``), the host-DMA
+   write reduction 49.0%, each manager's launches and wall time; (b)
+   ``examples/torch_train_lm.py``'s ``run``: the ~100M qwen3 config (8
+   layers, 768 wide, 12 / 4 heads of 64, vocabulary 32,768; 105.4 M
+   parameters) for 300 steps of B 4 x 256, a checkpoint every 100 into
+   a temporary directory (about 1.26 GB each, deleted afterwards), the
+   failure injected at 150: exactly 4,800 ``flash_attention`` and 2,400
+   ``flash_attention_bwd`` launches, all on the ``wgmma`` route, 300
+   finite losses, committed steps 100, 200 and 300, the mean of the
+   first 5 losses at least 0.1 over the mean of the last 20 and the
+   last loss under the first, and no
+   loss from step 30 on under ln 32,768 - 0.05 (the tokens are uniform:
+   a lower loss means the causal mask leaks); step ms (median, p90),
+   tokens/s, peak device memory and each checkpoint save's host time;
+   (c) ``step_100`` restored from disk into a fresh model on the card,
+   one ``make_train_step`` on ``batch_at(150)`` within 2e-2 of the
+   run's loss there (the run retried step 150 from that state), and
+   whether to the bit, and a step's device time by kernel group; (d) ``flash_attention`` and
+   ``flash_attention_bwd`` at that path's shape (B 4, H 12, Hkv 4, S
+   256, D 64, bf16, causal, model layout) against their plain versions
+   under phase 2's and phase 17 (a)'s tolerances, timed beside SDPA's
+   forward and backward and their bounds.
 
 The §5.1 deployment (VMs, requests, intervals, the DRAM share of the
 capacity) comes from ``src/repro_torch/configs/etica_paper.py``.
 
-Each card run of phases 3 to 17 sets the launch counts to 0 just before
+Each card run of phases 3 to 19 sets the launch counts to 0 just before
 and reads them just after; exactly the kernels of that path's own set
 must have launched (``popularity`` only on the staged paths), and in
 phase 14 only the datapath route of its run (``classified`` with a
@@ -3085,11 +3112,12 @@ def flash_build_report() -> dict:
     return dict(ptxas=lines, smem_bytes=smem, sass_hgmma=hgmma)
 
 
-def time_flash(q, k, v):
+def time_flash(q, k, v, tk=1024):
     """Times at the prefill shape on the model's own tensors (q [B, S, H,
     D], k and v [B, S, Hkv, D] passed as transposed views, as
-    ``blocked_attention`` passes them): the kernel (calls back to back,
-    and a CUDA graph of the calls), the plain version, and
+    ``blocked_attention`` passes them, in KV tiles of ``tk``): the kernel
+    (calls back to back, and a CUDA graph of the calls), the plain
+    version, and
     ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` on
     the same views, never called by the port."""
     import torch.nn.functional as F
@@ -3098,7 +3126,7 @@ def time_flash(q, k, v):
     s = q.shape[1]
 
     def kernel():
-        return ops.flash_attention(*args, causal=True, tq=s, tk=1024)
+        return ops.flash_attention(*args, causal=True, tq=s, tk=tk)
 
     def sdpa():
         return F.scaled_dot_product_attention(*args, is_causal=True,
@@ -3106,11 +3134,11 @@ def time_flash(q, k, v):
     f32 = [x.float() for x in args]
 
     def first_version():
-        return ops.flash_attention(*f32, causal=True, tq=s, tk=1024)
+        return ops.flash_attention(*f32, causal=True, tq=s, tk=tk)
     ms = cuda_ms(kernel, 5)
     dev_ms = graph_ms(kernel, reps=4, replays=3)
     plain_ms = cuda_ms(lambda: ops.flash_attention_plain(
-        *args, causal=True, tk=1024), 2)
+        *args, causal=True, tk=tk), 2)
     lib_ms = cuda_ms(sdpa, 10)
     lib_dev_ms = graph_ms(sdpa, reps=4, replays=3)
     first_dev_ms = graph_ms(first_version, reps=2, replays=2)
@@ -6702,6 +6730,285 @@ def check_phase18(smi, subs12, sweep, fused=None, cpu_twin=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the examples (examples/torch_serve_two_tier.py and
+# examples/torch_train_lm.py)
+# ---------------------------------------------------------------------------
+
+# examples/serve_two_tier.py's two serve.main runs on the JAX package (CPU)
+SERVE_TWO_TIER_JAX_CPU = {
+    "etica": {"activations": 520, "hits": 464, "appends": 209,
+              "dma_read_bytes": 581632, "dma_write_bytes": 856064,
+              "latency_s": 7.270399999999985e-05, "sessions_ended": 18,
+              "pop_drops": 0, "flushes": 0, "evict_flushes": 0,
+              "dirty_resident": 0, "dirty_dropped": 0,
+              "hit_ratio": 0.8923076923076924},
+    "lru": {"activations": 520, "hits": 483, "appends": 209,
+            "dma_read_bytes": 495616, "dma_write_bytes": 1679360,
+            "latency_s": 0.0001648640000000006, "sessions_ended": 18,
+            "pop_drops": 0, "flushes": 0, "evict_flushes": 0,
+            "dirty_resident": 0, "dirty_dropped": 0,
+            "hit_ratio": 0.9288461538461539}}
+SERVE_TWO_TIER_REDUCTION = "49.0%"
+SERVE_TWO_TIER_KERNELS = {"etica": SERVING_DECODE_KERNELS,
+                          "lru": ("paged_decode_attention",)}
+TRAIN_LM_STEPS = 300
+TRAIN_LM_LEAK_FROM = 30       # steps: from here on no loss under ln V - 0.05
+TRAIN_LM_LEAK_MARGIN = 0.05
+# the mean of the first 5 losses less the mean of the last 20: the
+# example's schedule (lr 3e-4, warmup 30, cosine over 300 steps) moves the
+# loss slowly toward ln V (both packages fall 0.082 at 2 layers on the CPU:
+# ``python tests/test_torch_examples.py 2 300``)
+TRAIN_LM_DROP = 0.1
+TRAIN_LM_RESTORE_TOL = 2e-2   # step 150 from the step-100 file, absolute
+TRAIN_LM_ATTN = (4, 12, 4, 256, 64)   # B, H, Hkv, S, D of its attention
+
+
+def check_serve_two_tier(launches, dev="cuda") -> dict:
+    """Phase 19 (a): ``examples/torch_serve_two_tier.py`` on the card and
+    on the CPU: both managers' statistics equal to each other and to the
+    reference's (``SERVE_TWO_TIER_JAX_CPU``), the host-DMA write
+    reduction 49.0%; each manager's run (``serve.main``, its page bank
+    included) with its launch counts set to 0 just before and read just
+    after, and its wall time."""
+    import torch
+    from repro_torch import kernels
+    mod = example("torch_serve_two_tier")
+    serve_main, walls = mod.serve_main, {}
+
+    def counted_serve(argv):
+        kind = argv[argv.index("--manager") + 1]
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = serve_main(argv)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        walls[kind] = time.perf_counter() - t0
+        launches[f"serve-two-tier-{kind}"] = serving_launches(
+            f"serve_two_tier {kind}", SERVE_TWO_TIER_KERNELS[kind])
+        return out
+    with swapped(mod, "serve_main", counted_serve):
+        etica, lru, reduction = mod.main(["--device", dev])
+    c_etica, c_lru, c_reduction = mod.main(["--device", "cpu"])
+    for kind, got, cpu in (("etica", etica, c_etica), ("lru", lru, c_lru)):
+        if got != cpu:
+            raise AssertionError(f"serve_two_tier {kind}: card {got} != "
+                                 f"CPU {cpu}")
+        expect_equal(f"serve_two_tier {kind}", got,
+                     SERVE_TWO_TIER_JAX_CPU[kind])
+    if reduction != c_reduction or \
+            f"{reduction:.1%}" != SERVE_TWO_TIER_REDUCTION:
+        raise AssertionError(f"serve_two_tier reduction {reduction} (CPU "
+                             f"{c_reduction})")
+    for kind in ("etica", "lru"):
+        n = launches[f"serve-two-tier-{kind}"]
+        log(f"serve_two_tier {kind} on the card: wall {walls[kind]:.3f} s "
+            f"(serve.main, its page bank and decodes included); launches "
+            + ", ".join(f"{k} {c}" for k, c in n.items()
+                        if k != "routes" and c)
+            + f"; routes {n['routes']}")
+    log(f"serve_two_tier: etica and lru card == CPU == the JAX package's "
+        f"CPU values; host-DMA write reduction {reduction:.1%}")
+    return dict(etica=etica, lru=lru, reduction=reduction, wall_s=walls)
+
+
+def check_train_lm(launches, smi, dev="cuda", steps=TRAIN_LM_STEPS,
+                   cfg=None) -> dict:
+    """Phase 19 (b), (c): ``examples/torch_train_lm.py``'s ``run`` on the
+    card: the ~100M qwen3 config, B 4 x 256, ``steps`` steps, a
+    checkpoint every 100 into a temporary directory, the failure at
+    ``steps // 2``. Launch counts set to 0 just before and read just
+    after: exactly ``train_launches`` a step (16 ``flash_attention`` and
+    8 ``flash_attention_bwd``; the injected failure raises before its
+    step runs), all on the ``wgmma`` route; finite losses; the committed
+    steps; the loss falls by ``TRAIN_LM_DROP`` and its last is under its
+    first (the reference example's assertion); no loss from step 30 on
+    under ln V - 0.05 (uniform tokens cannot be learnt below ln V: a
+    lower loss means the causal mask leaks). Step times from the run's
+    ``StragglerMonitor``, each checkpoint save's time on the caller's
+    thread from its ``AsyncCheckpointer``. Then (c): the last commit
+    before the failure (``step_100``) restored from disk into a fresh
+    model, one ``make_train_step`` on ``batch_at(steps // 2)`` against
+    the run's loss there (the run retried that step from the same
+    state), and a step profiled by kernel group."""
+    import math
+    import tempfile
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.checkpoint.store import all_steps, restore
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.trace_analysis import grouped_profile
+    from repro_torch.models import model as M
+    from repro_torch.optim import OptConfig, init_opt_state
+    mod = example("torch_train_lm")
+    cfg = cfg or mod.qwen3_100m()
+    every, fail = mod.CKPT_EVERY, steps // 2
+    base = fail // every * every       # the commit the failure goes back to
+    step_s, saves = {}, []
+
+    class TimedMonitor(train.StragglerMonitor):
+        def observe(self, step, dt):
+            step_s[step] = dt
+            return super().observe(step, dt)
+
+    class TimedCheckpointer(train.AsyncCheckpointer):
+        def save(self, step, state, extra=None):
+            t0 = time.perf_counter()
+            super().save(step, state, extra)
+            saves.append((step, time.perf_counter() - t0))
+
+    per_step = train_launches(cfg)
+    want = {k: n * steps for k, n in per_step.items()}
+    floor = math.log(cfg.vocab_size) - TRAIN_LM_LEAK_MARGIN
+    with tempfile.TemporaryDirectory() as d, \
+            swapped(train, "StragglerMonitor", TimedMonitor), \
+            swapped(train, "AsyncCheckpointer", TimedCheckpointer):
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = mod.run(cfg, steps, d, dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = launches["train-lm-100m"] = serving_launches(
+            "train_lm 100m", ("flash_attention", "flash_attention_bwd"),
+            only=True)
+        peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+        committed = all_steps(d)
+        ckpt_bytes = sum(f.stat().st_size
+                         for f in Path(d, f"step_{base}").iterdir())
+
+        # (c) that commit from disk into a fresh model
+        model = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                              dev)
+        params = dict(model.named_parameters())
+        opt_cfg = OptConfig(lr=3e-4, total_steps=steps,
+                            warmup_steps=max(steps // 10, 1))
+        opt = init_opt_state(params, opt_cfg)
+        saved, at, _ = restore(d, (params, opt), step=base)
+        train.copy_into((params, opt), saved)
+        del saved
+        batch = TokenPipeline(cfg, mod.BATCH, mod.SEQ).batch_at(fail)
+        step_fn = make_train_step(cfg, opt_cfg)
+        _, _, metrics = step_fn(model, opt, batch)
+        from_disk = float(metrics["loss"])
+        prof = grouped_profile(lambda: step_fn(model, opt, batch)) \
+            if dev == "cuda" else (None, 0, {})
+        del model, params, opt
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    routes = n["routes"]
+    if {k: n[k] for k in want} != want or any(
+            routes.get(k) != {"wgmma": c} for k, c in want.items()):
+        raise AssertionError(f"train_lm launches {n}, expected {want}, all "
+                             f"on the wgmma route")
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"train_lm losses {losses}")
+    want_commits = list(range(every, steps + 1, every))[-3:]
+    if sorted(committed) != want_commits or at != base:
+        raise AssertionError(f"train_lm committed steps {committed}, "
+                             f"expected {want_commits}")
+    drop = float(np.mean(losses[:5]) - np.mean(losses[-20:]))
+    low = min(losses[TRAIN_LM_LEAK_FROM:])
+    if not (drop >= TRAIN_LM_DROP and losses[-1] < losses[0]):
+        raise AssertionError(f"train_lm loss fell by {drop:.4f}, under "
+                             f"{TRAIN_LM_DROP}, or from {losses[0]} to "
+                             f"{losses[-1]}")
+    if not low >= floor:
+        raise AssertionError(f"train_lm loss {low:.4f} under ln V - "
+                             f"{TRAIN_LM_LEAK_MARGIN} = {floor:.4f} on "
+                             f"uniform tokens: the causal mask leaks")
+    gap = abs(from_disk - losses[fail])
+    if not gap <= TRAIN_LM_RESTORE_TOL:
+        raise AssertionError(f"train_lm step {fail} from step_{base} on "
+                             f"disk: {from_disk} against the run's "
+                             f"{losses[fail]}")
+    ms = np.array([step_s[i] for i in sorted(step_s) if i > 0]) * 1e3
+    med, p90 = float(np.median(ms)), float(np.percentile(ms, 90))
+    tokens = mod.BATCH * mod.SEQ
+    shown = sorted({0, base - 1, fail - 1, fail, steps - 1})
+    log(f"train_lm {cfg.name} ({cfg.param_counts()[0] / 1e6:.1f} M "
+        f"parameters, B {mod.BATCH} x {mod.SEQ}, {steps} steps, a "
+        f"checkpoint every {every}, the failure at {fail}) on the card "
+        f"({smi}): losses " + ", ".join(
+            f"step {i} {losses[i]:.6f}" for i in shown)
+        + f"; first 5 mean - last 20 mean {drop:.4f} (at least "
+        f"{TRAIN_LM_DROP}); lowest from step {TRAIN_LM_LEAK_FROM} "
+        f"{low:.6f} (floor ln {cfg.vocab_size} - {TRAIN_LM_LEAK_MARGIN} = "
+        f"{floor:.4f})")
+    log(f"train_lm timing ({smi}): wall {wall:.2f} s; step ms without "
+        f"step 0: median {med:.2f}, p90 {p90:.2f}, min {ms.min():.2f}, "
+        f"max {ms.max():.2f} (step 0 {step_s[0] * 1e3:.1f}, step {fail} "
+        f"with its retry {step_s[fail] * 1e3:.1f}); {tokens / med * 1e3:.0f}"
+        f" tokens/s at the median step, {steps * tokens / wall:.0f} over "
+        f"the run; peak device memory {peak / 2**30:.3f} GiB; checkpoint "
+        f"saves on the caller's thread " + ", ".join(
+            f"step {s} {t:.3f} s" for s, t in saves)
+        + f" ({ckpt_bytes / 1e9:.3f} GB a checkpoint); committed steps "
+        f"{sorted(committed)}; launches {want} all wgmma")
+    log(f"train_lm step {fail} from step_{base} restored from disk into a "
+        f"fresh model: loss {from_disk!r} against the run's "
+        f"{losses[fail]!r}: "
+        + ("equal to the bit" if from_disk == losses[fail] else
+           f"{gap:.3e} apart, not bit-equal"))
+    dev_ms, events, groups = prof
+    log(f"train_lm step, profiled ({smi}): device {fmt_ms(dev_ms)} in "
+        f"{events} events against the median step's {med:.2f} ms on the "
+        f"host clock; by kernel group " + ", ".join(
+            f"{k} {v:.2f} ms" for k, v in sorted(groups.items(),
+                                                 key=lambda x: -x[1])))
+    return dict(losses_at={i: losses[i] for i in shown},
+                step_device_ms=dev_ms, step_events=events,
+                device_ms_by_group=groups,
+                step_ms_median=med, step_ms_p90=p90,
+                wall_s=wall, tokens_per_s=tokens / med * 1e3,
+                peak_bytes=peak, saves_s=saves, committed=committed,
+                launches={k: n[k] for k in want}, drop=drop, lowest=low,
+                from_disk=from_disk, from_disk_bit_equal=from_disk == losses[
+                    fail])
+
+
+def check_train_lm_kernels(dev, smi, shape=TRAIN_LM_ATTN) -> tuple:
+    """Phase 19 (d): ``flash_attention`` and ``flash_attention_bwd`` at
+    the example's attention shape (B 4, H 12, Hkv 4, S 256, D 64, bf16,
+    causal, the model's layout, one 256-key tile as ``blocked_attention``
+    gives it) against their plain versions under phase 2's and phase 17
+    (a)'s tolerances, each timed beside SDPA's forward or backward and
+    its bound. Returns the forward's row and the backward's."""
+    import torch
+    b, h, hkv, s, d = shape
+    args = bwd_inputs(dev, (b, h, hkv, s, s, d), torch.bfloat16, 19,
+                      causal=True)
+    q, k, v = args[:3]
+    fwd_err, over = flash_check("train_lm shape", (q, k, v), causal=True,
+                                tq=s, tk=s)
+    rel, bwd_err, route = bwd_check("train_lm shape", args, causal=True)
+    fwd = time_flash(*(x.transpose(1, 2) for x in (q, k, v)), tk=s)
+    bwd = time_flash_bwd(args)
+    fwd.update(shape=shape, max_abs_err=fwd_err, over_ulp=over)
+    bwd.update(shape=shape, max_abs_err=bwd_err, max_rel_err=rel,
+               route=route)
+    log(f"flash_attention {shape} bf16 causal, model layout ({smi}): "
+        f"== plain within one bf16 ulp or 2e-5 (max err {fwd_err:.3e}, "
+        f"{over} outputs one ulp off); kernel {fwd['ms']:.4f} ms (device "
+        f"{fwd['device_ms']:.4f}), plain {fwd['plain_ms']:.4f}, SDPA "
+        f"{fwd['library_ms']:.4f} (device {fwd['library_device_ms']:.4f}), "
+        f"bound {fwd['bound_ms']:.6f} ms ({fwd['bound_by']})")
+    log(f"flash_attention_bwd {shape} bf16 causal, {route} route ({smi}): "
+        f"== plain within {BWD_TOL['bfloat16']} of each gradient's scale "
+        f"(relative {rel:.3e}, absolute {bwd_err:.3e}); kernel "
+        f"{bwd['ms']:.4f} ms (device {bwd['device_ms']:.4f}), plain "
+        f"{bwd['plain_ms']:.4f}, SDPA backward {bwd['library_ms']:.4f} "
+        f"(device {fmt_ms(bwd['library_device_ms'])}, graph replay "
+        f"{bwd['library_graph_ms']:.4f}), bound {bwd['bound_ms']:.6f} ms "
+        f"({bwd['bound_by']})")
+    del args, q, k, v
+    return fwd, bwd
+
 
 def main() -> int:
     import torch
@@ -6948,6 +7255,22 @@ def main() -> int:
     phase18 = check_phase18(smi, subs12, sweep, fused, paper_twin["cpu"])
     rows["count_between"]["reuse_helpers"] = phase18["reuse_helpers"]
     log(f"phase 18: {time.perf_counter() - t18:.1f} s")
+
+    # phase 19: the examples: torch_serve_two_tier card == CPU == the
+    # reference; torch_train_lm's 300 steps with checkpoints and an
+    # injected failure, step 150 from the step-100 file; both attention
+    # kernels at its shape
+    t19 = time.perf_counter()
+    check_serve_two_tier(launches)
+    train_lm = check_train_lm(launches, smi)
+    fwd19, bwd19 = check_train_lm_kernels(dev, smi)
+    rows["flash_attention"]["train_lm_100m"] = fwd19
+    rows["flash_attention_bwd"]["train"]["train_lm_100m"] = dict(
+        train_lm, kernel=bwd19)
+    for k, r in (("flash_attention", fwd19), ("flash_attention_bwd", bwd19)):
+        rows[k]["max_abs_err"] = max(rows[k]["max_abs_err"],
+                                     r["max_abs_err"])
+    log(f"phase 19: {time.perf_counter() - t19:.1f} s")
 
     sources = {"count_between": "src/repro_torch/csrc/count_between.cu",
                "evict_scatter": "src/repro_torch/csrc/evict_scatter.cu",
