@@ -51,7 +51,9 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    ``count_plan``: lanes a row, rows a CTA, threads) and their device
    events a call (one each, asserted: ``kernel_events``); holds ``two_level`` and ``single_level`` (one CTA a VM walking
    each cache set's requests in order, ``csrc/set_walk.cuh``) to their
-   plain versions at the 12-VM and 1024-VM blocks and at the set walk's
+   plain versions (run on CPU copies of the inputs, request by request,
+   several times faster there than the card's per-op launches; their
+   times are still taken on the card) at the 12-VM and 1024-VM blocks and at the set walk's
    other shapes: V = 1 (a VM's own block, 64 x 64; FAST's and L2ARC's
    windows, 256 x 64), 64 DRAM / 48 SSD sets, one set taking every
    request, rows of 9,000 (two tiles) and rows of 96–128 ways, each
@@ -342,12 +344,33 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    ``flash_attention_bwd`` at that path's shape (B 4, H 12, Hkv 4, S
    256, D 64, bf16, causal, model layout) against their plain versions
    under phase 2's and phase 17 (a)'s tolerances, timed beside SDPA's
-   forward and backward and their bounds.
+   forward and backward and their bounds;
+20. the dry-run's bf16-weights lever at qwen3-4b's ``prefill_32k``, cut
+   only in batch: (a) ``flash_attention`` at [1, 32, 32768, 128], Hkv 8,
+   bf16, causal, the model's layout and 1,024-key tiles, against its
+   plain version under phase 2's tolerance on the ``wgmma`` route, its
+   call and device times beside the plain version's, SDPA's
+   (``is_causal``, ``enable_gqa``, kept off the math backend) and the
+   bound (8.80e12 causal FLOPs at the bf16 tensor-core rate); (b)
+   qwen3-4b at full config (36 layers, vocabulary 151,936) from a seeded
+   generator prefills one seeded B 1 x 32,768 prompt with float32
+   weights, then with every float32 parameter cast to bfloat16
+   (``models.model.cast_params``): exactly 36 ``flash_attention``
+   launches a prefill, all ``wgmma``; the last logits within 2e-2 of
+   their scale; parameter bytes exactly halved; whether the next tokens
+   agree, host and device ms and peak memory of each; (c) ``python -m
+   repro_torch.launch.dryrun --arch qwen3-4b --shape prefill_32k
+   --profile --batch 1 --bf16-params`` in a process of its own: ``ok``
+   with ``"bf16_params": true``, ``step_flops`` equal to the float32
+   record of phase 18 (d)'s sweep, state bytes equal to the reference
+   rule's (``BF16_STATE_BYTES``), the profile's launches exactly 36
+   ``flash_attention`` a step, its device ms by kernel group beside the
+   bf16 cut's roofline.
 
 The §5.1 deployment (VMs, requests, intervals, the DRAM share of the
 capacity) comes from ``src/repro_torch/configs/etica_paper.py``.
 
-Each card run of phases 3 to 19 sets the launch counts to 0 just before
+Each card run of phases 3 to 20 sets the launch counts to 0 just before
 and reads them just after; exactly the kernels of that path's own set
 must have launched (``popularity`` only on the staged paths), and in
 phase 14 only the datapath route of its run (``classified`` with a
@@ -572,6 +595,11 @@ def fmt_ms(x) -> str:
     return "not measured" if x is None else f"{x:.4f} ms"
 
 
+def cpu_copies(tensors) -> tuple:
+    """The tensors copied to the CPU, as a tuple."""
+    return tuple(t.cpu() for t in tensors)
+
+
 def max_abs_err(got, want) -> float:
     """Max |got - want| over matching tensors; raises unless every
     output is identical (float32 compared bit for bit)."""
@@ -780,7 +808,10 @@ def datapath_timing(label, call, plain, a, geo, nbytes, ops_count, step_ns,
 
 def check_datapath(dev, blocks, geo, ways, mode, label, step_ns,
                    time_plain=True):
-    """``two_level`` against its plain version over chained blocks;
+    """``two_level`` against its plain version over chained blocks (the
+    plain version on CPU copies of the inputs: it steps request by
+    request, which the CPU does several times faster than the card's
+    per-op launches, and card == CPU runs of this path are exact);
     ``geo`` is ((sets, ways) of the DRAM, of the SSD); times the fullest
     block."""
     import torch
@@ -791,9 +822,10 @@ def check_datapath(dev, blocks, geo, ways, mode, label, step_ns,
     wd = torch.as_tensor(ways[0], dtype=torch.int32, device=dev)
     ws = torch.as_tensor(ways[1], dtype=torch.int32, device=dev)
     npe = mode == "npe"
-    kstate = rstate = (*make_cache_batch(v, sd, wmd, dev),
-                       *make_cache_batch(v, ss, wms, dev))
-    kt = rt = torch.zeros(v, dtype=torch.int32, device=dev)
+    kstate = (*make_cache_batch(v, sd, wmd, dev),
+              *make_cache_batch(v, ss, wms, dev))
+    kt = torch.zeros(v, dtype=torch.int32, device=dev)
+    rstate, rt = cpu_copies(kstate), kt.cpu()
     err, timed = 0.0, None
     for a_np, w_np in blocks:
         a = torch.from_numpy(a_np).to(dev)
@@ -802,8 +834,10 @@ def check_datapath(dev, blocks, geo, ways, mode, label, step_ns,
         if timed is None or (a >= 0).sum() > (timed[0] >= 0).sum():
             timed = args               # time the fullest block, as run
         kout = ops.two_level(a, w, *kstate, wd, ws, kt, npe=npe)
-        rout = ops.two_level_plain(a, w, *rstate, wd, ws, rt, npe=npe)
-        err = max(err, max_abs_err(kout, rout))
+        rout = ops.two_level_plain(torch.from_numpy(a_np),
+                                   torch.from_numpy(w_np), *rstate,
+                                   wd.cpu(), ws.cpu(), rt, npe=npe)
+        err = max(err, max_abs_err(cpu_copies(kout), rout))
         kstate, kt = kout[:6], kout[8]
         rstate, rt = rout[:6], rout[8]
     a, n = timed[0], timed[0].shape[1]
@@ -820,9 +854,10 @@ def check_datapath(dev, blocks, geo, ways, mode, label, step_ns,
 
 def check_single_level(dev, rng, blocks, sets, ways_max, label, step_ns,
                        time_plain=True):
-    """``single_level`` against its plain version over chained blocks,
-    every VM under a random one of the five policies (each present when
-    there are five VMs or more)."""
+    """``single_level`` against its plain version (on CPU copies of the
+    inputs, as :func:`check_datapath`) over chained blocks, every VM
+    under a random one of the five policies (each present when there
+    are five VMs or more)."""
     import torch
     from repro_torch.core.policies import T_SSD, Policy
     from repro_torch.core.simulator import make_cache_batch, policy_flags
@@ -833,8 +868,9 @@ def check_single_level(dev, rng, blocks, sets, ways_max, label, step_ns,
     flags = policy_flags(pols, dev)
     ways = torch.as_tensor(rng.integers(0, ways_max + 1, v),
                            dtype=torch.int32, device=dev)
-    kstate = rstate = make_cache_batch(v, sets, ways_max, dev)
-    kt = rt = torch.zeros(v, dtype=torch.int32, device=dev)
+    kstate = make_cache_batch(v, sets, ways_max, dev)
+    kt = torch.zeros(v, dtype=torch.int32, device=dev)
+    rstate, rt = cpu_copies(kstate), kt.cpu()
     kw = dict(t_cache=T_SSD)
     err, timed = 0.0, None
     for a_np, w_np in blocks:
@@ -844,8 +880,10 @@ def check_single_level(dev, rng, blocks, sets, ways_max, label, step_ns,
         if timed is None or (a >= 0).sum() > (timed[0] >= 0).sum():
             timed = args               # time the fullest block, as run
         kout = ops.single_level(*args, **kw)
-        rout = ops.single_level_plain(a, w, *rstate, ways, *flags, rt, **kw)
-        err = max(err, max_abs_err(kout, rout))
+        rout = ops.single_level_plain(
+            torch.from_numpy(a_np), torch.from_numpy(w_np), *rstate,
+            ways.cpu(), *cpu_copies(flags), rt, **kw)
+        err = max(err, max_abs_err(cpu_copies(kout), rout))
         kstate, kt = kout[:3], kout[5]
         rstate, rt = rout[:3], rout[5]
     a, n = timed[0], timed[0].shape[1]
@@ -1083,7 +1121,8 @@ def random_policy_flags(rng, v, c, dev) -> list:
 def check_classified(dev, rng, blocks, geo, ways, label, step_ns,
                      single=False, mode="full", time_plain=False):
     """A ``classified`` route (``two_level`` or, with ``single``,
-    ``single_level``) against its plain version over chained blocks,
+    ``single_level``) against its plain version (on CPU copies of the
+    inputs, as :func:`check_datapath`) over chained blocks,
     with random class ids of :func:`kernel_classes` (and, at one level,
     the five policies mixed across (VM, class)); times the fullest block
     beside the unclassified route at the same shape; its bound, chain
@@ -1103,30 +1142,36 @@ def check_classified(dev, rng, blocks, geo, ways, label, step_ns,
     wd, ws = put(w_np[0]), put(w_np[1])
     byp = put(clf.bypass)
     npe = mode == "npe"
+    flags = random_policy_flags(rng, v, c, dev) if single else ()
+    fixed = dict(wd=wd, ws=ws, byp=byp, bounds=bounds, flags=flags)
+    fixed_cpu = {k: x.cpu() if isinstance(x, torch.Tensor) else
+                 cpu_copies(x) for k, x in fixed.items()}
     if single:
-        flags = random_policy_flags(rng, v, c, dev)
-        kstate = rstate = tuple(make_cache_batch(v, sd, wmd, dev))
+        kstate = tuple(make_cache_batch(v, sd, wmd, dev))
         run = lambda a, w, cl, st, t: ops.single_level_classified(
             a, w, cl, *st, wd, *flags, t, byp, *bounds, t_cache=T_SSD)
-        plain = lambda a, w, cl, st, t: ops.single_level_classified_plain(
-            a, w, cl, *st, wd, *flags, t, byp, *bounds, t_cache=T_SSD)
+        plain = lambda a, w, cl, st, t, f: ops.single_level_classified_plain(
+            a, w, cl, *st, f["wd"], *f["flags"], t, f["byp"], *f["bounds"],
+            t_cache=T_SSD)
         base = lambda a, w, st, t: ops.single_level(
             a, w, *st, wd, *(f[:, 0].contiguous() for f in flags), t,
             t_cache=T_SSD)
         nst, it = 3, 5
         name = f"single_level_classified {label}"
     else:
-        kstate = rstate = (*make_cache_batch(v, sd, wmd, dev),
-                           *make_cache_batch(v, ss, wms, dev))
+        kstate = (*make_cache_batch(v, sd, wmd, dev),
+                  *make_cache_batch(v, ss, wms, dev))
         run = lambda a, w, cl, st, t: ops.two_level_classified(
             a, w, cl, *st, wd, ws, t, byp, *bounds, npe=npe)
-        plain = lambda a, w, cl, st, t: ops.two_level_classified_plain(
-            a, w, cl, *st, wd, ws, t, byp, *bounds, npe=npe)
+        plain = lambda a, w, cl, st, t, f: ops.two_level_classified_plain(
+            a, w, cl, *st, f["wd"], f["ws"], t, f["byp"], *f["bounds"],
+            npe=npe)
         base = lambda a, w, st, t: ops.two_level(a, w, *st, wd, ws, t,
                                                  npe=npe)
         nst, it = 6, 8
         name = f"two_level_classified {label} {mode}"
-    kt = rt = torch.zeros(v, dtype=torch.int32, device=dev)
+    kt = torch.zeros(v, dtype=torch.int32, device=dev)
+    rstate, rt = cpu_copies(kstate), kt.cpu()
     err, timed = 0.0, None
     for a_np, w_np_ in blocks:
         a, w = put(a_np), put(w_np_)
@@ -1134,8 +1179,8 @@ def check_classified(dev, rng, blocks, geo, ways, label, step_ns,
         if timed is None or (a >= 0).sum() > (timed[0] >= 0).sum():
             timed = (a, w, cl, kstate, kt)
         kout = run(a, w, cl, kstate, kt)
-        rout = plain(a, w, cl, rstate, rt)
-        err = max(err, max_abs_err(kout, rout))
+        rout = plain(a.cpu(), w.cpu(), cl.cpu(), rstate, rt, fixed_cpu)
+        err = max(err, max_abs_err(cpu_copies(kout), rout))
         kstate, kt = kout[:nst], kout[it]
         rstate, rt = rout[:nst], rout[it]
     a, w, cl, st, t = timed
@@ -1143,7 +1188,7 @@ def check_classified(dev, rng, blocks, geo, ways, label, step_ns,
     ms, dev_ms = cuda_ms(call, 20), graph_ms(call, 10)
     u_ms = cuda_ms(lambda: base(a, w, st, t), 20)
     u_dev = graph_ms(lambda: base(a, w, st, t), 10)
-    plain_ms = (cuda_ms(lambda: plain(a, w, cl, st, t), 1, warmup=0)
+    plain_ms = (cuda_ms(lambda: plain(a, w, cl, st, t, fixed), 1, warmup=0)
                 if time_plain else None)
     events = kernel_events(call, ("single_level" if single else "two_level")
                            + "_classified_kernel")
@@ -4390,6 +4435,10 @@ def check_streamed_figures(launches, dev="cuda"):
 # ---------------------------------------------------------------------------
 
 CLASS_CUTOFF = 48             # benchmarks/classification_bench.py CUTOFF
+# phase 14 (b) holds each classified §5.1 run card == CPU on the mix's
+# first 8 resize windows (the full mix's four CPU runs took 96.5 s of a
+# 1,050 s script on the H100 machine; the full card runs stay)
+CLASS_TWIN_REQS = 80_000
 CLASS_BENCH_REQS = 8_000      # its REQS, a VM
 # benchmarks/classification_bench.py's runs on the JAX package, CPU
 # (Centaur capacity 800, sim_chunk 500; ETICA DRAM 400 / SSD 800, resize
@@ -4599,8 +4648,9 @@ def check_paper_classified(launches, paper, cfg, eci_for, rate_unclassified):
     """Phase 14 (b): the §5.1 deployment with ``seq_cutoff(48)`` and with
     :func:`four_class`, ETICA and ECI-Cache: each card run launches
     exactly its path's kernels, only on the ``classified`` datapath
-    route, and equals the CPU plain path (stats, histories, logs, final
-    states, per-class counts and journal columns). Then three more card
+    route, and on the mix's first ``CLASS_TWIN_REQS`` requests equals
+    the CPU plain path (stats, histories, logs, final states, per-class
+    counts and journal columns). Then three more card
     runs of unclassified ETICA and of each classified one, interleaved,
     for requests/s on the same host clock, and the span breakdown of
     the seq-cutoff run. Returns the seq-cutoff card run ``(cache,
@@ -4619,13 +4669,16 @@ def check_paper_classified(launches, paper, cfg, eci_for, rate_unclassified):
             launches[label], cache, res, rate = drive_card(build, paper,
                                                            label, expect)
             expect_route(label, launches[label], kernel, "classified")
-            cpu, cres, wall_cpu = run_controller(build, paper, "cpu")
-            same_run(label, (cpu, cres), (cache, res))
-            same_classes(label, cpu, cache)
+            head = paper[:CLASS_TWIN_REQS]
+            card_head = run_controller(build, head, "cuda")[:2]
+            cpu, cres, wall_cpu = run_controller(build, head, "cpu")
+            same_run(label, (cpu, cres), card_head)
+            same_classes(label, cpu, card_head[0])
             byp = sum(r.stats["bypassed"] for r in res)
-            log(f"{label}: card == CPU (CPU plain path {wall_cpu:.1f} s): "
+            log(f"{label}: card == CPU on the first {len(head):,} requests "
+                f"(CPU plain path {wall_cpu:.1f} s): "
                 f"stats, alloc_history, logs, final states, per-class "
-                f"counts; bypassed {byp:.0f}, avg_hit "
+                f"counts; the whole mix: bypassed {byp:.0f}, avg_hit "
                 f"{np.mean([r.hit_ratio for r in res]):.4f}, ssd_writes "
                 f"{sum(r.ssd_writes for r in res):.0f}; launches "
                 f"{launch_summary(launches[label])}, routes "
@@ -7009,6 +7062,253 @@ def check_train_lm_kernels(dev, smi, shape=TRAIN_LM_ATTN) -> tuple:
     del args, q, k, v
     return fwd, bwd
 
+# ---------------------------------------------------------------------------
+# phase 20: the bf16-weights lever (dryrun --bf16-params) at qwen3-4b's
+# prefill_32k, cut only in batch
+# ---------------------------------------------------------------------------
+
+QWEN3_PREFILL_32K = (1, 32, 8, 32_768, 128)    # B, H, Hkv, S, D
+BF16_CELL = ("qwen3-4b", "prefill_32k")
+# state_bytes_per_device of BF16_CELL on 16x16 with --bf16-params, by the
+# reference rule (tests/test_torch_bf16_params.py,
+# _reference_bf16_state_bytes): half the float32 cell's 1,103,591,424
+BF16_STATE_BYTES = 551_795_712
+
+
+def sdpa_fused(q, k, v):
+    """``scaled_dot_product_attention(is_causal, enable_gqa)`` on [B, H,
+    S, D] views, kept off the math backend, whose [H, S, S] scores do
+    not fit at 32k."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                      SDPBackend.EFFICIENT_ATTENTION,
+                      SDPBackend.CUDNN_ATTENTION]):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+
+
+def check_flash_32k(dev, smi, shape=QWEN3_PREFILL_32K) -> dict:
+    """Phase 20 (a): ``flash_attention`` at qwen3-4b's ``prefill_32k``
+    rows (B 1, H 32, Hkv 8, S 32,768, D 128, bf16, causal, the model's
+    layout and its 1,024-key tiles) against its plain version under phase
+    2's tolerance, on the ``wgmma`` route; its call and device times
+    beside the plain version's, SDPA's and the bound."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    b, h, hkv, s, d = shape
+    gen = torch.Generator(device=dev).manual_seed(20)
+    q = torch.randn(b, s, h, d, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(b, s, hkv, d, generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    args = [x.transpose(1, 2) for x in (q, k, v)]
+    if ops.route(args[0].dtype, d) != "wgmma":
+        raise AssertionError("prefill_32k: not the wgmma route")
+    err, over = flash_check("prefill_32k", args, causal=True, tq=s, tk=1024)
+
+    def kernel():
+        return ops.flash_attention(*args, causal=True, tq=s, tk=1024)
+    row = dict(shape=shape, route="wgmma", max_abs_err=err, over_ulp=over)
+    row["ms"] = cuda_ms(kernel, 3)
+    row["device_ms"] = graph_ms(kernel, reps=2, replays=2)
+    row["plain_ms"] = cuda_ms(lambda: ops.flash_attention_plain(
+        *args, causal=True, tk=1024), 1)
+    row["library_ms"] = cuda_ms(lambda: sdpa_fused(*args), 3)
+    row["library_device_ms"] = graph_ms(lambda: sdpa_fused(*args), reps=2,
+                                        replays=2)
+    row["bound_ms"], row["bound_by"], _ = flash_bound(*args[:2])
+    row["flops"] = 4.0 * b * h * s * s * d / 2
+    row["tflops"] = row["flops"] / row["device_ms"] / 1e9
+    log(f"flash_attention prefill_32k {shape} bf16 causal, model layout, "
+        f"wgmma route ({smi}): == plain within one bf16 ulp or 2e-5 (max "
+        f"err {err:.3e}, {over} outputs one ulp off); kernel "
+        f"{row['ms']:.4f} ms (device {row['device_ms']:.4f} ms, "
+        f"{row['tflops']:.1f} TFLOP/s), plain {row['plain_ms']:.4f} ms, SDPA "
+        f"{row['library_ms']:.4f} ms (device {row['library_device_ms']:.4f} "
+        f"ms), bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+        f"{row['flops']:.4g} causal FLOPs at the bf16 tensor-core rate)")
+    del q, k, v, args
+    torch.cuda.empty_cache()
+    return row
+
+
+def param_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def check_bf16_prefill(launches, smi, dev="cuda", cfg=None,
+                       s=QWEN3_PREFILL_32K[3]) -> dict:
+    """Phase 20 (b): qwen3-4b at full config (weights from a seeded
+    generator on the card) prefills one seeded B 1 x ``s`` prompt with
+    float32 weights, then with every float32 parameter cast to bfloat16
+    (``models.model.cast_params``, the dry-run lever's rule): exactly
+    ``num_layers`` ``flash_attention`` launches a prefill, all on the
+    ``wgmma`` route (counts set to 0 just before each timed prefill);
+    the last position's logits of the two within 2e-2 of their scale;
+    the bf16 model's parameter bytes exactly half the float32 model's.
+    Logs whether the next tokens agree, host and device ms and peak
+    device memory of each prefill."""
+    import torch
+    from repro_torch import configs, kernels
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import trace_analysis
+    from repro_torch.models import model as M
+    dev = torch.device(dev)
+    cfg = cfg or configs.get("qwen3-4b")
+    model = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (1, s), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    batch = {"tokens": toks}
+
+    def prefill():
+        with torch.no_grad():
+            return M.prefill(model, cfg, batch, cache_len=s)
+    out = {}
+    for label in ("float32", "bfloat16"):
+        if label == "bfloat16":
+            M.cast_params(model)
+        prefill()                           # warm-up, not counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, cache = prefill()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        path = f"qwen3-4b-prefill-32k-{label}"
+        launches[path] = serving_launches(f"qwen3-4b prefill_32k {label}",
+                                          ("flash_attention",), only=True)
+        routes = flash_ops.route_counts()
+        if launches[path]["flash_attention"] != cfg.num_layers or \
+                routes != {"wgmma": cfg.num_layers, "cuda_cores": 0}:
+            raise AssertionError(f"{path}: {launches[path]}, routes {routes}"
+                                 f": expected {cfg.num_layers} "
+                                 "flash_attention, all on the wgmma route")
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{path}: logits not finite")
+        peak = torch.cuda.max_memory_allocated()
+        del cache
+        dev_ms, events, groups = trace_analysis.grouped_profile(prefill)
+        out[label] = dict(logits=logits[0, -1].float().cpu(),
+                          host_ms=host_ms, device_ms=dev_ms, events=events,
+                          device_ms_by_group=groups,
+                          peak_bytes=peak, param_bytes=param_bytes(model),
+                          dtypes=sorted({str(p.dtype) for p in
+                                         model.parameters()}))
+        log(f"qwen3-4b prefill_32k B 1 x {s}, {label} weights "
+            f"({out[label]['param_bytes'] / 1e9:.3f} GB of parameters, "
+            f"{out[label]['dtypes']}): host {host_ms:.1f} ms, device "
+            f"{fmt_ms(dev_ms)} in {events:.0f} events ("
+            + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+                groups.items(), key=lambda x: -x[1]))
+            + f"), peak {peak / 2**30:.2f} GiB; "
+            f"{launches[path]['flash_attention']} flash_attention launches "
+            f"(routes {routes})")
+    del model
+    torch.cuda.empty_cache()
+    f32, bf = out["float32"], out["bfloat16"]
+    if bf["param_bytes"] * 2 != f32["param_bytes"] or \
+            bf["dtypes"] != ["torch.bfloat16"]:
+        raise AssertionError(f"parameter bytes {bf['param_bytes']} (bf16, "
+                             f"{bf['dtypes']}) vs {f32['param_bytes']}")
+    err = logit_err(bf["logits"], f32["logits"])
+    same = int(bf["logits"].argmax()) == int(f32["logits"].argmax())
+    if err >= 2e-2:
+        raise AssertionError(f"bf16 weights move the logits by {err:.4e} "
+                             ">= 2e-2 of their scale")
+    log(f"qwen3-4b prefill_32k, bf16 vs float32 weights ({smi}): "
+        f"last-position logits {err:.4e} of their scale (< 2e-2), next "
+        f"token {'equal' if same else 'different'}; parameter bytes "
+        f"{bf['param_bytes']:,} = {f32['param_bytes']:,} / 2; host "
+        f"{bf['host_ms']:.1f} vs {f32['host_ms']:.1f} ms, device "
+        f"{fmt_ms(bf['device_ms'])} vs {fmt_ms(f32['device_ms'])}, peak "
+        f"{bf['peak_bytes'] / 2**30:.2f} vs {f32['peak_bytes'] / 2**30:.2f} "
+        "GiB")
+    for r in out.values():
+        r.pop("logits")
+    return dict(out, logit_err=err, next_token_equal=same)
+
+
+def check_bf16_dryrun(smi, sweep_dir) -> dict:
+    """Phase 20 (c): ``python -m repro_torch.launch.dryrun --arch
+    qwen3-4b --shape prefill_32k --profile --batch 1 --bf16-params`` in a
+    process of its own: ``status`` ok with ``"bf16_params": true``; the
+    record's ``step_flops`` equal to the float32 record of the same cell
+    that phase 18 (d)'s sweep wrote; its state bytes equal to the
+    reference rule's (``BF16_STATE_BYTES``); the profile's launches
+    exactly 36 ``flash_attention`` a step. Logs the profile's device ms
+    by kernel group beside the bf16 cut's roofline."""
+    import torch
+    torch.cuda.empty_cache()
+    arch, shape = BF16_CELL
+    out_dir = ROOT / "build" / "dryrun"
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+           "--shape", shape, "--profile", "--batch", "1", "--bf16-params",
+           "--tag", "bf16", "--out", str(out_dir)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                         cwd=ROOT, timeout=600)
+    if run.returncode:
+        raise AssertionError(f"dryrun --bf16-params failed:\n"
+                             f"{run.stderr[-3000:]}")
+    rec = json.loads(run.stdout)
+    with open(Path(sweep_dir) / f"{arch}__{shape}__16x16__baseline.json") \
+            as f:
+        f32 = json.load(f)
+    prof = rec["profile"]
+    layers = 36
+    problems = []
+    if rec["status"] != "ok" or rec.get("bf16_params") is not True:
+        problems.append(f"status {rec['status']}, bf16_params "
+                        f"{rec.get('bf16_params')}")
+    if rec["step_flops"] != f32["step_flops"]:
+        problems.append(f"step_flops {rec['step_flops']} != the sweep's "
+                        f"float32 {f32['step_flops']}")
+    if rec["state_bytes_per_device"] != BF16_STATE_BYTES:
+        problems.append(f"state bytes {rec['state_bytes_per_device']} != "
+                        f"{BF16_STATE_BYTES}")
+    if prof["launches"] != {"flash_attention": layers * prof["steps"]}:
+        problems.append(f"profile launches {prof['launches']}")
+    if prof.get("device_ms") is None:
+        problems.append("profile: no device time")
+    if problems:
+        raise AssertionError("dryrun --bf16-params: " + "; ".join(problems))
+    roof = prof["roofline_one_device"]
+    dom = max(roof["t_compute_s"], roof["t_memory_s"])
+    log(f"dryrun {arch} {shape} --bf16-params {rec['mesh']}: step_flops "
+        f"{rec['step_flops']:.6g} (== the sweep's float32 record), state "
+        f"{rec['state_bytes_per_device']:,} B a device (float32 "
+        f"{f32['state_bytes_per_device']:,}), bytes a device "
+        f"{rec['bytes_per_device']:.4g} (float32 "
+        f"{f32['bytes_per_device']:.4g}), collectives "
+        f"{rec['collectives']} (float32 {f32['collectives']}), "
+        f"{rec['bottleneck']}-bound")
+    log(f"dryrun --profile --bf16-params, the cut {prof['reduced']} on "
+        f"{prof['card']}: step {prof['step_ms']:.1f} ms on the host clock "
+        f"({prof['steps']} steps, launches {prof['launches']}), device "
+        f"{prof['device_ms']:.1f} ms in {prof['device_events']:.0f} events ("
+        + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+            prof["device_ms_by_group"].items(), key=lambda x: -x[1]))
+        + f"); roofline of the bf16 cut on one card: compute "
+        f"{roof['t_compute_s'] * 1e3:.2f} ms ({prof['step_flops']:.4g} "
+        f"FLOPs), memory {roof['t_memory_s'] * 1e3:.2f} ms "
+        f"({prof['step_bytes']:.4g} bytes): {roof['bottleneck']}-bound; "
+        f"measured / dominant term {prof['device_ms'] / 1e3 / dom:.2f}; "
+        f"peak {prof['peak_bytes'] / 1e9:.2f} GB "
+        f"({time.perf_counter() - t0:.1f} s)")
+    log(smi)
+    log("dryrun --bf16-params record: " + json.dumps(rec))
+    return rec
+
+
+def check_phase20(launches, smi, sweep_dir, dev="cuda") -> dict:
+    """Phase 20 (a)-(c)."""
+    return dict(flash_32k=check_flash_32k(dev, smi),
+                prefill=check_bf16_prefill(launches, smi, dev),
+                dryrun=check_bf16_dryrun(smi, sweep_dir))
+
 
 def main() -> int:
     import torch
@@ -7021,6 +7321,14 @@ def main() -> int:
         return 1
     from repro_torch import kernels
     from repro_torch.core.controller import EticaConfig, Geometry
+
+    t_start = time.perf_counter()
+    clock = [t_start]
+
+    def phase_time(n) -> None:
+        now = time.perf_counter()
+        log(f"phase {n}: {now - clock[0]:.1f} s")
+        clock[0] = now
 
     # phase 1: the device
     dev = torch.device("cuda")
@@ -7036,6 +7344,8 @@ def main() -> int:
     kernels.library()
     log(f"kernel build + load: {time.perf_counter() - t0:.1f} s")
     sweep = start_dryrun_sweep()        # phase 18 (d), in the background
+
+    phase_time(1)
 
     # phase 2: every kernel against its plain version at the shapes of
     # the 12-VM and 1024-VM runs (the JSON rows are the 12-VM ones)
@@ -7109,6 +7419,8 @@ def main() -> int:
         dev, np.random.default_rng(14), paper, blocks12 + blocks12b,
         blocks1024 + blocks1024b, ways12, step_ns))
 
+    phase_time(2)
+
     # phases 3 and 4: the paper's §5.1 deployment, then fig15
     # consolidation at 128 and 1024 VMs; card == CPU in each
     launches = {}
@@ -7130,6 +7442,8 @@ def main() -> int:
     log(f"fig15 1024-VM avg_hit beside the JAX package's CPU value "
         f"{FIG15_JAX_CPU_AVG_HIT_1024} (benchmarks/BENCH_sharding.json)")
 
+    phase_time("3-4")
+
     # phase 5: the 12-VM deployment under the endurance comparison
     ccfg = dataclasses.replace(cfg, clean_quota=CLEAN_QUOTA)
     launches["paper-12vm-clean"], clean, clean_res, clean_rate = drive(
@@ -7144,8 +7458,12 @@ def main() -> int:
     span_breakdown(build_eci, paper, "paper 12-VM ECI-Cache")
     endurance("paper 12-VM", paper_res, eci_res, clean)
 
+    phase_time(5)
+
     # phase 6: fig14's own mix, held to the JAX package's CPU values
     check_fig14(launches)
+
+    phase_time(6)
 
     # phase 7: ECI-Cache at the fig15 1024-VM configuration
     total = len(fig1024)
@@ -7153,6 +7471,8 @@ def main() -> int:
         eci(37 * 1024, 1024, geometry=Geometry(num_sets=16, max_ways=32),
             resize_interval=total // 3, sim_chunk=total // 12),
         fig1024, "fig15 1024-VM ECI-Cache", ECI_KERNELS)
+
+    phase_time(7)
 
     # phase 8: two-tier KV serving (BENCH_serving.json, then qwen3-4b's
     # KV width with decode)
@@ -7164,6 +7484,8 @@ def main() -> int:
         serving_mean_pages=serving["mean_pages"],
         serving_pages_histogram=serving["pages_histogram"])
 
+    phase_time(8)
+
     # phase 9: the oracle ladder on the card (staged, sequential, FAST,
     # L2ARC)
     check_oracle_ladder(launches, paper, (fused, paper_res, fused_rate),
@@ -7171,6 +7493,8 @@ def main() -> int:
                         (eci_cache, eci_res, eci_rate))
     rows["promote_scatter"]["l2arc_dedupe"] = check_l2arc_promote(paper)
     rows["count_between"]["seq"] = check_seq_count_between(paper)
+
+    phase_time(9)
 
     # phase 10: dense-model serving at qwen3-4b full width and depth
     served, peak, n_params = check_dense_serving(launches,
@@ -7181,14 +7505,20 @@ def main() -> int:
     rows["flash_attention"]["max_abs_err"] = max(
         rows["flash_attention"]["max_abs_err"], check_serve_prefill(launches))
 
+    phase_time(10)
+
     # phase 11: windows wider than ROW_MAX, through the tiled route
     check_wide_rows(launches)
+
+    phase_time(11)
 
     # phase 12: the paper's figures on the card, held to the JAX package's
     # CPU values; the per-state maintenance ops; fig12/13 at §5.1
     check_state_ops(dev, rng)
     check_paper_figures(launches)
     paper_fig12_rows(paper_res, eci_res)
+
+    phase_time(12)
 
     # phase 13: streamed ingestion from the on-disk trace store
     t13 = time.perf_counter()
@@ -7272,6 +7602,18 @@ def main() -> int:
                                      r["max_abs_err"])
     log(f"phase 19: {time.perf_counter() - t19:.1f} s")
 
+    # phase 20: the bf16-weights lever: flash_attention at prefill_32k's
+    # rows; qwen3-4b (36 layers) prefilled with float32 and with bf16
+    # weights; dryrun --profile --bf16-params beside the sweep's record
+    t20 = time.perf_counter()
+    phase20 = check_phase20(launches, smi, sweep["out_dir"])
+    fwd = rows["flash_attention"]
+    fwd["prefill_32k"] = dict(phase20["flash_32k"],
+                              bf16_weights=phase20["prefill"])
+    fwd["max_abs_err"] = max(fwd["max_abs_err"],
+                             phase20["flash_32k"]["max_abs_err"])
+    log(f"phase 20: {time.perf_counter() - t20:.1f} s")
+
     sources = {"count_between": "src/repro_torch/csrc/count_between.cu",
                "evict_scatter": "src/repro_torch/csrc/evict_scatter.cu",
                "promote_scatter": "src/repro_torch/csrc/promote_scatter.cu",
@@ -7350,6 +7692,7 @@ def main() -> int:
                          launches=by_path[path], path=path, **rows[k],
                          launches_by_path={p: c for p, c in by_path.items()
                                            if c}))
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(smi)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -46,6 +46,14 @@ the same cut on one device. The reference's ``--sites`` (explicit
 activation shardings) and ``--census`` (an HLO byte census) are
 XLA-only and have no counterpart here.
 
+``--bf16-params`` is the reference's serving lever: every float32
+parameter becomes bfloat16 before anything is counted (the moments,
+batch and cache keep their dtypes), so the state bytes, the
+weight-moving collectives, the ``meta`` trace's bytes and the roofline
+follow from the cast model, and the record carries ``"bf16_params":
+true``. With ``--profile`` the cut's model on the card is cast the same
+way.
+
 Usage::
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-4b \\
@@ -53,6 +61,8 @@ Usage::
   PYTHONPATH=src python -m repro_torch.launch.dryrun --list   # all cells
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-4b \\
       --shape train_4k --profile --layers 8 --batch 2 --seq 2048
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-4b \\
+      --shape prefill_32k --bf16-params [--profile --batch 1]
 """
 from __future__ import annotations
 
@@ -128,16 +138,18 @@ def _run_step(cfg, shape, specs, grad_dtype):
                                  ST.cache_len_for(cfg, shape) - 1)
 
 
-def trace_step(cfg, shape, grad_dtype: str | None = None) -> dict:
+def trace_step(cfg, shape, grad_dtype: str | None = None,
+               bf16_params: bool = False) -> dict:
     """The step of ``(cfg, shape)`` run once on ``meta``: ``{"specs",
     "flops", "flop_counts", "bytes", "trace_s"}`` (global counts),
-    cached for the process."""
+    cached for the process; ``bf16_params`` runs it on the model with
+    its float32 parameters cast to bfloat16."""
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.launch import steps as ST
-    key = (cfg, shape, grad_dtype)
+    key = (cfg, shape, grad_dtype, bf16_params)
     if key not in _TRACES:
         t0 = time.time()
-        specs = ST.input_specs(cfg, shape)
+        specs = ST.input_specs(cfg, shape, bf16_params=bf16_params)
         flops = FlopCounterMode(display=False)
         nbytes = _byte_mode()
         with flops, nbytes:
@@ -252,7 +264,8 @@ def collective_bytes(cfg, shape, mesh, specs, fsdp: bool,
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              overrides: dict | None = None,
-             grad_dtype: str | None = None) -> dict:
+             grad_dtype: str | None = None,
+             bf16_params: bool = False) -> dict:
     from repro_torch import configs
     from repro_torch.launch import sharding as SH
     from repro_torch.launch.mesh import abstract_production_mesh
@@ -272,8 +285,11 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         return rec
     if grad_dtype:
         rec["grad_dtype"] = grad_dtype
+    if bf16_params:
+        # serving lever: weights pre-cast to bf16 at load time
+        rec["bf16_params"] = True
     tr = trace_step(cfg, shape, grad_dtype if shape.kind == "train"
-                    else None)
+                    else None, bf16_params)
     specs = tr["specs"]
     fsdp = SH.should_fsdp(cfg, mesh)
     rec["fsdp"] = fsdp
@@ -327,13 +343,13 @@ def card_name_and_limit() -> str:
 
 def profile_cell(arch: str, shape_name: str, cut: dict,
                  overrides: dict | None = None, device="cuda",
-                 steps: int = 3) -> dict:
+                 steps: int = 3, bf16_params: bool = False) -> dict:
     """The cell's step on ``device`` at ``cut`` (``num_layers``,
-    ``global_batch``, ``seq_len``; weights from a seeded generator):
-    host-clock ms of ``steps`` steps after a first and the kernels they
-    launched, device ms by kernel group of one profiled step, and the
-    roofline terms of the same cut on one device from its ``meta``
-    trace."""
+    ``global_batch``, ``seq_len``; weights from a seeded generator, cast
+    to bfloat16 with ``bf16_params``): host-clock ms of ``steps`` steps
+    after a first and the kernels they launched, device ms by kernel
+    group of one profiled step, and the roofline terms of the same cut
+    on one device from its ``meta`` trace."""
     import torch
     from repro_torch import configs, kernels
     from repro_torch.data.pipeline import TokenPipeline
@@ -353,13 +369,15 @@ def profile_cell(arch: str, shape_name: str, cut: dict,
     shape = dataclasses.replace(
         shape, global_batch=cut.get("global_batch", shape.global_batch),
         seq_len=cut.get("seq_len", shape.seq_len))
-    tr = trace_step(cfg, shape)
+    tr = trace_step(cfg, shape, bf16_params=bf16_params)
     rec = {"reduced": dict(cut), "kind": shape.kind,
            "step_flops": tr["flops"], "step_bytes": tr["bytes"],
            "roofline_one_device": roofline(tr["flops"], tr["bytes"], 0.0)}
     dev = resolve_device(device)
     model = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                           device=dev)
+    if bf16_params:
+        M.cast_params(model)
     b, s = shape.global_batch, shape.seq_len
     if shape.kind == "train":
         opt_cfg = OptConfig(lr=3e-4, warmup_steps=1, total_steps=steps + 2)
@@ -436,6 +454,8 @@ def main(argv=None):
                     help="comma list k=v ModelConfig overrides")
     ap.add_argument("--grad-dtype", default="",
                     help="cast grads before optimizer (e.g. bfloat16)")
+    ap.add_argument("--bf16-params", action="store_true",
+                    help="serve with bf16 weights (perf lever)")
     ap.add_argument("--profile", action="store_true",
                     help="also run the step on the card at the cut below")
     ap.add_argument("--layers", type=int, default=0,
@@ -466,14 +486,16 @@ def main(argv=None):
     cells = ([tuple(c.split(":")) for c in args.cells.split(",")]
              if args.cells else [(args.arch, args.shape)])
     recs = [run_cell(arch, shape, pod, overrides,
-                     grad_dtype=args.grad_dtype or None)
+                     grad_dtype=args.grad_dtype or None,
+                     bf16_params=args.bf16_params)
             for arch, shape in cells for pod in pods]
     if args.profile and recs[0]["status"] == "ok":
         cut = {k: v for k, v in (("num_layers", args.layers),
                                  ("global_batch", args.batch),
                                  ("seq_len", args.seq)) if v}
         prof = profile_cell(args.arch, args.shape, cut, overrides,
-                            device=args.device)
+                            device=args.device,
+                            bf16_params=args.bf16_params)
         for rec in recs:
             rec["profile"] = prof
     os.makedirs(args.out, exist_ok=True)

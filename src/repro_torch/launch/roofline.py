@@ -2,7 +2,8 @@
 port of :mod:`repro.launch.roofline`)::
 
     PYTHONPATH=src python -m repro_torch.launch.roofline \\
-        [--dir build/dryrun] [--mesh 16x16] [--tag baseline] [--both-meshes]
+        [--dir build/dryrun] [--mesh 16x16] [--tag baseline] [--md] \\
+        [--both-meshes]
 
 Per (arch x shape): the three roofline terms (seconds a device, against
 the H100 SXM datasheet rates of :data:`repro_torch.launch.dryrun.HW`),
@@ -115,6 +116,7 @@ def main(argv=None):
     ap.add_argument("--dir", default="build/dryrun")
     ap.add_argument("--mesh", default="16x16")
     ap.add_argument("--tag", default="baseline")
+    ap.add_argument("--md", action="store_true", default=True)
     ap.add_argument("--both-meshes", action="store_true",
                     help="one row per cell, 16x16 / 2x16x16 side by side")
     args = ap.parse_args(argv)
@@ -122,7 +124,7 @@ def main(argv=None):
         print(mesh_pairs_table(args.dir, args.tag))
         return
     recs = load(args.dir, args.mesh, args.tag)
-    print(table(recs))
+    print(table(recs, md=args.md))
     ok = [r for r in recs if r.get("status") == "ok"]
     if ok:
         worst = min(ok, key=fraction)

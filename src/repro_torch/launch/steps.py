@@ -136,9 +136,15 @@ def decode_specs(cfg: ModelConfig, shape: ShapeSpec):
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeSpec,
-                opt_cfg: OptConfig | None = None) -> dict[str, Any]:
-    """All abstract inputs for the step this shape runs."""
+                opt_cfg: OptConfig | None = None,
+                bf16_params: bool = False) -> dict[str, Any]:
+    """All abstract inputs for the step this shape runs; ``bf16_params``
+    casts the model's float32 parameters to bfloat16
+    (:func:`repro_torch.models.model.cast_params`; the moments keep
+    ``opt_cfg``'s dtype)."""
     params = abstract_params(cfg)
+    if bf16_params:
+        M.cast_params(params)
     if shape.kind == "train":
         return {"params": params,
                 "opt_state": abstract_opt_state(cfg, params, opt_cfg),

@@ -7,7 +7,8 @@ for training.
     drawn from a ``torch.Generator`` on the given device.
   * :func:`params_from_jax` — the model from the JAX package's parameter
     pytree (as numpy arrays), so both packages compute from one weight
-    set; :func:`params_to_numpy` is its inverse.
+    set; :func:`params_to_numpy` is its inverse; :func:`cast_params`
+    casts its float32 parameters to bfloat16 (serving with bf16 weights).
   * :func:`forward_train`   — the loss over a batch (the superlayers
     checkpointed, the cross-entropy in checkpointed token chunks), for
     ``backward()``.
@@ -124,6 +125,17 @@ def params_from_jax(tree, cfg: ModelConfig, device="cuda") -> Model:
         for r in rows:
             a = a[r]
         p.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+    return model
+
+
+@torch.no_grad()
+def cast_params(model: torch.nn.Module):
+    """``model`` with every float32 parameter cast to bfloat16 in place
+    (the reference dry-run's ``--bf16-params`` rule: float32 leaves only;
+    no buffer changes). Returns the model."""
+    for p in model.parameters():
+        if p.dtype == torch.float32:
+            p.data = p.data.to(torch.bfloat16)
     return model
 
 

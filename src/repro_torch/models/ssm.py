@@ -55,6 +55,15 @@ def init_ssm(cfg: ModelConfig, generator=None, device=None) -> SSM:
     return SSM(cfg, generator, device)
 
 
+def _decay_rates(A_log):
+    """``A = -exp(A_log)`` in ``A_log``'s dtype, as ``jnp.exp`` keeps it:
+    XLA:CPU's float32 ``exp``, rounded once to a bfloat16 ``A_log``'s
+    dtype (parameters cast to bfloat16, the dry-run's ``--bf16-params``);
+    the float32 path is unchanged. The products with the float32 ``dt``
+    then promote to float32 in both packages."""
+    return -exp_xla_f32(A_log).to(A_log.dtype)
+
+
 def _split_proj(cfg: ModelConfig, zxbcdt):
     di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     return torch.split(zxbcdt, [di, di, n, n, h], dim=-1)
@@ -150,7 +159,7 @@ def ssm_train(p: SSM, cfg: ModelConfig, x, return_state: bool = False):
     if s != s_real:
         valid = (torch.arange(s, device=x.device) < s_real)[None, :, None]
         dt = torch.where(valid, dt, 0.0)
-    A = -exp_xla_f32(p.A_log)
+    A = _decay_rates(p.A_log)
     xh = xs.reshape(b, s, h, hp).float()
     dA = dt * A
 
@@ -195,7 +204,7 @@ def ssm_decode(p: SSM, cfg: ModelConfig, x, cache):
     xs, B, C = torch.split(xBC, [di, n, n], dim=-1)
 
     dt = softplus(dt[:, 0].float() + p.dt_bias)              # [B,H]
-    dA = exp_xla_f32(dt * -exp_xla_f32(p.A_log))
+    dA = exp_xla_f32(dt * _decay_rates(p.A_log))
     xh = xs.reshape(b, h, hp).float()
     ssd = cache["ssd"] * dA[..., None, None] + \
         (dt[..., None] * xh)[..., None] * B.float()[:, None, None, :]
