@@ -39,7 +39,12 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    row, an empty row and runs across every multiple of
    ``kernels.ROW_MAX``, at the ``row`` route's widest row
    (``kernels.ROW_MAX`` entries) and at 16,385 and 40,000 entries
-   through the ``tiled`` route, each call's route checked and timed;
+   through the ``tiled`` route, and at two real windows through it (the
+   paper's 12 VMs, 20,000 requests each, [12, 32768]; serving-wide's
+   ring by tenant, [4, 32768]), each call's route checked and timed
+   beside the library pair, the bytes bound and the longest run's chain
+   floor, a tiled call's device events listed in launch order and run
+   once under sync-debug "error";
    holds the cleaner (``ops.clean``: one ``clean_scatter`` launch that
    finds each VM's cutoff itself, one device event a call, asserted) to
    ``_clean_cutoffs`` + ``clean_scatter_plain`` at the 12-VM and 1024-VM
@@ -140,12 +145,13 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` (into
    equal to a run on gaussian pages, and the
    kernel against its plain version at that prefill's shape and on its
    layer-0 activations;
-11. runs two paths whose maintenance windows are wider than
-   ``kernels.ROW_MAX``, card == CPU, each of which must launch
-   ``run_sums`` on the ``tiled`` route: ``EticaCache.run`` on two of the
-   paper's VMs with one 34,000-request window (17,000 requests a VM),
-   and two-tier KV serving on 30,000 churn events with a 20,000-access
-   trace ring;
+11. runs three paths whose maintenance windows are wider than
+   ``kernels.ROW_MAX``, card == CPU, each of which must launch its
+   kernel on the ``tiled`` route: ``EticaCache.run`` on two of the
+   paper's VMs with one 34,000-request window (17,000 requests a VM;
+   ``run_sums``), the same in the staged mode (``popularity``), and
+   two-tier KV serving on 30,000 churn events with a 20,000-access
+   trace ring (``run_sums``);
 12. runs the paper's figures through ``examples/torch_paper_figures.py``
    on the card at the benchmarks' own sizes: fig3 (4 workloads x 3
    policies x 6,000 requests, 16 x 32), fig10/11 (8 workloads x 10
@@ -1679,45 +1685,188 @@ def row_cases(rng, v, n):
     return addr, nv
 
 
-def check_row_limits(dev, rng):
+def pad_rows(rows, total: int | None = None
+             ) -> tuple[np.ndarray, np.ndarray]:
+    """``(addr, n_valid)``: int32 rows padded with 0 to the power of two
+    at or above the longest, the controller's bucket (or above ``total``,
+    serving's: the whole mixed window)."""
+    n = 1 << ((total or max(len(r) for r in rows)) - 1).bit_length()
+    addr = np.zeros((len(rows), n), np.int32)
+    for i, r in enumerate(rows):
+        addr[i, :len(r)] = r
+    return addr, np.array([len(r) for r in rows], np.int32)
+
+
+def paper_wide_rows() -> tuple[np.ndarray, np.ndarray]:
+    """``[12, 32768]``: each of the paper's 12 VMs' whole 20,000-request
+    mix (``trace_mix(paper_config().vms, 20_000, 1.0)``) as one promotion
+    window, its real addresses."""
+    from repro_torch.core.trace import split_by_vm
+    pcfg = paper_config()
+    subs = split_by_vm(trace_mix(pcfg.vms, pcfg.requests_per_vm, 1.0),
+                       len(pcfg.vms))
+    return pad_rows([np.asarray(s.addr) for s in subs])
+
+
+def serving_wide_rows() -> tuple[np.ndarray, np.ndarray]:
+    """``[4, 32768]``: serving-wide's window (phase 11), the 20,000-record
+    trace ring at the end of its 30,000-event churn trace split by tenant
+    in arrival order, as ``serving_maintenance`` pads it. The ring holds
+    every activation and every appended page (``TwoTierKVManager._record``
+    runs for each), so it follows from the trace alone; the addresses are
+    the session ids."""
+    from repro_torch.traces.generators import (SESSION_ACTIVATE,
+                                               SESSION_APPEND, SESSION_NEW,
+                                               SessionSpec,
+                                               generate_sessions)
+    spec = SessionSpec(num_tenants=SERVING_TENANTS, target_live=1024,
+                       max_pages=6)
+    tr = generate_sessions(spec, WIDE_EVENTS, seed=1)
+    new = tr.kind == SESSION_NEW
+    tenant_of = np.zeros(int(tr.sid.max()) + 1, np.int64)
+    tenant_of[tr.sid[new]] = tr.tenant[new]
+    rec = (tr.kind == SESSION_ACTIVATE) | (tr.kind == SESSION_APPEND)
+    sid = tr.sid[rec][-WIDE_WINDOW:]
+    return pad_rows([sid[tenant_of[sid] == t]
+                     for t in range(SERVING_TENANTS)], sid.size)
+
+
+def row_segments(wa, nv):
+    """``(seg, num_blocks)`` of ``[V, N]`` rows as
+    ``block_popularity_batch`` groups them: one segment a (row, address)
+    of each row's valid prefix, ascending; padding ``num_blocks``."""
+    import torch
+    v, n = wa.shape
+    valid = torch.arange(n, device=wa.device)[None, :] < nv[:, None]
+    rows = torch.arange(v, dtype=torch.int64, device=wa.device)[:, None]
+    key = torch.where(valid, (rows << 31) + wa.long(), 1 << 62)
+    uniq, inv = torch.unique(key.reshape(-1), return_inverse=True)
+    return (inv.reshape(v, n).to(torch.int32),
+            int((uniq < (1 << 62)).sum()))
+
+
+def row_library_calls(wa, wc, pargs):
+    """The one-call PyTorch pairs beside ``run_sums`` and ``popularity``
+    on the same inputs (in atomics' order, not bit-exact): the stable
+    sort that groups the window and ``index_add_`` into each entry's run
+    slot; Eq. 1's contributions by ``torch.exp`` and ``index_add_`` into
+    the blocks."""
+    import torch
+    v, n = wa.shape
+    dev = wa.device
+    key = (torch.arange(v, device=dev)[:, None] * 2**32
+           + wa.long()).reshape(-1)
+    slot = torch.unique(key, return_inverse=True)[1]
+    dist, served, seg, nb, csz = pargs
+    live = served & (dist >= 0)
+    flat = seg.reshape(-1).long()
+
+    def sort_index_add():
+        torch.sort(key, stable=True)
+        return torch.zeros(v * n, device=dev).index_add_(
+            0, slot, wc.reshape(-1))
+
+    def exp_index_add():
+        c = torch.where(live, torch.exp(
+            -dist.float() / csz.clamp(min=1)[:, None]), 0.0)
+        return torch.zeros(nb + 1, device=dev).index_add_(
+            0, flat, c.reshape(-1))
+    return {"run_sums": sort_index_add, "popularity": exp_index_add}
+
+
+def event_split(call, reps: int = 10) -> list | None:
+    """The device events of one call in launch order, ``[(name, mean
+    ms)]`` over a profiler trace of ``reps`` calls (kernels, memsets,
+    copies); None when the trace holds no device event or a count that
+    is not a multiple of ``reps``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)),
+                 key=lambda e: e.time_range.start)
+    if not evs or len(evs) % reps:
+        return None
+    k = len(evs) // reps
+    return [(evs[j].name[:48],
+             sum(evs[i * k + j].time_range.elapsed_us()
+                 for i in range(reps)) / reps / 1e3) for j in range(k)]
+
+
+# the real windows of the tiled route timed beside ROW_WIDTHS
+ROW_REAL = {"paper-12vm [12,32768]": "paper_wide_rows",
+            "serving-wide [4,32768]": "serving_wide_rows"}
+
+
+def fmt_split(split) -> str:
+    """``event_split``'s list as ``name ms; ...`` (or "not measured")."""
+    if not split:
+        return "not measured"
+    return "; ".join(f"{name} {ms:.4f}" for name, ms in split)
+
+
+def check_row_limits(dev, rng, fadd_ns):
     """``popularity`` and ``run_sums`` against their plain versions,
     exactly, at the ``row`` route's widest row (``kernels.ROW_MAX``
-    entries), a row of 1,000, and the ``tiled`` route's 16,385 (two
-    tiles, the second of one entry) and 40,000 (three: a run without a
-    partner in the merge), on ``row_cases``; each call's route is
-    checked (the route counts of that call alone) and timed (call and
-    CUDA-graph device time, the plain version once on the CPU, the
-    bound). Returns
-    ``(max_abs_err, {kernel: {width: stats}})``."""
+    entries), a row of 1,000, and the ``tiled`` route's 16,385 and 40,000
+    (``row_cases``), and at two real windows through the tiled route: the
+    paper's 12 VMs, a whole 20,000-request window each
+    (``paper_wide_rows``), and serving-wide's ring split by tenant
+    (``serving_wide_rows``), their segments a (row, address) each, their
+    contributions and Eq. 1 inputs from the seeded generator. Each call's
+    route is checked (the route counts of that call alone) and timed:
+    call and CUDA-graph device time, the device events of a tiled call in
+    launch order (``event_split``), the plain version once on the CPU,
+    the library pair's device time (profiler), the bytes bound and the
+    chain floor of the longest run (``L_max`` dependent adds) beside it;
+    a tiled call runs once more under ``set_sync_debug_mode("error")``.
+    Returns ``(max_abs_err, {kernel: {width or label: stats}})``."""
     import torch
     from repro_torch import kernels
     from repro_torch.core import popularity as pop
     from repro_torch.kernels.popularity import ops
     err, out = 0.0, {"run_sums": {}, "popularity": {}}
-    for n in ROW_WIDTHS:
-        v = 5
-        addr, nv_np = row_cases(rng, v, n)
+    cases = [(n, *row_cases(rng, 5, n)) for n in ROW_WIDTHS]
+    cases += [(label, *globals()[fn]()) for label, fn in ROW_REAL.items()]
+    for key, addr, nv_np in cases:
+        v, n = addr.shape
         wa = torch.from_numpy(addr).to(dev)
-        wc = torch.rand((v, n), device=dev)
         nv = torch.from_numpy(nv_np).to(dev)
-        per = int(addr.max()) + 1
-        seg = (wa + per * torch.arange(v, device=dev)[:, None]).to(
-            torch.int32)
-        seg[2] = v * per                         # all padding
+        if isinstance(key, int):
+            wc = torch.rand((v, n), device=dev)
+            per = int(addr.max()) + 1
+            seg = (wa + per * torch.arange(v, device=dev)[:, None]).to(
+                torch.int32)
+            seg[2] = v * per                     # all padding
+            nb = v * per
+        else:
+            wc = torch.from_numpy(rng.random((v, n)).astype(
+                np.float32)).to(dev)
+            seg, nb = row_segments(wa, nv)
         pargs = (torch.from_numpy(rng.integers(-1, 300, (v, n)).astype(
                      np.int32)).to(dev),
                  torch.from_numpy(rng.random((v, n)) < 0.7).to(dev), seg,
-                 v * per, torch.full((v,), 64.0, device=dev))
+                 nb, torch.full((v,), 64.0, device=dev))
         route = kernels.row_route(n)
         cpu = [x.cpu() for x in (wa, wc, nv)]
         pcpu = [x.cpu() if torch.is_tensor(x) else x for x in pargs]
-        for name, call, plain, nbytes in (
+        library = row_library_calls(wa, wc, pargs)
+        valid = torch.arange(n, device=dev)[None, :] < nv[:, None]
+        for name, call, plain, nbytes, keys, keep in (
                 ("run_sums", lambda: pop.window_runs(wa, wc, nv),
                  lambda: pop.window_runs_plain(*cpu),
-                 16.0 * v * n + 4.0 * v),
+                 16.0 * v * n + 4.0 * v, wa, valid),
                 ("popularity", lambda: [ops.popularity_rows(*pargs)],
                  lambda: [ops.popularity_rows_plain(*pcpu)],
-                 9.0 * v * n + 4.0 * v + 4.0 * v * per)):
+                 9.0 * v * n + 4.0 * v + 4.0 * nb, seg, seg < nb)):
             kernels.reset_launch_counts()
             got = call()
             if kernels.route_counts(name)[route] != 1:
@@ -1732,14 +1881,32 @@ def check_row_limits(dev, rng):
             ms = cuda_ms(call, 20)
             dev_ms = graph_ms(call, reps=5, replays=4)
             b, by = bound_ms(nbytes, 2.0 * float(nv.sum()))
-            out[name][n] = dict(route=route, max_abs_err=e, ms=ms,
-                                device_ms=dev_ms, plain_ms=plain_ms,
-                                bound_ms=b, bound_by=by)
-            log(f"row limits: {name} [{v},{n}] route {route}: exact (heavy "
-                f"ties, one key for a whole row, an empty row, runs across "
-                f"the tile edges), kernel {ms:.4f} ms (device {dev_ms:.4f} "
-                f"ms), plain (one call, CPU) {plain_ms:.1f} ms, bound "
-                f"{b:.6f} ms ({by})")
+            l_max = longest_run(keys, keep)
+            chain = l_max * fadd_ns * 1e-6
+            lib_ms = device_profile(library[name], 20)[0]
+            split = None
+            if route == "tiled":
+                split = event_split(call)
+                # the route reads no device value on the host: a call
+                # under sync-debug "error" raises at any synchronisation
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    call()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            out[name][key] = dict(
+                route=route, max_abs_err=e, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bound_ms=b, bound_by=by, l_max=l_max,
+                chain_bound_ms=chain, bound_or_chain_ms=max(b, chain),
+                library_device_ms=lib_ms, split=split)
+            log(f"row limits: {name} {key if isinstance(key, str) else ''}"
+                f"[{v},{n}] route {route}: exact, kernel {ms:.4f} ms "
+                f"(device {dev_ms:.4f} ms), plain (one call, CPU) "
+                f"{plain_ms:.1f} ms, library pair device {fmt_ms(lib_ms)} "
+                f"(profiler), bound {b:.6f} ms ({by}), L_max {l_max} x "
+                f"{fadd_ns:.3f} ns = chain {chain:.5f} ms, max(bound, chain) "
+                f"{max(b, chain):.5f} ms; device events: {fmt_split(split)}")
     return err, out
 
 
@@ -3734,24 +3901,34 @@ WIDE_WINDOW = 20_000    # its trace ring: maintenance windows up to 20,000
 
 
 def check_wide_rows(launches):
-    """Two runs whose maintenance windows are wider than
-    ``kernels.ROW_MAX``, card == CPU, each of which must launch
-    ``run_sums`` on the ``tiled`` route: ``EticaCache.run`` on two of the
+    """Three runs whose maintenance windows are wider than
+    ``kernels.ROW_MAX``, card == CPU, each of which must launch its
+    kernel on the ``tiled`` route: ``EticaCache.run`` on two of the
     paper's VMs with ``promo_interval`` (and ``resize_interval``) the
     whole 34,000-request trace, so the one window holds 17,000 requests a
-    VM (rows of 32,768); and serving's churn trace at 30,000 events with
-    a 20,000-access trace ring and maintenance every 2,048 activations,
-    so the later windows hold more than 16,384 accesses (rows of
-    32,768)."""
+    VM (rows of 32,768; ``run_sums``); the same in the staged mode
+    (``fused_maintenance=False``: ``popularity`` scores the window); and
+    serving's churn trace at 30,000 events with a 20,000-access trace
+    ring and maintenance every 2,048 activations, so the later windows
+    hold more than 16,384 accesses (rows of 32,768; ``run_sums``)."""
     from repro_torch.core.controller import EticaConfig
     from repro_torch.traces.generators import SessionSpec, generate_sessions
     from repro_torch import kernels
     trace = trace_mix(paper_config().vms[:2], WIDE_REQS, 1.0)
     cfg = EticaConfig(dram_capacity=4096, ssd_capacity=8192,
                       resize_interval=len(trace), promo_interval=len(trace))
-    launches["paper-2vm-wide"], *_ = drive(
+    launches["paper-2vm-wide"], fused, *_ = drive(
         etica(cfg, 2), trace, "paper 2-VM, one 34,000-request window",
         ETICA_KERNELS)
+    # the staged mode scores the same window with popularity: rows of
+    # 32,768 through its tiled route; it scatters evictions only for a
+    # non-empty queue
+    extra = (("evict_scatter",) if np.sum(
+        fused.telemetry.journal.column("evict_queue")) else ())
+    launches["paper-2vm-wide-staged"], *_ = drive(
+        etica(dataclasses.replace(cfg, fused_maintenance=False), 2), trace,
+        "paper 2-VM staged, one 34,000-request window",
+        STAGED_KERNELS + extra)
     spec = SessionSpec(num_tenants=SERVING_TENANTS, target_live=1024,
                        max_pages=6)
     strace = generate_sessions(spec, WIDE_EVENTS, seed=1)
@@ -3769,9 +3946,11 @@ def check_wide_rows(launches):
         f"activations, trace ring {WIDE_WINDOW}): card {wall:.3f} s, card "
         f"== CPU (CPU plain path {wall_cpu:.1f} s); launches "
         f"{launches['serving-wide']}")
-    for label in ("paper-2vm-wide", "serving-wide"):
-        if not launches[label]["routes"].get("run_sums", {}).get("tiled"):
-            raise AssertionError(f"{label}: run_sums never took the tiled "
+    for label, kernel in (("paper-2vm-wide", "run_sums"),
+                          ("serving-wide", "run_sums"),
+                          ("paper-2vm-wide-staged", "popularity")):
+        if not launches[label]["routes"].get(kernel, {}).get("tiled"):
+            raise AssertionError(f"{label}: {kernel} never took the tiled "
                                  f"route: {launches[label]}")
 
 
@@ -7406,7 +7585,7 @@ def main() -> int:
     rows["popularity"] = check_popularity(dev, rng, blocks12, "12-VM staged",
                                           fadd_ns)
     check_popularity(dev, rng, blocks1024, "1024-VM staged", fadd_ns)
-    limit_err, limit_rows = check_row_limits(dev, rng)
+    limit_err, limit_rows = check_row_limits(dev, rng, fadd_ns)
     for k in ("run_sums", "popularity"):
         rows[k]["max_abs_err"] = max(rows[k]["max_abs_err"], limit_err)
         rows[k]["widths"] = limit_rows[k]

@@ -244,30 +244,14 @@ def main() -> int:
                  call_ms=cs.cuda_ms(call, 20), events_per_call=events(call),
                  bound_ms=cs.bound_ms(nbytes, 2.0 * float(nv.sum()))[0])
         # the one-call PyTorch pairs beside them, as chip_smoke.py times
-        # them at the row route's shapes: the stable sort that groups the
-        # window and index_add_ into each entry's run slot; Eq. 1's
-        # contributions by torch.exp and index_add_ into the blocks
-        key = (torch.arange(v, device=dev)[:, None] * 2**32
-               + wa.long()).reshape(-1)
-        slot = torch.unique(key, return_inverse=True)[1]
-        dist, served, _, nb, csz = pargs
-        contrib = served & (dist >= 0)
-        flat = seg.reshape(-1).long()
-
-        def sort_index_add():
-            torch.sort(key, stable=True)
-            return torch.zeros(v * n, device=dev).index_add_(
-                0, slot, wc.reshape(-1))
-
-        def exp_index_add():
-            c = torch.where(contrib, torch.exp(
-                -dist.float() / csz.clamp(min=1)[:, None]), 0.0)
-            return torch.zeros(nb + 1, device=dev).index_add_(
-                0, flat, c.reshape(-1))
+        # them: the stable sort that groups the window and index_add_
+        # into each entry's run slot; Eq. 1's contributions by torch.exp
+        # and index_add_ into the blocks
+        library = cs.row_library_calls(wa, wc, pargs)
         for name, call in (("run_sums library: torch.sort(stable) + "
-                            "index_add_", sort_index_add),
+                            "index_add_", library["run_sums"]),
                            ("popularity library: torch.exp + index_add_",
-                            exp_index_add)):
+                            library["popularity"])):
             dev_ms, ev = cs.device_profile(call, 20)
             emit(kernel=name, shape=f"[{v},{n}]",
                  call_ms=cs.cuda_ms(call, 20), profiler_device_ms=dev_ms,

@@ -33,14 +33,18 @@
 // sort: one launch beside the zero fill of the scores (segments absent
 // from every row).
 //
-// Route "tiled" (wider rows, row_merge.cuh): the same CTA body sorts each
-// tile of kTile entries and writes its pairs out; merge rounds put a row's
-// tiles back together in access order, and one thread a segment adds the
-// merged row's run from global memory. The wrapper picks the route from
-// the padded width.
+// Route "tiled" (wider rows, row_radix.cuh): a prep kernel forms each
+// access's (segment, contribution) pair, padding as the key num_blocks
+// (after every segment), and counts the row's digits; a stable LSD radix
+// sort of each row across the whole card (tiles of 512 positions, 8-bit
+// digits, as many passes as num_blocks needs, those whose digit is
+// constant over a row's keys doing nothing); then each segment's score is
+// added by the thread of its first pair (segments of up to 32) or by a
+// warp that stages the segment in shared memory for one lane's adds. The
+// wrapper picks the route from the padded width.
 #include <cuda_runtime.h>
 
-#include "row_merge.cuh"
+#include "row_radix.cuh"
 #include "row_sort.cuh"
 
 namespace {
@@ -64,26 +68,18 @@ __device__ __forceinline__ void load_tiles(
   }
 }
 
-// With kTiled (the tiled route, row_merge.cuh) the CTA takes tile
-// blockIdx.x % row_tiles(n) of row blockIdx.x / row_tiles(n), at most kTile
-// entries, and writes its sorted pairs to `sorted` at the tile's offset and
-// their count to count[blockIdx.x]; otherwise it takes row blockIdx.x whole
-// and writes its segments' scores.
-template <bool kTiled>
+// One CTA takes row blockIdx.x whole and writes its segments' scores.
 __global__ void __launch_bounds__(kRowThreads)
     popularity_kernel(const int* __restrict__ dist,
                       const unsigned char* __restrict__ served,
                       const int* __restrict__ seg,
                       const float* __restrict__ cs, float* __restrict__ out,
-                      unsigned long long* __restrict__ sorted,
-                      int* __restrict__ count, int num_blocks, int n) {
+                      int num_blocks, int n) {
   extern __shared__ unsigned long long pairs[];
   __shared__ RowScan<kMaxTiles> scan;
-  const int row_parts = kTiled ? row_tiles(n) : 1;
-  const long long v = blockIdx.x / row_parts;
-  const int col = kTiled ? (int)(blockIdx.x % row_parts) * kTile : 0;
-  const int len = kTiled ? min(kTile, n - col) : n;
-  const long long row = v * n + col;   // the CTA's first entry
+  const long long v = blockIdx.x;
+  const int len = n;
+  const long long row = v * n;         // the CTA's first entry
   const unsigned nb = (unsigned)num_blocks;
   const int tiles = (len + kRowThreads - 1) / kRowThreads;
   unsigned s[kUnroll];
@@ -96,7 +92,6 @@ __global__ void __launch_bounds__(kRowThreads)
       if (t0 + u < tiles) scan.count(t0 + u, s[u] < nb);
   }
   const int m = scan.bases(tiles);
-  if (kTiled && threadIdx.x == 0) count[blockIdx.x] = m;
   if (m == 0) return;
   const float c = cs[v];
   for (int t0 = 0; t0 < tiles; t0 += kUnroll) {
@@ -112,11 +107,6 @@ __global__ void __launch_bounds__(kRowThreads)
     }
   }
   row_sort(pairs, m);
-  if (kTiled) {
-    for (int i = threadIdx.x; i < m; i += kRowThreads)
-      sorted[row + i] = pairs[i];
-    return;
-  }
   for (int i = threadIdx.x; i < m; i += kRowThreads) {
     const unsigned s = sorted_key(pairs, i);
     if (i > 0 && sorted_key(pairs, i - 1) == s) continue;
@@ -124,24 +114,98 @@ __global__ void __launch_bounds__(kRowThreads)
   }
 }
 
-// The tiled route's run pass: the merged row's kept pairs (base[tiles] of
-// them), each segment's score added by the thread of its first pair.
-__global__ void __launch_bounds__(kRowThreads)
-    popularity_runs_kernel(const unsigned long long* __restrict__ sorted,
-                           const int* __restrict__ base,
-                           float* __restrict__ out, int n, int tiles) {
-  const int chunks = row_chunks(n);
-  const long long r = blockIdx.x / chunks;
-  const int i = (int)(blockIdx.x % chunks) * kRowThreads + threadIdx.x;
-  const int m = base[r * (tiles + 1) + tiles];
-  if (i >= m) return;
-  const unsigned long long* pr = sorted + r * n;
-  const unsigned s = sorted_key(pr, i);
-  if (i > 0 && sorted_key(pr, i - 1) == s) return;
-  out[s] = run_sum<false>(pr, i, run_end(pr, i, m, s));
+// The tiled route's prep: each access's pair (key: its segment id, or
+// num_blocks for padding; value: its Eq. 1 contribution) to buffer 0 at
+// its position, the digits of `passes` passes counted into the row's
+// histograms, the row's length (n) and kept count (its non-padding
+// accesses). Grid: rows * radix_tiles(n) CTAs of kRadixThreads.
+__global__ void __launch_bounds__(kRadixThreads)
+    popularity_prep_kernel(const int* __restrict__ dist,
+                           const unsigned char* __restrict__ served,
+                           const int* __restrict__ seg,
+                           const float* __restrict__ cs,
+                           unsigned long long* __restrict__ buf0, int* words,
+                           int num_blocks, int rows, int n, int passes) {
+  __shared__ int count[kMaxPasses][kRadix];
+  const RadixWords w = radix_layout(words, rows, n, passes);
+  const int tiles = radix_tiles(n);
+  const int row = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  if (tile == 0 && threadIdx.x == 0) w.len[row] = n;
+#pragma unroll
+  for (int q = 0; q < kMaxPasses; ++q) count[q][threadIdx.x] = 0;
+  __syncthreads();
+  const long long r0 = (long long)row * n;
+  const unsigned nb = (unsigned)num_blocks;
+  const float c = cs[row];
+  const int lane = threadIdx.x & 31;
+  int kept = 0;
+#pragma unroll
+  for (int k = 0; k < kRadixItems; ++k) {
+    const int i = tile * kTile + k * kRadixThreads + threadIdx.x;
+    const bool in = i < n;
+    unsigned key = nb;
+    if (in) {
+      const unsigned s = (unsigned)seg[r0 + i];
+      const bool keep = s < nb;
+      key = keep ? s : nb;
+      kept += keep;
+      buf0[r0 + i] = make_pair(
+          key, keep ? eq1_contribution(dist[r0 + i], served[r0 + i] != 0, c)
+                    : 0.0f);
+    }
+    for (int q = 0; q < passes; ++q)
+      count_digit(count[q], digit_of(key, q), in);
+  }
+  kept = __reduce_add_sync(0xffffffffu, kept);
+  if (lane == 0 && kept) atomicAdd(&w.kept[row], kept);
+  __syncthreads();
+  int* hist = w.hist + (long long)row * kMaxPasses * kRadix;
+  for (int q = 0; q < passes; ++q)
+    if (count[q][threadIdx.x])
+      atomicAdd(&hist[q * kRadix + threadIdx.x], count[q][threadIdx.x]);
 }
 
-bool configured = false, configured_tiled = false;
+// The tiled route's run pass over each sorted row's kept pairs (the
+// padding sorts after them): each segment's score, added by the thread of
+// its first pair or by a warp. Grid: rows * radix_tiles(n) CTAs of
+// kRadixThreads.
+__global__ void __launch_bounds__(kRadixThreads)
+    popularity_runs_kernel(const unsigned long long* __restrict__ buf0,
+                           const unsigned long long* __restrict__ buf1,
+                           int* words, float* __restrict__ out, int rows,
+                           int n, int passes) {
+  __shared__ RunQueue queue;
+  const RadixWords w = radix_layout(words, rows, n, passes);
+  const int tiles = radix_tiles(n);
+  const int row = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  const int m = w.kept[row];
+  const unsigned long long* pr = sorted_row(buf0, buf1, w, row, n, passes);
+  if (tile * kTile >= m) return;
+  if (threadIdx.x == 0) queue.count = 0;
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kRadixItems; ++k) {
+    const int i = tile * kTile + k * kRadixThreads + threadIdx.x;
+    if (i >= m) continue;
+    const unsigned s = pair_key(pr[i]);
+    if (i > 0 && pair_key(pr[i - 1]) == s) continue;
+    if (i + kLongRun < m && pair_key(pr[i + kLongRun]) == s) {
+      queue.head[atomicAdd(&queue.count, 1)] = i;
+      continue;
+    }
+    out[s] = short_run_sum<false>(pr, i, min(i + kLongRun, m), s);
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  for (int q = warp; q < queue.count; q += kRadixWarps) {
+    const int i = queue.head[q];
+    const unsigned s = pair_key(pr[i]);
+    const float sum = warp_run_sum<false>(pr, i, m, s, queue.ring[warp]);
+    if ((threadIdx.x & 31) == 0) out[s] = sum;
+  }
+}
+
+bool configured = false;
 
 }  // namespace
 
@@ -151,42 +215,45 @@ extern "C" int etica_popularity(const int* dist, const unsigned char* served,
                                 void* stream) {
   if (num_blocks <= 0 || num_rows <= 0 || n <= 0) return 0;
   if (n > kMaxRow) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = row_kernel_setup(popularity_kernel<false>,
-                                           configured);
+  const cudaError_t err = row_kernel_setup(popularity_kernel, configured);
   if (err != cudaSuccess) return (int)err;
-  popularity_kernel<false><<<num_rows, kRowThreads, row_smem_bytes(n),
-                             (cudaStream_t)stream>>>(
-      dist, served, seg, cs, out, nullptr, nullptr, num_blocks, n);
+  popularity_kernel<<<num_rows, kRowThreads, row_smem_bytes(n),
+                      (cudaStream_t)stream>>>(dist, served, seg, cs, out,
+                                              num_blocks, n);
   return (int)cudaGetLastError();
 }
 
-// The tiled route (row_merge.cuh), rows of any width. Scratch: sorted_a and
-// sorted_b [num_rows, n] pairs, count [num_rows, row_tiles(n)], base
-// [num_rows, row_tiles(n) + 1]; out zeroed by the caller.
+// The passes of segment ids below num_blocks with num_blocks itself as
+// padding: digits of the bits num_blocks needs.
+static int popularity_passes(int num_blocks) {
+  int bits = 0;
+  while (bits < 31 && (num_blocks >> bits) != 0) ++bits;
+  return radix_passes(bits);
+}
+
+// The tiled route (row_radix.cuh), rows of any width: a memset, the prep,
+// popularity_passes(num_blocks) passes, the run pass. Scratch: buf0 and
+// buf1 [num_rows, n] pairs, `words` radix_words(num_rows, n, passes)
+// int32; out zeroed by the caller.
 extern "C" int etica_popularity_tiled(
     const int* dist, const unsigned char* served, const int* seg,
-    const float* cs, float* out, unsigned long long* sorted_a,
-    unsigned long long* sorted_b, int* count, int* base, int num_blocks,
-    int num_rows, int n, void* stream) {
+    const float* cs, float* out, unsigned long long* buf0,
+    unsigned long long* buf1, int* words, int num_blocks, int num_rows,
+    int n, void* stream) {
   if (num_blocks <= 0 || num_rows <= 0 || n <= 0) return 0;
-  cudaError_t err = row_kernel_setup(popularity_kernel<true>,
-                                     configured_tiled);
-  if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = (cudaStream_t)stream;
-  const int tiles = row_tiles(n);
-  const size_t smem = row_smem_bytes(n < kTile ? n : kTile);
-  popularity_kernel<true><<<(unsigned)((long long)num_rows * tiles),
-                            kRowThreads, smem, st>>>(
-      dist, served, seg, cs, out, sorted_a, count, num_blocks, n);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if ((err = launch_tile_bases(count, base, num_rows, tiles, st)) !=
-      cudaSuccess)
-    return (int)err;
-  const unsigned long long* sorted =
-      merge_rows(sorted_a, sorted_b, base, num_rows, n, tiles, st, err);
+  const int passes = popularity_passes(num_blocks);
+  const unsigned grid = (unsigned)((long long)num_rows * radix_tiles(n));
+  cudaError_t err = radix_sort_rows(
+      buf0, buf1, words, num_rows, n, passes, st, [&] {
+        popularity_prep_kernel<<<grid, kRadixThreads, 0, st>>>(
+            dist, served, seg, cs, buf0, words, num_blocks, num_rows, n,
+            passes);
+        return cudaGetLastError();
+      });
   if (err != cudaSuccess) return (int)err;
-  popularity_runs_kernel<<<(unsigned)((long long)num_rows * row_chunks(n)),
-                           kRowThreads, 0, st>>>(sorted, base, out, n,
-                                                 tiles);
+  popularity_runs_kernel<<<grid, kRadixThreads, 0, st>>>(buf0, buf1, words,
+                                                         out, num_rows, n,
+                                                         passes);
   return (int)cudaGetLastError();
 }

@@ -25,8 +25,7 @@
 // One CTA sorts up to kMaxRow entries: 8 bytes of dynamic shared memory
 // a pair (row_smem_bytes) and kMaxPerThread pairs in each thread's
 // registers during a round. A wider row takes the tiled route
-// (row_merge.cuh): tiles of kMaxRow sorted here, then merged in global
-// memory.
+// (row_radix.cuh): a radix sort of the row across the whole card.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -29,17 +29,18 @@
 // outputs in full, so the caller needs no fill: one launch where the
 // window sort, the gathers and the run chain were about ten.
 //
-// Route "tiled" (wider rows, row_merge.cuh): each CTA sorts one tile of
-// the valid prefix and writes its pairs out, merge rounds put a row's
-// tiles back together in access order, then two passes over the merged
-// row: one counts each position chunk's run heads, the next gives each
-// head its slot (the counts of the chunks before it, then a block scan)
-// and its run's in-order sum, and fills the tail. Every output slot is
-// written, so the caller needs no fill. The wrapper picks the route from
-// the padded width.
+// Route "tiled" (wider rows, row_radix.cuh): a stable LSD radix sort of
+// the valid prefix across the whole card (tiles of 512 positions, 8-bit
+// digits, four passes of which those whose digit is constant over a
+// row's keys do nothing), then one run pass: each head's slot from a
+// decoupled look-back over the heads of the tiles before it, and its
+// run's in-order sum, by the head's own thread (runs of up to 32) or by a
+// warp that stages the run in shared memory for one lane's adds. The
+// prep kernel fills both outputs with the tail first, so every slot is
+// written. The wrapper picks the route from the padded width.
 #include <cuda_runtime.h>
 
-#include "row_merge.cuh"
+#include "row_radix.cuh"
 #include "row_sort.cuh"
 
 namespace {
@@ -48,38 +49,22 @@ using namespace etica;
 
 constexpr int kTableEmpty = 0x7fffffff;
 
-// With kTiled the CTA takes tile blockIdx.x % row_tiles(n) of row
-// blockIdx.x / row_tiles(n) (its part of the valid prefix, at most kTile
-// entries) and writes its sorted pairs to `sorted` at the tile's offset
-// and their count to count[blockIdx.x]; otherwise it compacts row
-// blockIdx.x whole.
-template <bool kTiled>
+// One CTA compacts row blockIdx.x whole.
 __global__ void __launch_bounds__(kRowThreads)
     run_sums_kernel(const int* __restrict__ wa, const float* __restrict__ wc,
                     const int* __restrict__ n_valid, int* __restrict__ uaddr,
-                    float* __restrict__ uval,
-                    unsigned long long* __restrict__ sorted,
-                    int* __restrict__ count, int n) {
+                    float* __restrict__ uval, int n) {
   extern __shared__ unsigned long long pairs[];
   __shared__ RowScan<kMaxTiles> scan;
-  const int row_parts = kTiled ? row_tiles(n) : 1;
-  const long long v = blockIdx.x / row_parts;
-  const int col = kTiled ? (int)(blockIdx.x % row_parts) * kTile : 0;
-  const long long row = v * n + col;   // the CTA's first entry
-  const int valid = min(max(n_valid[v], 0), n);
-  const int m = kTiled ? min(max(valid - col, 0), kTile) : valid;
+  const long long v = blockIdx.x;
+  const long long row = v * n;         // the CTA's first entry
+  const int m = min(max(n_valid[v], 0), n);
 #pragma unroll 4
   for (int i = threadIdx.x; i < m; i += kRowThreads) {
     // a subnormal contribution adds as zero (XLA:CPU)
     pairs[i] = make_pair(signed_key(wa[row + i]), ftz(wc[row + i]));
   }
   row_sort(pairs, m);
-  if (kTiled) {
-    for (int i = threadIdx.x; i < m; i += kRowThreads)
-      sorted[row + i] = pairs[i];
-    if (threadIdx.x == 0) count[blockIdx.x] = m;
-    return;
-  }
   const int tiles = (m + kRowThreads - 1) / kRowThreads;
   for (int t = 0; t < tiles; ++t) {
     const int i = t * kRowThreads + threadIdx.x;
@@ -105,80 +90,118 @@ __global__ void __launch_bounds__(kRowThreads)
   }
 }
 
-// Is position i of a merged row of m kept pairs the head of a run?
-__device__ __forceinline__ bool run_head(const unsigned long long* pr,
-                                         int i, int m) {
-  return i < m && (i == 0 || sorted_key(pr, i) != sorted_key(pr, i - 1));
-}
-
-// The tiled route's first run pass: heads[r * chunks + c] counts the run
-// heads among positions c * kRowThreads .. of merged row r.
-__global__ void __launch_bounds__(kRowThreads)
-    run_heads_kernel(const unsigned long long* __restrict__ sorted,
-                     const int* __restrict__ base, int* __restrict__ heads,
-                     int n, int tiles) {
-  const int chunks = row_chunks(n);
-  const long long v = blockIdx.x / chunks;
-  const int i = (int)(blockIdx.x % chunks) * kRowThreads + threadIdx.x;
-  const int m = base[v * (tiles + 1) + tiles];
-  const int k = __syncthreads_count(run_head(sorted + v * n, i, m));
-  if (threadIdx.x == 0) heads[blockIdx.x] = k;
-}
-
-// The tiled route's second run pass: each head's slot (the heads of the
-// chunks before its own, then its rank in the chunk) and its run's sum;
-// slots past the row's runs get the tail.
-__global__ void __launch_bounds__(kRowThreads)
-    run_write_kernel(const unsigned long long* __restrict__ sorted,
-                     const int* __restrict__ base,
-                     const int* __restrict__ heads, int* __restrict__ uaddr,
-                     float* __restrict__ uval, int n, int tiles) {
-  __shared__ RowScan<1> scan;
-  __shared__ int warp_before[kRowWarps], warp_all[kRowWarps];
-  const int chunks = row_chunks(n);
-  const long long v = blockIdx.x / chunks;
-  const int c = (int)(blockIdx.x % chunks);
-  const int i = c * kRowThreads + threadIdx.x;
-  const int m = base[v * (tiles + 1) + tiles];
-  const int* h = heads + v * chunks;
-  int before = 0, all = 0;
-  for (int k = threadIdx.x; k < chunks; k += kRowThreads) {
-    const int x = h[k];
-    all += x;
-    if (k < c) before += x;
-  }
-  before = __reduce_add_sync(0xffffffffu, before);
-  all = __reduce_add_sync(0xffffffffu, all);
-  if ((threadIdx.x & 31) == 0) {
-    warp_before[threadIdx.x >> 5] = before;
-    warp_all[threadIdx.x >> 5] = all;
-  }
-  const unsigned long long* pr = sorted + v * n;
-  const bool head = run_head(pr, i, m);
-  scan.count(0, head);
-  scan.bases(1);   // synchronises: the warp sums are in
-  before = all = 0;
+// The tiled route's prep: the tile's valid pairs (key: the signed
+// address as unsigned, value: the contribution, a subnormal as zero) to
+// buffer 0 at their positions, their digits counted into the row's
+// histograms, both outputs filled with the tail over the whole tile, and
+// the row's length. Grid: rows * radix_tiles(n) CTAs of kRadixThreads.
+__global__ void __launch_bounds__(kRadixThreads)
+    run_sums_prep_kernel(const int* __restrict__ wa,
+                         const float* __restrict__ wc,
+                         const int* __restrict__ n_valid,
+                         int* __restrict__ uaddr, float* __restrict__ uval,
+                         unsigned long long* __restrict__ buf0, int* words,
+                         int rows, int n) {
+  __shared__ int count[kMaxPasses][kRadix];
+  const RadixWords w = radix_layout(words, rows, n, kMaxPasses);
+  const int tiles = radix_tiles(n);
+  const int row = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  const int m = min(max(n_valid[row], 0), n);
+  if (tile == 0 && threadIdx.x == 0) w.len[row] = w.kept[row] = m;
 #pragma unroll
-  for (int w = 0; w < kRowWarps; ++w) {
-    before += warp_before[w];
-    all += warp_all[w];
+  for (int q = 0; q < kMaxPasses; ++q) count[q][threadIdx.x] = 0;
+  __syncthreads();
+  const long long r0 = (long long)row * n;
+#pragma unroll
+  for (int k = 0; k < kRadixItems; ++k) {
+    const int i = tile * kTile + k * kRadixThreads + threadIdx.x;
+    if (i < n) {
+      uaddr[r0 + i] = kTableEmpty;
+      uval[r0 + i] = 0.0f;
+    }
+    const bool in = i < m;
+    unsigned key = 0;
+    if (in) {
+      key = signed_key(wa[r0 + i]);
+      buf0[r0 + i] = make_pair(key, ftz(wc[r0 + i]));
+    }
+#pragma unroll
+    for (int q = 0; q < kMaxPasses; ++q)
+      count_digit(count[q], digit_of(key, q), in);
   }
-  const long long row = v * n;
-  const int r = before + scan.rank(0, head);   // every lane ballots
-  if (head) {
-    const unsigned key = sorted_key(pr, i);
-    const int addr = unsigned_key(key);
-    const float sum = run_sum<true>(pr, i, run_end(pr, i, m, key));
-    uaddr[row + r] = addr;
-    uval[row + r] = addr == kTableEmpty ? 0.0f : sum;
+  __syncthreads();
+  int* hist = w.hist + (long long)row * kMaxPasses * kRadix;
+#pragma unroll
+  for (int q = 0; q < kMaxPasses; ++q)
+    if (count[q][threadIdx.x])
+      atomicAdd(&hist[q * kRadix + threadIdx.x], count[q][threadIdx.x]);
+}
+
+// The tiled route's run pass over the sorted valid prefix: heads, their
+// slots (the heads before the tile by look-back, then the rank in the
+// tile) and their runs' in-order sums. Grid: rows * radix_tiles(n) CTAs
+// of kRadixThreads, in ticket order.
+__global__ void __launch_bounds__(kRadixThreads)
+    run_sums_runs_kernel(const unsigned long long* __restrict__ buf0,
+                         const unsigned long long* __restrict__ buf1,
+                         int* words, int* __restrict__ uaddr,
+                         float* __restrict__ uval, int rows, int n) {
+  __shared__ RunQueue queue;
+  __shared__ unsigned warp_sums[kRadixWarps];
+  const RadixWords w = radix_layout(words, rows, n, kMaxPasses);
+  const int tiles = radix_tiles(n);
+  int row, tile;
+  take_ticket(w.ticket + kMaxPasses, tiles, row, tile);
+  const int m = w.len[row];
+  const unsigned long long* pr = sorted_row(buf0, buf1, w, row, n,
+                                            kMaxPasses);
+  if (tile * kTile >= m) return;
+  if (threadIdx.x == 0) queue.count = 0;
+  bool head[kRadixItems];
+  unsigned key[kRadixItems];
+#pragma unroll
+  for (int k = 0; k < kRadixItems; ++k) {
+    const int i = tile * kTile + k * kRadixThreads + threadIdx.x;
+    key[k] = i < m ? pair_key(pr[i]) : 0u;
+    head[k] = i < m && (i == 0 || pair_key(pr[i - 1]) != key[k]);
   }
-  if (i >= all && i < n) {
-    uaddr[row + i] = kTableEmpty;
-    uval[row + i] = 0.0f;
+  int rank[kRadixItems], heads;
+  rank_flags(head, rank, warp_sums, heads);
+  const int before = run_look_back(
+      w.run_status + (long long)row * tiles, tile, heads);
+  const long long r0 = (long long)row * n;
+#pragma unroll
+  for (int k = 0; k < kRadixItems; ++k) {
+    if (!head[k]) continue;
+    const int i = tile * kTile + k * kRadixThreads + threadIdx.x;
+    const int slot = before + rank[k];
+    if (i + kLongRun < m && pair_key(pr[i + kLongRun]) == key[k]) {
+      const int q = atomicAdd(&queue.count, 1);
+      queue.head[q] = i;
+      queue.slot[q] = slot;
+      continue;
+    }
+    const int addr = unsigned_key(key[k]);
+    const float sum =
+        short_run_sum<true>(pr, i, min(i + kLongRun, m), key[k]);
+    uaddr[r0 + slot] = addr;
+    uval[r0 + slot] = addr == kTableEmpty ? 0.0f : sum;
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  for (int q = warp; q < queue.count; q += kRadixWarps) {
+    const int i = queue.head[q];
+    const unsigned k = pair_key(pr[i]);
+    const float sum = warp_run_sum<true>(pr, i, m, k, queue.ring[warp]);
+    if ((threadIdx.x & 31) == 0) {
+      const int addr = unsigned_key(k);
+      uaddr[r0 + queue.slot[q]] = addr;
+      uval[r0 + queue.slot[q]] = addr == kTableEmpty ? 0.0f : sum;
+    }
   }
 }
 
-bool configured = false, configured_tiled = false;
+bool configured = false;
 
 }  // namespace
 
@@ -187,46 +210,33 @@ extern "C" int etica_run_sums(const int* wa, const float* wc,
                               int num_rows, int n, void* stream) {
   if (num_rows <= 0 || n <= 0) return 0;
   if (n > kMaxRow) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = row_kernel_setup(run_sums_kernel<false>,
-                                           configured);
+  const cudaError_t err = row_kernel_setup(run_sums_kernel, configured);
   if (err != cudaSuccess) return (int)err;
-  run_sums_kernel<false><<<num_rows, kRowThreads, row_smem_bytes(n),
-                           (cudaStream_t)stream>>>(
-      wa, wc, n_valid, uaddr, uval, nullptr, nullptr, n);
+  run_sums_kernel<<<num_rows, kRowThreads, row_smem_bytes(n),
+                    (cudaStream_t)stream>>>(wa, wc, n_valid, uaddr, uval, n);
   return (int)cudaGetLastError();
 }
 
-// The tiled route (row_merge.cuh), rows of any width. Scratch: sorted_a and
-// sorted_b [num_rows, n] pairs, count [num_rows, row_tiles(n)], base
-// [num_rows, row_tiles(n) + 1], heads [num_rows, row_chunks(n)].
+// The tiled route (row_radix.cuh), rows of any width: a memset, the prep,
+// kMaxPasses passes, the run pass. Scratch: buf0 and buf1 [num_rows, n]
+// pairs, `words` radix_words(num_rows, n, kMaxPasses) int32.
 extern "C" int etica_run_sums_tiled(const int* wa, const float* wc,
                                     const int* n_valid, int* uaddr,
-                                    float* uval, unsigned long long* sorted_a,
-                                    unsigned long long* sorted_b, int* count,
-                                    int* base, int* heads, int num_rows,
-                                    int n, void* stream) {
+                                    float* uval, unsigned long long* buf0,
+                                    unsigned long long* buf1, int* words,
+                                    int num_rows, int n, void* stream) {
   if (num_rows <= 0 || n <= 0) return 0;
-  cudaError_t err = row_kernel_setup(run_sums_kernel<true>,
-                                     configured_tiled);
-  if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = (cudaStream_t)stream;
-  const int tiles = row_tiles(n);
-  const size_t smem = row_smem_bytes(n < kTile ? n : kTile);
-  run_sums_kernel<true><<<(unsigned)((long long)num_rows * tiles),
-                          kRowThreads, smem, st>>>(
-      wa, wc, n_valid, uaddr, uval, sorted_a, count, n);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if ((err = launch_tile_bases(count, base, num_rows, tiles, st)) !=
-      cudaSuccess)
-    return (int)err;
-  const unsigned long long* sorted =
-      merge_rows(sorted_a, sorted_b, base, num_rows, n, tiles, st, err);
+  const unsigned grid = (unsigned)((long long)num_rows * radix_tiles(n));
+  cudaError_t err = radix_sort_rows(
+      buf0, buf1, words, num_rows, n, kMaxPasses, st, [&] {
+        run_sums_prep_kernel<<<grid, kRadixThreads, 0, st>>>(
+            wa, wc, n_valid, uaddr, uval, buf0, words, num_rows, n);
+        return cudaGetLastError();
+      });
   if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((long long)num_rows * row_chunks(n));
-  run_heads_kernel<<<blocks, kRowThreads, 0, st>>>(sorted, base, heads, n,
-                                                   tiles);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  run_write_kernel<<<blocks, kRowThreads, 0, st>>>(sorted, base, heads,
-                                                   uaddr, uval, n, tiles);
+  run_sums_runs_kernel<<<grid, kRadixThreads, 0, st>>>(buf0, buf1, words,
+                                                       uaddr, uval,
+                                                       num_rows, n);
   return (int)cudaGetLastError();
 }

@@ -52,9 +52,9 @@ launch counter (:func:`launch_counts`), and nothing else does.
 ``popularity`` and ``run_sums`` have two routes each, chosen on the
 host from the padded row width (:func:`row_route`): ``row`` groups each
 row in one CTA's shared memory (``row_sort.cuh``), for rows of up to
-:data:`ROW_MAX` entries; ``tiled`` (``row_merge.cuh``) sorts tiles of
-``ROW_MAX`` entries and merges them in global memory, for rows of any
-width. ``two_level`` and
+:data:`ROW_MAX` entries; ``tiled`` (``row_radix.cuh``) sorts each row by
+a stable LSD radix sort across the whole card, tiles of
+:data:`RADIX_TILE` entries, and adds its runs, for rows of any width. ``two_level`` and
 ``single_level`` walk each VM's requests set by set, one CTA a VM or
 several while the VMs leave SMs idle (``set_walk.cuh``), and take rows
 of any length in tiles.
@@ -130,11 +130,11 @@ _SIGNATURES = {
     "etica_single_level_classified": (*(_P,) * 26, *(_I,) * 6, _F, _F, _F,
                                       _P),
     "etica_run_sums": (_P, _P, _P, _P, _P, _I, _I, _P),
-    "etica_run_sums_tiled": (*(_P,) * 10, _I, _I, _P),
+    "etica_run_sums_tiled": (*(_P,) * 8, _I, _I, _P),
     "etica_paged_decode_attention": (*(_P,) * 6, *(_I,) * 7, _F,
                                      *(_I,) * 8, _P),
     "etica_popularity": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "etica_popularity_tiled": (*(_P,) * 9, _I, _I, _I, _P),
+    "etica_popularity_tiled": (*(_P,) * 8, _I, _I, _I, _P),
     "etica_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               *(_L,) * 12, _I, _I, _I, _F, _I, _P),
     "etica_flash_attention_sm90": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -149,10 +149,14 @@ _SIGNATURES = {
 }
 # the widest row that popularity's and run_sums' "row" route takes: one CTA
 # of 512 threads sorts it in shared memory, 8 bytes an entry, and in
-# registers, 32 entries a thread (csrc/row_sort.cuh, kMaxRow); also the
-# "tiled" route's tile (csrc/row_merge.cuh, kTile)
+# registers, 32 entries a thread (csrc/row_sort.cuh, kMaxRow)
 ROW_MAX = 16384
-ROW_THREADS = 512    # csrc/row_scan.cuh kRowThreads: a chunk of positions
+ROW_THREADS = 512    # csrc/row_scan.cuh kRowThreads
+# the "tiled" route (csrc/row_radix.cuh): positions a tile (kTile), bits a
+# digit (kDigitBits), passes at most (kMaxPasses)
+RADIX_TILE = 512
+RADIX_DIGIT_BITS = 8
+RADIX_MAX_PASSES = 4
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -282,27 +286,44 @@ def row_route(n: int) -> str:
     """The route of ``popularity`` and ``run_sums`` for rows padded to
     ``n`` entries, chosen from the shape (the valid lengths live on the
     device): ``row`` (one CTA sorts a row in shared memory) up to
-    :data:`ROW_MAX`, ``tiled`` (tiles of ``ROW_MAX`` merged in global
-    memory) above it. The controller's windows are ``reuse._bucket(longest
-    VM row)`` wide, a power of two like ``ROW_MAX``, so a window takes the
+    :data:`ROW_MAX`, ``tiled`` (a radix sort of each row across the card)
+    above it. The controller's windows are ``reuse._bucket(longest VM
+    row)`` wide, a power of two like ``ROW_MAX``, so a window takes the
     tiled route exactly when one VM issues more than ``ROW_MAX`` requests
     in it; a serving window is as wide as the whole window (at most
     ``resize_interval`` accesses) whatever each tenant's share."""
     return "row" if n <= ROW_MAX else "tiled"
 
 
-def row_scratch(v: int, n: int, device: torch.device) -> list:
-    """The tiled route's scratch for ``[v, n]`` rows: two pair buffers
-    (int64 ``[v, n]``), the tile counts (int32 ``[v, tiles]``), their
-    bases (``[v, tiles + 1]``) and the run heads of each 512-position
-    chunk (``[v, chunks]``; ``csrc/row_merge.cuh``)."""
-    tiles = -(-n // ROW_MAX)
-    chunks = -(-n // ROW_THREADS)
+def radix_passes(bits: int) -> int:
+    """LSD passes of the tiled route over keys below ``2**bits``
+    (``csrc/row_radix.cuh`` ``radix_passes``): ``run_sums``' int32
+    addresses take :data:`RADIX_MAX_PASSES`; ``popularity``'s segment ids
+    below ``num_blocks``, with ``num_blocks`` itself as padding, take
+    ``radix_passes(num_blocks.bit_length())``. A pass whose digit is the
+    same for all of a row's keys does nothing for that row, decided on
+    the device."""
+    return max(1, -(-bits // RADIX_DIGIT_BITS))
+
+
+def radix_words(v: int, n: int, passes: int) -> int:
+    """int32 scratch words of the tiled route (``csrc/row_radix.cuh``
+    ``radix_words``): digit histograms, lengths, tickets and look-back
+    status, zeroed by the kernel's own memset on the stream."""
+    tiles = v * -(-n // RADIX_TILE)
+    return (v * (RADIX_MAX_PASSES * 256 + 2) + RADIX_MAX_PASSES + 1
+            + tiles * (passes * 256 + 1))
+
+
+def row_scratch(v: int, n: int, device: torch.device,
+                passes: int = RADIX_MAX_PASSES) -> list:
+    """The tiled route's scratch for ``[v, n]`` rows sorted in ``passes``
+    passes: two pair buffers (int64 ``[v, n]``) and the int32 words of
+    :func:`radix_words`, by ``torch.empty``."""
     return [torch.empty((v, n), dtype=torch.int64, device=device),
             torch.empty((v, n), dtype=torch.int64, device=device),
-            torch.empty((v, tiles), dtype=torch.int32, device=device),
-            torch.empty((v, tiles + 1), dtype=torch.int32, device=device),
-            torch.empty((v, chunks), dtype=torch.int32, device=device)]
+            torch.empty(radix_words(v, n, passes), dtype=torch.int32,
+                        device=device)]
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,

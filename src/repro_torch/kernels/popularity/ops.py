@@ -41,8 +41,8 @@ def popularity_rows(dist, served, seg, num_blocks: int, cs):
     :data:`repro_torch.kernels.ROW_MAX` accesses take the ``row`` route
     (one CTA a row groups its accesses by segment in shared memory and
     sums them there, ``csrc/row_sort.cuh``), wider ones the ``tiled``
-    route (tiles sorted, then merged in global memory,
-    ``csrc/row_merge.cuh``); :func:`repro_torch.kernels.row_route`."""
+    route (each row radix-sorted across the card, then its segments
+    added, ``csrc/row_radix.cuh``); :func:`repro_torch.kernels.row_route`."""
     if dist.device.type == "cpu":
         return popularity_rows_plain(dist, served, seg, num_blocks, cs)
     dev = dist.device
@@ -54,8 +54,9 @@ def popularity_rows(dist, served, seg, num_blocks: int, cs):
     out = torch.zeros(num_blocks, dtype=torch.float32, device=dev)
     if num_blocks and v and n:
         route = kernels.row_route(n)
-        scratch = kernels.row_scratch(v, n, dev)[:4] if route == "tiled" \
-            else []
+        scratch = kernels.row_scratch(
+            v, n, dev, kernels.radix_passes(num_blocks.bit_length())) \
+            if route == "tiled" else []
         ptrs = [x.data_ptr() for x in (dist, served, seg, cs, out, *scratch)]
         kernels.launch("popularity", *ptrs, num_blocks, v, n, route=route)
     return out

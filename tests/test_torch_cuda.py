@@ -653,24 +653,31 @@ def test_popularity_kernel_wide_rows(dev, v, n):
     _same([got.cpu()], [want])
 
 
-@pytest.mark.parametrize("n", [16_385, 40_000])
-def test_row_kernels_wide_rows_equal_plain(dev, n):
-    """Rows past ``ROW_MAX`` take the tiled route (tiles sorted in shared
-    memory, merged in global memory) and equal the plain versions bit for
-    bit: heavy ties, one key for a whole row, an empty row, runs across
-    every tile edge, random valid lengths."""
+@pytest.mark.parametrize("v,n", [(5, 16_385), (5, 40_000), (5, 65_536),
+                                 (12, 32_768)])
+def test_row_kernels_wide_rows_equal_plain(dev, v, n):
+    """Rows past ``ROW_MAX`` take the tiled route (a radix sort of each
+    row across the card, ``csrc/row_radix.cuh``) and equal the plain
+    versions bit for bit: heavy ties, one key for a whole row, an empty
+    row, runs across every multiple of ``ROW_MAX``, random valid lengths;
+    at [12, 32768] seven more rows of the paper's address ranges (a VM's
+    addresses from ``VM * 10,000,000``) and valid lengths of 20,000 or
+    random."""
     from repro_torch import kernels
     from repro_torch.core import popularity as pop
     from repro_torch.kernels.popularity import ops
-    rng = np.random.default_rng(n)
-    v = 5
+    rng = np.random.default_rng(n + v)
     wa = rng.integers(0, 48, (v, n)).astype(np.int32)      # heavy ties
     wa[1] = 7                                  # one key for a whole row
     edges = np.arange(kernels.ROW_MAX, n, kernels.ROW_MAX)
-    for e in edges:                            # runs across the tile edges
+    for e in edges:                            # runs across ROW_MAX
         wa[3, e - 40:e + 40] = 1000 + e
     wa[4, ::5] = pop.TABLE_EMPTY
-    nv = np.array([n, n, 0, n, rng.integers(kernels.ROW_MAX, n)], np.int32)
+    nv = np.array([n, n, 0, n, rng.integers(kernels.ROW_MAX, n)]
+                  + [20_000] * (v - 5), np.int32)
+    for r in range(5, v):
+        wa[r] = r * 10_000_000 + rng.integers(0, 4000 * r, n)
+    nv[5::2] = rng.integers(0, n, len(nv[5::2]))
     wc = rng.random((v, n)).astype(np.float32)
     wc[0, ::9] = 1e-39                         # subnormal: adds as zero
     args = [torch.from_numpy(x).to(dev) for x in (wa, wc, nv)]
@@ -679,16 +686,18 @@ def test_row_kernels_wide_rows_equal_plain(dev, n):
     assert kernels.route_counts("run_sums") == {"row": 0, "tiled": 1}
     _same([x.cpu() for x in got],
           pop.window_runs_plain(*[x.cpu() for x in args]))
-    per = 48 + 1000 + n
-    seg = (wa.astype(np.int64) % per + per * np.arange(v)[:, None]).astype(
-        np.int32)
-    seg[2] = v * per                           # an empty row
+    # a segment a (row, address), row 2 all padding
+    key = np.arange(v)[:, None] * 2**31 + wa.astype(np.int64)
+    uniq, inv = np.unique(key, return_inverse=True)
+    nb = int(uniq.size)
+    seg = inv.reshape(v, n).astype(np.int32)
+    seg[2] = nb
     dist = rng.integers(-1, 400, (v, n)).astype(np.int32)
     served = rng.random((v, n)) < 0.7
     cs = rng.integers(1, 4096, v).astype(np.float32)
     pargs = [torch.from_numpy(x) for x in (dist, served, seg)]
-    want = ops.popularity_rows_plain(*pargs, v * per, torch.from_numpy(cs))
-    got = ops.popularity_rows(*[x.to(dev) for x in pargs], v * per,
+    want = ops.popularity_rows_plain(*pargs, nb, torch.from_numpy(cs))
+    got = ops.popularity_rows(*[x.to(dev) for x in pargs], nb,
                               torch.from_numpy(cs).to(dev))
     assert kernels.route_counts("popularity") == {"row": 0, "tiled": 1}
     _same([got.cpu()], [want])

@@ -315,17 +315,15 @@ def test_popularity_emulation_equals_plain(v, n, num_blocks):
 
 
 def test_row_limit_is_the_header_limit_and_picks_the_route():
-    """``kernels.ROW_MAX`` is ``kMaxRow`` of the header and the tiled
-    route's tile (``kTile`` of ``row_merge.cuh``), its shared memory (8
-    bytes a pair and the scan's counts) fits a CTA's 227 KB, and the route
-    changes there: ``row`` up to ``ROW_MAX`` entries, ``tiled`` from
-    ``ROW_MAX + 1`` on, with the tiled route's scratch sized from the
-    shape."""
+    """``kernels.ROW_MAX`` is ``kMaxRow`` of the header, its shared
+    memory (8 bytes a pair and the scan's counts) fits a CTA's 227 KB,
+    and the route changes there: ``row`` up to ``ROW_MAX`` entries,
+    ``tiled`` from ``ROW_MAX + 1`` on, with the tiled route's scratch
+    (``row_radix.cuh``: two pair buffers and the radix words) sized from
+    the shape."""
     text = HEADER.read_text()
     assert int(re.search(r"kMaxRow = (\d+);", text).group(1)) \
         == kernels.ROW_MAX
-    assert "constexpr int kTile = kMaxRow;" in \
-        HEADER.with_name("row_merge.cuh").read_text()
     assert int(re.search(r"kRowThreads = (\d+);",
                          SCAN_HEADER.read_text()).group(1)) == THREADS \
         == kernels.ROW_THREADS
@@ -335,11 +333,12 @@ def test_row_limit_is_the_header_limit_and_picks_the_route():
     assert kernels.row_route(kernels.ROW_MAX) == "row"
     assert kernels.row_route(kernels.ROW_MAX + 1) == "tiled"
     assert kernels.row_route(40_000) == "tiled"
-    a, b, count, base, heads = kernels.row_scratch(3, 40_000,
-                                                   torch.device("cpu"))
+    a, b, words = kernels.row_scratch(3, 40_000, torch.device("cpu"))
     assert a.shape == b.shape == (3, 40_000) and a.dtype == torch.int64
-    assert count.shape == (3, 3) and base.shape == (3, 4)
-    assert heads.shape == (3, -(-40_000 // THREADS))
+    assert words.dtype == torch.int32
+    assert words.shape == (kernels.radix_words(3, 40_000, 4),)
+    assert kernels.row_scratch(3, 40_000, torch.device("cpu"),
+                               2)[2].numel() < words.numel()
     for kernel in ("popularity", "run_sums"):
         assert set(kernels.ROUTES[kernel]) == {"row", "tiled"}
         assert set(kernels.route_counts(kernel)) == {"row", "tiled"}
